@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~80 s with the build
+    python3 chip_smoke.py            # one card, ~2-3 min with the build
 
-Phases, each printing one JSON line:
-  1. card     name and power limit (nvidia-smi) and torch's device name;
-  2. build    the CUDA kernels from ops/csrc, with nvcc's register report;
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's lane count, with the tolerance stated, and
-              both timed with CUDA events (10 back-to-back calls, median
-              of 7 such runs);
-  4. golden   grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
-              4 seeds x 12 spp, Sidak z-test against tests/golden/
-              grating_plt.npz;
-  5. main     grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per pass:
-              one warm-up pass, then three timed passes; the image must be
-              finite and non-zero and each kernel must launch 7 times per
-              pass (once per bounce);
-  6. split    device time of one pass by kernel (torch.profiler), written
-              to chiprun_out/chip_smoke_profile.json.
-Then the kernel list, the nvidia-smi line, and the final status line.
-Every failure raises and exits non-zero.
+Two paths: the PLT flagship (grating_scene, B1-B4) and the path tracer on
+the 81,920-face mesh scene (B5-B6). Phases, each printing one JSON line
+with its seconds:
+  card            name and power limit (nvidia-smi) and torch's device name;
+  build           the CUDA kernels from ops/csrc (one nvcc per source, all
+                  started together), with nvcc's register report;
+  kernels         each kernel against its plain PyTorch version on the
+                  card, at the main paths' lane counts, with the tolerance
+                  stated, timed with CUDA events (10 back-to-back calls,
+                  median of 7; the clu2 plain versions once at full width);
+  golden          grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
+                  4 seeds x 12 spp, Sidak z-test against tests/golden/
+                  grating_plt.npz;
+  golden-mesh20k  mesh_scene(32, 32, subdiv=5), path depth 3 / rr 9, 4 seeds
+                  x 8 spp, z-test against tests/golden/mesh20k_path.npz;
+  main            grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per
+                  pass: one warm-up pass, three timed passes; the image must
+                  be finite and non-zero, its four kernels launch 7 times per
+                  pass (once per bounce) and the clu2 kernels never;
+  split           device time of one such pass by kernel (torch.profiler),
+                  written to chiprun_out/chip_smoke_profile.json;
+  main-mesh82k    mesh_scene(512, 512, subdiv=6), path depth 4 / rr 3, 4 spp
+                  per pass, as `main`: the clu2 kernels launch 4 times per
+                  pass, the q and grating kernels never;
+  split-mesh82k   as `split`, to chiprun_out/chip_smoke_profile_mesh82k.json.
+Then the kernel list (each kernel's launches from its own path), the
+nvidia-smi line, and the final status line. Every failure raises and exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -39,11 +49,33 @@ PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_W, MAIN_H, MAIN_SPP_PASS = 800, 600, 4
 MAIN_DEPTH, MAIN_RR = 7, 50
+MESH_W, MESH_H, MESH_SUBDIV, MESH_SPP_PASS = 512, 512, 6, 4
+MESH_DEPTH, MESH_RR = 4, 3
 TIMED_PASSES = 3
+
+# kernel launches per pass of each main path
+GRATING_LAUNCHES = {"intersect_q": MAIN_DEPTH, "occluded_q": MAIN_DEPTH,
+                    "grating_sample": MAIN_DEPTH,
+                    "grating_lobe_sum": MAIN_DEPTH,
+                    "intersect_clu2": 0, "occluded_clu2": 0}
+MESH_LAUNCHES = {"intersect_q": 0, "occluded_q": 0, "grating_sample": 0,
+                 "grating_lobe_sum": 0, "intersect_clu2": MESH_DEPTH,
+                 "occluded_clu2": MESH_DEPTH}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class Phase:
+    """Times a phase; `emit` adds the seconds since it began."""
+
+    def __init__(self, name):
+        self.name, self.t0 = name, time.perf_counter()
+
+    def emit(self, **fields):
+        emit({"phase": self.name, **fields,
+              "seconds": time.perf_counter() - self.t0})
 
 
 def nvidia_smi_line() -> str:
@@ -78,6 +110,20 @@ def time_ms(fn, reps=7, calls=10, warmup=2):
     return times[len(times) // 2]
 
 
+def time_once(fn):
+    """(fn(), device time of that one call in ms by CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
@@ -103,7 +149,7 @@ def frac_close(a, b, rtol, atol):
     ok = torch.isclose(a, b, rtol=rtol, atol=atol)
     if ok.dim() > 1:
         ok = ok.all(dim=-1)
-    return ok.float().mean().item()
+    return ok.float().mean().item() if ok.numel() else 1.0
 
 
 def kernel_registers(log: str) -> dict:
@@ -116,7 +162,8 @@ def kernel_registers(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            k = re.search(r"(q_kernel|lobe_sum_kernel|sample_kernel)"
+            k = re.search(r"(clu2_kernel|q_kernel|lobe_sum_kernel|"
+                          r"sample_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
             if k:
                 args = re.findall(r"L([ib])(\d+)E", k.group(2))
@@ -141,6 +188,8 @@ def require(cond, msg):
 Q_RAY_SETUP_OPS = 17      # anchor shift, o x d, maxt check, final divide
 Q_TEST_OPS = 55           # det, u, v, t terms, sign fold, inside, best pair
 Q_ANYHIT_TEST_OPS = 47    # the same without the best-pair update
+CLU2_RAY_SETUP_OPS = 29   # the q setup plus the guarded inverse direction
+SLAB_OPS = 29             # 6 sub, 6 mul, 10 min/max, gate compares and ands
 
 
 def bessel_ops(half):
@@ -384,22 +433,183 @@ def check_sample(n, rng, dev):
     return row
 
 
+def hemisphere_rays(scene, p, ng, live, rng):
+    """Bounce-like and shadow rays from surface points p [n, 3] with face
+    normals ng (numpy): origins pushed off along ng as the integrator does,
+    cosine-hemisphere directions about ng, and shadow rays to the scene's
+    point light with maxt at its distance. Lanes that are not live get the
+    integrator's canonical dead rays (o = 1e8, d = +z; shadow maxt 0)."""
+    import numpy as np
+    import torch
+
+    from mitsuba3_plt_tpu_torch.core import math as m
+
+    n = len(p)
+    org = p + ng * m.RayEpsilon
+    a = np.cross(ng, np.where(np.abs(ng[:, :1]) > 0.9, [[0.0, 1.0, 0.0]],
+                              [[1.0, 0.0, 0.0]]))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    bb = np.cross(ng, a)
+    u1, u2 = rng.random(n), rng.random(n)
+    r, phi = np.sqrt(u1), 2 * np.pi * u2
+    d = (a * (r * np.cos(phi))[:, None] + bb * (r * np.sin(phi))[:, None]
+         + ng * np.sqrt(1 - u1)[:, None])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    to_l = scene.emitters.position[0].cpu().numpy().astype(np.float64) - org
+    dist = np.linalg.norm(to_l, axis=-1)
+    lv = live[:, None]
+    dead_o, dead_d = np.full((n, 3), 1e8), np.array([[0.0, 0.0, 1.0]])
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
+                                  device=scene.device)
+    bounce = (t(np.where(lv, org, dead_o)), t(np.where(lv, d, dead_d)),
+              t(np.full(n, np.inf)))
+    shadow = (t(np.where(lv, org, dead_o)),
+              t(np.where(lv, to_l / dist[:, None], dead_d)),
+              t(np.where(live, dist * (1.0 - m.ShadowEpsilon), 0.0)))
+    return bounce, shadow
+
+
+def camera_hit_rays(scene, cam, hit, rng):
+    """The rays of the path's first bounce, lane for lane: from the camera
+    rays' hits (t, prim from intersect_clu2), dead where they missed."""
+    import numpy as np
+
+    t, prim = hit[0].cpu().numpy(), hit[1].cpu().numpy()
+    live = prim >= 0
+    o, d = cam.o.cpu().numpy(), cam.d.cpu().numpy()
+    p = o + d * np.where(live, t, 0.0)[:, None]
+    ng = scene.geo.tri_attr[:, 0:3].cpu().numpy()[np.maximum(prim, 0)]
+    return hemisphere_rays(scene, p.astype(np.float64),
+                           ng.astype(np.float64), live, rng)
+
+
+def random_surface_rays(scene, n, rng):
+    """Incoherent rays: from random points of random faces, every lane
+    live (neighbouring lanes start far apart)."""
+    import numpy as np
+
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+
+    mesh = make_sphere(MESH_SUBDIV)
+    tri = mesh.faces[rng.integers(0, len(mesh.faces), n)]
+    c = [mesh.vertices[tri[:, k]].astype(np.float64) for k in range(3)]
+    ng = np.cross(c[1] - c[0], c[2] - c[0])
+    ng /= np.linalg.norm(ng, axis=-1, keepdims=True)
+    b1, b2 = rng.random(n), rng.random(n)
+    flip = b1 + b2 > 1
+    b1, b2 = np.where(flip, 1 - b1, b1), np.where(flip, 1 - b2, b2)
+    p = c[0] + b1[:, None] * (c[1] - c[0]) + b2[:, None] * (c[2] - c[0])
+    return hemisphere_rays(scene, p, ng, np.ones(n, bool), rng)
+
+
+def check_clu2(scene, rng):
+    """B5 and B6 against their plain versions on the mesh82k scene. Closest
+    hit: the camera rays, the first bounce's rays from their hits, and
+    incoherent rays from random surface points; any hit: the shadow rays
+    of the first bounce and of the random points. The kernels line carries
+    the path's own sets: camera rays (B5) and first-bounce shadow rays
+    (B6)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    dev, ct = scene.device, scene.ctab2
+    W, H = scene.sensor.resolution
+    cam, _ = sample_rays(scene, Sampler.create(0, W * H * MESH_SPP_PASS,
+                                               device=dev), W, H,
+                         MESH_SPP_PASS)
+    n = cam.o.shape[0]
+    tables = (ct.supers, ct.boxes, ct.rows, ct.anchor)
+    common = {"route": "cuda",
+              "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_clu2.cu",
+              "plain_timing": "the comparison call, once at full width",
+              "library_ms": None,
+              "n": n}
+
+    def closest(label, o, d, mt):
+        counts = {}
+        got = isect.intersect_clu2(ct, o, d, mt)
+        want, plain_ms = time_once(lambda: isect.intersect_clu2_plain(
+            ct, o, d, mt, counts=counts))
+        prim_same = got[1] == want[1]
+        frac_prim = prim_same.float().mean().item()
+        both = prim_same & (want[1] >= 0)
+        # tolerance: t, u, v at rtol 1e-5 / atol 1e-6 on lanes that hit the
+        # same triangle (the kernel rounds as the plain version does, so
+        # these agree to the bit); prim may differ only where the plain
+        # version's per-lane box gate rejects a hit on a box face within
+        # float rounding: at most 1 lane in 10,000
+        oks = [frac_close(got[k][both], want[k][both], 1e-5, 1e-6)
+               for k in (0, 2, 3)]
+        require(frac_prim >= 1 - 1e-4,
+                f"intersect_clu2 {label} prim agreement {frac_prim}")
+        require(min(oks) == 1.0, f"intersect_clu2 {label} t/u/v {oks}")
+        err = max((got[k][both] - want[k][both]).abs().max().item()
+                  if both.any() else 0.0 for k in (0, 2, 3))
+        ms = time_ms(lambda: isect.intersect_clu2(ct, o, d, mt))
+        ops = (n * CLU2_RAY_SETUP_OPS
+               + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
+               + counts["triangle_tests"] * Q_TEST_OPS)
+        b, by = bound_ms(nbytes(tables, o, d, mt, got), ops)
+        row = {"name": "intersect_clu2", **common,
+               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "rays": label,
+               "prim_agreement": frac_prim,
+               "hit_share": (want[1] >= 0).float().mean().item(),
+               "tests_per_ray": {k: v / n for k, v in counts.items()}}
+        return row, got
+
+    def anyhit(label, o, d, mt):
+        counts = {}
+        occ = isect.occluded_clu2(ct, o, d, mt)
+        occ_plain, plain_ms = time_once(lambda: isect.occluded_clu2_plain(
+            ct, o, d, mt, counts=counts))
+        frac_occ = (occ == occ_plain).float().mean().item()
+        # tolerance: equal except where t lies within float rounding of 0,
+        # maxt or a box face: at most 1 lane in 10,000
+        require(frac_occ >= 1 - 1e-4,
+                f"occluded_clu2 {label} agreement {frac_occ}")
+        ms = time_ms(lambda: isect.occluded_clu2(ct, o, d, mt))
+        ops = (n * CLU2_RAY_SETUP_OPS
+               + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
+               + counts["triangle_tests"] * Q_ANYHIT_TEST_OPS)
+        b, by = bound_ms(nbytes(tables, o, d, mt, occ), ops)
+        return {"name": "occluded_clu2", **common,
+                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364",
+                "max_abs_err": 1.0 - frac_occ, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "rays": label, "occ_agreement": frac_occ,
+                "occluded_share": occ_plain.float().mean().item(),
+                "tests_per_ray": {k: v / n for k, v in counts.items()}}
+
+    cam_row, cam_hit = closest("camera", cam.o, cam.d, cam.maxt)
+    bounce, shadow = camera_hit_rays(scene, cam, cam_hit, rng)
+    emit({"phase": "kernels", **closest("bounce", *bounce)[0]})
+    shadow_row = anyhit("shadow", *shadow)
+    bounce, shadow = random_surface_rays(scene, n, rng)
+    emit({"phase": "kernels", **closest("bounce-random", *bounce)[0]})
+    emit({"phase": "kernels", **anyhit("shadow-random", *shadow)})
+    return [cam_row, shadow_row]
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6
+# golden images, main paths and their device-time split
 # ---------------------------------------------------------------------------
 
-def golden_ztest():
+def golden_ztest(name, scene, integ, golden, spp_per_seed):
+    """Render 4 seeds and z-test their mean against a golden image."""
     import numpy as np
     import torch
 
     from mitsuba3_plt_tpu_torch.integrators.common import render
-    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
-    from mitsuba3_plt_tpu_torch.scene.presets import grating_scene
 
-    ref = np.load(os.path.join(HERE, "tests", "golden", "grating_plt.npz"))
-    scene = grating_scene(24, 24, coherence=1e3, device="cuda")
-    integ = PLTIntegrator(max_depth=3, rr_depth=9)
-    imgs = np.stack([render(scene, integ, seed=s, spp=12).cpu().numpy()
+    ph = Phase(name)
+    ref = np.load(os.path.join(HERE, "tests", "golden", golden))
+    imgs = np.stack([render(scene, integ, seed=s,
+                            spp=spp_per_seed).cpu().numpy()
                      for s in range(4)])
     mean, var = imgs.mean(0), imgs.var(0, ddof=1)
     sigma = np.sqrt((var + ref["var"]) / 4 + 1e-8)
@@ -408,33 +618,32 @@ def golden_ztest():
     thresh = -torch.special.ndtri(
         torch.tensor(alpha / 2, dtype=torch.float64)).item()
     n_fail = int((z > thresh).sum())
-    res = {"phase": "golden", "pixels": int(z.size), "fail": n_fail,
-           "max_z": float(z.max()), "thresh": thresh,
-           "mean": float(mean.mean()), "ref_mean": float(ref["mean"].mean())}
-    emit(res)
-    require(n_fail == 0, f"golden z-test: {n_fail} pixels fail")
+    ph.emit(pixels=int(z.size), fail=n_fail, max_z=float(z.max()),
+            thresh=thresh, mean=float(mean.mean()),
+            ref_mean=float(ref["mean"].mean()))
+    require(n_fail == 0, f"{name} z-test: {n_fail} pixels fail")
 
 
-def main_path(W, H):
+def main_path(name, scene, integ, spp_pass, per_pass):
+    """One warm-up pass, then TIMED_PASSES timed passes; per_pass gives the
+    launches each kernel must make in a pass."""
     import torch
 
     from mitsuba3_plt_tpu_torch import ops
     from mitsuba3_plt_tpu_torch.integrators.common import render
-    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
-    from mitsuba3_plt_tpu_torch.scene.presets import grating_scene
 
-    scene = grating_scene(W, H, device="cuda")
-    integ = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
+    ph = Phase(name)
+    W, H = scene.sensor.resolution
     warm = {}
-    render(scene, integ, seed=0, spp=MAIN_SPP_PASS,
-           spp_per_pass=MAIN_SPP_PASS, stats=warm)
+    render(scene, integ, seed=0, spp=spp_pass, spp_per_pass=spp_pass,
+           stats=warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    spp = MAIN_SPP_PASS * TIMED_PASSES
+    spp = spp_pass * TIMED_PASSES
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    img = render(scene, integ, seed=1, spp=spp, spp_per_pass=MAIN_SPP_PASS,
+    img = render(scene, integ, seed=1, spp=spp, spp_per_pass=spp_pass,
                  stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -442,35 +651,33 @@ def main_path(W, H):
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
-    res = {"phase": "main", "width": W, "height": H, "max_depth": MAIN_DEPTH,
-           "rr_depth": MAIN_RR, "spp": spp, "spp_per_pass": MAIN_SPP_PASS,
+    res = {"width": W, "height": H, "max_depth": integ.max_depth,
+           "rr_depth": integ.rr_depth, "spp": spp, "spp_per_pass": spp_pass,
            "lanes_per_pass": stats["lanes_per_pass"],
            "warmup_pass_s": warm["pass_s"][0], "pass_s": stats["pass_s"],
-           "wall_s": wall,
-           "camera_samples_per_s": W * H * spp / wall,
-           "ms_per_spp": wall * 1e3 / spp,
-           "peak_mem_bytes": peak, "launches": launches,
-           "image_mean": mean, "finite": finite}
-    emit(res)
-    require(finite and mean > 0, "main-path image not finite and non-zero")
-    for name, count in launches.items():
-        require(count == MAIN_DEPTH * TIMED_PASSES,
-                f"{name} launched {count} times, expected "
-                f"{MAIN_DEPTH * TIMED_PASSES}")
-    return scene, integ, res
+           "wall_s": wall, "camera_samples_per_s": W * H * spp / wall,
+           "ms_per_spp": wall * 1e3 / spp, "peak_mem_bytes": peak,
+           "launches": launches, "image_mean": mean, "finite": finite}
+    ph.emit(**res)
+    require(finite and mean > 0, f"{name} image not finite and non-zero")
+    for kname, count in launches.items():
+        want = per_pass[kname] * TIMED_PASSES
+        require(count == want,
+                f"{name}: {kname} launched {count} times, expected {want}")
+    return res
 
 
-def split(scene, integ, pass_s):
+def split(name, scene, integ, pass_s, spp_pass, out_file):
     """Device time of one main-path pass by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mitsuba3_plt_tpu_torch.integrators.common import render
 
+    ph = Phase(name)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render(scene, integ, seed=2, spp=MAIN_SPP_PASS,
-               spp_per_pass=MAIN_SPP_PASS)
+        render(scene, integ, seed=2, spp=spp_pass, spp_per_pass=spp_pass)
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -488,24 +695,27 @@ def split(scene, integ, pass_s):
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     total = sum(r["device_ms"] for r in rows)
-    ours = {"q_kernel": 0.0, "lobe_sum_kernel": 0.0, "sample_kernel": 0.0}
+    # clu2_kernel first: "q_kernel" must not take its rows
+    ours = {"clu2_kernel": 0.0, "q_kernel": 0.0, "lobe_sum_kernel": 0.0,
+            "sample_kernel": 0.0}
     n_kernels = 0
     for r in rows:
         for key in ours:
             if key in r["name"]:
                 ours[key] += r["device_ms"]
+                break
         n_kernels += r["count"]
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, out_file), "w") as f:
         json.dump({"pass_wall_ms": pass_s * 1e3, "device_ms": total,
                    "ops": rows}, f, indent=1)
-    res = {"phase": "split", "pass_wall_ms": pass_s * 1e3,
-           "device_busy_ms": total,
-           "device_idle_share": (1.0 - total / (pass_s * 1e3)
-                                 if total > 0 else None),
-           "our_kernels_ms": ours, "device_ops_launched": n_kernels,
-           "top_ops": rows[:12]}
-    emit(res)
+    ph.emit(pass_wall_ms=pass_s * 1e3, device_busy_ms=total,
+            device_idle_share=(1.0 - total / (pass_s * 1e3)
+                               if total > 0 else None),
+            our_kernels_ms=ours,
+            our_kernels_share_of_busy=(sum(ours.values()) / total
+                                       if total > 0 else None),
+            device_ops_launched=n_kernels, top_ops=rows[:12])
 
 
 def main():
@@ -517,40 +727,70 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.ops import build
-    from mitsuba3_plt_tpu_torch.scene.presets import grating_scene
+    from mitsuba3_plt_tpu_torch.scene.presets import grating_scene, mesh_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    emit({"phase": "card", "nvidia_smi": smi, "device": kind,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "count": torch.cuda.device_count()})
+    ph = Phase("card")
+    ph.emit(nvidia_smi=smi, device=kind, torch=torch.__version__,
+            cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
+    ph = Phase("build")
     build.load_library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "registers": kernel_registers(build.build_log)})
+    ph.emit(sources=list(build.SOURCES),
+            registers=kernel_registers(build.build_log))
 
+    ph = Phase("mesh82k-scene")
+    mscene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, device="cuda")
+    ct = mscene.ctab2
+    ph.emit(faces=mscene.geo.n_faces, route=mscene.intersect_route(),
+            supers=list(ct.supers.shape), boxes=list(ct.boxes.shape),
+            rows=list(ct.rows.shape))
+    require(mscene.intersect_route() == "clu2", "mesh82k must route to clu2")
+
+    ph = Phase("kernels")
     n = MAIN_W * MAIN_H * MAIN_SPP_PASS
     rng = np.random.default_rng(0)
     iscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     rows = check_intersect(iscene, n, rng)
     rows.append(check_sample(n, rng, "cuda"))
     rows.append(check_lobe_sum(n, rng, "cuda"))
+    rows += check_clu2(mscene, rng)
     for r in rows:
         emit({"phase": "kernels", **r})
+    ph.emit(checked=[r["name"] for r in rows])
 
-    golden_ztest()
-    scene, integ, main_res = main_path(MAIN_W, MAIN_H)
-    split(scene, integ, sum(main_res["pass_s"]) / len(main_res["pass_s"]))
+    golden_ztest("golden", grating_scene(24, 24, coherence=1e3,
+                                         device="cuda"),
+                 PLTIntegrator(max_depth=3, rr_depth=9), "grating_plt.npz", 12)
+    golden_ztest("golden-mesh20k", mesh_scene(32, 32, 5, device="cuda"),
+                 PathIntegrator(max_depth=3, rr_depth=9), "mesh20k_path.npz",
+                 8)
+
+    gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
+    ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
+    g_res = main_path("main", gscene, ginteg, MAIN_SPP_PASS, GRATING_LAUNCHES)
+    split("split", gscene, ginteg, sum(g_res["pass_s"]) / TIMED_PASSES,
+          MAIN_SPP_PASS, "chip_smoke_profile.json")
+
+    minteg = PathIntegrator(max_depth=MESH_DEPTH, rr_depth=MESH_RR)
+    m_res = main_path("main-mesh82k", mscene, minteg, MESH_SPP_PASS,
+                      MESH_LAUNCHES)
+    split("split-mesh82k", mscene, minteg,
+          sum(m_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
+          "chip_smoke_profile_mesh82k.json")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        r = dict(r, launches=main_res["launches"][r["name"]])
+        own = m_res if MESH_LAUNCHES[r["name"]] else g_res
+        r = dict(r, launches=own["launches"][r["name"]])
         kernels.append({k: r[k] for k in keys})
     emit({"kernels": kernels})
     print(smi, flush=True)

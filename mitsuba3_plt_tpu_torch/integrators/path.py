@@ -1,0 +1,153 @@
+"""Path tracer with next-event estimation and MIS (RGB, unpolarized).
+
+The JAX package's `integrators/path.py::PathIntegrator.sample` as a loop
+over a fixed number of bounces: power-heuristic MIS between BSDF sampling
+and emitter sampling, a shadow ray on every bounce, Russian roulette from
+rr_depth. Every bounce runs for every lane, dead lanes included, as the
+JAX scan does, so each intersection kernel launches exactly max_depth
+times per pass; a dead lane carries the canonical far-away ray (o = 1e8,
+d = +z), which misses every box.
+
+Not ported: the environment-emitter branch (a scene with a constant
+emitter is refused), the spectral and polarized variants, and the
+regenerative wavefront (`sample_regen`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import RenderConfig, RGB
+from ..core import frame as fr
+from ..core import math as m
+from ..core.rng import Sampler, bounce_dim
+from ..librender import bsdfs
+from ..librender.bsdf import BSDFFlags
+from ..librender.records import DirectionSample, Ray
+from ..scene import emitters as em_mod
+from .common import mis_weight
+from .plt import _offset
+
+
+@dataclasses.dataclass(frozen=True)
+class PathIntegrator:
+    max_depth: int = 6
+    rr_depth: int = 5
+    hide_emitters: bool = False
+
+    def sample(self, scene, sampler: Sampler, ray: Ray,
+               cfg: RenderConfig = RGB):
+        """Radiance [N, C] of the camera rays, and the valid mask."""
+        if self.hide_emitters:
+            raise NotImplementedError("hide_emitters is not ported")
+        if em_mod.EMITTER_CONSTANT in scene.emitters.present_types:
+            raise NotImplementedError(
+                "environment emitters are not ported for the path tracer")
+        n, dev = ray.o.shape[0], ray.o.device
+        C = cfg.n_channels
+        carry = dict(
+            o=ray.o, d=ray.d, L=torch.zeros((n, C), device=dev),
+            beta=torch.ones((n, C), device=dev),
+            eta=torch.ones((n,), device=dev),
+            active=torch.ones((n,), dtype=torch.bool, device=dev),
+            prev_pdf=torch.ones((n,), device=dev),
+            # depth 0 counts as delta: no MIS against the camera
+            prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
+        )
+        far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        for b in range(self.max_depth):
+            carry = self._bounce_step(scene, sampler, cfg, carry, b)
+            dead = ~carry["active"]
+            carry["o"] = torch.where(dead[..., None], 1e8, carry["o"])
+            carry["d"] = torch.where(dead[..., None], far_d, carry["d"])
+        return carry["L"], torch.ones((n,), dtype=torch.bool, device=dev)
+
+    def _bounce_step(self, scene, sampler: Sampler, cfg: RenderConfig,
+                     carry: dict, b: int) -> dict:
+        """One bounce over the whole wavefront; returns the carry with the
+        next ray (dead lanes still hold theirs: the caller replaces it)."""
+        em = scene.emitters
+        mats = scene.materials
+        C = cfg.n_channels
+        ray_d, L, beta = carry["d"], carry["L"], carry["beta"]
+        si = scene.ray_intersect(Ray.create(carry["o"], ray_d))
+        hit = si.valid & carry["active"]
+        midx = torch.clamp_min(si.mat_idx, 0)
+        has_emitters = em.count > 0
+
+        # emitter hit, MIS against the previous bounce's BSDF pdf
+        if has_emitters:
+            hit_emitter = hit & (si.emitter_idx >= 0) & (
+                fr.cos_theta(si.wi) > 0)
+            ds_hit = DirectionSample(
+                d=ray_d, dist=torch.where(si.valid, si.t, 1.0),
+                pdf=torch.zeros_like(si.t),
+                delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
+            )
+            em_pdf = torch.where(carry["prev_delta"], 0.0,
+                                 em_mod.pdf_emitter_direction(em, ds_hit))
+            mis_bsdf = mis_weight(carry["prev_pdf"], em_pdf)
+            e_val = em_mod.emitter_value(em, si.emitter_idx, ds_hit.d,
+                                         ds_hit.dist, hit_emitter)
+            L = L + beta * e_val * torch.where(hit_emitter, mis_bsdf,
+                                               0.0)[..., None]
+
+        active_next = hit & (b + 1 < self.max_depth)
+
+        # next-event estimation: a shadow ray on every bounce
+        if has_emitters:
+            u_nee1 = sampler.next_1d(bounce_dim(b, 5))
+            u_nee2 = sampler.next_2d(bounce_dim(b, 3))
+            smooth = (mats.flags[midx] & BSDFFlags.Smooth) != 0
+            nee_active = active_next & smooth
+            ds = em_mod.sample_emitter_direction(em, si.p, u_nee1, u_nee2,
+                                                 nee_active)
+            occ_ray = Ray(
+                o=torch.where(nee_active[..., None],
+                              _offset(si.p, si.n, ds.d), 1e8),
+                d=ds.d,
+                maxt=torch.where(nee_active,
+                                 ds.dist * (1.0 - m.ShadowEpsilon), 0.0),
+            )
+            occluded = scene.ray_test(occ_ray)
+            vis = nee_active & ~occluded & (ds.pdf > 0)
+            wo_local = si.to_local(ds.d)
+            bsdf_val = bsdfs.eval_(mats, midx, si, wo_local, C)
+            bsdf_pdf = bsdfs.pdf(mats, midx, si, wo_local)
+            mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
+            e_val = em_mod.emitter_value(em, ds.emitter_idx, ds.d, ds.dist,
+                                         vis)
+            contrib = beta * bsdf_val * e_val * (
+                mis_em / torch.clamp_min(ds.pdf, 1e-20))[..., None]
+            L = L + torch.where(vis[..., None], contrib, 0.0)
+
+        # BSDF sampling
+        u2 = sampler.next_2d(bounce_dim(b, 1))
+        bs, weight, ok = bsdfs.sample(mats, midx, si, u2, C)
+        beta_next = beta * weight
+        eta_next = carry["eta"] * bs.eta
+        wo_world = si.to_world(bs.wo)
+        new_o = _offset(si.p, si.n, wo_world)
+        active_next = active_next & ok & (bs.pdf > 0) & (
+            torch.amax(beta_next, dim=-1) > 0)
+
+        # Russian roulette
+        if b + 1 >= self.rr_depth:
+            beta_max = torch.amax(beta_next, dim=-1) * eta_next * eta_next
+            rr_prob = torch.clamp_max(beta_max, 0.95)
+            u_rr = sampler.next_1d(bounce_dim(b, 6))
+            beta_next = beta_next * (
+                1.0 / torch.clamp_min(rr_prob, 1e-6))[..., None]
+            active_next = active_next & (u_rr < rr_prob)
+
+        is_delta = (bs.sampled_type & BSDFFlags.Delta) != 0
+        live = active_next
+        return dict(
+            o=new_o, d=wo_world, L=L,
+            beta=torch.where(live[..., None], beta_next, beta),
+            eta=torch.where(live, eta_next, carry["eta"]),
+            active=live,
+            prev_pdf=torch.where(live, bs.pdf, carry["prev_pdf"]),
+            prev_delta=torch.where(live, is_delta, carry["prev_delta"]),
+        )

@@ -125,7 +125,8 @@ class PLTIntegrator:
         em_pdf = torch.where(prev_delta, 0.0,
                              em_mod.pdf_emitter_direction(em, ds))
         mis_bsdf = mis_weight(last_nd_pdf, em_pdf)
-        e_val = em_mod.emitter_value(em, si.emitter_idx, active)
+        e_val = em_mod.emitter_value(em, si.emitter_idx, ds.d, ds.dist,
+                                     active)
         contrib = e_val * alpha * mis_bsdf[..., None]
         return torch.where(active[..., None], contrib, 0.0)
 
@@ -157,7 +158,7 @@ class PLTIntegrator:
                                  rgb_colour=rgb_colour)
         bsdf_pdf = wb.wbsdf_pdf(mats, midx, si, wo_local, sd)
         mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
-        e_val = em_mod.emitter_value(em, ds.emitter_idx, vis)
+        e_val = em_mod.emitter_value(em, ds.emitter_idx, ds.d, ds.dist, vis)
         em_weight = e_val / torch.clamp_min(ds.pdf, 1e-20)[..., None]
         contrib = em_weight * bsdf_val * alpha * mis_em[..., None]
         return torch.where(vis[..., None], contrib, 0.0)

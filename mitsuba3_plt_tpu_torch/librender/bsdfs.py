@@ -40,6 +40,7 @@ def _sample_record(wo, pdf, flags):
         wo=wo, pdf=pdf,
         sampled_type=torch.full((n,), flags, dtype=torch.int64,
                                 device=wo.device),
+        eta=torch.ones((n,), device=wo.device),
     )
 
 

@@ -56,6 +56,7 @@ class BSDFSample:
     wo: torch.Tensor            # [N, 3] local
     pdf: torch.Tensor           # [N]
     sampled_type: torch.Tensor  # [N] int64 BSDFFlags
+    eta: torch.Tensor           # [N] relative IOR of the sampled event
 
     @staticmethod
     def zeros(n, device):
@@ -63,6 +64,7 @@ class BSDFSample:
             wo=torch.zeros((n, 3), device=device),
             pdf=torch.zeros((n,), device=device),
             sampled_type=torch.zeros((n,), dtype=torch.int64, device=device),
+            eta=torch.ones((n,), device=device),
         )
 
     def where(self, mask, other: "BSDFSample") -> "BSDFSample":
@@ -72,6 +74,7 @@ class BSDFSample:
             pdf=torch.where(mask, self.pdf, other.pdf),
             sampled_type=torch.where(mask, self.sampled_type,
                                      other.sampled_type),
+            eta=torch.where(mask, self.eta, other.eta),
         )
 
 

@@ -10,6 +10,8 @@ def launch_counts() -> dict:
     return {
         "intersect_q": intersect.INTERSECT_Q_LAUNCHES,
         "occluded_q": intersect.OCCLUDED_Q_LAUNCHES,
+        "intersect_clu2": intersect.INTERSECT_CLU2_LAUNCHES,
+        "occluded_clu2": intersect.OCCLUDED_CLU2_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
     }
@@ -18,5 +20,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     intersect.INTERSECT_Q_LAUNCHES = 0
     intersect.OCCLUDED_Q_LAUNCHES = 0
+    intersect.INTERSECT_CLU2_LAUNCHES = 0
+    intersect.OCCLUDED_CLU2_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0

@@ -1,6 +1,7 @@
-"""Brute-force closest-hit and any-hit over the precomputed-quantities ("q")
-triangle table: the CUDA kernels of `csrc/intersect_q.cu`, their plain
-PyTorch versions, and the host-side table packer.
+"""Closest-hit and any-hit ray/triangle queries: brute force over the
+precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`) and the
+two-level treelet walk over a ClusterTable2 (`csrc/intersect_clu2.cu`),
+their plain PyTorch versions, and the host-side q-table packer.
 
 Möller-Trumbore re-associated around per-triangle constants so the
 triangle loop does no cross product and no division:
@@ -18,6 +19,8 @@ from ._check import check_tensors
 
 INTERSECT_Q_LAUNCHES = 0
 OCCLUDED_Q_LAUNCHES = 0
+INTERSECT_CLU2_LAUNCHES = 0
+OCCLUDED_CLU2_LAUNCHES = 0
 
 # Möller-Trumbore needs |det| above this to count a hit
 _DET_EPS = 1e-12
@@ -181,4 +184,229 @@ def occluded_q(tri_q, anchor, o, d, maxt, n_tris=None):
         d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), stream),
         "occluded_q")
     OCCLUDED_Q_LAUNCHES += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# two-level treelet walk (ClusterTable2, scene/bvh.py::pack_clusters2)
+# ---------------------------------------------------------------------------
+
+# a lane whose two smallest candidate distances lie within this relative gap
+# is resolved by the sequential strict compare, triangle by triangle
+_TIE_GAP = 1e-5
+
+
+def _check_clu2(name, ctab2, o, d, maxt):
+    dev, n = check_tensors(name, {
+        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
+        "maxt": (maxt, torch.float32, ()),
+        "supers": (ctab2.supers, torch.float32, None),
+        "boxes": (ctab2.boxes, torch.float32, None),
+        "rows": (ctab2.rows, torch.float32, None),
+        "anchor": (ctab2.anchor, torch.float32, None),
+    }, n=o.shape[0] if o.dim() == 2 else -1)
+    for arg, width in (("supers", 16), ("boxes", 16), ("rows", 128)):
+        t = getattr(ctab2, arg)
+        if t.dim() != 2 or t.shape[1] != width:
+            raise ValueError(f"{name}: {arg} must be [*, {width}], got "
+                             f"{tuple(t.shape)}")
+    if tuple(ctab2.anchor.shape) != (3,):
+        raise ValueError(f"{name}: anchor must be [3]")
+    return dev, n
+
+
+def _signed_eps(x):
+    return torch.where(x.abs() > _DET_EPS, x,
+                       torch.where(x >= 0, _DET_EPS, -_DET_EPS))
+
+
+class _Clu2Walk:
+    """Per-lane gated walk of the plain versions: supers in order, the
+    clusters of each super, each entered cluster's triangles as one
+    [lanes, 4 * n_rows] block in table order. `counts` (a dict, or None)
+    accumulates the slab tests and triangle tests performed."""
+
+    def __init__(self, ctab2, o, d, maxt, counts):
+        o3, d3, c3, self.mt = _ray_terms(ctab2.anchor, o, d, maxt)
+        self.o = torch.stack(o3, -1)
+        self.d = torch.stack(d3, -1)
+        self.c = torch.stack(c3, -1)
+        self.inv = 1.0 / _signed_eps(self.d)
+        self.ctab2 = ctab2
+        self.sup_meta = ctab2.supers[:, 6:8].to(torch.int64).tolist()
+        self.box_meta = ctab2.boxes[:, 6:8].to(torch.int64).tolist()
+        self.counts = counts
+        if counts is not None:
+            for key in ("super_tests", "cluster_tests", "triangle_tests"):
+                counts.setdefault(key, 0)
+
+    def _count(self, key, k):
+        if self.counts is not None:
+            self.counts[key] += int(k)
+
+    @staticmethod
+    def slab(box, o, inv):
+        t0 = (box[0:3] - o) * inv
+        t1 = (box[3:6] - o) * inv
+        near = torch.minimum(t0, t1).amax(-1)
+        far = torch.maximum(t0, t1).amin(-1)
+        return near, far
+
+    def walk(self, gate):
+        """Yield (lanes, box index) for every cluster a lane enters;
+        gate(near, lanes) -> bool mask is evaluated when a box is tested, so
+        it sees the caller's updates from earlier clusters."""
+        all_lanes = torch.arange(self.o.shape[0], device=self.o.device)
+        sup, box = self.ctab2.supers, self.ctab2.boxes
+        for s, (c0, ncl) in enumerate(self.sup_meta):
+            near, far = self.slab(sup[s], self.o, self.inv)
+            self._count("super_tests", self.o.shape[0])
+            ent = (near <= far) & (far > 0.0) & gate(near, all_lanes)
+            lanes_s = all_lanes[ent]
+            if ncl == 0 or lanes_s.numel() == 0:
+                continue
+            o_s, inv_s = self.o[lanes_s], self.inv[lanes_s]
+            for cl in range(c0, c0 + ncl):
+                near, far = self.slab(box[cl], o_s, inv_s)
+                self._count("cluster_tests", lanes_s.numel())
+                ent = (near <= far) & (far > 0.0) & gate(near, lanes_s)
+                lanes = lanes_s[ent]
+                if lanes.numel():
+                    yield lanes, cl
+
+    def triangles(self, lanes, cl):
+        """(ad, us, vs, ts, inside) [lanes, T] of cluster cl's triangles and
+        their face indices [T] (-1 on padding)."""
+        first, nr = self.box_meta[cl]
+        tri = self.ctab2.rows[first: first + nr].reshape(4 * nr, 32)
+        qt = tri[:, :16].T.unsqueeze(1)  # [16, 1, T]
+        split = lambda x: tuple(x[lanes, k: k + 1] for k in range(3))  # noqa: E731
+        terms = _q_terms(qt, split(self.o), split(self.d), split(self.c))
+        return terms, tri[:, 16]
+
+
+def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `intersect_clu2` with per-lane box gating. Within a
+    cluster the nearest triangle is found on t = t|det| / |det|; a lane whose
+    two nearest candidates (the incoming best included) lie within 1e-5 of
+    each other is decided by the kernel's sequential strict compare of
+    cross-multiplied pairs, so the first of two tied triangles in table
+    order wins as in the kernel."""
+    walk = _Clu2Walk(ctab2, o, d, maxt, counts)
+    ts_b = walk.mt.clone()
+    ad_b = torch.ones_like(ts_b)
+    us_b = torch.zeros_like(ts_b)
+    vs_b = torch.zeros_like(ts_b)
+    prim_b = torch.full_like(ts_b, -1.0)
+
+    def gate(near, lanes):
+        return near * ad_b[lanes] < ts_b[lanes]
+
+    for lanes, cl in walk.walk(gate):
+        (ad, us, vs, ts, inside), prim = walk.triangles(lanes, cl)
+        walk._count("triangle_tests", ad.numel())
+        t_in = ts_b[lanes] / ad_b[lanes]
+        t = torch.where(inside, ts / torch.where(inside, ad, 1.0),
+                        float("inf"))
+        cand, pos = torch.topk(torch.cat([t_in[:, None], t], 1), 2, dim=1,
+                               largest=False)
+        tied = torch.isfinite(cand[:, 1]) & (
+            cand[:, 1] <= cand[:, 0] * (1.0 + _TIE_GAP))
+        # clear winners: the nearest triangle, unless the incoming best is
+        take = ~tied & (pos[:, 0] > 0)
+        if take.any():
+            rows = take.nonzero().squeeze(1)
+            j = pos[rows, 0] - 1
+            sel = lanes[rows]
+            ts_b[sel] = ts[rows, j]
+            ad_b[sel] = ad[rows, j]
+            us_b[sel] = us[rows, j]
+            vs_b[sel] = vs[rows, j]
+            prim_b[sel] = prim[j]
+        if tied.any():
+            rows = tied.nonzero().squeeze(1)
+            sel = lanes[rows]
+            b = [x[sel] for x in (ts_b, ad_b, us_b, vs_b, prim_b)]
+            for j in range(ad.shape[1]):
+                hit = inside[rows, j] & (ts[rows, j] * b[1] < b[0] * ad[rows, j])
+                for k, x in enumerate((ts, ad, us, vs)):
+                    b[k] = torch.where(hit, x[rows, j], b[k])
+                b[4] = torch.where(hit, prim[j], b[4])
+            for dst, src in zip((ts_b, ad_b, us_b, vs_b, prim_b), b):
+                dst[sel] = src
+    prim_i = prim_b.to(torch.int32)
+    inv = 1.0 / ad_b
+    t = torch.where(prim_i >= 0, ts_b * inv, float("inf"))
+    return t, prim_i, us_b * inv, vs_b * inv
+
+
+def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `occluded_clu2` with per-lane box gating; a lane's
+    triangle tests are counted up to its first hit, where the kernel's lane
+    stops."""
+    walk = _Clu2Walk(ctab2, o, d, maxt, counts)
+    occ = torch.zeros(walk.mt.shape, dtype=torch.bool, device=walk.mt.device)
+
+    def gate(near, lanes):
+        return (near < walk.mt[lanes]) & ~occ[lanes]
+
+    for lanes, cl in walk.walk(gate):
+        (ad, _, _, ts, inside), _ = walk.triangles(lanes, cl)
+        hit = inside & (ts < walk.mt[lanes, None] * ad)
+        any_hit = hit.any(1)
+        if counts is not None:
+            n_tri = hit.shape[1]
+            first = torch.where(any_hit, hit.to(torch.int8).argmax(1) + 1,
+                                n_tri)
+            walk._count("triangle_tests", first.sum().item())
+        occ[lanes] = any_hit
+    return occ
+
+
+def intersect_clu2(ctab2, o, d, maxt):
+    """Closest hit over a ClusterTable2 (scene/bvh.py).
+
+    o, d [N, 3], maxt [N] float32 on the table's device. Returns (t [N],
+    prim [N] int32 face index (-1 on a miss), u [N], v [N]); t is inf on a
+    miss. CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    global INTERSECT_CLU2_LAUNCHES
+    dev, n = _check_clu2("intersect_clu2", ctab2, o, d, maxt)
+    if dev.type == "cpu":
+        return intersect_clu2_plain(ctab2, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_clu2(
+        ctab2.supers.data_ptr(), ctab2.supers.shape[0],
+        ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
+        ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+        n, t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        stream), "intersect_clu2")
+    INTERSECT_CLU2_LAUNCHES += 1
+    return t, prim, u, v
+
+
+def occluded_clu2(ctab2, o, d, maxt):
+    """Any hit with 0 < t < maxt over a ClusterTable2: [N] bool."""
+    global OCCLUDED_CLU2_LAUNCHES
+    dev, n = _check_clu2("occluded_clu2", ctab2, o, d, maxt)
+    if dev.type == "cpu":
+        return occluded_clu2_plain(ctab2, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_occluded_clu2(
+        ctab2.supers.data_ptr(), ctab2.supers.shape[0],
+        ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
+        ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+        n, occ.data_ptr(), stream), "occluded_clu2")
+    OCCLUDED_CLU2_LAUNCHES += 1
     return occ

@@ -77,6 +77,7 @@ class RoughGratingW:
             wo=out["wo"], pdf=out["pdf"],
             sampled_type=torch.full((n,), BSDFFlags.GlossyReflection,
                                     dtype=torch.int64, device=dev),
+            eta=torch.ones((n,), device=dev),
         )
         return (PLTSamplePhaseData(bs=bs, lobe=out["lobe"],
                                    sampling_wavelengths=sampling_wl),

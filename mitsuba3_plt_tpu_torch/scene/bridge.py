@@ -5,9 +5,10 @@ pytree paths ("geo.tri_q", "materials.alpha", "emitters.etype",
 The JAX package's scenes reach the port through this function (tests
 flatten a JAX Scene with `jax.tree_util.tree_flatten_with_path`), and so
 does the port's own preset, which builds the same dict with numpy alone.
-Leaves this slice does not read (spectral curves, principled and nested
-material parameters, the BVH, area-emitter tables) are ignored; a scene
-that needs anything this slice does not port is refused.
+Leaves the port does not read (spectral curves, principled and nested
+material parameters, the skip-link BVH, area-emitter tables) are ignored;
+a scene that needs anything the port does not have is refused. A scene
+above 4096 faces needs its `ctab2.*` treelet tables.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR,
                               BSDF_ROUGH_GRATING, FIELDS, MaterialTable)
 from ..librender.sensor import Sensor
 from . import emitters as em
+from .bvh import ClusterTable2
 from .scene import BRUTE_FORCE_MAX_FACES, Geometry, Scene
 
 SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING)
@@ -28,7 +30,7 @@ SENSOR_PERSPECTIVE = 0
 # does not port: any leaf under these paths refuses the scene
 _REFUSED_PREFIXES = (
     "geo.sph_", "geo.dsk_", "geo.cyl_", "geo.tri_mxu", "medium.", "pbvh.",
-    "ctab.", "ctab2.", "sdfs", "materials.tex_", "materials.meas",
+    "ctab.", "sdfs", "materials.tex_", "materials.meas",
     "materials.mpol", "materials.vtex_", "emitters.env_", "emitters.proj_",
     "sensor.srf",
 )
@@ -63,9 +65,14 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
     attr = np.asarray(arrays["geo.tri_attr"])
     if attr.shape[1] != 24:
         raise NotImplementedError("per-face tangents / vertex colours")
-    if attr.shape[0] > BRUTE_FORCE_MAX_FACES:
+    ctab2 = None
+    if "ctab2.rows" in arrays:
+        ctab2 = ClusterTable2(**{name: t("ctab2." + name) for name in
+                                 ("supers", "boxes", "rows", "anchor")})
+    elif attr.shape[0] > BRUTE_FORCE_MAX_FACES:
         raise NotImplementedError(
-            f"{attr.shape[0]} faces: only the brute-force route is ported")
+            f"{attr.shape[0]} faces without ctab2 tables: the port has no "
+            "other route for big meshes")
 
     geo = Geometry(tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
                    tri_attr=t("geo.tri_attr"))
@@ -78,7 +85,8 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
     )
     emitters = em.EmitterTable(
         etype=t("emitters.etype", torch.int64),
-        radiance=t("emitters.radiance"), direction=t("emitters.direction"),
+        radiance=t("emitters.radiance"), position=t("emitters.position"),
+        direction=t("emitters.direction"),
         scene_radius=t("emitters.scene_radius"), present_types=em_present,
     )
     sensor = Sensor(
@@ -86,4 +94,5 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
         aspect=t("sensor.aspect"), ppo=t("sensor.ppo"),
         resolution=tuple(int(x) for x in static["sensor.resolution"]),
     )
-    return Scene(geo=geo, materials=mats, emitters=emitters, sensor=sensor)
+    return Scene(geo=geo, materials=mats, emitters=emitters, sensor=sensor,
+                 ctab2=ctab2)

@@ -1,0 +1,168 @@
+"""Host-side BVH and the two-level treelet tables of the clu2 kernels.
+
+`build_bvh` gives the SAH tree of the native builder in its flat skip-link
+layout (DFS pre-order):
+  node_lo/hi [NN, 3]  AABB
+  node_first [NN]     inner: left child (node + 1); leaf: offset into the
+                      padded prim-index array (multiple of LEAF_SIZE)
+  node_count [NN]     0 for inner nodes, #prims (<= LEAF_SIZE) for leaves
+  node_miss  [NN]     next node after the subtree, -1 at the end
+`pack_clusters2` cuts that tree into treelets of at most CLU2_MAX_LEAF
+triangles, groups CLU2_SUPER consecutive treelets under a super box, and
+packs the triangles 4 to a row (see ClusterTable2).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..ops.intersect import pack_tri_q
+from .native import build_bvh_native
+
+CLU2_SUPER = 16     # DFS-consecutive clusters per super box
+CLU2_MAX_LEAF = 64  # triangles per cluster at most
+
+
+@dataclasses.dataclass(frozen=True)
+class BVH:
+    node_lo: np.ndarray     # [NN, 3] f32
+    node_hi: np.ndarray     # [NN, 3] f32
+    node_first: np.ndarray  # [NN] i32
+    node_count: np.ndarray  # [NN] i32
+    node_miss: np.ndarray   # [NN] i32
+    prim_idx: np.ndarray    # [P] i32 padded triangle indices (-1 = empty)
+
+
+def build_bvh(vertices: np.ndarray, faces: np.ndarray) -> BVH:
+    """SAH BVH of a triangle mesh through the native builder."""
+    v = np.asarray(vertices)
+    f = np.asarray(faces)
+    if len(f) == 0:
+        raise ValueError("build_bvh: the mesh has no faces")
+    lo, hi, first, count, miss, prim = build_bvh_native(
+        v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
+    return BVH(node_lo=lo, node_hi=hi, node_first=first, node_count=count,
+               node_miss=miss, prim_idx=prim)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterTable2:
+    """Two-level treelet tables, relative to `anchor` (the root box centre):
+
+    supers [S_pad, 16]: lo(3) hi(3) first_cluster n_clusters pad(8)
+    boxes  [K_pad, 16]: lo(3) hi(3) first_row n_rows pad(8)
+    rows   [R, 128]: 4 triangles x 32 columns; triangle j of a row holds the
+      pack_tri_q quantities e1 e2 m1 m2 n2 k in columns 32j..32j+15 and its
+      original face index (as f32) in column 32j+16. Padding triangles
+      have n2 = 0 (so det = 0 and they never hit) and face index -1.
+    Padding supers and boxes have lo = 1e30 > hi = -1e30: never entered.
+    """
+
+    supers: torch.Tensor
+    boxes: torch.Tensor
+    rows: torch.Tensor
+    anchor: torch.Tensor
+
+
+def _clusters(bvh: BVH):
+    """Treelets in DFS order: a pre-order walk emits one at the first node
+    whose subtree holds <= CLU2_MAX_LEAF prims (or at a leaf), then jumps its
+    skip link. Returns [(node, face indices)]."""
+    first, count, miss = bvh.node_first, bvh.node_count, bvh.node_miss
+    prim = bvh.prim_idx
+    nn = len(first)
+    end = np.where(miss >= 0, miss, nn)
+    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
+    sub_prims = csum[end] - csum[np.arange(nn)]
+    out = []
+    i = 0
+    while i < nn:
+        if count[i] > 0 or sub_prims[i] <= CLU2_MAX_LEAF:
+            seg = np.arange(i, end[i])
+            seg = seg[count[seg] > 0]
+            ids = (np.concatenate([prim[first[j]: first[j] + count[j]]
+                                   for j in seg])
+                   if len(seg) else np.zeros(0, np.int32))
+            ids = ids[ids >= 0]
+            if len(ids):
+                out.append((i, ids))
+            i = end[i]
+        else:
+            i += 1
+    return out
+
+
+def _pad8(a):
+    """Pad box rows to a multiple of 8 with never-entered boxes."""
+    p = (-len(a)) % 8
+    if p:
+        pad = np.zeros((p, a.shape[1]), np.float32)
+        pad[:, 0:3] = 1e30
+        pad[:, 3:6] = -1e30
+        a = np.concatenate([a, pad], axis=0)
+    return a
+
+
+def pack_clusters2_arrays(bvh: BVH, tri_p0, tri_p1, tri_p2) -> dict:
+    """The ClusterTable2 arrays as numpy: {"supers", "boxes", "rows",
+    "anchor"}. Raises when the mesh has no triangles."""
+    lo = np.asarray(bvh.node_lo, np.float32)
+    hi = np.asarray(bvh.node_hi, np.float32)
+    p0 = np.asarray(tri_p0, np.float32)
+    p1 = np.asarray(tri_p1, np.float32)
+    p2 = np.asarray(tri_p2, np.float32)
+    clusters = _clusters(bvh)
+    if not clusters:
+        raise ValueError("pack_clusters2: the BVH holds no triangles")
+    anchor = (lo[0] + hi[0]) * 0.5
+
+    boxes, row_parts, n_rows = [], [], 0
+    for ni, ids in clusters:
+        q, _ = pack_tri_q(p0[ids], p1[ids], p2[ids], anchor=anchor)
+        q = q[: len(ids)]
+        nr = -(-len(ids) // 4)
+        rows = np.zeros((nr, 128), np.float32)
+        for j in range(4):
+            sel = q[j::4]
+            rows[: len(sel), 32 * j: 32 * j + 16] = sel
+            pr = ids[j::4].astype(np.float32)
+            rows[: len(pr), 32 * j + 16] = pr
+            rows[len(pr):, 32 * j + 16] = -1.0
+        boxes.append(np.concatenate([
+            lo[ni] - anchor, hi[ni] - anchor,
+            [np.float32(n_rows), np.float32(nr)], np.zeros(8, np.float32),
+        ]))
+        row_parts.append(rows)
+        n_rows += nr
+    boxes = np.stack(boxes).astype(np.float32)
+
+    supers = []
+    for s0 in range(0, len(boxes), CLU2_SUPER):
+        seg = boxes[s0: s0 + CLU2_SUPER]
+        supers.append(np.concatenate([
+            seg[:, 0:3].min(0), seg[:, 3:6].max(0),
+            [np.float32(s0), np.float32(len(seg))], np.zeros(8, np.float32),
+        ]))
+    supers = np.stack(supers).astype(np.float32)
+
+    rows = np.concatenate(row_parts, axis=0)
+    r_pad = (-rows.shape[0]) % 8
+    if r_pad:
+        pad = np.zeros((r_pad, 128), np.float32)
+        pad[:, 16::32] = -1.0
+        rows = np.concatenate([rows, pad], axis=0)
+    return {"supers": _pad8(supers), "boxes": _pad8(boxes), "rows": rows,
+            "anchor": anchor.astype(np.float32)}
+
+
+def pack_clusters2(bvh: BVH, tri_p0, tri_p1, tri_p2,
+                   device="cuda") -> ClusterTable2:
+    """ClusterTable2 of the triangles (p0, p1, p2) [F, 3] cut from `bvh`,
+    as float32 tensors on `device`."""
+    dev = resolve_device(device)
+    arrays = pack_clusters2_arrays(bvh, tri_p0, tri_p1, tri_p2)
+    return ClusterTable2(**{k: torch.as_tensor(v, device=dev)
+                            for k, v in arrays.items()})

@@ -2,9 +2,12 @@
 
 `grating_scene` is a rough diffraction-grating slab on a dark floor lit by
 a directional emitter and a faint constant environment: the PLT flagship.
-It builds, with numpy alone, the same arrays the JAX package's
-`scene/presets.py::grating_scene` produces and hands them to
-`bridge.scene_from_arrays`.
+`mesh_scene` is a diffuse icosphere lit by a point light: the big-mesh
+path-tracer scene of the JAX package's bench (`bench.py::bench_mesh_heavy`,
+81,920 faces at subdiv 6) and of its mesh20k golden image (subdiv 5).
+Each builds, with numpy alone, the same arrays the JAX package produces
+(`scene/presets.py::grating_scene`; `load_dict` of the mesh scene's dict)
+and hands them to `bridge.scene_from_arrays`.
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_GRATING, BSDFFlags,
 from ..ops.intersect import pack_tri_q
 from . import emitters as em
 from .bridge import scene_from_arrays
+from .bvh import build_bvh, pack_clusters2_arrays
+from .scene import BRUTE_FORCE_MAX_FACES
+from .shape import make_sphere
 
 _FLAGS = {
     BSDF_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide,
@@ -106,20 +112,23 @@ def _emitters(emitters, scene_radius):
     E = len(emitters)
     etype = np.zeros(E, np.int32)
     radiance = np.ones((E, 3), np.float32)
+    position = np.zeros((E, 3), np.float32)
     direction = np.tile(np.array([[0, 0, 1]], np.float32), (E, 1))
     for i, e in enumerate(emitters):
-        kind = {"constant": em.EMITTER_CONSTANT,
+        kind = {"point": em.EMITTER_POINT, "constant": em.EMITTER_CONSTANT,
                 "directional": em.EMITTER_DIRECTIONAL}.get(e["type"])
         if kind is None:
             raise NotImplementedError(f"emitter type {e['type']!r}")
         etype[i] = kind
-        radiance[i] = e["radiance"]
+        radiance[i] = e["radiance"]  # a point light's intensity
+        if "position" in e:
+            position[i] = e["position"]
         if "direction" in e:
             d = np.asarray(e["direction"], np.float64)
             direction[i] = d / np.linalg.norm(d)
     arrays = {
         "emitters.etype": etype, "emitters.radiance": radiance,
-        "emitters.direction": direction,
+        "emitters.position": position, "emitters.direction": direction,
         "emitters.scene_radius": np.asarray(scene_radius, np.float32),
     }
     return arrays, {"emitters.present_types": tuple(sorted(set(etype)))}
@@ -187,4 +196,40 @@ def grating_scene(width: int = 256, height: int = 256, *, device="cuda",
     multiplier 10, coherence 6e5) on `device`; keyword arguments as in
     `grating_scene_arrays`."""
     arrays, static = grating_scene_arrays(width, height, **kwargs)
+    return scene_from_arrays(arrays, static, device=device)
+
+
+def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6):
+    """The (arrays, static) pair of `mesh_scene`, numpy only: the unit
+    icosphere of `subdiv` (20 * 4**subdiv faces, smooth normals), its
+    ClusterTable2 when it has more than BRUTE_FORCE_MAX_FACES faces, one
+    diffuse material of reflectance 0.7, one point light of intensity 40 at
+    (2, 2, 3), and a 45-degree camera at (0, 0, 4) looking at the origin."""
+    mesh = make_sphere(subdiv)
+    v, f = mesh.vertices, mesh.faces
+    # renormalised in float32, as the JAX loader does for every mesh
+    n = mesh.normals / np.maximum(
+        np.linalg.norm(mesh.normals, axis=-1, keepdims=True), 1e-20)
+    uv = np.zeros((len(v), 2), np.float32)
+    geo, radius = _geometry([(v, f, n, uv)], [0], [-1])
+    if len(f) > BRUTE_FORCE_MAX_FACES:
+        tables = pack_clusters2_arrays(build_bvh(v, f), v[f[:, 0]],
+                                       v[f[:, 1]], v[f[:, 2]])
+        geo.update({"ctab2." + k: x for k, x in tables.items()})
+    mats, mat_static = _materials([(BSDF_DIFFUSE,
+                                    {"base_color": (0.7, 0.7, 0.7)})])
+    ems, em_static = _emitters([{"type": "point",
+                                 "position": (2.0, 2.0, 3.0),
+                                 "radiance": (40.0, 40.0, 40.0)}], radius)
+    sens, sens_static = _sensor(tf.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
+                                45.0, width, height)
+    return ({**geo, **mats, **ems, **sens},
+            {**mat_static, **em_static, **sens_static})
+
+
+def mesh_scene(width: int = 512, height: int = 512, subdiv: int = 6, *,
+               device="cuda"):
+    """The mesh scene on `device` (the configuration of the JAX package's
+    mesh82k bench at subdiv 6, of its mesh20k golden at subdiv 5)."""
+    arrays, static = mesh_scene_arrays(width, height, subdiv)
     return scene_from_arrays(arrays, static, device=device)

@@ -1,11 +1,12 @@
 """Scene: triangle tables, materials, emitters and sensor as tensors, with
 ray_intersect building SurfaceInteraction records and ray_test answering
-shadow rays. This slice has the brute-force route only (the q kernels of
-`ops/intersect.py`), which the JAX package takes for scenes up to 4096
-triangles."""
+shadow rays. Routing is by face count alone: up to 4096 triangles every
+ray goes to the brute-force q kernels, above that to the two-level treelet
+(clu2) kernels over the scene's ClusterTable2 (`ops/intersect.py`)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -14,6 +15,7 @@ from ..librender.bsdf import MaterialTable
 from ..librender.records import Ray, SurfaceInteraction
 from ..librender.sensor import Sensor
 from ..ops import intersect as isect
+from .bvh import ClusterTable2
 from .emitters import EmitterTable
 
 BRUTE_FORCE_MAX_FACES = 4096
@@ -40,17 +42,32 @@ class Scene:
     materials: MaterialTable
     emitters: EmitterTable
     sensor: Sensor
+    ctab2: Optional[ClusterTable2] = None  # treelet tables of big meshes
 
     @property
     def device(self) -> torch.device:
         return self.geo.tri_q.device
 
+    def intersect_route(self) -> str:
+        """"brute" (q kernels) up to BRUTE_FORCE_MAX_FACES faces, "clu2"
+        above; a big mesh without a ClusterTable2 raises."""
+        if self.geo.n_faces <= BRUTE_FORCE_MAX_FACES:
+            return "brute"
+        if self.ctab2 is None:
+            raise ValueError(f"{self.geo.n_faces} faces need the clu2 route, "
+                             "but the scene has no ClusterTable2")
+        return "clu2"
+
     def ray_intersect(self, ray: Ray) -> SurfaceInteraction:
         """Closest hit -> SurfaceInteraction (wi in the shading frame)."""
         geo = self.geo
-        t, prim, u, v = isect.intersect_q(
-            geo.tri_q, geo.tri_anchor, ray.o, ray.d, ray.maxt,
-            n_tris=geo.n_faces)
+        if self.intersect_route() == "clu2":
+            t, prim, u, v = isect.intersect_clu2(self.ctab2, ray.o, ray.d,
+                                                 ray.maxt)
+        else:
+            t, prim, u, v = isect.intersect_q(
+                geo.tri_q, geo.tri_anchor, ray.o, ray.d, ray.maxt,
+                n_tris=geo.n_faces)
         valid = prim >= 0
         prim_c = torch.clamp_min(prim, 0).to(torch.int64)
         # keep p finite on miss lanes
@@ -78,5 +95,7 @@ class Scene:
     def ray_test(self, ray: Ray) -> torch.Tensor:
         """Shadow-ray occlusion (True = occluded)."""
         geo = self.geo
+        if self.intersect_route() == "clu2":
+            return isect.occluded_clu2(self.ctab2, ray.o, ray.d, ray.maxt)
         return isect.occluded_q(geo.tri_q, geo.tri_anchor, ray.o, ray.d,
                                 ray.maxt, n_tris=geo.n_faces)

@@ -109,4 +109,78 @@ def test_render_launches_each_kernel_once_per_bounce(card):
     torch.cuda.synchronize()
     assert img.device.type == "cuda" and torch.isfinite(img).all()
     assert ops.launch_counts() == {"intersect_q": 8, "occluded_q": 8,
+                                   "intersect_clu2": 0, "occluded_clu2": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8}
+
+
+def _mesh_rays(scene, rng, card):
+    """Camera rays of the scene, bounce-like rays (origins on the unit
+    sphere pushed off along the normal, cosine-hemisphere directions) and
+    shadow rays from those origins toward the point light."""
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+
+    W, H = scene.sensor.resolution
+    cam, _ = sample_rays(scene, Sampler.create(0, W * H * 2, device=card),
+                         W, H, 2)
+    n = cam.o.shape[0]
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    org = nrm * (1.0 + 1e-4)
+    a = np.cross(nrm, np.where(np.abs(nrm[:, :1]) > 0.9, [[0, 1, 0]],
+                               [[1, 0, 0]]))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b = np.cross(nrm, a)
+    u1, u2 = rng.random(n), rng.random(n)
+    r, phi = np.sqrt(u1), 2 * np.pi * u2
+    dirs = (a * (r * np.cos(phi))[:, None] + b * (r * np.sin(phi))[:, None]
+            + nrm * np.sqrt(1 - u1)[:, None])
+    to_l = scene.emitters.position[0].cpu().numpy().astype(np.float64) - org
+    dist = np.linalg.norm(to_l, axis=-1)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=card)  # noqa: E731
+    return (cam.o, cam.d, cam.maxt), (t(org), t(dirs), t(np.full(n, np.inf))), \
+        (t(org), t(to_l / dist[:, None]), t(dist * (1 - 1e-4)))
+
+
+def test_clu2_kernels_match_plain(card):
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    scene = mesh_scene(64, 48, subdiv=5, device=card)
+    assert scene.intersect_route() == "clu2"
+    cam, bounce, shadow = _mesh_rays(scene, np.random.default_rng(3), card)
+    for o, d, mt in (cam, bounce):
+        got = isect.intersect_clu2(scene.ctab2, o, d, mt)
+        want = isect.intersect_clu2_plain(scene.ctab2, o, d, mt)
+        torch.cuda.synchronize()
+        assert (got[1] == want[1]).float().mean() >= 1 - 1e-3
+        same = (got[1] == want[1]) & (want[1] >= 0)
+        for k in (0, 2, 3):  # t, u, v
+            torch.testing.assert_close(got[k][same], want[k][same],
+                                       rtol=1e-5, atol=1e-6)
+    # bounce rays leave the convex mesh
+    assert (got[1] >= 0).float().mean() < 0.01
+    for o, d, mt in (shadow, (cam[0], cam[1], torch.full_like(cam[2], 5.))):
+        occ = isect.occluded_clu2(scene.ctab2, o, d, mt)
+        occ_plain = isect.occluded_clu2_plain(scene.ctab2, o, d, mt)
+        torch.cuda.synchronize()
+        assert (occ == occ_plain).float().mean() >= 1 - 1e-3
+        assert 0.05 < occ_plain.float().mean() < 0.95
+
+
+def test_path_render_launches_clu2_once_per_bounce(card):
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    scene = mesh_scene(32, 24, subdiv=5, device=card)
+    ops.reset_launch_counts()
+    img = render(scene, PathIntegrator(max_depth=4, rr_depth=3), spp=4,
+                 spp_per_pass=2)
+    torch.cuda.synchronize()
+    assert img.device.type == "cuda" and torch.isfinite(img).all()
+    assert img.mean() > 0
+    assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
+                                   "intersect_clu2": 8, "occluded_clu2": 8,
+                                   "grating_sample": 0, "grating_lobe_sum": 0}

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
-    assert sorted(os.listdir(csrc)) == ["grating.cu", "intersect_q.cu"]
+    assert sorted(os.listdir(csrc)) == ["grating.cu", "intersect_clu2.cu",
+                                        "intersect_q.cu"]
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
 
 
@@ -96,4 +97,5 @@ def test_launch_counters_stay_zero_on_the_cpu():
     render(grating_scene(4, 4, device="cpu"), PLTIntegrator(max_depth=2),
            spp=1)
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
+                                   "intersect_clu2": 0, "occluded_clu2": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}

@@ -92,7 +92,7 @@ def test_bridge_refuses_unported_scenes():
         scene_from_arrays(arrays, {**static, "emitters.present_types": (0,)},
                           device="cpu")
     with pytest.raises(NotImplementedError):
-        tpresets._emitters([{"type": "point", "radiance": (1, 1, 1)}], 1.0)
+        tpresets._emitters([{"type": "spot", "radiance": (1, 1, 1)}], 1.0)
 
 
 def test_camera_rays_match():
