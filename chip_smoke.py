@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~2-3 min with the build
+    python3 chip_smoke.py            # one card, ~2 min with the build
 
-Two paths: the PLT flagship (grating_scene, B1-B4) and the path tracer on
-the 81,920-face mesh scene (B5-B6). Phases, each printing one JSON line
-with its seconds:
+Three paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth path
+tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), and the
+regenerative path tracer in Morton order on the same scene over the
+packet-BVH route (B7a, B7b). Phases, each printing one JSON line with its
+seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
                   started together), with nvcc's register report;
   kernels         each kernel against its plain PyTorch version on the
                   card, at the main paths' lane counts, with the tolerance
                   stated, timed with CUDA events (10 back-to-back calls,
-                  median of 7; the clu2 plain versions once at full width);
+                  median of 7; the clu2 and BVH plain walks once per ray
+                  set). B7 runs on the five mesh82k ray sets of B5/B6 at
+                  1,048,576 lanes, unsorted and sorted by the route's
+                  coherence sort, whose own time is printed, and on the
+                  131,072-lane wavefront the regenerative path gives it;
   golden          grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
                   4 seeds x 12 spp, Sidak z-test against tests/golden/
                   grating_plt.npz;
   golden-mesh20k  mesh_scene(32, 32, subdiv=5), path depth 3 / rr 9, 4 seeds
                   x 8 spp, z-test against tests/golden/mesh20k_path.npz;
+  golden-mesh20k-packet  the same on the packet route;
   main            grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per
                   pass: one warm-up pass, three timed passes; the image must
                   be finite and non-zero, its four kernels launch 7 times per
@@ -27,7 +34,16 @@ with its seconds:
   main-mesh82k    mesh_scene(512, 512, subdiv=6), path depth 4 / rr 3, 4 spp
                   per pass, as `main`: the clu2 kernels launch 4 times per
                   pass, the q and grating kernels never;
-  split-mesh82k   as `split`, to chiprun_out/chip_smoke_profile_mesh82k.json.
+  split-mesh82k   as `split`, to chiprun_out/chip_smoke_profile_mesh82k.json;
+  main-mesh82k-packet  the same scene on the packet route,
+                  render(regen=True, pixel_order="morton"): 131,072 lanes,
+                  B7a and B7b launch once per loop iteration, B1-B6 never;
+                  the image equals the fixed-depth Morton render of the same
+                  seed at rtol 2e-5 / atol 2e-6, and the scanline render to
+                  noise;
+  split-mesh82k-packet  to chiprun_out/chip_smoke_profile_mesh82k_packet.json;
+  main-mesh82k-regen   the regenerative render on the clu2 route (B5 and B6
+                  once per iteration), held to its fixed-depth render.
 Then the kernel list (each kernel's launches from its own path), the
 nvidia-smi line, and the final status line. Every failure raises and exits
 non-zero.
@@ -53,14 +69,21 @@ MESH_W, MESH_H, MESH_SUBDIV, MESH_SPP_PASS = 512, 512, 6, 4
 MESH_DEPTH, MESH_RR = 4, 3
 TIMED_PASSES = 3
 
-# kernel launches per pass of each main path
-GRATING_LAUNCHES = {"intersect_q": MAIN_DEPTH, "occluded_q": MAIN_DEPTH,
-                    "grating_sample": MAIN_DEPTH,
-                    "grating_lobe_sum": MAIN_DEPTH,
-                    "intersect_clu2": 0, "occluded_clu2": 0}
-MESH_LAUNCHES = {"intersect_q": 0, "occluded_q": 0, "grating_sample": 0,
-                 "grating_lobe_sum": 0, "intersect_clu2": MESH_DEPTH,
+# kernel launches per pass of each main path; ITER stands for the
+# iterations of the regenerative loop in that pass
+ITER = "iteration"
+NO_LAUNCHES = dict.fromkeys(
+    ("intersect_q", "occluded_q", "grating_sample", "grating_lobe_sum",
+     "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh"), 0)
+GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
+                    "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
+                    "grating_lobe_sum": MAIN_DEPTH}
+MESH_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": MESH_DEPTH,
                  "occluded_clu2": MESH_DEPTH}
+PACKET_LAUNCHES = {**NO_LAUNCHES, "intersect_bvh": ITER, "occluded_bvh": ITER}
+REGEN_CLU2_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": ITER,
+                       "occluded_clu2": ITER}
+REGEN = {"regen": True, "pixel_order": "morton"}
 
 
 def emit(obj):
@@ -162,7 +185,7 @@ def kernel_registers(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            k = re.search(r"(clu2_kernel|q_kernel|lobe_sum_kernel|"
+            k = re.search(r"(clu2_kernel|bvh_kernel|q_kernel|lobe_sum_kernel|"
                           r"sample_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
             if k:
@@ -190,6 +213,9 @@ Q_TEST_OPS = 55           # det, u, v, t terms, sign fold, inside, best pair
 Q_ANYHIT_TEST_OPS = 47    # the same without the best-pair update
 CLU2_RAY_SETUP_OPS = 29   # the q setup plus the guarded inverse direction
 SLAB_OPS = 29             # 6 sub, 6 mul, 10 min/max, gate compares and ands
+BVH_RAY_SETUP_OPS = 22    # guarded inverse direction, maxt check, miss select
+BVH_TEST_OPS = 64         # d x e2, det, guarded 1/det, u, tv x e1, v, t, hit, best
+BVH_ANYHIT_TEST_OPS = 61  # the same without the best-hit update
 
 
 def bessel_ops(half):
@@ -508,7 +534,8 @@ def check_clu2(scene, rng):
     incoherent rays from random surface points; any hit: the shadow rays
     of the first bounce and of the random points. The kernels line carries
     the path's own sets: camera rays (B5) and first-bounce shadow rays
-    (B6)."""
+    (B6). Returns (those two rows, the ray sets {label: (o, d, maxt)}, the
+    kernels' ms on each {label: ms})."""
     import torch
 
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
@@ -586,13 +613,112 @@ def check_clu2(scene, rng):
                 "tests_per_ray": {k: v / n for k, v in counts.items()}}
 
     cam_row, cam_hit = closest("camera", cam.o, cam.d, cam.maxt)
-    bounce, shadow = camera_hit_rays(scene, cam, cam_hit, rng)
-    emit({"phase": "kernels", **closest("bounce", *bounce)[0]})
-    shadow_row = anyhit("shadow", *shadow)
-    bounce, shadow = random_surface_rays(scene, n, rng)
-    emit({"phase": "kernels", **closest("bounce-random", *bounce)[0]})
-    emit({"phase": "kernels", **anyhit("shadow-random", *shadow)})
-    return [cam_row, shadow_row]
+    sets = {"camera": (cam.o, cam.d, cam.maxt)}
+    sets["bounce"], sets["shadow"] = camera_hit_rays(scene, cam, cam_hit, rng)
+    sets["bounce-random"], sets["shadow-random"] = random_surface_rays(
+        scene, n, rng)
+    rows = {"camera": cam_row, "shadow": anyhit("shadow", *sets["shadow"])}
+    for label in ("bounce", "bounce-random"):
+        rows[label] = closest(label, *sets[label])[0]
+    rows["shadow-random"] = anyhit("shadow-random", *sets["shadow-random"])
+    for label in ("bounce", "bounce-random", "shadow-random"):
+        emit({"phase": "kernels", **rows[label]})
+    return ([rows["camera"], rows["shadow"]], sets,
+            {label: r["ms"] for label, r in rows.items()})
+
+
+def check_bvh(scene, sets, clu2_ms, rng):
+    """B7a and B7b against their plain walks on the packet scene. First the
+    five 1,048,576-lane mesh82k ray sets of `check_clu2`, unsorted and
+    sorted by the route's coherence sort, with the sort's own time and the
+    clu2 kernel's time on the same set beside them; then the wavefront the
+    regenerative path gives the kernels: the 131,072 camera rays of its first
+    iteration in Morton order and the shadow rays of their hits, sorted as
+    the route sorts them. The kernels line carries the latter two."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.integrators.common import camera_rays_at
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    pb = scene.pbvh
+
+    def sorted_rays(o, d, mt):
+        """(the rays in the route's order, the permutation)."""
+        perm, _ = scene._packet_perm(o, d)
+        return (o[perm], d[perm], mt[perm]), perm
+
+    def answer(any_hit, o, d, mt):
+        """The wrapper's answer as one tensor: the flags, or prim."""
+        if any_hit:
+            return isect.occluded_bvh(pb, o, d, mt)
+        return isect.intersect_bvh(pb, o, d, mt)[1]
+
+    def one(label, any_hit, o, d, mt):
+        """The kernel on (o, d, mt) as given: tolerance none, the kernel
+        rounds every product and sum as the plain walk does, so prim, t, u,
+        v and the occlusion flags are equal on every lane."""
+        n, counts = o.shape[0], {}
+        if any_hit:
+            got = isect.occluded_bvh(pb, o, d, mt)
+            want, plain_ms = time_once(lambda: isect.occluded_bvh_plain(
+                pb, o, d, mt, counts=counts))
+            agree = (got == want).float().mean().item()
+            err = 1.0 - agree
+            ms = time_ms(lambda: isect.occluded_bvh(pb, o, d, mt))
+            share = {"occluded_share": want.float().mean().item()}
+        else:
+            got = isect.intersect_bvh(pb, o, d, mt)
+            want, plain_ms = time_once(lambda: isect.intersect_bvh_plain(
+                pb, o, d, mt, counts=counts))
+            agree = (got[1] == want[1]).float().mean().item()
+            hit = want[1] >= 0
+            err = max((got[k][hit] - want[k][hit]).abs().max().item()
+                      if hit.any() else 0.0 for k in (0, 2, 3))
+            require(all(torch.equal(got[k], want[k]) for k in (0, 2, 3)),
+                    f"intersect_bvh {label}: t/u/v differ, max {err}")
+            ms = time_ms(lambda: isect.intersect_bvh(pb, o, d, mt))
+            share = {"hit_share": hit.float().mean().item()}
+        name = "occluded_bvh" if any_hit else "intersect_bvh"
+        require(agree == 1.0, f"{name} {label}: agreement {agree}")
+        ops = (n * BVH_RAY_SETUP_OPS + counts["slab_tests"] * SLAB_OPS
+               + counts["triangle_tests"]
+               * (BVH_ANYHIT_TEST_OPS if any_hit else BVH_TEST_OPS))
+        b, by = bound_ms(nbytes(pb.nodes, pb.tri, o, d, mt, got), ops)
+        return {"name": name, "route": "cuda", "n": n,
+                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_bvh.cu",
+                "plain_timing": "the comparison call, once",
+                "library_ms": None,
+                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
+                            + ("694" if any_hit else "679"),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "rays": label,
+                "agreement": agree, **share, "walk_steps": counts["steps"],
+                "tests_per_ray": {k: counts[k] / n for k in
+                                  ("slab_tests", "triangle_tests")}}
+
+    for label, (o, d, mt) in sets.items():
+        any_hit = label.startswith("shadow")
+        row = one(label, any_hit, o, d, mt)
+        in_order, perm = sorted_rays(o, d, mt)
+        require(torch.equal(answer(any_hit, *in_order),
+                            answer(any_hit, o, d, mt)[perm]),
+                f"{row['name']} {label}: sorted and unsorted rays differ")
+        emit({"phase": "kernels", **row, "order": "unsorted",
+              "sorted_ms": time_ms(lambda: answer(any_hit, *in_order)),
+              "packet_perm_ms": time_ms(lambda: scene._packet_perm(o, d)),
+              "gather_ms": time_ms(lambda: (o[perm], d[perm], mt[perm])),
+              "clu2_ms": clu2_ms[label]})
+
+    # the regenerative path's own wavefront
+    W, H = scene.sensor.resolution
+    n = W * H * MESH_SPP_PASS // 8
+    cam, _ = camera_rays_at(scene, 0, torch.arange(n, device=scene.device),
+                            W, H, MESH_SPP_PASS, "morton")
+    hit = isect.intersect_bvh(pb, cam.o, cam.d, cam.maxt)
+    _, shadow = camera_hit_rays(scene, cam, hit, rng)
+    return [one("regen camera, sorted", False,
+                *sorted_rays(cam.o, cam.d, cam.maxt)[0]),
+            one("regen shadow, sorted", True, *sorted_rays(*shadow)[0])]
 
 
 # ---------------------------------------------------------------------------
@@ -624,9 +750,11 @@ def golden_ztest(name, scene, integ, golden, spp_per_seed):
     require(n_fail == 0, f"{name} z-test: {n_fail} pixels fail")
 
 
-def main_path(name, scene, integ, spp_pass, per_pass):
+def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
     """One warm-up pass, then TIMED_PASSES timed passes; per_pass gives the
-    launches each kernel must make in a pass."""
+    launches each kernel must make in a pass (ITER: one per iteration of
+    the regenerative loop, which must run at least max_depth times a pass).
+    Returns (the printed fields, the image)."""
     import torch
 
     from mitsuba3_plt_tpu_torch import ops
@@ -636,7 +764,7 @@ def main_path(name, scene, integ, spp_pass, per_pass):
     W, H = scene.sensor.resolution
     warm = {}
     render(scene, integ, seed=0, spp=spp_pass, spp_per_pass=spp_pass,
-           stats=warm)
+           stats=warm, **render_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -644,7 +772,7 @@ def main_path(name, scene, integ, spp_pass, per_pass):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     img = render(scene, integ, seed=1, spp=spp, spp_per_pass=spp_pass,
-                 stats=stats)
+                 stats=stats, **render_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -654,20 +782,52 @@ def main_path(name, scene, integ, spp_pass, per_pass):
     res = {"width": W, "height": H, "max_depth": integ.max_depth,
            "rr_depth": integ.rr_depth, "spp": spp, "spp_per_pass": spp_pass,
            "lanes_per_pass": stats["lanes_per_pass"],
+           "iterations_per_pass": stats["regen_iterations"], **render_kw,
            "warmup_pass_s": warm["pass_s"][0], "pass_s": stats["pass_s"],
            "wall_s": wall, "camera_samples_per_s": W * H * spp / wall,
            "ms_per_spp": wall * 1e3 / spp, "peak_mem_bytes": peak,
            "launches": launches, "image_mean": mean, "finite": finite}
     ph.emit(**res)
     require(finite and mean > 0, f"{name} image not finite and non-zero")
+    iters = stats["regen_iterations"]
+    if ITER in per_pass.values():
+        require(len(iters) == TIMED_PASSES
+                and min(iters) >= integ.max_depth,
+                f"{name}: regenerative iterations per pass {iters}")
     for kname, count in launches.items():
-        want = per_pass[kname] * TIMED_PASSES
+        want = (sum(iters) if per_pass[kname] == ITER
+                else per_pass[kname] * TIMED_PASSES)
         require(count == want,
                 f"{name}: {kname} launched {count} times, expected {want}")
-    return res
+    return res, img
 
 
-def split(name, scene, integ, pass_s, spp_pass, out_file):
+def same_image(name, img, scene, integ, spp_pass):
+    """A regenerative Morton-order image against the fixed-depth renders of
+    the same seed: equal to the one in Morton order (the same samples in
+    another schedule; rtol 2e-5 / atol 2e-6, the film sums in another
+    order), and equal to noise to the scanline one (other samples per
+    pixel): means within 1%."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+
+    ph = Phase(name + "-image")
+    kw = dict(seed=1, spp=spp_pass * TIMED_PASSES, spp_per_pass=spp_pass)
+    fixed = render(scene, integ, pixel_order="morton", **kw)
+    scan = render(scene, integ, **kw)
+    close = torch.isclose(img, fixed, rtol=2e-5, atol=2e-6)
+    mean_gap = abs(img.mean().item() / scan.mean().item() - 1.0)
+    ph.emit(max_abs_diff=(img - fixed).abs().max().item(),
+            close_share=close.float().mean().item(),
+            scanline_mean_gap=mean_gap,
+            scanline_mean_abs_diff=(img - scan).abs().mean().item(),
+            image_mean=img.mean().item())
+    require(bool(close.all()), f"{name}: differs from the fixed-depth render")
+    require(mean_gap < 0.01, f"{name}: mean differs from the scanline render")
+
+
+def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     """Device time of one main-path pass by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -677,7 +837,8 @@ def split(name, scene, integ, pass_s, spp_pass, out_file):
     ph = Phase(name)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render(scene, integ, seed=2, spp=spp_pass, spp_per_pass=spp_pass)
+        render(scene, integ, seed=2, spp=spp_pass, spp_per_pass=spp_pass,
+               **render_kw)
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -696,8 +857,8 @@ def split(name, scene, integ, pass_s, spp_pass, out_file):
     rows.sort(key=lambda r: -r["device_ms"])
     total = sum(r["device_ms"] for r in rows)
     # clu2_kernel first: "q_kernel" must not take its rows
-    ours = {"clu2_kernel": 0.0, "q_kernel": 0.0, "lobe_sum_kernel": 0.0,
-            "sample_kernel": 0.0}
+    ours = {"clu2_kernel": 0.0, "bvh_kernel": 0.0, "q_kernel": 0.0,
+            "lobe_sum_kernel": 0.0, "sample_kernel": 0.0}
     n_kernels = 0
     for r in rows:
         for key in ours:
@@ -752,6 +913,14 @@ def main():
             supers=list(ct.supers.shape), boxes=list(ct.boxes.shape),
             rows=list(ct.rows.shape))
     require(mscene.intersect_route() == "clu2", "mesh82k must route to clu2")
+    ph = Phase("mesh82k-packet-scene")
+    pscene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, accel="packet",
+                        device="cuda")
+    ph.emit(faces=pscene.geo.n_faces, route=pscene.intersect_route(),
+            nodes=list(pscene.pbvh.nodes.shape),
+            tri=list(pscene.pbvh.tri.shape))
+    require(pscene.intersect_route() == "packet",
+            "mesh82k with packet tables must route to packet")
 
     ph = Phase("kernels")
     n = MAIN_W * MAIN_H * MAIN_SPP_PASS
@@ -760,7 +929,9 @@ def main():
     rows = check_intersect(iscene, n, rng)
     rows.append(check_sample(n, rng, "cuda"))
     rows.append(check_lobe_sum(n, rng, "cuda"))
-    rows += check_clu2(mscene, rng)
+    clu2_rows, ray_sets, clu2_ms = check_clu2(mscene, rng)
+    rows += clu2_rows + check_bvh(pscene, ray_sets, clu2_ms, rng)
+    del ray_sets
     for r in rows:
         emit({"phase": "kernels", **r})
     ph.emit(checked=[r["name"] for r in rows])
@@ -771,25 +942,41 @@ def main():
     golden_ztest("golden-mesh20k", mesh_scene(32, 32, 5, device="cuda"),
                  PathIntegrator(max_depth=3, rr_depth=9), "mesh20k_path.npz",
                  8)
+    golden_ztest("golden-mesh20k-packet",
+                 mesh_scene(32, 32, 5, accel="packet", device="cuda"),
+                 PathIntegrator(max_depth=3, rr_depth=9), "mesh20k_path.npz",
+                 8)
 
     gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
-    g_res = main_path("main", gscene, ginteg, MAIN_SPP_PASS, GRATING_LAUNCHES)
+    g_res, _ = main_path("main", gscene, ginteg, MAIN_SPP_PASS,
+                         GRATING_LAUNCHES)
     split("split", gscene, ginteg, sum(g_res["pass_s"]) / TIMED_PASSES,
           MAIN_SPP_PASS, "chip_smoke_profile.json")
 
     minteg = PathIntegrator(max_depth=MESH_DEPTH, rr_depth=MESH_RR)
-    m_res = main_path("main-mesh82k", mscene, minteg, MESH_SPP_PASS,
-                      MESH_LAUNCHES)
+    m_res, _ = main_path("main-mesh82k", mscene, minteg, MESH_SPP_PASS,
+                         MESH_LAUNCHES)
     split("split-mesh82k", mscene, minteg,
           sum(m_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
           "chip_smoke_profile_mesh82k.json")
+
+    p_res, p_img = main_path("main-mesh82k-packet", pscene, minteg,
+                             MESH_SPP_PASS, PACKET_LAUNCHES, **REGEN)
+    same_image("main-mesh82k-packet", p_img, pscene, minteg, MESH_SPP_PASS)
+    split("split-mesh82k-packet", pscene, minteg,
+          sum(p_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
+          "chip_smoke_profile_mesh82k_packet.json", **REGEN)
+    _, r_img = main_path("main-mesh82k-regen", mscene, minteg, MESH_SPP_PASS,
+                         REGEN_CLU2_LAUNCHES, **REGEN)
+    same_image("main-mesh82k-regen", r_img, mscene, minteg, MESH_SPP_PASS)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        own = m_res if MESH_LAUNCHES[r["name"]] else g_res
+        own = (p_res if PACKET_LAUNCHES[r["name"]]
+               else m_res if MESH_LAUNCHES[r["name"]] else g_res)
         r = dict(r, launches=own["launches"][r["name"]])
         kernels.append({k: r[k] for k in keys})
     emit({"kernels": kernels})

@@ -80,10 +80,12 @@ class Sampler:
         lane = _u32(lane)
         return Sampler(seed=seed, lane=lane, key=hash_combine(seed, lane))
 
-    def next_1d(self, dim: int) -> torch.Tensor:
+    def next_1d(self, dim) -> torch.Tensor:
+        """Uniforms of dimension `dim`: an int, or an int64 tensor [N] of
+        per-lane dimensions."""
         return _to_uniform(_pcg_hash(hash_combine(self.key, dim)))
 
-    def next_2d(self, dim: int) -> torch.Tensor:
+    def next_2d(self, dim) -> torch.Tensor:
         return torch.stack([self.next_1d(dim), self.next_1d(dim + 1)], dim=-1)
 
     def fork(self, salt: int) -> "Sampler":
@@ -99,5 +101,7 @@ DIM_WAVELENGTH = 4
 DIM_BOUNCE_BASE = 8
 
 
-def bounce_dim(bounce: int, offset: int) -> int:
+def bounce_dim(bounce, offset: int):
+    """Dimension `offset` of bounce `bounce` (an int, or an int64 tensor of
+    per-lane depths)."""
     return DIM_BOUNCE_BASE + bounce * DIMS_PER_BOUNCE + offset

@@ -1,12 +1,16 @@
 """Camera wavefront, MIS weight and the render pass loop.
 
-One pass renders width x height x spp_per_pass lanes in scanline pixel
-order (lane i belongs to pixel i // spp_per_pass), so the box-filter film
-splat is a reshape and a sum."""
+One pass renders width x height x spp_per_pass samples. Sample id s
+belongs to pixel slot s // spp_per_pass, so the box-filter film splat is a
+reshape and a sum. A slot is the scanline pixel of the same index or, in
+Morton order (power-of-two square images), the pixel whose interleaved
+(x, y) bits spell the slot index: consecutive lanes then cover square
+image blocks instead of scanline strips."""
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..config import RenderConfig, RGB
@@ -15,11 +19,50 @@ from ..librender.film import ImageBlock
 from ..librender.records import Ray
 
 
-def sample_rays(scene, sampler: Sampler, width, height, spp_pass):
-    """The camera wavefront for the sampler's lanes (independent sampler,
-    scanline order): sample id s renders pixel s // spp_pass, so lanes may
-    be any set of sample ids. Returns (ray, uv)."""
+def _check_morton(width, height):
+    if width != height or width & (width - 1):
+        raise ValueError("pixel_order='morton' needs a power-of-two square "
+                         f"resolution, got {width}x{height}")
+
+
+def _morton_compact(x):
+    """Every other bit of x (bits 0, 2, 4, ...) packed together; x is an
+    int64 tensor or a numpy integer array below 2^32."""
+    x = x & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    return (x | (x >> 8)) & 0x0000FFFF
+
+
+def morton_pixel_of(pix, width):
+    """Scanline pixel index of Morton slot `pix` (int64 tensor or numpy
+    array)."""
+    return _morton_compact(pix >> 1) * width + _morton_compact(pix)
+
+
+def morton_pixel_perm(width, height):
+    """[W*H] int64 numpy permutation: mp[j] is the scanline pixel of Morton
+    slot j (to unscramble slot-ordered output)."""
+    _check_morton(width, height)
+    return morton_pixel_of(np.arange(width * height, dtype=np.int64), width)
+
+
+def camera_rays_at(scene, seed, sample_lane, width, height, spp_pass,
+                   pixel_order: str = "scanline"):
+    """Camera rays for explicit sample ids (independent sampler): sample id
+    s renders pixel slot s // spp_pass, whatever lane holds it, so the
+    regenerative wavefront can restart a lane on a new sample and get the
+    value the fixed-depth pass gets. `pixel_order` ("scanline" or "morton")
+    maps slots to pixels; the sample stream is keyed on the sample id alone.
+    Returns (ray, uv)."""
+    if pixel_order not in ("scanline", "morton"):
+        raise ValueError(f"unknown pixel_order {pixel_order!r}")
+    sampler = Sampler.from_lanes(seed, sample_lane)
     pix = sampler.lane // spp_pass
+    if pixel_order == "morton":
+        _check_morton(width, height)
+        pix = morton_pixel_of(pix, width)
     px = (pix % width).to(torch.float32)
     py = (pix // width).to(torch.float32)
     jitter = sampler.next_2d(DIM_CAMERA)
@@ -27,6 +70,13 @@ def sample_rays(scene, sampler: Sampler, width, height, spp_pass):
                       (py + jitter[..., 1]) / height], dim=-1)
     o, d = scene.sensor.sample_ray(uv)
     return Ray.create(o, d), uv
+
+
+def sample_rays(scene, sampler: Sampler, width, height, spp_pass,
+                pixel_order: str = "scanline"):
+    """The camera wavefront for the sampler's lanes: (ray, uv)."""
+    return camera_rays_at(scene, sampler.seed, sampler.lane, width, height,
+                          spp_pass, pixel_order)
 
 
 def mis_weight(pdf_a, pdf_b):
@@ -50,10 +100,19 @@ def default_spp_per_pass(width, height, spp):
 @torch.no_grad()
 def render(scene, integrator, seed: int = 0, spp: int = 16,
            cfg: RenderConfig = RGB, spp_per_pass: int | None = None,
-           stats: dict | None = None):
+           stats: dict | None = None, regen: bool = False,
+           pixel_order: str = "scanline"):
     """Render `spp` samples per pixel in passes; returns [H, W, 3] on the
     scene's device. `stats`, when given, receives per-pass wall times
-    (each pass ends in a device synchronisation)."""
+    (each pass ends in a device synchronisation).
+
+    `regen=True` takes the integrator's regenerative wavefront
+    (`sample_regen`) where it has one and a pass holds at least 65,536
+    samples, on ceil(samples / 8) lanes: a lane whose path ends restarts on
+    its next sample instead of idling to the last bounce. Per-sample values
+    are those of the fixed-depth pass. `pixel_order="morton"` renders the
+    slots in Morton order and unscrambles the film at the end (the layout
+    the JAX package's mesh bench feeds `sample_regen`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     width, height = scene.sensor.resolution
@@ -61,14 +120,26 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
         spp_per_pass = default_spp_per_pass(width, height, spp)
     n_pass = (spp + spp_per_pass - 1) // spp_per_pass
     n = width * height * spp_per_pass
+    use_regen = (regen and hasattr(integrator, "sample_regen")
+                 and n >= 1 << 16)
+    regen_lanes = -(-n // 8)
     block = ImageBlock.create(width, height, cfg.n_channels, scene.device)
     base = Sampler.create(seed, n, device=scene.device)
-    pass_s = []
+    pass_s, regen_iterations = [], []
     for p in range(n_pass):
         t0 = time.perf_counter()
         sampler = base.fork(p)
-        ray, _ = sample_rays(scene, sampler, width, height, spp_per_pass)
-        values, valid = integrator.sample(scene, sampler, ray, cfg)
+        if use_regen:
+            info = {}
+            values = integrator.sample_regen(
+                scene, sampler.seed, width, height, spp_per_pass, cfg,
+                regen_lanes, pixel_order=pixel_order, stats=info)
+            valid = torch.ones((n,), dtype=torch.bool, device=scene.device)
+            regen_iterations.append(info["iterations"])
+        else:
+            ray, _ = sample_rays(scene, sampler, width, height, spp_per_pass,
+                                 pixel_order)
+            values, valid = integrator.sample(scene, sampler, ray, cfg)
         block.put_ordered(values, valid, spp_per_pass)
         if stats is not None:
             if scene.device.type == "cuda":
@@ -76,5 +147,11 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
             pass_s.append(time.perf_counter() - t0)
     if stats is not None:
         stats.update(pass_s=pass_s, n_pass=n_pass, spp_per_pass=spp_per_pass,
-                     lanes_per_pass=n)
+                     lanes_per_pass=regen_lanes if use_regen else n,
+                     regen_iterations=regen_iterations)
+    if pixel_order == "morton":
+        # slot order -> scanline order: pixel mp[j] was rendered in slot j
+        inv = np.empty(width * height, np.int64)
+        inv[morton_pixel_perm(width, height)] = np.arange(width * height)
+        block.data = block.data[torch.as_tensor(inv, device=scene.device)]
     return block.develop()

@@ -1,16 +1,17 @@
 """Path tracer with next-event estimation and MIS (RGB, unpolarized).
 
-The JAX package's `integrators/path.py::PathIntegrator.sample` as a loop
-over a fixed number of bounces: power-heuristic MIS between BSDF sampling
-and emitter sampling, a shadow ray on every bounce, Russian roulette from
-rr_depth. Every bounce runs for every lane, dead lanes included, as the
+The JAX package's `integrators/path.py::PathIntegrator`: power-heuristic
+MIS between BSDF sampling and emitter sampling, a shadow ray on every
+bounce, Russian roulette from rr_depth. `sample` loops over a fixed number
+of bounces; every bounce runs for every lane, dead lanes included, as the
 JAX scan does, so each intersection kernel launches exactly max_depth
-times per pass; a dead lane carries the canonical far-away ray (o = 1e8,
-d = +z), which misses every box.
+times per pass. `sample_regen` is the regenerative wavefront: fewer lanes
+than samples, each lane restarting on its next sample when its path ends,
+until no lane is live. A dead lane carries the canonical far-away ray
+(o = 1e8, d = +z), which misses every box.
 
 Not ported: the environment-emitter branch (a scene with a constant
-emitter is refused), the spectral and polarized variants, and the
-regenerative wavefront (`sample_regen`).
+emitter is refused), the spectral and polarized variants.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..librender import bsdfs
 from ..librender.bsdf import BSDFFlags
 from ..librender.records import DirectionSample, Ray
 from ..scene import emitters as em_mod
-from .common import mis_weight
+from .common import camera_rays_at, mis_weight
 from .plt import _offset
 
 
@@ -39,22 +40,9 @@ class PathIntegrator:
     def sample(self, scene, sampler: Sampler, ray: Ray,
                cfg: RenderConfig = RGB):
         """Radiance [N, C] of the camera rays, and the valid mask."""
-        if self.hide_emitters:
-            raise NotImplementedError("hide_emitters is not ported")
-        if em_mod.EMITTER_CONSTANT in scene.emitters.present_types:
-            raise NotImplementedError(
-                "environment emitters are not ported for the path tracer")
+        self._check_ported(scene)
         n, dev = ray.o.shape[0], ray.o.device
-        C = cfg.n_channels
-        carry = dict(
-            o=ray.o, d=ray.d, L=torch.zeros((n, C), device=dev),
-            beta=torch.ones((n, C), device=dev),
-            eta=torch.ones((n,), device=dev),
-            active=torch.ones((n,), dtype=torch.bool, device=dev),
-            prev_pdf=torch.ones((n,), device=dev),
-            # depth 0 counts as delta: no MIS against the camera
-            prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
-        )
+        carry = self._fresh_carry(ray, cfg.n_channels)
         far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
         for b in range(self.max_depth):
             carry = self._bounce_step(scene, sampler, cfg, carry, b)
@@ -63,10 +51,99 @@ class PathIntegrator:
             carry["d"] = torch.where(dead[..., None], far_d, carry["d"])
         return carry["L"], torch.ones((n,), dtype=torch.bool, device=dev)
 
+    def _check_ported(self, scene):
+        if self.hide_emitters:
+            raise NotImplementedError("hide_emitters is not ported")
+        if em_mod.EMITTER_CONSTANT in scene.emitters.present_types:
+            raise NotImplementedError(
+                "environment emitters are not ported for the path tracer")
+
+    @staticmethod
+    def _fresh_carry(ray: Ray, C: int) -> dict:
+        """The bounce carry of paths that start on `ray`."""
+        n, dev = ray.o.shape[0], ray.o.device
+        return dict(
+            o=ray.o, d=ray.d, L=torch.zeros((n, C), device=dev),
+            beta=torch.ones((n, C), device=dev),
+            eta=torch.ones((n,), device=dev),
+            active=torch.ones((n,), dtype=torch.bool, device=dev),
+            prev_pdf=torch.ones((n,), device=dev),
+            # depth 0 counts as delta: no MIS against the camera
+            prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
+        )
+
+    def sample_regen(self, scene, seed: int, width, height, spp_pass,
+                     cfg: RenderConfig, n_lanes: int,
+                     pixel_order: str = "scanline",
+                     stats: dict | None = None):
+        """Regenerative wavefront over the width x height x spp_pass samples
+        of one pass on `n_lanes` lanes.
+
+        Lane i renders sample ids i, i + N, i + 2N, ...: when its path ends
+        it banks the radiance and restarts on the next id below the total,
+        at depth 0 and without MIS against the camera; a lane with no
+        sample left turns into the dead ray. Every random number is the
+        hash of (seed, sample id, dim) that `sample` draws, so each
+        sample's value is that of the fixed-depth pass. The loop runs while
+        any lane is live, which costs one host synchronisation per
+        iteration; `stats["iterations"]` receives their count. Returns
+        values [width * height * spp_pass, C] in sample-id order."""
+        self._check_ported(scene)
+        dev = scene.device
+        total = width * height * spp_pass
+        N = int(n_lanes)
+        if N <= 0:
+            raise ValueError(f"n_lanes must be positive, got {N}")
+        Q = -(-total // N)
+        C = cfg.n_channels
+
+        def fresh(sid):
+            return camera_rays_at(scene, seed, sid, width, height, spp_pass,
+                                  pixel_order)[0]
+
+        sid = torch.arange(N, dtype=torch.int64, device=dev)
+        depth = torch.zeros((N,), dtype=torch.int64, device=dev)
+        carry = self._fresh_carry(fresh(sid), C)
+        # out[q * N + lane] is the sample that lane renders q-th
+        out = torch.zeros((Q * N, C), device=dev)
+        far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        iterations = 0
+        while bool(carry["active"].any()):
+            iterations += 1
+            was_active = carry["active"]
+            carry = self._bounce_step(scene, Sampler.from_lanes(seed, sid),
+                                      cfg, carry, depth)
+            finished = was_active & ~carry["active"]
+            # every sample id finishes once: one write per slot
+            out[sid[finished]] = carry["L"][finished]
+            more = finished & (sid + N < total)
+            sid = torch.where(more, sid + N, sid)
+            depth = torch.where(more, 0, depth + 1)
+            ray_f = fresh(sid)
+            alive = carry["active"] | more
+            m3, dead3 = more[..., None], ~alive[..., None]
+            carry = dict(
+                o=torch.where(dead3, 1e8,
+                              torch.where(m3, ray_f.o, carry["o"])),
+                d=torch.where(dead3, far_d,
+                              torch.where(m3, ray_f.d, carry["d"])),
+                L=torch.where(m3, 0.0, carry["L"]),
+                beta=torch.where(m3, 1.0, carry["beta"]),
+                eta=torch.where(more, 1.0, carry["eta"]),
+                active=alive,
+                prev_pdf=torch.where(more, 1.0, carry["prev_pdf"]),
+                prev_delta=more | carry["prev_delta"],
+            )
+        if stats is not None:
+            stats["iterations"] = iterations
+        return out[:total]
+
     def _bounce_step(self, scene, sampler: Sampler, cfg: RenderConfig,
-                     carry: dict, b: int) -> dict:
-        """One bounce over the whole wavefront; returns the carry with the
-        next ray (dead lanes still hold theirs: the caller replaces it)."""
+                     carry: dict, b) -> dict:
+        """One bounce over the whole wavefront; `b`, the depth, is an int
+        (`sample`) or an int64 tensor [N] (`sample_regen`). Returns the
+        carry with the next ray (dead lanes still hold theirs: the caller
+        replaces it)."""
         em = scene.emitters
         mats = scene.materials
         C = cfg.n_channels
@@ -132,14 +209,19 @@ class PathIntegrator:
         active_next = active_next & ok & (bs.pdf > 0) & (
             torch.amax(beta_next, dim=-1) > 0)
 
-        # Russian roulette
-        if b + 1 >= self.rr_depth:
+        # Russian roulette, on the lanes whose depth has reached rr_depth
+        rr_active = b + 1 >= self.rr_depth
+        if torch.is_tensor(rr_active) or rr_active:
             beta_max = torch.amax(beta_next, dim=-1) * eta_next * eta_next
             rr_prob = torch.clamp_max(beta_max, 0.95)
             u_rr = sampler.next_1d(bounce_dim(b, 6))
-            beta_next = beta_next * (
-                1.0 / torch.clamp_min(rr_prob, 1e-6))[..., None]
-            active_next = active_next & (u_rr < rr_prob)
+            rr_scale = 1.0 / torch.clamp_min(rr_prob, 1e-6)
+            rr_continue = u_rr < rr_prob
+            if torch.is_tensor(rr_active):
+                rr_scale = torch.where(rr_active, rr_scale, 1.0)
+                rr_continue = rr_continue | ~rr_active
+            beta_next = beta_next * rr_scale[..., None]
+            active_next = active_next & rr_continue
 
         is_delta = (bs.sampled_type & BSDFFlags.Delta) != 0
         live = active_next

@@ -12,6 +12,8 @@ def launch_counts() -> dict:
         "occluded_q": intersect.OCCLUDED_Q_LAUNCHES,
         "intersect_clu2": intersect.INTERSECT_CLU2_LAUNCHES,
         "occluded_clu2": intersect.OCCLUDED_CLU2_LAUNCHES,
+        "intersect_bvh": intersect.INTERSECT_BVH_LAUNCHES,
+        "occluded_bvh": intersect.OCCLUDED_BVH_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
     }
@@ -22,5 +24,7 @@ def reset_launch_counts() -> None:
     intersect.OCCLUDED_Q_LAUNCHES = 0
     intersect.INTERSECT_CLU2_LAUNCHES = 0
     intersect.OCCLUDED_CLU2_LAUNCHES = 0
+    intersect.INTERSECT_BVH_LAUNCHES = 0
+    intersect.OCCLUDED_BVH_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0

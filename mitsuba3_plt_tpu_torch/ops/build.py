@@ -18,7 +18,8 @@ import tempfile
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("intersect_q.cu", "intersect_clu2.cu", "grating.cu")
+SOURCES = ("intersect_q.cu", "intersect_clu2.cu", "intersect_bvh.cu",
+           "grating.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +33,8 @@ SIGNATURES = {
     "plt_occluded_q": [_P, _I, _P, _P, _P, _P, _I, _P, _P],
     "plt_intersect_clu2": [_P, _I] + [_P] * 6 + [_I] + [_P] * 5,
     "plt_occluded_clu2": [_P, _I] + [_P] * 6 + [_I, _P, _P],
+    "plt_intersect_bvh": [_P] * 5 + [_I] + [_P] * 5,
+    "plt_occluded_bvh": [_P] * 5 + [_I, _P, _P],
     "plt_grating_lobe_sum": [_P] * 11 + [_I, _I, _I, _I, _P, _P],
     "plt_grating_sample": [_P] * 11 + [_I, _I, _I] + [_P] * 7 + [_P],
 }

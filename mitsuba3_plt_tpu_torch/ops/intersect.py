@@ -1,6 +1,7 @@
 """Closest-hit and any-hit ray/triangle queries: brute force over the
-precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`) and the
-two-level treelet walk over a ClusterTable2 (`csrc/intersect_clu2.cu`),
+precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`), the
+two-level treelet walk over a ClusterTable2 (`csrc/intersect_clu2.cu`) and
+the per-ray skip-link walk over a PacketBVH (`csrc/intersect_bvh.cu`),
 their plain PyTorch versions, and the host-side q-table packer.
 
 Möller-Trumbore re-associated around per-triangle constants so the
@@ -21,6 +22,8 @@ INTERSECT_Q_LAUNCHES = 0
 OCCLUDED_Q_LAUNCHES = 0
 INTERSECT_CLU2_LAUNCHES = 0
 OCCLUDED_CLU2_LAUNCHES = 0
+INTERSECT_BVH_LAUNCHES = 0
+OCCLUDED_BVH_LAUNCHES = 0
 
 # Möller-Trumbore needs |det| above this to count a hit
 _DET_EPS = 1e-12
@@ -409,4 +412,168 @@ def occluded_clu2(ctab2, o, d, maxt):
         ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
         n, occ.data_ptr(), stream), "occluded_clu2")
     OCCLUDED_CLU2_LAUNCHES += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# per-ray skip-link walk (PacketBVH, scene/bvh.py::pack_packet_bvh)
+# ---------------------------------------------------------------------------
+
+def _check_bvh(name, pbvh, o, d, maxt):
+    dev, n = check_tensors(name, {
+        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
+        "maxt": (maxt, torch.float32, ()),
+        "nodes": (pbvh.nodes, torch.float32, None),
+        "tri": (pbvh.tri, torch.float32, None),
+    }, n=o.shape[0] if o.dim() == 2 else -1)
+    for arg in ("nodes", "tri"):
+        t = getattr(pbvh, arg)
+        if t.dim() != 2 or t.shape[1] != 16 or t.shape[0] == 0:
+            raise ValueError(f"{name}: {arg} must be [>0, 16], got "
+                             f"{tuple(t.shape)}")
+    return dev, n
+
+
+def _bvh_tri_terms(tr, o, d):
+    """(ok, t, u, v) of classic Moeller-Trumbore on table rows tr [L, 16]
+    (p0, e1, e2), every product and sum rounded on its own, left to right,
+    and the division folded into inv_det = [ok] / det."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tr[:, :9].unbind(-1)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = det.abs() > _DET_EPS
+    inv_det = torch.where(ok, 1.0, 0.0) / torch.where(ok, det, 1.0)
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    ok = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return ok, t, u, v
+
+
+def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
+    """The walk of both plain versions: one node index per lane, a loop
+    until every lane's index is -1. A lane tests a node's box against its
+    own best distance, runs an entered leaf's rows [first, first + count)
+    in order, and follows `first` (entered inner node) or `miss`. `counts`
+    (a dict, or None) accumulates the slab and triangle tests performed and
+    the loop's steps."""
+    n, dev = o.shape[0], o.device
+    mt = torch.where(torch.isfinite(maxt), maxt, _BIG)
+    inv = 1.0 / _signed_eps(d)
+    t_b = mt.clone()
+    prim_b = torch.full_like(mt, -1.0)
+    u_b = torch.zeros_like(mt)
+    v_b = torch.zeros_like(mt)
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if counts is not None:
+        for key in ("slab_tests", "triangle_tests", "steps"):
+            counts.setdefault(key, 0)
+    lanes = torch.arange(n, device=dev)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    while lanes.numel():
+        nd = pbvh.nodes[node]
+        o_l, inv_l = o[lanes], inv[lanes]
+        t0 = (nd[:, 0:3] - o_l) * inv_l
+        t1 = (nd[:, 3:6] - o_l) * inv_l
+        near = torch.minimum(t0, t1).amax(-1)
+        far = torch.maximum(t0, t1).amin(-1)
+        # an occluded lane has already left the walk
+        enter = (near <= far) & (far > 0.0) & (near < t_b[lanes])
+        first, count, miss = (nd[:, k].to(torch.int64) for k in (6, 7, 8))
+        leaf = count > 0
+        if counts is not None:
+            counts["slab_tests"] += lanes.numel()
+            counts["steps"] += 1
+        in_leaf = enter & leaf
+        l_k, f_k, c_k = lanes[in_leaf], first[in_leaf], count[in_leaf]
+        k = 0
+        while l_k.numel():
+            ok, t, u, v = _bvh_tri_terms(pbvh.tri[f_k + k], o[l_k], d[l_k])
+            hit = ok & (t < t_b[l_k])
+            if counts is not None:
+                counts["triangle_tests"] += l_k.numel()
+            sel = l_k[hit]
+            if any_hit:
+                occ[sel] = True
+            else:
+                t_b[sel] = t[hit]
+                u_b[sel] = u[hit]
+                v_b[sel] = v[hit]
+                prim_b[sel] = pbvh.tri[f_k[hit] + k, 9]
+            k += 1
+            # the any-hit lane stops at its first hit
+            go = (c_k > k) & ~hit if any_hit else c_k > k
+            l_k, f_k, c_k = l_k[go], f_k[go], c_k[go]
+        node = torch.where(enter & ~leaf, first, miss)
+        keep = (node >= 0) & ~occ[lanes] if any_hit else node >= 0
+        lanes, node = lanes[keep], node[keep]
+    return t_b, prim_b, u_b, v_b, occ
+
+
+def intersect_bvh_plain(pbvh, o, d, maxt, counts=None):
+    """Plain version of `intersect_bvh`: the kernel's walk and arithmetic in
+    the kernel's order (strict t < best, leaves in DFS order, so the first
+    of two equal hits wins)."""
+    t, prim_f, u, v, _ = _bvh_walk(pbvh, o, d, maxt, False, counts)
+    prim = prim_f.to(torch.int32)
+    return torch.where(prim >= 0, t, float("inf")), prim, u, v
+
+
+def occluded_bvh_plain(pbvh, o, d, maxt, counts=None):
+    """Plain version of `occluded_bvh`: a lane leaves the walk at its first
+    hit with 0 < t < maxt."""
+    return _bvh_walk(pbvh, o, d, maxt, True, counts)[4]
+
+
+def intersect_bvh(pbvh, o, d, maxt):
+    """Closest hit over a PacketBVH (scene/bvh.py), rays in world space.
+
+    o, d [N, 3], maxt [N] float32 on the tables' device. Returns (t [N],
+    prim [N] int32 face index (-1 on a miss), u [N], v [N]); on a miss t is
+    inf and u = v = 0. CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    global INTERSECT_BVH_LAUNCHES
+    dev, n = _check_bvh("intersect_bvh", pbvh, o, d, maxt)
+    if dev.type == "cpu":
+        return intersect_bvh_plain(pbvh, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_bvh(
+        pbvh.nodes.data_ptr(), pbvh.tri.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), stream), "intersect_bvh")
+    INTERSECT_BVH_LAUNCHES += 1
+    return t, prim, u, v
+
+
+def occluded_bvh(pbvh, o, d, maxt):
+    """Any hit with 0 < t < maxt over a PacketBVH: [N] bool."""
+    global OCCLUDED_BVH_LAUNCHES
+    dev, n = _check_bvh("occluded_bvh", pbvh, o, d, maxt)
+    if dev.type == "cpu":
+        return occluded_bvh_plain(pbvh, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_occluded_bvh(
+        pbvh.nodes.data_ptr(), pbvh.tri.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), stream),
+        "occluded_bvh")
+    OCCLUDED_BVH_LAUNCHES += 1
     return occ

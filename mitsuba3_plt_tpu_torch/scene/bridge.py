@@ -8,7 +8,8 @@ does the port's own preset, which builds the same dict with numpy alone.
 Leaves the port does not read (spectral curves, principled and nested
 material parameters, the skip-link BVH, area-emitter tables) are ignored;
 a scene that needs anything the port does not have is refused. A scene
-above 4096 faces needs its `ctab2.*` treelet tables.
+above 4096 faces needs its `ctab2.*` treelet tables or its `pbvh.*` packet
+tables.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR,
                               BSDF_ROUGH_GRATING, FIELDS, MaterialTable)
 from ..librender.sensor import Sensor
 from . import emitters as em
-from .bvh import ClusterTable2
+from .bvh import ClusterTable2, PacketBVH
 from .scene import BRUTE_FORCE_MAX_FACES, Geometry, Scene
 
 SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING)
@@ -29,8 +30,8 @@ SENSOR_PERSPECTIVE = 0
 # geometry, material and scene features of the JAX package that this slice
 # does not port: any leaf under these paths refuses the scene
 _REFUSED_PREFIXES = (
-    "geo.sph_", "geo.dsk_", "geo.cyl_", "geo.tri_mxu", "medium.", "pbvh.",
-    "ctab.", "sdfs", "materials.tex_", "materials.meas",
+    "geo.sph_", "geo.dsk_", "geo.cyl_", "geo.tri_mxu", "medium.", "ctab.",
+    "sdfs", "materials.tex_", "materials.meas",
     "materials.mpol", "materials.vtex_", "emitters.env_", "emitters.proj_",
     "sensor.srf",
 )
@@ -65,14 +66,17 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
     attr = np.asarray(arrays["geo.tri_attr"])
     if attr.shape[1] != 24:
         raise NotImplementedError("per-face tangents / vertex colours")
-    ctab2 = None
+    ctab2 = pbvh = None
     if "ctab2.rows" in arrays:
         ctab2 = ClusterTable2(**{name: t("ctab2." + name) for name in
                                  ("supers", "boxes", "rows", "anchor")})
-    elif attr.shape[0] > BRUTE_FORCE_MAX_FACES:
+    if "pbvh.nodes" in arrays:
+        pbvh = PacketBVH(nodes=t("pbvh.nodes"), tri=t("pbvh.tri"))
+    if (ctab2 is None and pbvh is None
+            and attr.shape[0] > BRUTE_FORCE_MAX_FACES):
         raise NotImplementedError(
-            f"{attr.shape[0]} faces without ctab2 tables: the port has no "
-            "other route for big meshes")
+            f"{attr.shape[0]} faces without ctab2 or pbvh tables: the port "
+            "has no other route for big meshes")
 
     geo = Geometry(tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
                    tri_attr=t("geo.tri_attr"))
@@ -95,4 +99,4 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
         resolution=tuple(int(x) for x in static["sensor.resolution"]),
     )
     return Scene(geo=geo, materials=mats, emitters=emitters, sensor=sensor,
-                 ctab2=ctab2)
+                 ctab2=ctab2, pbvh=pbvh)

@@ -1,4 +1,5 @@
-"""Host-side BVH and the two-level treelet tables of the clu2 kernels.
+"""Host-side BVH, the two-level treelet tables of the clu2 kernels and the
+packet tables of the skip-link BVH walk.
 
 `build_bvh` gives the SAH tree of the native builder in its flat skip-link
 layout (DFS pre-order):
@@ -9,7 +10,9 @@ layout (DFS pre-order):
   node_miss  [NN]     next node after the subtree, -1 at the end
 `pack_clusters2` cuts that tree into treelets of at most CLU2_MAX_LEAF
 triangles, groups CLU2_SUPER consecutive treelets under a super box, and
-packs the triangles 4 to a row (see ClusterTable2).
+packs the triangles 4 to a row (see ClusterTable2). `pack_packet_bvh`
+collapses every subtree of at most PACKET_LEAF triangles into one leaf
+and stores each leaf's triangles as contiguous rows (see PacketBVH).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from .native import build_bvh_native
 
 CLU2_SUPER = 16     # DFS-consecutive clusters per super box
 CLU2_MAX_LEAF = 64  # triangles per cluster at most
+PACKET_LEAF = 16    # triangles per PacketBVH leaf at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,3 +170,99 @@ def pack_clusters2(bvh: BVH, tri_p0, tri_p1, tri_p2,
     arrays = pack_clusters2_arrays(bvh, tri_p0, tri_p1, tri_p2)
     return ClusterTable2(**{k: torch.as_tensor(v, device=dev)
                             for k, v in arrays.items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class PacketBVH:
+    """Skip-link BVH with merged node rows and leaf-contiguous triangles, in
+    world coordinates (no anchor):
+
+    nodes [NN_pad, 16]: lo(3) hi(3) first count miss pad(7), DFS pre-order.
+      Inner node (count = 0): `first` is the left child (node + 1). Leaf:
+      its triangles are rows [first, first + count) of `tri`. `miss` is the
+      next node after the subtree, -1 at the end. first, count and miss are
+      exact as f32 (below 2^24).
+    tri [P_pad, 16]: p0(3) e1(3) e2(3) face index (as f32) pad(6), in leaf
+      DFS order.
+    Both are padded to a multiple of 8 rows; padding node rows have
+    miss = -1 and no node links to them.
+    """
+
+    nodes: torch.Tensor
+    tri: torch.Tensor
+
+
+def pack_packet_bvh_arrays(bvh: BVH, tri_p0, tri_p1, tri_p2) -> dict:
+    """The PacketBVH arrays as numpy: {"nodes", "tri"}. Any subtree holding
+    at most PACKET_LEAF triangles becomes one leaf."""
+    lo = np.asarray(bvh.node_lo, np.float32)
+    hi = np.asarray(bvh.node_hi, np.float32)
+    first = np.asarray(bvh.node_first, np.int32)
+    count = np.asarray(bvh.node_count, np.int32)
+    miss = np.asarray(bvh.node_miss, np.int32)
+    prim = np.asarray(bvh.prim_idx, np.int32)
+    p0 = np.asarray(tri_p0, np.float32)
+    p1 = np.asarray(tri_p1, np.float32)
+    p2 = np.asarray(tri_p2, np.float32)
+
+    nn = lo.shape[0]
+    # DFS pre-order with skip links: subtree(i) is the node range [i, end[i])
+    end = np.where(miss >= 0, miss, nn)
+    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
+    sub_prims = csum[end] - csum[np.arange(nn)]
+    make_leaf = (count > 0) | (sub_prims <= PACKET_LEAF)
+
+    # sizes of the collapsed subtrees (children sit at i + 1 and miss[i + 1])
+    new_size = np.ones(nn, np.int64)
+    for i in range(nn - 1, -1, -1):
+        if not make_leaf[i]:
+            left = i + 1
+            new_size[i] = 1 + new_size[left] + new_size[miss[left]]
+
+    n_new = int(new_size[0])
+    nodes = np.zeros((n_new + (-n_new) % 8, 16), np.float32)
+    nodes[:, 8] = -1.0
+    ids_list, n_rows, counter = [], 0, 0
+    stack = [(0, -1)]
+    while stack:
+        i, m = stack.pop()
+        ni = counter
+        counter += 1
+        nodes[ni, 0:3] = lo[i]
+        nodes[ni, 3:6] = hi[i]
+        nodes[ni, 8] = m
+        if make_leaf[i]:
+            seg = np.arange(i, end[i])
+            seg = seg[count[seg] > 0]
+            ids = (np.concatenate([prim[first[j]: first[j] + count[j]]
+                                   for j in seg])
+                   if len(seg) else np.zeros(0, np.int32))
+            nodes[ni, 6] = n_rows
+            nodes[ni, 7] = len(ids)
+            ids_list.append(ids)
+            n_rows += len(ids)
+        else:
+            left = i + 1
+            nodes[ni, 6] = ni + 1
+            stack.append((miss[left], m))
+            stack.append((left, ni + 1 + int(new_size[left])))
+
+    if n_rows == 0:
+        raise ValueError("pack_packet_bvh: the BVH holds no triangles")
+    ids = np.concatenate(ids_list)
+    tri = np.zeros((n_rows + (-n_rows) % 8, 16), np.float32)
+    tri[:n_rows, 0:3] = p0[ids]
+    tri[:n_rows, 3:6] = p1[ids] - p0[ids]
+    tri[:n_rows, 6:9] = p2[ids] - p0[ids]
+    tri[:n_rows, 9] = ids
+    return {"nodes": nodes, "tri": tri}
+
+
+def pack_packet_bvh(bvh: BVH, tri_p0, tri_p1, tri_p2,
+                    device="cuda") -> PacketBVH:
+    """PacketBVH of the triangles (p0, p1, p2) [F, 3] from `bvh`, as float32
+    tensors on `device`."""
+    dev = resolve_device(device)
+    arrays = pack_packet_bvh_arrays(bvh, tri_p0, tri_p1, tri_p2)
+    return PacketBVH(**{k: torch.as_tensor(v, device=dev)
+                        for k, v in arrays.items()})

@@ -19,7 +19,7 @@ from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_GRATING, BSDFFlags,
 from ..ops.intersect import pack_tri_q
 from . import emitters as em
 from .bridge import scene_from_arrays
-from .bvh import build_bvh, pack_clusters2_arrays
+from .bvh import build_bvh, pack_clusters2_arrays, pack_packet_bvh_arrays
 from .scene import BRUTE_FORCE_MAX_FACES
 from .shape import make_sphere
 
@@ -199,12 +199,16 @@ def grating_scene(width: int = 256, height: int = 256, *, device="cuda",
     return scene_from_arrays(arrays, static, device=device)
 
 
-def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6):
+def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6,
+                      accel: str = "clu2"):
     """The (arrays, static) pair of `mesh_scene`, numpy only: the unit
-    icosphere of `subdiv` (20 * 4**subdiv faces, smooth normals), its
-    ClusterTable2 when it has more than BRUTE_FORCE_MAX_FACES faces, one
+    icosphere of `subdiv` (20 * 4**subdiv faces, smooth normals), one
     diffuse material of reflectance 0.7, one point light of intensity 40 at
-    (2, 2, 3), and a 45-degree camera at (0, 0, 4) looking at the origin."""
+    (2, 2, 3), and a 45-degree camera at (0, 0, 4) looking at the origin.
+    Above BRUTE_FORCE_MAX_FACES faces it carries the tables of `accel`: its
+    ClusterTable2 ("clu2") or, in their place, its PacketBVH ("packet")."""
+    if accel not in ("clu2", "packet"):
+        raise ValueError(f"accel must be 'clu2' or 'packet', got {accel!r}")
     mesh = make_sphere(subdiv)
     v, f = mesh.vertices, mesh.faces
     # renormalised in float32, as the JAX loader does for every mesh
@@ -213,9 +217,10 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6):
     uv = np.zeros((len(v), 2), np.float32)
     geo, radius = _geometry([(v, f, n, uv)], [0], [-1])
     if len(f) > BRUTE_FORCE_MAX_FACES:
-        tables = pack_clusters2_arrays(build_bvh(v, f), v[f[:, 0]],
-                                       v[f[:, 1]], v[f[:, 2]])
-        geo.update({"ctab2." + k: x for k, x in tables.items()})
+        pack, prefix = ((pack_clusters2_arrays, "ctab2.") if accel == "clu2"
+                        else (pack_packet_bvh_arrays, "pbvh."))
+        tables = pack(build_bvh(v, f), v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
+        geo.update({prefix + k: x for k, x in tables.items()})
     mats, mat_static = _materials([(BSDF_DIFFUSE,
                                     {"base_color": (0.7, 0.7, 0.7)})])
     ems, em_static = _emitters([{"type": "point",
@@ -228,8 +233,9 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6):
 
 
 def mesh_scene(width: int = 512, height: int = 512, subdiv: int = 6, *,
-               device="cuda"):
+               accel: str = "clu2", device="cuda"):
     """The mesh scene on `device` (the configuration of the JAX package's
-    mesh82k bench at subdiv 6, of its mesh20k golden at subdiv 5)."""
-    arrays, static = mesh_scene_arrays(width, height, subdiv)
+    mesh82k bench at subdiv 6, of its mesh20k golden at subdiv 5), routed
+    to the clu2 kernels or, with accel="packet", to the packet-BVH walk."""
+    arrays, static = mesh_scene_arrays(width, height, subdiv, accel)
     return scene_from_arrays(arrays, static, device=device)

@@ -1,8 +1,10 @@
 """Scene: triangle tables, materials, emitters and sensor as tensors, with
 ray_intersect building SurfaceInteraction records and ray_test answering
-shadow rays. Routing is by face count alone: up to 4096 triangles every
-ray goes to the brute-force q kernels, above that to the two-level treelet
-(clu2) kernels over the scene's ClusterTable2 (`ops/intersect.py`)."""
+shadow rays. Routing is by face count and the tables the scene holds: up
+to 4096 triangles every ray goes to the brute-force q kernels; above that
+to the two-level treelet (clu2) kernels over the scene's ClusterTable2 or,
+where it has none, to the skip-link walk over its PacketBVH on rays sorted
+for coherence (`ops/intersect.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +17,7 @@ from ..librender.bsdf import MaterialTable
 from ..librender.records import Ray, SurfaceInteraction
 from ..librender.sensor import Sensor
 from ..ops import intersect as isect
-from .bvh import ClusterTable2
+from .bvh import ClusterTable2, PacketBVH
 from .emitters import EmitterTable
 
 BRUTE_FORCE_MAX_FACES = 4096
@@ -43,27 +45,70 @@ class Scene:
     emitters: EmitterTable
     sensor: Sensor
     ctab2: Optional[ClusterTable2] = None  # treelet tables of big meshes
+    pbvh: Optional[PacketBVH] = None  # packet tables of big meshes
 
     @property
     def device(self) -> torch.device:
         return self.geo.tri_q.device
 
     def intersect_route(self) -> str:
-        """"brute" (q kernels) up to BRUTE_FORCE_MAX_FACES faces, "clu2"
-        above; a big mesh without a ClusterTable2 raises."""
+        """"brute" (q kernels) up to BRUTE_FORCE_MAX_FACES faces; above,
+        "clu2" where the scene has a ClusterTable2, else "packet" where it
+        has a PacketBVH; a big mesh with neither raises."""
         if self.geo.n_faces <= BRUTE_FORCE_MAX_FACES:
             return "brute"
-        if self.ctab2 is None:
-            raise ValueError(f"{self.geo.n_faces} faces need the clu2 route, "
-                             "but the scene has no ClusterTable2")
-        return "clu2"
+        if self.ctab2 is not None:
+            return "clu2"
+        if self.pbvh is not None:
+            return "packet"
+        raise ValueError(f"{self.geo.n_faces} faces need the clu2 or the "
+                         "packet route, but the scene has no ClusterTable2 "
+                         "and no PacketBVH")
+
+    def _packet_perm(self, o, d):
+        """Coherence sort for the packet route: (perm, inverse) of the rays
+        ordered by direction octant, then the 8^3 Morton cell of the origin
+        in the root box, then the 64^3 Morton cell of the direction. The
+        sort is stable, so equal keys keep lane order."""
+        lo, hi = self.pbvh.nodes[0, 0:3], self.pbvh.nodes[0, 3:6]
+        rel = torch.clamp((o - lo) / torch.clamp_min(hi - lo, 1e-9),
+                          0.0, 0.999)
+        cell = (rel * 8.0).to(torch.int64)
+
+        def spread3(x):  # 3 bits -> every third bit
+            x = (x | (x << 4)) & 0x0C3
+            return (x | (x << 2)) & 0x249
+
+        def spread6(x):  # 6 bits -> every third bit
+            x = (x | (x << 8)) & 0x00F00F
+            x = (x | (x << 4)) & 0x0C30C3
+            return (x | (x << 2)) & 0x249249
+
+        morton = (spread3(cell[:, 0]) | (spread3(cell[:, 1]) << 1)
+                  | (spread3(cell[:, 2]) << 2))
+        neg = (d < 0).to(torch.int64)
+        octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+        dcell = torch.clamp((d * 0.5 + 0.5) * 64.0, 0.0,
+                            63.999).to(torch.int64)
+        dmorton = (spread6(dcell[:, 0]) | (spread6(dcell[:, 1]) << 1)
+                   | (spread6(dcell[:, 2]) << 2))
+        key = (octant << 27) | (morton << 18) | dmorton
+        perm = torch.argsort(key, stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return perm, inv
 
     def ray_intersect(self, ray: Ray) -> SurfaceInteraction:
         """Closest hit -> SurfaceInteraction (wi in the shading frame)."""
         geo = self.geo
-        if self.intersect_route() == "clu2":
+        route = self.intersect_route()
+        if route == "clu2":
             t, prim, u, v = isect.intersect_clu2(self.ctab2, ray.o, ray.d,
                                                  ray.maxt)
+        elif route == "packet":
+            perm, inv = self._packet_perm(ray.o, ray.d)
+            t, prim, u, v = (x[inv] for x in isect.intersect_bvh(
+                self.pbvh, ray.o[perm], ray.d[perm], ray.maxt[perm]))
         else:
             t, prim, u, v = isect.intersect_q(
                 geo.tri_q, geo.tri_anchor, ray.o, ray.d, ray.maxt,
@@ -95,7 +140,12 @@ class Scene:
     def ray_test(self, ray: Ray) -> torch.Tensor:
         """Shadow-ray occlusion (True = occluded)."""
         geo = self.geo
-        if self.intersect_route() == "clu2":
+        route = self.intersect_route()
+        if route == "clu2":
             return isect.occluded_clu2(self.ctab2, ray.o, ray.d, ray.maxt)
+        if route == "packet":
+            perm, inv = self._packet_perm(ray.o, ray.d)
+            return isect.occluded_bvh(self.pbvh, ray.o[perm], ray.d[perm],
+                                      ray.maxt[perm])[inv]
         return isect.occluded_q(geo.tri_q, geo.tri_anchor, ray.o, ray.d,
                                 ray.maxt, n_tris=geo.n_faces)

@@ -110,6 +110,7 @@ def test_render_launches_each_kernel_once_per_bounce(card):
     assert img.device.type == "cuda" and torch.isfinite(img).all()
     assert ops.launch_counts() == {"intersect_q": 8, "occluded_q": 8,
                                    "intersect_clu2": 0, "occluded_clu2": 0,
+                                   "intersect_bvh": 0, "occluded_bvh": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8}
 
 
@@ -183,4 +184,64 @@ def test_path_render_launches_clu2_once_per_bounce(card):
     assert img.mean() > 0
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
                                    "intersect_clu2": 8, "occluded_clu2": 8,
+                                   "intersect_bvh": 0, "occluded_bvh": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
+
+
+def test_bvh_kernels_match_plain(card):
+    """B7 against its plain walk, to the bit: camera, bounce-like and shadow
+    rays, unsorted and through the route's coherence sort."""
+    from mitsuba3_plt_tpu_torch.librender.records import Ray
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    scene = mesh_scene(64, 48, subdiv=5, accel="packet", device=card)
+    assert scene.intersect_route() == "packet"
+    pb = scene.pbvh
+    cam, bounce, shadow = _mesh_rays(scene, np.random.default_rng(3), card)
+    # the camera rays once more with a finite maxt past the near surface
+    for o, d, mt in (cam, bounce, (cam[0], cam[1],
+                                   torch.full_like(cam[2], 3.5))):
+        got = isect.intersect_bvh(pb, o, d, mt)
+        want = isect.intersect_bvh_plain(pb, o, d, mt)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        for k in (0, 2, 3):  # t, u, v
+            assert torch.equal(got[k], want[k])
+    assert (got[1] >= 0).float().mean() > 0.1
+    for o, d, mt in (shadow, (cam[0], cam[1], torch.full_like(cam[2], 5.))):
+        occ = isect.occluded_bvh(pb, o, d, mt)
+        assert torch.equal(occ, isect.occluded_bvh_plain(pb, o, d, mt))
+        assert 0.05 < occ.float().mean() < 0.95
+    # the route sorts, launches and unsorts
+    si = scene.ray_intersect(Ray.create(cam[0], cam[1]))
+    assert torch.equal(si.prim_idx, isect.intersect_bvh(pb, *cam)[1])
+    o, d, mt = shadow
+    assert torch.equal(scene.ray_test(Ray(o=o, d=d, maxt=mt)),
+                       isect.occluded_bvh(pb, o, d, mt))
+
+
+def test_regen_render_launches_bvh_once_per_iteration(card):
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    scene = mesh_scene(128, 128, subdiv=5, accel="packet", device=card)
+    integ = PathIntegrator(max_depth=4, rr_depth=3)
+    ops.reset_launch_counts()
+    stats = {}
+    img = render(scene, integ, seed=2, spp=8, spp_per_pass=4, regen=True,
+                 pixel_order="morton", stats=stats)
+    torch.cuda.synchronize()
+    assert stats["lanes_per_pass"] == 128 * 128 * 4 // 8
+    iters = sum(stats["regen_iterations"])
+    assert len(stats["regen_iterations"]) == 2 and iters >= 2 * 8
+    counts = ops.launch_counts()
+    assert counts.pop("intersect_bvh") == iters
+    assert counts.pop("occluded_bvh") == iters
+    assert not any(counts.values())
+    assert img.device.type == "cuda" and torch.isfinite(img).all()
+    fixed = render(scene, integ, seed=2, spp=8, spp_per_pass=4,
+                   pixel_order="morton")
+    torch.testing.assert_close(img, fixed, rtol=2e-5, atol=2e-6)

@@ -42,8 +42,12 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
-    assert sorted(os.listdir(csrc)) == ["grating.cu", "intersect_clu2.cu",
-                                        "intersect_q.cu"]
+    assert sorted(os.listdir(csrc)) == ["grating.cu", "intersect_bvh.cu",
+                                        "intersect_clu2.cu", "intersect_q.cu"]
+    from mitsuba3_plt_tpu_torch.ops import build
+
+    assert sorted(build.SOURCES) == sorted(os.listdir(csrc))
+    assert {"plt_intersect_bvh", "plt_occluded_bvh"} <= set(build.SIGNATURES)
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
 
 
@@ -98,4 +102,5 @@ def test_launch_counters_stay_zero_on_the_cpu():
            spp=1)
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
                                    "intersect_clu2": 0, "occluded_clu2": 0,
+                                   "intersect_bvh": 0, "occluded_bvh": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}

@@ -1,0 +1,327 @@
+"""The packet-BVH route of the port against the JAX package (CPU): the
+packet tables, the plain skip-link walk against the Pallas packet kernels in
+interpret mode, against the brute-force oracle and against the port's clu2
+walk, the coherence sort, the bridge's `pbvh.*` leaves and the routing."""
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mitsuba3_plt_tpu.ops.intersect_pallas import (
+    pallas_bvh_intersect, pallas_bvh_occluded,
+)
+from mitsuba3_plt_tpu.scene import shape as jshape
+from mitsuba3_plt_tpu.scene.bvh import build_bvh as j_build_bvh
+from mitsuba3_plt_tpu.scene.bvh import pack_packet_bvh as j_pack_packet_bvh
+from mitsuba3_plt_tpu.scene.intersect import brute_force_intersect
+from mitsuba3_plt_tpu_torch import ops
+from mitsuba3_plt_tpu_torch.librender.records import Ray
+from mitsuba3_plt_tpu_torch.ops import intersect as tisect
+from mitsuba3_plt_tpu_torch.scene import presets as tpresets
+from mitsuba3_plt_tpu_torch.scene.bridge import scene_from_arrays
+from mitsuba3_plt_tpu_torch.scene.bvh import (
+    build_bvh, pack_clusters2, pack_packet_bvh,
+)
+from test_torch_mesh import _mesh_of, _soup, jax_mesh_scene
+from test_torch_scene import jax_scene_arrays
+
+
+def _sphere4():
+    m = jshape.make_sphere(subdiv=4)  # 5,120 faces
+    v, f = np.asarray(m.vertices), np.asarray(m.faces)
+    return [v[f[:, c]] for c in range(3)]
+
+
+@pytest.fixture(scope="module")
+def tables():
+    """{name: (p, JAX PacketBVH, port PacketBVH)}: the 5,120-face sphere of
+    tests/test_bvh_pallas.py, the three spheres over a plane, and the sphere
+    whose every face appears twice (every hit an exact tie)."""
+    out = {}
+    for name in ("sphere4", "spheres", "twins"):
+        p = _sphere4() if name == "sphere4" else _soup(name)
+        verts, faces = _mesh_of(p)
+        jpb = j_pack_packet_bvh(j_build_bvh(verts, faces), *p)
+        tpb = pack_packet_bvh(build_bvh(verts, faces), *p, device="cpu")
+        out[name] = (p, jpb, tpb)
+    return out
+
+
+def _rays(n, seed=0):
+    """The rays of tests/test_bvh_pallas.py::_rays: origins on the sphere of
+    radius 3, half aimed near the centre, half in random directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 3.0
+    target = rng.normal(size=(n, 3)).astype(np.float32) * 0.4
+    d = target - o
+    d[n // 2:] = rng.normal(size=(n - n // 2, 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def _t(*xs):
+    return tuple(torch.as_tensor(x) for x in xs)
+
+
+def _j(*xs):
+    return tuple(jnp.asarray(x) for x in xs)
+
+
+@pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
+def test_pack_packet_bvh_bit_identical(tables, name):
+    _, jpb, tpb = tables[name]
+    for field in ("nodes", "tri"):
+        got = getattr(tpb, field)
+        assert got.dtype == torch.float32, field
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(jpb, field)),
+                                      err_msg=field)
+    assert tpb.nodes.shape[0] % 8 == 0 and tpb.tri.shape[0] % 8 == 0
+    if name == "sphere4":
+        assert tuple(tpb.tri.shape) == (5120, 16)
+    # leaves hold at most 16 triangles and tile the rows in order
+    nd = tpb.nodes.numpy()
+    leaves = nd[nd[:, 7] > 0]
+    assert leaves[:, 7].max() <= 16
+    np.testing.assert_array_equal(np.cumsum(leaves[:, 7])[:-1],
+                                  leaves[1:, 6])
+
+
+@pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
+def test_intersect_bvh_plain_matches_jax_kernel(tables, name):
+    _, jpb, tpb = tables[name]
+    o, d = _rays(1024, seed=len(name))
+    if name == "spheres":
+        o[:, 0] *= 2.0  # spread the origins over the three spheres
+    mt = np.full(1024, np.inf, np.float32)
+    jt, jp, ju, jv = map(np.asarray, pallas_bvh_intersect(
+        jpb, *_j(o, d, mt), interpret=True))
+    t, p, u, v = (x.numpy() for x in tisect.intersect_bvh(tpb, *_t(o, d, mt)))
+    assert p.dtype == np.int32
+    # the tolerances of tests/test_bvh_pallas.py: equal hit masks, prim
+    # equal or tied, t at rtol 1e-4 / atol 1e-5, u and v at rtol 1e-3 /
+    # atol 1e-4
+    hit = p >= 0
+    np.testing.assert_array_equal(hit, jp >= 0)
+    assert 0.2 < hit.mean() < 0.9
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=1e-4, atol=1e-5)
+    same = p == jp
+    assert np.all(same | np.isclose(t, jt, rtol=1e-4, atol=1e-5))
+    # ties included, the first triangle in leaf order wins in both
+    assert same.mean() >= 0.999, same.mean()
+    np.testing.assert_allclose(u[same], ju[same], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(v[same], jv[same], rtol=1e-3, atol=1e-4)
+    assert np.all(np.isinf(t[~hit])) and np.all(u[~hit] == 0)
+
+
+def test_intersect_bvh_plain_matches_oracle_and_clu2(tables):
+    """Per-ray gating against the brute-force oracle of the JAX package and
+    against the port's clu2 walk on the same mesh: 1,024 rays with equal hit
+    masks (the JAX test's demand of its kernel), and 8,192 rays on which the
+    share of lanes that differ is stated."""
+    p, _, tpb = tables["sphere4"]
+    verts, faces = _mesh_of(p)
+    ct = pack_clusters2(build_bvh(verts, faces), *p, device="cpu")
+    for n, seed in ((1024, 0), (8192, 5)):
+        o, d = _rays(n, seed)
+        mt = np.full(n, np.inf, np.float32)
+        rt, rp, ru, _ = map(np.asarray, brute_force_intersect(
+            *_j(*p), *_j(o, d, mt)))
+        t, prim, u, _ = (x.numpy() for x in tisect.intersect_bvh_plain(
+            tpb, *_t(o, d, mt)))
+        ct_t, ct_p, _, _ = (x.numpy() for x in tisect.intersect_clu2_plain(
+            ct, *_t(o, d, mt)))
+        hit = prim >= 0
+        differ = (hit != (rp >= 0)).mean()
+        print(f"{n} rays: hit mask differs from the oracle on {differ:.6f}, "
+              f"from clu2 on {(hit != (ct_p >= 0)).mean():.6f} of lanes")
+        # measured: 0 of 1,024 and 0 of 8,192 lanes differ
+        assert differ == 0.0
+        np.testing.assert_array_equal(hit, ct_p >= 0)
+        np.testing.assert_allclose(t[hit], rt[hit], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t[hit], ct_t[hit], rtol=1e-4, atol=1e-5)
+        same = prim == rp
+        assert np.all(same | np.isclose(t, rt, rtol=1e-4, atol=1e-5))
+        np.testing.assert_allclose(u[same & hit], ru[same & hit],
+                                   rtol=1e-3, atol=1e-4)
+        assert (prim == ct_p).mean() >= 0.999
+
+
+def test_bvh_maxt(tables):
+    """Segments that end before the sphere miss; an infinite maxt is carried
+    as a finite bound and a miss returns t = inf, prim = -1."""
+    _, jpb, tpb = tables["sphere4"]
+    o, d = _rays(256, seed=1)
+    mt = np.full(256, 0.5, np.float32)  # the surface is >= 2 from |o| = 3
+    t, prim, u, v = tisect.intersect_bvh(tpb, *_t(o, d, mt))
+    assert (prim == -1).all() and torch.isinf(t).all()
+    assert (u == 0).all() and (v == 0).all()
+    assert not tisect.occluded_bvh(tpb, *_t(o, d, mt)).any()
+    jp = np.asarray(pallas_bvh_intersect(jpb, *_j(o, d, mt),
+                                         interpret=True)[1])
+    assert (jp == -1).all()
+
+
+@pytest.mark.parametrize("name", ["sphere4", "spheres"])
+def test_occluded_bvh_plain_matches_jax_kernel(tables, name):
+    _, jpb, tpb = tables[name]
+    o, d = _rays(1024, seed=2)
+    t0 = tisect.intersect_bvh(tpb, *_t(o, d, np.full(1024, np.inf,
+                                                      np.float32)))[0].numpy()
+    rng = np.random.default_rng(11)
+    # segments ending just short of / past the closest hit, random ones,
+    # infinite and empty ones
+    frac = rng.choice([0.95, 1.05], 1024)
+    mt = np.where(np.isfinite(t0), t0 * frac, rng.uniform(0, 9, 1024))
+    mt[::13] = np.inf
+    mt[5::17] = 0.0
+    mt = mt.astype(np.float32)
+    want = np.asarray(pallas_bvh_occluded(jpb, *_j(o, d, mt),
+                                          interpret=True))
+    counts, full = {}, {}
+    got = tisect.occluded_bvh_plain(tpb, *_t(o, d, mt), counts=counts).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0.1 < got.mean() < 0.9
+    # the any-hit walk stops at the first hit: fewer tests than closest hit
+    tisect.intersect_bvh_plain(tpb, *_t(o, d, mt), counts=full)
+    assert 0 < counts["triangle_tests"] < full["triangle_tests"]
+    assert 1024 <= counts["slab_tests"] < full["slab_tests"]
+
+
+def test_bvh_dead_lane_convention(tables):
+    """The canonical dead ray (o = 1e8, d = +z) fails the root's slab test:
+    one box test per lane and no triangle test."""
+    _, _, tpb = tables["sphere4"]
+    n = 256
+    o = torch.full((n, 3), 1e8)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(n, 1)
+    counts = {}
+    t, p, _, _ = tisect.intersect_bvh_plain(
+        tpb, o, d, torch.full((n,), float("inf")), counts=counts)
+    assert (p == -1).all() and torch.isinf(t).all()
+    assert counts == {"slab_tests": n, "triangle_tests": 0, "steps": 1}
+    assert not tisect.occluded_bvh(tpb, o, d, torch.zeros(n)).any()
+
+
+def test_bvh_wrappers_check_arguments(tables):
+    _, _, tpb = tables["sphere4"]
+    o, d, mt = torch.zeros((5, 3)), torch.ones((5, 3)), torch.ones(5)
+    with pytest.raises(TypeError):
+        tisect.intersect_bvh(tpb, o.double(), d, mt)
+    with pytest.raises(ValueError):
+        tisect.occluded_bvh(tpb, o, d[:4], mt)
+    with pytest.raises(ValueError):
+        tisect.intersect_bvh(
+            dataclasses.replace(tpb, tri=tpb.tri[:, :8].contiguous()),
+            o, d, mt)
+    with pytest.raises(ValueError):
+        tisect.occluded_bvh(
+            dataclasses.replace(tpb, nodes=tpb.nodes[:0]), o, d, mt)
+
+
+def _mixed_rays(scene, seed):
+    """Camera rays, rays between random points around the sphere, and dead
+    lanes, in one wavefront."""
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+
+    W, H = scene.sensor.resolution
+    cam, _ = sample_rays(scene, Sampler.create(seed, W * H, device="cpu"),
+                         W, H, 1)
+    rng = np.random.default_rng(seed)
+    n = W * H
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o[::7] = 1e8
+    d[::7] = (0.0, 0.0, 1.0)
+    return (np.concatenate([cam.o.numpy(), o]),
+            np.concatenate([cam.d.numpy(), d]))
+
+
+@pytest.fixture(scope="module")
+def packet_scenes():
+    """(JAX mesh scene with a PacketBVH in place of its treelet tables, the
+    way the JAX package's tools build it; the port's packet preset)."""
+    js = jax_mesh_scene(16, 16, 5)
+    g = js.geo
+    jpb = j_pack_packet_bvh(js.bvh, g.tri_p0, g.tri_p1, g.tri_p2)
+    js = dataclasses.replace(js, ctab2=None, pbvh=jpb)
+    return js, tpresets.mesh_scene(16, 16, 5, accel="packet", device="cpu")
+
+
+def test_packet_perm_matches_jax(packet_scenes):
+    js, ts = packet_scenes
+    o, d = _mixed_rays(ts, seed=3)
+    jperm, jinv = map(np.asarray, js._packet_perm(*_j(o, d)))
+    perm, inv = ts._packet_perm(*_t(o, d))
+    assert perm.dtype == torch.int64
+    np.testing.assert_array_equal(perm.numpy(), jperm)
+    np.testing.assert_array_equal(inv.numpy(), jinv)
+    np.testing.assert_array_equal(perm[inv].numpy(), np.arange(len(o)))
+    # it is a sort: many lanes move
+    assert (perm.numpy() != np.arange(len(o))).mean() > 0.5
+
+
+def test_bridge_takes_pbvh_leaves(packet_scenes):
+    js, port = packet_scenes
+    arrays, static = jax_scene_arrays(js)
+    assert "pbvh.nodes" in arrays and "ctab2.rows" not in arrays
+    bridged = scene_from_arrays(arrays, static, device="cpu")
+    assert bridged.ctab2 is None and port.ctab2 is None
+    for field in ("nodes", "tri"):
+        got = getattr(port.pbvh, field)
+        np.testing.assert_array_equal(got.numpy(), arrays["pbvh." + field])
+        np.testing.assert_array_equal(
+            got.numpy(), getattr(bridged.pbvh, field).numpy())
+    # a big mesh with neither table is refused
+    bare = {k: v for k, v in arrays.items() if not k.startswith("pbvh.")}
+    with pytest.raises(NotImplementedError, match="ctab2"):
+        scene_from_arrays(bare, static, device="cpu")
+    with pytest.raises(ValueError, match="accel"):
+        tpresets.mesh_scene_arrays(8, 8, 5, accel="bvh")
+
+
+def test_packet_route_sorts_and_unsorts(packet_scenes):
+    """The route's output is that of the unsorted call (rays are
+    independent), and the scene's other records follow from it."""
+    _, ts = packet_scenes
+    assert ts.intersect_route() == "packet"
+    clu2 = tpresets.mesh_scene(16, 16, 5, device="cpu")
+    assert clu2.intersect_route() == "clu2" and clu2.pbvh is None
+    o, d = _mixed_rays(ts, seed=4)
+    ray = Ray.create(*_t(o, d))
+    ops.reset_launch_counts()
+    si = ts.ray_intersect(ray)
+    t, prim, _, _ = tisect.intersect_bvh(ts.pbvh, ray.o, ray.d, ray.maxt)
+    np.testing.assert_array_equal(si.prim_idx.numpy(), prim.numpy())
+    np.testing.assert_array_equal(si.t.numpy(), t.numpy())
+    assert 0.2 < si.valid.float().mean() < 0.9
+    si2 = clu2.ray_intersect(ray)
+    assert (si.prim_idx == si2.prim_idx).float().mean() >= 0.999
+    np.testing.assert_array_equal(si.valid.numpy(), si2.valid.numpy())
+    mt = torch.where(si.valid, si.t * 1.05, 2.0)
+    mt[::3] = 0.5
+    sray = Ray(o=ray.o, d=ray.d, maxt=mt)
+    occ = ts.ray_test(sray)
+    np.testing.assert_array_equal(
+        occ.numpy(),
+        tisect.occluded_bvh(ts.pbvh, sray.o, sray.d, sray.maxt).numpy())
+    np.testing.assert_array_equal(occ.numpy(), clu2.ray_test(sray).numpy())
+    assert 0.1 < occ.float().mean() < 0.9
+    # on the CPU the plain versions ran: no launch is counted
+    assert ops.launch_counts()["intersect_bvh"] == 0
+    assert ops.launch_counts()["occluded_bvh"] == 0
+
+
+def test_packet_entry_points_need_a_card_unless_asked_for_the_cpu(tables):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpresets.mesh_scene(8, 8, 2, accel="packet")
+    p, _, _ = tables["sphere4"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pack_packet_bvh(build_bvh(*_mesh_of(p)), *p)
