@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py            # one card, ~2 min with the build
 
-Three paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth path
-tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), and the
+Five paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth path
+tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
-packet-BVH route (B7a, B7b). Phases, each printing one JSON line with its
-seconds:
+packet-BVH route (B7a, B7b), the intersection bench tool
+(`mitsuba3_plt_tpu_torch/tools/bench_isect.py`: B1, B2, B7a and the brute
+forces B8a, B8b, B9 on the Cornell box's rays and on a 5,120-face
+icosphere), and the path tracer on the Cornell box (B1, B2, area light).
+Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
                   started together), with nvcc's register report;
+  cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
+                  area light's tables;
   kernels         each kernel against its plain PyTorch version on the
                   card, at the main paths' lane counts, with the tolerance
                   stated, timed with CUDA events (10 back-to-back calls,
@@ -18,13 +23,23 @@ seconds:
                   set). B7 runs on the five mesh82k ray sets of B5/B6 at
                   1,048,576 lanes, unsorted and sorted by the route's
                   coherence sort, whose own time is printed, and on the
-                  131,072-lane wavefront the regenerative path gives it;
+                  131,072-lane wavefront the regenerative path gives it.
+                  B8a, B8b and B9 run on the tool's coherent and incoherent
+                  sets of the Cornell box and of the 5,120-face icosphere at
+                  1,048,576 lanes, held to their plain versions on all the
+                  box's lanes and on the icosphere's first 131,072 (B8 to
+                  the bit, B9 within its tolerance);
+  isect-tool      bench_isect.run on both scenes: one row per route and ray
+                  set (ms, M rays/s, agreement with brute-classic), and the
+                  launches of one run on one set;
   golden          grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
                   4 seeds x 12 spp, Sidak z-test against tests/golden/
                   grating_plt.npz;
   golden-mesh20k  mesh_scene(32, 32, subdiv=5), path depth 3 / rr 9, 4 seeds
                   x 8 spp, z-test against tests/golden/mesh20k_path.npz;
   golden-mesh20k-packet  the same on the packet route;
+  golden-cbox     cornell_box(32, 32), path depth 4 / rr 9, 4 seeds x 16 spp,
+                  z-test against tests/golden/cbox_path.npz;
   main            grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per
                   pass: one warm-up pass, three timed passes; the image must
                   be finite and non-zero, its four kernels launch 7 times per
@@ -43,10 +58,14 @@ seconds:
                   noise;
   split-mesh82k-packet  to chiprun_out/chip_smoke_profile_mesh82k_packet.json;
   main-mesh82k-regen   the regenerative render on the clu2 route (B5 and B6
-                  once per iteration), held to its fixed-depth render.
-Then the kernel list (each kernel's launches from its own path), the
-nvidia-smi line, and the final status line. Every failure raises and exits
-non-zero.
+                  once per iteration), held to its fixed-depth render;
+  main-cbox       cornell_box(512, 512), path depth 7 / rr 50, 8 spp per
+                  pass (2,097,152 lanes), as `main`: B1 and B2 launch 7
+                  times per pass, no other kernel;
+  split-cbox      to chiprun_out/chip_smoke_profile_cbox.json.
+Then the kernel list (each kernel's launches from its own path: B8a, B8b
+and B9 from one tool run on one ray set), the nvidia-smi line, and the
+final status line. Every failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -67,6 +86,11 @@ MAIN_W, MAIN_H, MAIN_SPP_PASS = 800, 600, 4
 MAIN_DEPTH, MAIN_RR = 7, 50
 MESH_W, MESH_H, MESH_SUBDIV, MESH_SPP_PASS = 512, 512, 6, 4
 MESH_DEPTH, MESH_RR = 4, 3
+CBOX_W, CBOX_H, CBOX_SPP_PASS = 512, 512, 8
+CBOX_DEPTH, CBOX_RR = 7, 50
+TOOL_LANES = 1 << 20       # rays per set of the intersection tool
+TOOL_SUBDIV = 4            # its icosphere: 5,120 faces
+PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
 TIMED_PASSES = 3
 
 # kernel launches per pass of each main path; ITER stands for the
@@ -74,7 +98,8 @@ TIMED_PASSES = 3
 ITER = "iteration"
 NO_LAUNCHES = dict.fromkeys(
     ("intersect_q", "occluded_q", "grating_sample", "grating_lobe_sum",
-     "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh"), 0)
+     "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh",
+     "intersect_classic", "occluded_classic", "intersect_mxu"), 0)
 GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
                     "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
                     "grating_lobe_sum": MAIN_DEPTH}
@@ -83,7 +108,11 @@ MESH_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": MESH_DEPTH,
 PACKET_LAUNCHES = {**NO_LAUNCHES, "intersect_bvh": ITER, "occluded_bvh": ITER}
 REGEN_CLU2_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": ITER,
                        "occluded_clu2": ITER}
+CBOX_LAUNCHES = {**NO_LAUNCHES, "intersect_q": CBOX_DEPTH,
+                 "occluded_q": CBOX_DEPTH}
 REGEN = {"regen": True, "pixel_order": "morton"}
+# kernels whose launches in the kernels line come from the tool's run
+TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
 
 
 def emit(obj):
@@ -172,7 +201,8 @@ def frac_close(a, b, rtol, atol):
     ok = torch.isclose(a, b, rtol=rtol, atol=atol)
     if ok.dim() > 1:
         ok = ok.all(dim=-1)
-    return ok.float().mean().item() if ok.numel() else 1.0
+    # in float64: a float32 mean of a million ones can come out below 1
+    return ok.double().mean().item() if ok.numel() else 1.0
 
 
 def kernel_registers(log: str) -> dict:
@@ -186,11 +216,13 @@ def kernel_registers(log: str) -> dict:
         if m:
             entry = m.group(1)
             k = re.search(r"(clu2_kernel|bvh_kernel|q_kernel|lobe_sum_kernel|"
-                          r"sample_kernel)"
+                          r"sample_kernel|classic_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
             if k:
                 args = re.findall(r"L([ib])(\d+)E", k.group(2))
                 entry = f"{k.group(1)}<{','.join(v for _, v in args)}>"
+            elif "mxu_kernel" in entry:
+                entry = "mxu_kernel"
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             out[entry] = int(m.group(1))
@@ -216,6 +248,12 @@ SLAB_OPS = 29             # 6 sub, 6 mul, 10 min/max, gate compares and ands
 BVH_RAY_SETUP_OPS = 22    # guarded inverse direction, maxt check, miss select
 BVH_TEST_OPS = 64         # d x e2, det, guarded 1/det, u, tv x e1, v, t, hit, best
 BVH_ANYHIT_TEST_OPS = 61  # the same without the best-hit update
+CLASSIC_RAY_SETUP_OPS = 4  # maxt check, miss select
+CLASSIC_TEST_OPS = BVH_TEST_OPS  # the same triangle test and best update
+CLASSIC_ANYHIT_TEST_OPS = BVH_ANYHIT_TEST_OPS
+MXU_RAY_SETUP_OPS = 15    # 9 products of phi, maxt check, miss selects
+MXU_TEST_OPS = 158        # 4 x 16 FMAs (2 each), sign fold, guarded 1/|det|,
+                          # t, hit, best update with u and v
 
 
 def bessel_ops(half):
@@ -284,7 +322,8 @@ def check_intersect(scene, n_rays, rng):
                      n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS))
     closest = {"name": "intersect_q", "route": "cuda",
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
-               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1373",
+               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1373 "
+                           "(pallas_intersect_q)",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "library_ms": None,
                "n": n, "prim_agreement": frac_prim}
@@ -322,7 +361,8 @@ def check_intersect(scene, n_rays, rng):
         n * Q_RAY_SETUP_OPS + tested.sum().item() * Q_ANYHIT_TEST_OPS)
     anyhit = {"name": "occluded_q", "route": "cuda",
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
-              "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411",
+              "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411 "
+                          "(pallas_occluded_q)",
               "max_abs_err": 1.0 - frac_occ, "ms": ms_a, "plain_ms": plain_a,
               "bound_ms": b_a, "bound_by": by_a, "library_ms": None,
               "n": n, "occ_agreement": frac_occ}
@@ -386,7 +426,8 @@ def check_lobe_sum(n, rng, dev):
             b, by = bound_ms(nbytes(ins, got), nn * lobe_sum_ops(half, sep, 3))
             row = {"name": "grating_lobe_sum", "route": "cuda",
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
-                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230",
+                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
+                               "(grating_lobe_sum)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b, "bound_by": by, "library_ms": None,
                    "n": nn, "agreement": frac}
@@ -452,7 +493,8 @@ def check_sample(n, rng, dev):
             b, by = bound_ms(nbytes(ins, got), n * sample_ops(3, ndf))
             row = {"name": "grating_sample", "route": "cuda",
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
-                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593",
+                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593 "
+                               "(grating_sample)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b, "bound_by": by, "library_ms": None,
                    "n": n, "agreement": worst}
@@ -581,7 +623,8 @@ def check_clu2(scene, rng):
                + counts["triangle_tests"] * Q_TEST_OPS)
         b, by = bound_ms(nbytes(tables, o, d, mt, got), ops)
         row = {"name": "intersect_clu2", **common,
-               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352",
+               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352 "
+                           "(pallas_intersect_clu2)",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "rays": label,
                "prim_agreement": frac_prim,
@@ -605,7 +648,8 @@ def check_clu2(scene, rng):
                + counts["triangle_tests"] * Q_ANYHIT_TEST_OPS)
         b, by = bound_ms(nbytes(tables, o, d, mt, occ), ops)
         return {"name": "occluded_clu2", **common,
-                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364",
+                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364 "
+                            "(pallas_occluded_clu2)",
                 "max_abs_err": 1.0 - frac_occ, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                 "rays": label, "occ_agreement": frac_occ,
@@ -662,7 +706,7 @@ def check_bvh(scene, sets, clu2_ms, rng):
             got = isect.occluded_bvh(pb, o, d, mt)
             want, plain_ms = time_once(lambda: isect.occluded_bvh_plain(
                 pb, o, d, mt, counts=counts))
-            agree = (got == want).float().mean().item()
+            agree = (got == want).double().mean().item()
             err = 1.0 - agree
             ms = time_ms(lambda: isect.occluded_bvh(pb, o, d, mt))
             share = {"occluded_share": want.float().mean().item()}
@@ -670,7 +714,7 @@ def check_bvh(scene, sets, clu2_ms, rng):
             got = isect.intersect_bvh(pb, o, d, mt)
             want, plain_ms = time_once(lambda: isect.intersect_bvh_plain(
                 pb, o, d, mt, counts=counts))
-            agree = (got[1] == want[1]).float().mean().item()
+            agree = (got[1] == want[1]).double().mean().item()
             hit = want[1] >= 0
             err = max((got[k][hit] - want[k][hit]).abs().max().item()
                       if hit.any() else 0.0 for k in (0, 2, 3))
@@ -689,7 +733,8 @@ def check_bvh(scene, sets, clu2_ms, rng):
                 "plain_timing": "the comparison call, once",
                 "library_ms": None,
                 "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
-                            + ("694" if any_hit else "679"),
+                            + ("694 (pallas_bvh_occluded)" if any_hit
+                               else "679 (pallas_bvh_intersect)"),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b, "bound_by": by, "rays": label,
                 "agreement": agree, **share, "walk_steps": counts["steps"],
@@ -719,6 +764,159 @@ def check_bvh(scene, sets, clu2_ms, rng):
     return [one("regen camera, sorted", False,
                 *sorted_rays(cam.o, cam.d, cam.maxt)[0]),
             one("regen shadow, sorted", True, *sorted_rays(*shadow)[0])]
+
+
+def check_brute(label, scene, sets, plain_lanes=None):
+    """B8a, B8b and B9 against their plain versions on the tool's ray sets
+    {set: (o, d, maxt)} of one scene: on the first `plain_lanes` lanes (all
+    where None), timed on all. B8 must equal its plain version to the bit;
+    B9's hit masks and prims must agree on >= 99.99% of lanes and t within
+    rtol 1e-4 where both hit. Returns {set: [B8a row, B8b row, B9 row]}."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    geo, F = scene.geo, scene.geo.n_faces
+    p = geo.tri_isect[:F].cpu().numpy()
+    w = torch.as_tensor(isect.regroup_tri_mxu(isect.pack_tri_mxu(
+        p[:, 0:3], p[:, 3:6], p[:, 6:9])), device=scene.device)
+    nt = isect._closest_rows(geo.tri_isect, F)
+    out = {}
+    for set_label, (o, d, mt) in sets.items():
+        n = o.shape[0]
+        m = n if plain_lanes is None else min(n, plain_lanes)
+        part = (o[:m], d[:m], mt[:m])
+        common = {"route": "cuda", "n": n, "plain_lanes": m,
+                  "rays": f"{label} {set_label}", "library_ms": None,
+                  "plain_timing": "the comparison call, once, on plain_lanes"}
+
+        # B8a: closest hit, equal to the bit
+        got = isect.intersect_classic(geo.tri_isect, *part, F)
+        want, plain_ms = time_once(lambda: isect.intersect_classic_plain(
+            geo.tri_isect, *part, F))
+        hit = want[1] >= 0
+        err = max((got[k][hit] - want[k][hit]).abs().max().item()
+                  if hit.any() else 0.0 for k in (0, 2, 3))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"intersect_classic {label} {set_label}: differs, max {err}")
+        ms = time_ms(lambda: isect.intersect_classic(geo.tri_isect, o, d, mt,
+                                                     F))
+        b, by = bound_ms(nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n,
+                         n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
+        closest = {"name": "intersect_classic", **common,
+                   "source": "mitsuba3_plt_tpu_torch/ops/csrc/"
+                             "intersect_classic.cu",
+                   "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:95 "
+                               "(pallas_intersect)",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "agreement": 1.0,
+                   "hit_share": hit.float().mean().item()}
+
+        # B8b: any hit, equal to the bit; the tests a thread makes (up to
+        # its first hit) counted on the compared lanes, scaled to n
+        counts = {}
+        occ = isect.occluded_classic(geo.tri_isect, *part, F)
+        occ_plain, plain_a = time_once(lambda: isect.occluded_classic_plain(
+            geo.tri_isect, *part, F, counts=counts))
+        agree = (occ == occ_plain).double().mean().item()
+        require(torch.equal(occ, occ_plain),
+                f"occluded_classic {label} {set_label}: agreement {agree}")
+        ms_a = time_ms(lambda: isect.occluded_classic(geo.tri_isect, o, d, mt,
+                                                      F))
+        tests = counts["triangle_tests"] * n / m
+        b_a, by_a = bound_ms(nbytes(geo.tri_isect[:F], o, d, mt) + n,
+                             n * CLASSIC_RAY_SETUP_OPS
+                             + tests * CLASSIC_ANYHIT_TEST_OPS)
+        anyhit = {"name": "occluded_classic", **common,
+                  "source": "mitsuba3_plt_tpu_torch/ops/csrc/"
+                            "intersect_classic.cu",
+                  "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:183 "
+                              "(pallas_occluded)",
+                  "max_abs_err": 1.0 - agree, "ms": ms_a, "plain_ms": plain_a,
+                  "bound_ms": b_a, "bound_by": by_a, "agreement": agree,
+                  "occluded_share": occ_plain.float().mean().item(),
+                  "tests_per_ray": tests / n}
+
+        # B9: the MXU form, within its tolerance
+        got_m = isect.intersect_mxu(w, *part, F)
+        want_m, plain_m = time_once(lambda: isect.intersect_mxu_plain(
+            w, *part, F))
+        mhit, whit = got_m[1] >= 0, want_m[1] >= 0
+        hit_agree = (mhit == whit).double().mean().item()
+        prim_agree = (got_m[1] == want_m[1]).double().mean().item()
+        both = mhit & whit
+        t_off = int(((got_m[0][both] - want_m[0][both]).abs()
+                     > 1e-4 * want_m[0][both].abs()).sum())
+        require(min(hit_agree, prim_agree) >= 1 - 1e-4 and t_off == 0,
+                f"intersect_mxu {label} {set_label}: hit {hit_agree} prim "
+                f"{prim_agree}, {t_off} lanes beyond t rtol 1e-4")
+        same = (got_m[1] == want_m[1]) & mhit
+        err_m = max((got_m[k][same] - want_m[k][same]).abs().max().item()
+                    if same.any() else 0.0 for k in (0, 2, 3))
+        ms_m = time_ms(lambda: isect.intersect_mxu(w, o, d, mt, F))
+        # the work of the mesh's F triangles: the zero rows that pad each
+        # group to T_pad are the TPU's tile, and the kernel skips them
+        t_pad = w.shape[0] // 4
+        w_f = w.view(4, t_pad, 16)[:, :F].reshape(4 * F, 16)
+        b_m, by_m = bound_ms(nbytes(w_f, o, d, mt) + 16 * n,
+                             n * (MXU_RAY_SETUP_OPS + F * MXU_TEST_OPS))
+        k = n if plain_lanes is None else min(n, isect.MXU_CHUNK)
+        phi = isect.mxu_features(o[:k], d[:k])
+        mm_ms = time_ms(lambda: torch.matmul(phi, w_f.T), reps=3, calls=3)
+        del phi
+        mxu = {"name": "intersect_mxu", **common,
+               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_mxu.cu",
+               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:346 "
+                           "(pallas_intersect_mxu)",
+               "max_abs_err": err_m, "ms": ms_m, "plain_ms": plain_m,
+               "bound_ms": b_m, "bound_by": by_m, "t_pad": t_pad, "n_tris": F,
+               "hit_agreement": hit_agree, "prim_agreement": prim_agree,
+               "matmul_ms": mm_ms, "matmul_lanes": k,
+               "vs_classic": bi.agreement(got, got_m)}
+        out[set_label] = [closest, anyhit, mxu]
+        for r in out[set_label]:
+            emit({"phase": "kernels", **r})
+        del got, want, got_m, want_m
+    return out
+
+
+def isect_tool(scenes):
+    """The intersection tool on each (label, scene, ray sets): the launches
+    of one run on one set (the Cornell box's first bounce), then one timed
+    run per scene, a row per route and set. Every closest-hit route must
+    agree with brute-classic on hit or miss on >= 99.9% of lanes, every
+    any-hit route on >= 99% (shadow rays start 1e-4 off a surface, where
+    the q and classic forms round t = 0 apart). Returns the launches."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    ph = Phase("isect-tool")
+    _, cscene, csets = scenes[0]
+    ops.reset_launch_counts()
+    bi.run(cscene, {"depth1": csets["depth1"]})
+    launches = ops.launch_counts()
+    want = {**NO_LAUNCHES, "intersect_classic": 1, "occluded_classic": 1,
+            "intersect_mxu": 1, "intersect_q": 1, "occluded_q": 1,
+            "intersect_bvh": 2}
+    require(launches == want, f"isect-tool launches {launches}")
+    n_rows = 0
+    for label, scene, sets in scenes:
+        rows = bi.run(scene, sets,
+                      timer=lambda fn: time_ms(fn, reps=3, calls=3, warmup=1))
+        for r in rows:
+            emit({"phase": "isect-tool", "scene": label, **r})
+            worst = r["occ_agree"] if r["route"] in bi.ANYHIT else \
+                r["hit_agree"]
+            require(worst >= (0.99 if r["route"] in bi.ANYHIT else 0.999),
+                    f"isect-tool {label} {r['set']} {r['route']}: {worst}")
+        require({(r["set"], r["route"]) for r in rows} == {
+            (s_, r_) for s_ in sets for r_ in bi.ROUTES
+            if r_ in bi.ANYHIT or not s_.startswith("shadow")},
+            f"isect-tool {label}: a route or a set is missing")
+        n_rows += len(rows)
+    ph.emit(rows=n_rows, launches_one_set=launches)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -891,7 +1089,10 @@ def main():
     from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.ops import build
-    from mitsuba3_plt_tpu_torch.scene.presets import grating_scene, mesh_scene
+    from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
+                                                      grating_scene,
+                                                      mesh_scene)
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -922,6 +1123,26 @@ def main():
     require(pscene.intersect_route() == "packet",
             "mesh82k with packet tables must route to packet")
 
+    ph = Phase("cbox-scene")
+    cscene = cornell_box(CBOX_W, CBOX_H, device="cuda")
+    em = cscene.emitters
+    ph.emit(faces=cscene.geo.n_faces, route=cscene.intersect_route(),
+            tri_isect=list(cscene.geo.tri_isect.shape),
+            emitter_types=list(em.present_types),
+            tri_idx=em.tri_idx.tolist(), tri_cdf=em.tri_cdf.tolist(),
+            area=em.area.tolist())
+    require(cscene.geo.n_faces == 36 and cscene.intersect_route() == "brute"
+            and em.tri_idx.tolist() == [[34, 35]],
+            "the Cornell box must have 36 faces, the brute route and a "
+            "two-triangle light")
+    ph = Phase("isect-sets")
+    tscene = mesh_scene(CBOX_W, CBOX_H, TOOL_SUBDIV, device="cuda")
+    csets = {**bi.ray_sets(cscene, TOOL_LANES, 0),
+             **bi.cbox_ray_sets(cscene, TOOL_LANES // (CBOX_W * CBOX_H), 0)}
+    tsets = bi.ray_sets(tscene, TOOL_LANES, 0)
+    ph.emit(cbox_sets=list(csets), mesh_faces=tscene.geo.n_faces,
+            mesh_sets=list(tsets), lanes=TOOL_LANES)
+
     ph = Phase("kernels")
     n = MAIN_W * MAIN_H * MAIN_SPP_PASS
     rng = np.random.default_rng(0)
@@ -934,7 +1155,14 @@ def main():
     del ray_sets
     for r in rows:
         emit({"phase": "kernels", **r})
+    pick = {k: csets[k] for k in ("coherent", "incoherent")}
+    brute = check_brute("cbox", cscene, pick)
+    check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
+    rows += brute["incoherent"]
     ph.emit(checked=[r["name"] for r in rows])
+    tool_launches = isect_tool([("cbox", cscene, csets),
+                                ("mesh5k", tscene, tsets)])
+    del csets, tsets
 
     golden_ztest("golden", grating_scene(24, 24, coherence=1e3,
                                          device="cuda"),
@@ -946,6 +1174,8 @@ def main():
                  mesh_scene(32, 32, 5, accel="packet", device="cuda"),
                  PathIntegrator(max_depth=3, rr_depth=9), "mesh20k_path.npz",
                  8)
+    golden_ztest("golden-cbox", cornell_box(32, 32, device="cuda"),
+                 PathIntegrator(max_depth=4, rr_depth=9), "cbox_path.npz", 16)
 
     gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
@@ -971,13 +1201,21 @@ def main():
                          REGEN_CLU2_LAUNCHES, **REGEN)
     same_image("main-mesh82k-regen", r_img, mscene, minteg, MESH_SPP_PASS)
 
+    cinteg = PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
+    c_res, _ = main_path("main-cbox", cscene, cinteg, CBOX_SPP_PASS,
+                         CBOX_LAUNCHES)
+    split("split-cbox", cscene, cinteg, sum(c_res["pass_s"]) / TIMED_PASSES,
+          CBOX_SPP_PASS, "chip_smoke_profile_cbox.json")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        own = (p_res if PACKET_LAUNCHES[r["name"]]
-               else m_res if MESH_LAUNCHES[r["name"]] else g_res)
-        r = dict(r, launches=own["launches"][r["name"]])
+        own = (p_res["launches"] if PACKET_LAUNCHES[r["name"]]
+               else m_res["launches"] if MESH_LAUNCHES[r["name"]]
+               else tool_launches if r["name"] in TOOL_KERNELS
+               else g_res["launches"])
+        r = dict(r, launches=own[r["name"]])
         kernels.append({k: r[k] for k in keys})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Warps from [0,1)^2 used by the PLT path: the cosine hemisphere (diffuse
-sampling) and the uniform sphere (constant-emitter sampling)."""
+"""Warps from [0,1)^2: the cosine hemisphere (diffuse sampling), the
+uniform sphere (constant-emitter sampling) and the uniform triangle
+(area-emitter sampling)."""
 from __future__ import annotations
 
 import torch
@@ -36,3 +37,9 @@ def square_to_uniform_sphere(u):
     r = m.safe_sqrt(1.0 - z * z)
     phi = 2.0 * m.Pi * u[..., 0]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_triangle(u):
+    """Barycentric (b0, b1) uniform over the unit triangle."""
+    t = m.safe_sqrt(1.0 - u[..., 0])
+    return torch.stack([1.0 - t, t * u[..., 1]], dim=-1)

@@ -10,8 +10,9 @@ than samples, each lane restarting on its next sample when its path ends,
 until no lane is live. A dead lane carries the canonical far-away ray
 (o = 1e8, d = +z), which misses every box.
 
-Not ported: the environment-emitter branch (a scene with a constant
-emitter is refused), the spectral and polarized variants.
+Emitters: area lights (hit and sampled) and point lights. Not ported: the
+environment-emitter branch (a scene with a constant emitter is refused),
+the spectral and polarized variants.
 """
 from __future__ import annotations
 
@@ -153,11 +154,15 @@ class PathIntegrator:
         midx = torch.clamp_min(si.mat_idx, 0)
         has_emitters = em.count > 0
 
-        # emitter hit, MIS against the previous bounce's BSDF pdf
+        # emitter hit (an area light seen from its front), MIS against the
+        # previous bounce's BSDF pdf
         if has_emitters:
             hit_emitter = hit & (si.emitter_idx >= 0) & (
                 fr.cos_theta(si.wi) > 0)
+            # d and dist from the ray itself: equal to the p-difference
+            # form on hits, finite on misses
             ds_hit = DirectionSample(
+                p=si.p, n=si.n, uv=si.uv,
                 d=ray_d, dist=torch.where(si.valid, si.t, 1.0),
                 pdf=torch.zeros_like(si.t),
                 delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
@@ -178,8 +183,8 @@ class PathIntegrator:
             u_nee2 = sampler.next_2d(bounce_dim(b, 3))
             smooth = (mats.flags[midx] & BSDFFlags.Smooth) != 0
             nee_active = active_next & smooth
-            ds = em_mod.sample_emitter_direction(em, si.p, u_nee1, u_nee2,
-                                                 nee_active)
+            ds = em_mod.sample_emitter_direction(em, scene.geo, si.p, u_nee1,
+                                                 u_nee2, nee_active)
             occ_ray = Ray(
                 o=torch.where(nee_active[..., None],
                               _offset(si.p, si.n, ds.d), 1e8),

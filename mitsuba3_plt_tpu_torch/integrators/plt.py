@@ -118,6 +118,7 @@ class PLTIntegrator:
         active = hit & is_emitter & (fr.cos_theta(si.wi) > 0)
         to_hit = si.p - prev_p
         ds = DirectionSample(
+            p=si.p, n=si.n, uv=si.uv,
             d=fr.normalize(to_hit), dist=fr.norm(to_hit),
             pdf=torch.zeros_like(si.t),
             delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
@@ -139,7 +140,8 @@ class PLTIntegrator:
         active_em = hit & smooth
         u1 = sampler.next_1d(bounce_dim(b, 8))
         u2 = sampler.next_2d(bounce_dim(b, 9))
-        ds = em_mod.sample_emitter_direction(em, si.p, u1, u2, active_em)
+        ds = em_mod.sample_emitter_direction(em, scene.geo, si.p, u1, u2,
+                                             active_em)
 
         # shadow ray (inactive lanes get the canonical dead ray)
         occ_ray = Ray(

@@ -80,8 +80,11 @@ class BSDFSample:
 
 @dataclasses.dataclass(frozen=True)
 class DirectionSample:
-    """Emitter direction sample (NEE)."""
+    """Emitter direction sample (NEE), or the record of an emitter hit."""
 
+    p: torch.Tensor            # [N, 3] point on the emitter
+    n: torch.Tensor            # [N, 3] its normal (area pdf)
+    uv: torch.Tensor           # [N, 2]
     d: torch.Tensor            # [N, 3] toward the emitter (world)
     dist: torch.Tensor         # [N]
     pdf: torch.Tensor          # [N] solid-angle density
@@ -89,11 +92,14 @@ class DirectionSample:
     emitter_idx: torch.Tensor  # [N] int64
 
     def where(self, mask, other: "DirectionSample") -> "DirectionSample":
-        mm = mask[..., None]
-        return DirectionSample(
-            d=torch.where(mm, self.d, other.d),
-            dist=torch.where(mask, self.dist, other.dist),
-            pdf=torch.where(mask, self.pdf, other.pdf),
-            delta=torch.where(mask, self.delta, other.delta),
-            emitter_idx=torch.where(mask, self.emitter_idx, other.emitter_idx),
-        )
+        """Per lane: self where mask, else other (a field that both hold as
+        the same tensor is passed through)."""
+        def sel(a, b):
+            if a is b:
+                return a
+            return torch.where(mask[..., None] if a.dim() > mask.dim()
+                               else mask, a, b)
+
+        return DirectionSample(**{
+            f.name: sel(getattr(self, f.name), getattr(other, f.name))
+            for f in dataclasses.fields(self)})

@@ -1,5 +1,6 @@
-"""The main path's kernels. Each wrapper runs its CUDA kernel on CUDA
-tensors (counting the launch) and its plain PyTorch version on CPU tensors."""
+"""The kernels of the main paths and of the intersection tool. Each wrapper
+runs its CUDA kernel on CUDA tensors (counting the launch) and its plain
+PyTorch version on CPU tensors."""
 from __future__ import annotations
 
 from . import grating, intersect
@@ -14,6 +15,9 @@ def launch_counts() -> dict:
         "occluded_clu2": intersect.OCCLUDED_CLU2_LAUNCHES,
         "intersect_bvh": intersect.INTERSECT_BVH_LAUNCHES,
         "occluded_bvh": intersect.OCCLUDED_BVH_LAUNCHES,
+        "intersect_classic": intersect.INTERSECT_CLASSIC_LAUNCHES,
+        "occluded_classic": intersect.OCCLUDED_CLASSIC_LAUNCHES,
+        "intersect_mxu": intersect.INTERSECT_MXU_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
     }
@@ -26,5 +30,8 @@ def reset_launch_counts() -> None:
     intersect.OCCLUDED_CLU2_LAUNCHES = 0
     intersect.INTERSECT_BVH_LAUNCHES = 0
     intersect.OCCLUDED_BVH_LAUNCHES = 0
+    intersect.INTERSECT_CLASSIC_LAUNCHES = 0
+    intersect.OCCLUDED_CLASSIC_LAUNCHES = 0
+    intersect.INTERSECT_MXU_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0

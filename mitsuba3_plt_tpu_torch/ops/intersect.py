@@ -1,8 +1,10 @@
 """Closest-hit and any-hit ray/triangle queries: brute force over the
-precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`), the
+precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`), over
+the classic (p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one
+product of ray features with a weight table (`csrc/intersect_mxu.cu`), the
 two-level treelet walk over a ClusterTable2 (`csrc/intersect_clu2.cu`) and
 the per-ray skip-link walk over a PacketBVH (`csrc/intersect_bvh.cu`),
-their plain PyTorch versions, and the host-side q-table packer.
+their plain PyTorch versions, and the host-side q and MXU table packers.
 
 Möller-Trumbore re-associated around per-triangle constants so the
 triangle loop does no cross product and no division:
@@ -24,6 +26,9 @@ INTERSECT_CLU2_LAUNCHES = 0
 OCCLUDED_CLU2_LAUNCHES = 0
 INTERSECT_BVH_LAUNCHES = 0
 OCCLUDED_BVH_LAUNCHES = 0
+INTERSECT_CLASSIC_LAUNCHES = 0
+OCCLUDED_CLASSIC_LAUNCHES = 0
+INTERSECT_MXU_LAUNCHES = 0
 
 # Möller-Trumbore needs |det| above this to count a hit
 _DET_EPS = 1e-12
@@ -141,6 +146,31 @@ def occluded_q_plain(tri_q, anchor, o, d, maxt, n_tris=None):
     return occ
 
 
+def _classic_terms(tr, o, d):
+    """(ok, t, u, v) of classic Moeller-Trumbore on table rows tr [L, >= 9]
+    (p0, e1, e2; L = 1 broadcasts one row over the rays), every product and
+    sum rounded on its own, left to right, and the division folded into
+    inv_det = [ok] / det."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tr[:, :9].unbind(-1)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = det.abs() > _DET_EPS
+    inv_det = torch.where(ok, 1.0, 0.0) / torch.where(ok, det, 1.0)
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    ok = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return ok, t, u, v
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -188,6 +218,265 @@ def occluded_q(tri_q, anchor, o, d, maxt, n_tris=None):
         "occluded_q")
     OCCLUDED_Q_LAUNCHES += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# classic brute force over the (p0, e1, e2) soup (Geometry.tri_isect)
+# ---------------------------------------------------------------------------
+
+def _check_classic(name, tri, o, d, maxt, n_tris):
+    dev, n = check_tensors(name, {
+        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
+        "maxt": (maxt, torch.float32, ()), "tri": (tri, torch.float32, None),
+    }, n=o.shape[0] if o.dim() == 2 else -1)
+    if tri.dim() != 2 or tri.shape[1] != 9:
+        raise ValueError(f"{name}: tri must be [T, 9], got {tuple(tri.shape)}")
+    n_tris = tri.shape[0] if n_tris is None else int(n_tris)
+    if not 0 <= n_tris <= tri.shape[0]:
+        raise ValueError(f"{name}: n_tris {n_tris} outside the table")
+    return dev, n, n_tris
+
+
+def _closest_rows(tri, n_tris):
+    """Rows the closest-hit loop runs: n_tris rounded up to even (the TPU
+    kernel takes two triangles a step), capped at the table."""
+    return min(n_tris + n_tris % 2, tri.shape[0])
+
+
+def intersect_classic_plain(tri, o, d, maxt, n_tris=None):
+    """Plain version of `intersect_classic`: rows in order, the kernel's
+    arithmetic (`_classic_terms`), strict t < best."""
+    n_tris = _closest_rows(tri, tri.shape[0] if n_tris is None else n_tris)
+    t_b = torch.where(torch.isfinite(maxt), maxt, _BIG)
+    u_b = torch.zeros_like(t_b)
+    v_b = torch.zeros_like(t_b)
+    prim = torch.full(t_b.shape, -1, dtype=torch.int32, device=t_b.device)
+    for ti in range(n_tris):
+        ok, t, u, v = _classic_terms(tri[ti: ti + 1], o, d)
+        hit = ok & (t < t_b)
+        t_b = torch.where(hit, t, t_b)
+        u_b = torch.where(hit, u, u_b)
+        v_b = torch.where(hit, v, v_b)
+        prim = torch.where(hit, ti, prim)
+    return torch.where(prim >= 0, t_b, float("inf")), prim, u_b, v_b
+
+
+def occluded_classic_plain(tri, o, d, maxt, n_tris=None, counts=None):
+    """Plain version of `occluded_classic`: any row with 0 < t < maxt.
+    `counts` (a dict, or None) accumulates the triangle tests a kernel
+    thread makes, each up to its first hit."""
+    n_tris = tri.shape[0] if n_tris is None else n_tris
+    mt = torch.where(torch.isfinite(maxt), maxt, _BIG)
+    occ = torch.zeros(mt.shape, dtype=torch.bool, device=mt.device)
+    tests = 0
+    for ti in range(n_tris):
+        if counts is not None:
+            tests += int((~occ).sum())
+        ok, t, _, _ = _classic_terms(tri[ti: ti + 1], o, d)
+        occ = occ | (ok & (t < mt))
+    if counts is not None:
+        counts["triangle_tests"] = counts.get("triangle_tests", 0) + tests
+    return occ
+
+
+def intersect_classic(tri, o, d, maxt, n_tris=None):
+    """Closest hit over the first n_tris rows of tri [T, 9] (p0, e1, e2).
+
+    o, d [N, 3], maxt [N] float32. Returns (t [N], prim [N] int32 (-1 on a
+    miss), u [N], v [N]); t is inf and u = v = 0 on a miss. CPU tensors run
+    the plain version; CUDA tensors launch the kernel."""
+    global INTERSECT_CLASSIC_LAUNCHES
+    dev, n, n_tris = _check_classic("intersect_classic", tri, o, d, maxt,
+                                    n_tris)
+    if dev.type == "cpu":
+        return intersect_classic_plain(tri, o, d, maxt, n_tris)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_classic(
+        tri.data_ptr(), _closest_rows(tri, n_tris), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), stream), "intersect_classic")
+    INTERSECT_CLASSIC_LAUNCHES += 1
+    return t, prim, u, v
+
+
+def occluded_classic(tri, o, d, maxt, n_tris=None):
+    """Any hit with 0 < t < maxt over the first n_tris rows: [N] bool."""
+    global OCCLUDED_CLASSIC_LAUNCHES
+    dev, n, n_tris = _check_classic("occluded_classic", tri, o, d, maxt,
+                                    n_tris)
+    if dev.type == "cpu":
+        return occluded_classic_plain(tri, o, d, maxt, n_tris)
+    from .build import check, load_library
+
+    lib = load_library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_occluded_classic(
+        tri.data_ptr(), n_tris, o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+        n, occ.data_ptr(), stream), "occluded_classic")
+    OCCLUDED_CLASSIC_LAUNCHES += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# the soup as one product: U = W phi (the TPU's MXU formulation)
+#
+# Moller-Trumbore's four quantities are affine in the ray features
+# phi = [d(3), o(3), vec(d o^T)(9), 1]:
+#   det = -d . n2,  u det = d^T [e2]x o - d . (e2 x p0),
+#   v det = -d^T [e1]x o + d . (e1 x p0),  t det = o . n2 - p0 . n2,
+# with n2 = e1 x e2, so each triangle is four rows of W [4 T_pad, 16].
+# ---------------------------------------------------------------------------
+
+MXU_ALIGN = 128  # T_pad is a multiple of this (the TPU's MXU tile)
+MXU_CHUNK = 65536  # rays per product in the plain version
+
+
+def pack_tri_mxu(p0, e1, e2):
+    """Host-side: W [4 T, 16] float32, rows grouped [det | u' | v' | t'],
+    built in float64 (the JAX package's `pack_tri_mxu`)."""
+    p0 = np.asarray(p0, np.float64)
+    e1 = np.asarray(e1, np.float64)
+    e2 = np.asarray(e2, np.float64)
+    T = p0.shape[0]
+    n2 = np.cross(e1, e2)
+
+    def cross_mat(v):  # [T, 3, 3] with M @ o = v x o
+        z = np.zeros(T)
+        return np.stack([np.stack([z, -v[:, 2], v[:, 1]], -1),
+                         np.stack([v[:, 2], z, -v[:, 0]], -1),
+                         np.stack([-v[:, 1], v[:, 0], z], -1)], -2)
+
+    W = np.zeros((T, 4, 16), np.float64)
+    W[:, 0, 0:3] = -n2
+    W[:, 1, 0:3] = -np.cross(e2, p0)
+    W[:, 1, 6:15] = cross_mat(e2).reshape(T, 9)  # d_i o_k coefficient
+    W[:, 2, 0:3] = np.cross(e1, p0)
+    W[:, 2, 6:15] = -cross_mat(e1).reshape(T, 9)
+    W[:, 3, 3:6] = n2
+    W[:, 3, 15] = -np.einsum("ij,ij->i", p0, n2)
+    Wg = np.concatenate([W[:, 0], W[:, 1], W[:, 2], W[:, 3]], axis=0)
+    return np.ascontiguousarray(Wg.astype(np.float32))
+
+
+def regroup_tri_mxu(wg, align=MXU_ALIGN):
+    """[4 T, 16] -> [4 T_pad, 16]: each of the four row groups padded with
+    zero rows to T_pad, the next multiple of `align` (zero rows: det = 0,
+    never a hit)."""
+    wg = np.asarray(wg, np.float32)
+    T = wg.shape[0] // 4
+    t_pad = -(-T // align) * align
+    out = np.zeros((4 * t_pad, 16), np.float32)
+    for c in range(4):
+        out[c * t_pad: c * t_pad + T] = wg[c * T: (c + 1) * T]
+    return out
+
+
+def _check_mxu(name, tri_mxu, o, d, maxt, n_tris):
+    dev, n = check_tensors(name, {
+        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
+        "maxt": (maxt, torch.float32, ()),
+        "tri_mxu": (tri_mxu, torch.float32, None),
+    }, n=o.shape[0] if o.dim() == 2 else -1)
+    if (tri_mxu.dim() != 2 or tri_mxu.shape[1] != 16
+            or tri_mxu.shape[0] % 4):
+        raise ValueError(f"{name}: tri_mxu must be [4 T_pad, 16], got "
+                         f"{tuple(tri_mxu.shape)}")
+    t_pad = tri_mxu.shape[0] // 4
+    n_tris = t_pad if n_tris is None else int(n_tris)
+    if not 0 <= n_tris <= t_pad:
+        raise ValueError(f"{name}: n_tris {n_tris} outside the table")
+    return dev, n, n_tris
+
+
+def mxu_features(o, d):
+    """phi [N, 16] = (d, o, dx o, dy o, dz o, 1)."""
+    return torch.cat([d, o, d[:, 0:1] * o, d[:, 1:2] * o, d[:, 2:3] * o,
+                      torch.ones_like(o[:, :1])], dim=1)
+
+
+def intersect_mxu_plain(tri_mxu, o, d, maxt, n_tris=None):
+    """Plain version of `intersect_mxu`: U = phi W^T by `torch.matmul` in
+    full float32 (TF32 off) over the first n_tris rows of each group,
+    MXU_CHUNK rays at a time, then the kernel's sign logic and `torch.min`
+    (the first index among equal minima)."""
+    t_pad, chunk = tri_mxu.shape[0] // 4, MXU_CHUNK
+    n_tris = t_pad if n_tris is None else n_tris
+    rows = tri_mxu.reshape(4, t_pad, 16)[:, :n_tris].reshape(4 * n_tris, 16)
+    mt = torch.where(torch.isfinite(maxt), maxt, _BIG)
+    if n_tris == 0:
+        z = torch.zeros_like(mt)
+        return (torch.full_like(mt, float("inf")),
+                torch.full(mt.shape, -1, dtype=torch.int32, device=mt.device),
+                z, z.clone())
+    outs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(0, o.shape[0], chunk):
+            mt_c = mt[s: s + chunk, None]
+            U = torch.matmul(mxu_features(o[s: s + chunk], d[s: s + chunk]),
+                             rows.T)
+            det, up, vp, tp = U.split(n_tris, dim=1)
+            ok = det.abs() > _DET_EPS
+            sd = torch.where(det >= 0.0, 1.0, -1.0)
+            adet = det.abs()
+            us, vs, ts = up * sd, vp * sd, tp * sd
+            inv = torch.where(ok, 1.0, 0.0) / torch.where(ok, adet, 1.0)
+            t = ts * inv
+            hit = (ok & (us >= 0.0) & (vs >= 0.0) & (us + vs <= adet)
+                   & (ts > 0.0) & (t < mt_c))
+            t_best, best = torch.where(hit, t, _BIG).min(dim=1)
+            found = t_best < mt_c[:, 0]
+            pick = lambda x: x.gather(1, best[:, None])[:, 0]  # noqa: E731
+            outs.append((
+                torch.where(found, t_best, float("inf")),
+                torch.where(found, best, -1).to(torch.int32),
+                torch.where(found, pick(us) * pick(inv), 0.0),
+                torch.where(found, pick(vs) * pick(inv), 0.0)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not outs:
+        e = torch.empty((0,), device=o.device)
+        return e, e.to(torch.int32), e, e
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def intersect_mxu(tri_mxu, o, d, maxt, n_tris=None):
+    """Closest hit over the first n_tris triangles (all T_pad where None) of
+    the regrouped MXU table tri_mxu [4 T_pad, 16]
+    (`regroup_tri_mxu(pack_tri_mxu(...))`); the zero rows past the mesh's
+    triangles never hit, so n_tris = its face count skips them.
+
+    o, d [N, 3], maxt [N] float32. Returns (t [N], prim [N] int32 (-1 on a
+    miss), u [N], v [N]); t is inf and u = v = 0 on a miss. CPU tensors run
+    the plain version; CUDA tensors launch the kernel."""
+    global INTERSECT_MXU_LAUNCHES
+    dev, n, n_tris = _check_mxu("intersect_mxu", tri_mxu, o, d, maxt,
+                                n_tris)
+    if dev.type == "cpu":
+        return intersect_mxu_plain(tri_mxu, o, d, maxt, n_tris)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_mxu(
+        tri_mxu.data_ptr(), tri_mxu.shape[0] // 4, n_tris, o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+        v.data_ptr(), stream), "intersect_mxu")
+    INTERSECT_MXU_LAUNCHES += 1
+    return t, prim, u, v
 
 
 # ---------------------------------------------------------------------------
@@ -434,30 +723,6 @@ def _check_bvh(name, pbvh, o, d, maxt):
     return dev, n
 
 
-def _bvh_tri_terms(tr, o, d):
-    """(ok, t, u, v) of classic Moeller-Trumbore on table rows tr [L, 16]
-    (p0, e1, e2), every product and sum rounded on its own, left to right,
-    and the division folded into inv_det = [ok] / det."""
-    ox, oy, oz = o.unbind(-1)
-    dx, dy, dz = d.unbind(-1)
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tr[:, :9].unbind(-1)
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    ok = det.abs() > _DET_EPS
-    inv_det = torch.where(ok, 1.0, 0.0) / torch.where(ok, det, 1.0)
-    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    ok = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-    return ok, t, u, v
-
-
 def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
     """The walk of both plain versions: one node index per lane, a loop
     until every lane's index is -1. A lane tests a node's box against its
@@ -496,7 +761,7 @@ def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
         l_k, f_k, c_k = lanes[in_leaf], first[in_leaf], count[in_leaf]
         k = 0
         while l_k.numel():
-            ok, t, u, v = _bvh_tri_terms(pbvh.tri[f_k + k], o[l_k], d[l_k])
+            ok, t, u, v = _classic_terms(pbvh.tri[f_k + k], o[l_k], d[l_k])
             hit = ok & (t < t_b[l_k])
             if counts is not None:
                 counts["triangle_tests"] += l_k.numel()

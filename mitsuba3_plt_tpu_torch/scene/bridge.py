@@ -6,7 +6,7 @@ The JAX package's scenes reach the port through this function (tests
 flatten a JAX Scene with `jax.tree_util.tree_flatten_with_path`), and so
 does the port's own preset, which builds the same dict with numpy alone.
 Leaves the port does not read (spectral curves, principled and nested
-material parameters, the skip-link BVH, area-emitter tables) are ignored;
+material parameters, the skip-link BVH, spot-light cones) are ignored;
 a scene that needs anything the port does not have is refused. A scene
 above 4096 faces needs its `ctab2.*` treelet tables or its `pbvh.*` packet
 tables.
@@ -79,7 +79,7 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
             "has no other route for big meshes")
 
     geo = Geometry(tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
-                   tri_attr=t("geo.tri_attr"))
+                   tri_isect=t("geo.tri_isect"), tri_attr=t("geo.tri_attr"))
     mats = MaterialTable(
         **{name: t("materials." + name, dtype)
            for name, dtype in FIELDS.items()},
@@ -91,6 +91,8 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
         etype=t("emitters.etype", torch.int64),
         radiance=t("emitters.radiance"), position=t("emitters.position"),
         direction=t("emitters.direction"),
+        tri_idx=t("emitters.tri_idx", torch.int64),
+        tri_cdf=t("emitters.tri_cdf"), area=t("emitters.area"),
         scene_radius=t("emitters.scene_radius"), present_types=em_present,
     )
     sensor = Sensor(

@@ -5,9 +5,12 @@ a directional emitter and a faint constant environment: the PLT flagship.
 `mesh_scene` is a diffuse icosphere lit by a point light: the big-mesh
 path-tracer scene of the JAX package's bench (`bench.py::bench_mesh_heavy`,
 81,920 faces at subdiv 6) and of its mesh20k golden image (subdiv 5).
+`cornell_box` is the canonical Cornell box (36 faces, an area light under
+the ceiling): the second scene of the JAX bench (`bench.py::bench_cbox`)
+and of its cbox_path golden image.
 Each builds, with numpy alone, the same arrays the JAX package produces
-(`scene/presets.py::grating_scene`; `load_dict` of the mesh scene's dict)
-and hands them to `bridge.scene_from_arrays`.
+(`scene/presets.py::grating_scene` and `cornell_box`; `load_dict` of the
+mesh scene's dict) and hands them to `bridge.scene_from_arrays`.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from . import emitters as em
 from .bridge import scene_from_arrays
 from .bvh import build_bvh, pack_clusters2_arrays, pack_packet_bvh_arrays
 from .scene import BRUTE_FORCE_MAX_FACES
-from .shape import make_sphere
+from .shape import make_cube, make_rectangle, make_sphere
 
 _FLAGS = {
     BSDF_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide,
@@ -29,22 +32,10 @@ _FLAGS = {
 }
 
 
-def make_rectangle(to_world):
-    """Mitsuba's unit rectangle ([-1, 1]^2 at z = 0, normal +z) transformed
-    by to_world [4, 4] float32: (vertices, faces, normals, uvs)."""
-    v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
-    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    n = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
-    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
-    v = (v @ to_world[:3, :3].T + to_world[:3, 3]).astype(np.float32)
-    n = n @ np.linalg.inv(to_world[:3, :3])  # inverse transpose
-    n = (n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
-                        1e-20)).astype(np.float32)
-    return v, f, n, uv
-
-
 def _geometry(meshes, mat_ids, emitter_ids):
-    """Arrays of the q table and the packed per-face attributes."""
+    """Arrays of the q table, the (p0, e1, e2) rows and the packed per-face
+    attributes. A mesh is (vertices, faces, normals, uvs); normals None
+    shades it flat (face normals), uvs None gives zero uvs."""
     P, N, U, FN, ATT = [[], [], []], [[], [], []], [[], [], []], [], []
     for k, (v, f, n, uv) in enumerate(meshes):
         p = [v[f[:, c]] for c in range(3)]
@@ -53,13 +44,17 @@ def _geometry(meshes, mat_ids, emitter_ids):
                              1e-20)
         for c in range(3):
             P[c].append(p[c])
-            N[c].append(n[f[:, c]])
-            U[c].append(uv[f[:, c]])
+            N[c].append(fn if n is None else n[f[:, c]])
+            U[c].append(np.zeros((len(f), 2), np.float32) if uv is None
+                        else uv[f[:, c]])
         FN.append(fn)
         ATT.append(np.tile([[mat_ids[k], emitter_ids[k], k]], (len(f), 1)))
     cat = lambda xs: np.concatenate(xs, 0).astype(np.float32)  # noqa: E731
     p0, p1, p2 = (cat(x) for x in P)
     tri_q, anchor = pack_tri_q(p0, p1, p2)
+    isect = np.concatenate([p0, p1 - p0, p2 - p0], axis=-1)
+    isect = np.concatenate(
+        [isect, np.zeros(((-len(isect)) % 64, 9), np.float32)], axis=0)
     # 21 attribute columns, zero-padded to the JAX package's 24-wide layout
     attr = np.concatenate(
         [cat(FN), *(cat(x) for x in N), *(cat(x) for x in U), cat(ATT),
@@ -68,7 +63,7 @@ def _geometry(meshes, mat_ids, emitter_ids):
     hi = np.maximum.reduce([p0.max(0), p1.max(0), p2.max(0)])
     radius = float(np.linalg.norm(hi - lo) / 2)
     return {"geo.tri_q": tri_q, "geo.tri_anchor": anchor,
-            "geo.tri_attr": attr}, radius
+            "geo.tri_isect": isect, "geo.tri_attr": attr}, radius
 
 
 def _materials(bsdfs):
@@ -108,15 +103,22 @@ def _materials(bsdfs):
     return {"materials." + k: v for k, v in tab.items()}, static
 
 
-def _emitters(emitters, scene_radius):
+def _emitters(emitters, scene_radius, geo):
+    """Emitter rows on the JAX loader's defaults, with the area tables
+    built as `scene/loader.py::build_emitter_table` builds them from the
+    faces whose emitter column (of `geo`'s `tri_attr`) names the light:
+    `tri_idx` padded with -1, `tri_cdf` the area CDF normalised to 1 (1 in
+    the padding), `area` the total."""
     E = len(emitters)
     etype = np.zeros(E, np.int32)
     radiance = np.ones((E, 3), np.float32)
     position = np.zeros((E, 3), np.float32)
     direction = np.tile(np.array([[0, 0, 1]], np.float32), (E, 1))
+    kinds = {"area": em.EMITTER_AREA, "point": em.EMITTER_POINT,
+             "constant": em.EMITTER_CONSTANT,
+             "directional": em.EMITTER_DIRECTIONAL}
     for i, e in enumerate(emitters):
-        kind = {"point": em.EMITTER_POINT, "constant": em.EMITTER_CONSTANT,
-                "directional": em.EMITTER_DIRECTIONAL}.get(e["type"])
+        kind = kinds.get(e["type"])
         if kind is None:
             raise NotImplementedError(f"emitter type {e['type']!r}")
         etype[i] = kind
@@ -126,9 +128,27 @@ def _emitters(emitters, scene_radius):
         if "direction" in e:
             d = np.asarray(e["direction"], np.float64)
             direction[i] = d / np.linalg.norm(d)
+
+    face_emitter = geo["geo.tri_attr"][:, 19]
+    rows = geo["geo.tri_isect"]
+    tri_lists = {i: np.where(face_emitter == i)[0].astype(np.int32)
+                 for i, e in enumerate(emitters) if e["type"] == "area"}
+    max_tris = max([1] + [len(x) for x in tri_lists.values()])
+    tri_idx = np.full((E, max_tris), -1, np.int32)
+    tri_cdf = np.ones((E, max_tris), np.float32)
+    area = np.zeros(E, np.float32)
+    for i, tris in tri_lists.items():
+        if len(tris):
+            a = 0.5 * np.linalg.norm(
+                np.cross(rows[tris, 3:6], rows[tris, 6:9]), axis=-1)
+            area[i] = a.sum()
+            tri_idx[i, :len(tris)] = tris
+            tri_cdf[i, :len(tris)] = np.cumsum(a) / max(a.sum(), 1e-20)
     arrays = {
         "emitters.etype": etype, "emitters.radiance": radiance,
         "emitters.position": position, "emitters.direction": direction,
+        "emitters.tri_idx": tri_idx, "emitters.tri_cdf": tri_cdf,
+        "emitters.area": area,
         "emitters.scene_radius": np.asarray(scene_radius, np.float32),
     }
     return arrays, {"emitters.present_types": tuple(sorted(set(etype)))}
@@ -182,7 +202,7 @@ def grating_scene_arrays(width: int = 256, height: int = 256, *,
     spec = np.array([-np.sin(th), np.cos(th), 0.0])
     cam_pos = np.array([0.0, -0.5, 0.0]) + 2.2 * spec + np.array([0, 0, 0.35])
     mats, mat_static = _materials(bsdfs)
-    ems, em_static = _emitters(emitters, radius)
+    ems, em_static = _emitters(emitters, radius, geo)
     sens, sens_static = _sensor(
         tf.look_at(cam_pos, [0, -0.5, 0], [0, 1, 0]), 45.0, width, height)
     return ({**geo, **mats, **ems, **sens},
@@ -225,7 +245,8 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6,
                                     {"base_color": (0.7, 0.7, 0.7)})])
     ems, em_static = _emitters([{"type": "point",
                                  "position": (2.0, 2.0, 3.0),
-                                 "radiance": (40.0, 40.0, 40.0)}], radius)
+                                 "radiance": (40.0, 40.0, 40.0)}], radius,
+                               geo)
     sens, sens_static = _sensor(tf.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
                                 45.0, width, height)
     return ({**geo, **mats, **ems, **sens},
@@ -238,4 +259,56 @@ def mesh_scene(width: int = 512, height: int = 512, subdiv: int = 6, *,
     mesh82k bench at subdiv 6, of its mesh20k golden at subdiv 5), routed
     to the clu2 kernels or, with accel="packet", to the packet-BVH walk."""
     arrays, static = mesh_scene_arrays(width, height, subdiv, accel)
+    return scene_from_arrays(arrays, static, device=device)
+
+
+def cornell_box_arrays(width: int = 256, height: int = 256):
+    """The (arrays, static) pair of `cornell_box`, numpy only: white walls,
+    red left and green right walls, two white diffuse boxes, a 0.46 x 0.38
+    area light just below the ceiling, a 39.3077-degree camera at
+    (0, 0, 3.9)."""
+    white = (0.885809, 0.698859, 0.666422)
+    green = (0.105421, 0.37798, 0.076425)
+    red = (0.570068, 0.0430135, 0.0443706)
+    light_rad = (18.387, 13.9873, 6.75357)
+    W, G, R, BOX = 0, 1, 2, 3
+    bsdfs = [(BSDF_DIFFUSE, {"base_color": c})
+             for c in (white, green, red, white)]
+    T, Rt, S = tf.translate, tf.rotate, tf.scale
+
+    def f32(*ms):  # the product in float64, as the JAX preset composes
+        out = np.eye(4)
+        for mm in ms:
+            out = out @ np.asarray(mm, np.float64)
+        return out.astype(np.float32)
+
+    meshes = [
+        make_rectangle(f32(T([0, -1, 0]), Rt([1, 0, 0], -90))),  # floor
+        make_rectangle(f32(T([0, 1, 0]), Rt([1, 0, 0], 90))),    # ceiling
+        make_rectangle(f32(T([0, 0, -1]))),                      # back
+        make_rectangle(f32(T([1, 0, 0]), Rt([0, 1, 0], -90))),   # green
+        make_rectangle(f32(T([-1, 0, 0]), Rt([0, 1, 0], 90))),   # red
+        make_cube(f32(T([0.335, -0.7, 0.38]), Rt([0, 1, 0], -17),
+                      S([0.25, 0.3, 0.25]))),                    # small box
+        make_cube(f32(T([-0.33, -0.4, -0.28]), Rt([0, 1, 0], 18.25),
+                      S([0.25, 0.6, 0.25]))),                    # tall box
+        make_rectangle(f32(T([0, 0.99, 0.01]), Rt([1, 0, 0], 90),
+                           S([0.23, 0.19, 1.0]))),               # light
+    ]
+    geo, radius = _geometry(meshes, [W, W, W, G, R, BOX, BOX, W],
+                            [-1] * 7 + [0])
+    mats, mat_static = _materials(bsdfs)
+    ems, em_static = _emitters([{"type": "area", "radiance": light_rad}],
+                               radius, geo)
+    sens, sens_static = _sensor(tf.look_at([0, 0, 3.90], [0, 0, 0],
+                                           [0, 1, 0]), 39.3077, width, height)
+    return ({**geo, **mats, **ems, **sens},
+            {**mat_static, **em_static, **sens_static})
+
+
+def cornell_box(width: int = 256, height: int = 256, *, device="cuda"):
+    """The Cornell box on `device` (the JAX package's `cornell_box` at its
+    defaults: the scene of its cbox bench and cbox_path golden). Its
+    conductor and dielectric box materials are not ported."""
+    arrays, static = cornell_box_arrays(width, height)
     return scene_from_arrays(arrays, static, device=device)

@@ -25,11 +25,14 @@ BRUTE_FORCE_MAX_FACES = 4096
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Triangle soup: the q table for intersection and one packed row of
-    shading attributes per face."""
+    """Triangle soup: the q table for intersection, the (p0, e1, e2) rows
+    (area-light sampling, the classic and MXU brute force) and one packed
+    row of shading attributes per face."""
 
     tri_q: torch.Tensor       # [F_pad, 16] (ops.intersect.pack_tri_q)
     tri_anchor: torch.Tensor  # [3] scene-centre anchor
+    # [F_pad, 9]: p0(3) e1(3) e2(3), zero rows padding F to a multiple of 64
+    tri_isect: torch.Tensor
     # [F, 24]: ng(3) n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) mat emitter shape
     tri_attr: torch.Tensor
 

@@ -1,6 +1,7 @@
-"""Host-side triangle meshes (numpy only): the mesh record and the unit
-icosphere of the mesh scenes. Same vertices, faces and normals as the JAX
-package's `scene/shape.py::HostMesh` and `make_sphere`."""
+"""Host-side triangle meshes (numpy only): the mesh record, the unit
+icosphere of the mesh scenes, and Mitsuba's unit rectangle and cube. Same
+vertices, faces and normals as the JAX package's `scene/shape.py`
+(`HostMesh`, `make_sphere`, `make_rectangle`, `make_cube`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,44 @@ class HostMesh:
     vertices: np.ndarray                  # [V, 3] f32
     faces: np.ndarray                     # [F, 3] i32
     normals: Optional[np.ndarray] = None  # [V, 3] f32 vertex normals
+
+
+def _transformed(v, n, to_world):
+    """Vertices and (where given) normals under to_world [4, 4] float32,
+    as the JAX package's `HostMesh.transformed` computes them."""
+    v = (v @ to_world[:3, :3].T + to_world[:3, 3]).astype(np.float32)
+    if n is not None:
+        n = n @ np.linalg.inv(to_world[:3, :3])  # inverse transpose
+        n = (n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
+                            1e-20)).astype(np.float32)
+    return v, n
+
+
+def make_rectangle(to_world):
+    """Mitsuba's unit rectangle ([-1, 1]^2 at z = 0, normal +z) transformed
+    by to_world [4, 4] float32: (vertices, faces, normals, uvs)."""
+    v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    v, n = _transformed(v, n, to_world)
+    return v, f, n, uv
+
+
+def make_cube(to_world):
+    """Mitsuba's cube ([-1, 1]^3, four vertices and two faces per side)
+    transformed by to_world [4, 4] float32: (vertices, faces, None, None):
+    flat shading (face normals) and zero uvs."""
+    corners = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                        [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+                       np.float32)
+    quads = [(0, 3, 2, 1), (4, 5, 6, 7), (0, 1, 5, 4),
+             (2, 3, 7, 6), (1, 2, 6, 5), (0, 4, 7, 3)]
+    v = corners[np.asarray(quads).reshape(-1)]
+    b = 4 * np.arange(6, dtype=np.int32)[:, None]
+    f = np.concatenate([b + [0, 1, 2], b + [0, 2, 3]], axis=1).reshape(-1, 3)
+    v, _ = _transformed(v, None, to_world)
+    return v, f.astype(np.int32), None, None
 
 
 def make_sphere(subdiv: int = 4) -> HostMesh:

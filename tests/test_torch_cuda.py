@@ -7,6 +7,8 @@ no JAX), run them with
 
 (`--noconftest`: the suite's conftest configures JAX). This file imports no
 JAX."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -111,6 +113,8 @@ def test_render_launches_each_kernel_once_per_bounce(card):
     assert ops.launch_counts() == {"intersect_q": 8, "occluded_q": 8,
                                    "intersect_clu2": 0, "occluded_clu2": 0,
                                    "intersect_bvh": 0, "occluded_bvh": 0,
+                                   "intersect_classic": 0,
+                                   "occluded_classic": 0, "intersect_mxu": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8}
 
 
@@ -185,6 +189,8 @@ def test_path_render_launches_clu2_once_per_bounce(card):
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
                                    "intersect_clu2": 8, "occluded_clu2": 8,
                                    "intersect_bvh": 0, "occluded_bvh": 0,
+                                   "intersect_classic": 0,
+                                   "occluded_classic": 0, "intersect_mxu": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
 
 
@@ -245,3 +251,94 @@ def test_regen_render_launches_bvh_once_per_iteration(card):
     fixed = render(scene, integ, seed=2, spp=8, spp_per_pass=4,
                    pixel_order="morton")
     torch.testing.assert_close(img, fixed, rtol=2e-5, atol=2e-6)
+
+
+def _brute_sets(card):
+    """The bench tool's ray sets on the Cornell box (coherent, incoherent,
+    camera, bounce and shadow rays) and on a 1,280-face icosphere."""
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    cbox = cornell_box(32, 32, device=card)
+    mesh = mesh_scene(32, 32, subdiv=3, device=card)
+    return [(cbox, {**bi.ray_sets(cbox, 8192, 1),
+                    **bi.cbox_ray_sets(cbox, 8, 1)}),
+            (mesh, bi.ray_sets(mesh, 8192, 2))]
+
+
+def test_classic_kernels_match_plain(card):
+    """B8a and B8b equal their plain versions to the bit."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    for scene, sets in _brute_sets(card):
+        g = scene.geo
+        for label, (o, d, mt) in sets.items():
+            args = (g.tri_isect, o, d, mt, g.n_faces)
+            got = isect.intersect_classic(*args)
+            want = isect.intersect_classic_plain(*args)
+            occ = isect.occluded_classic(*args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), label
+            assert torch.equal(occ, isect.occluded_classic_plain(*args)), \
+                label
+            if label in ("incoherent", "depth1"):
+                assert 0.05 < (got[1] >= 0).float().mean() < 1.0, label
+
+
+def test_mxu_kernel_matches_plain(card):
+    """B9 against its plain version (the product by torch.matmul in full
+    float32): hit masks and prims equal on >= 99.99% of lanes, t within
+    rtol 1e-4 where both hit; over the whole padded table and over the
+    mesh's faces alone."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    for scene, sets in _brute_sets(card):
+        F = scene.geo.n_faces
+        p = scene.geo.tri_isect[:F].cpu().numpy()
+        w = torch.as_tensor(isect.regroup_tri_mxu(isect.pack_tri_mxu(
+            p[:, 0:3], p[:, 3:6], p[:, 6:9])), device=card)
+        for (label, (o, d, mt)), nt in itertools.product(sets.items(),
+                                                          (None, F)):
+            got = isect.intersect_mxu(w, o, d, mt, nt)
+            want = isect.intersect_mxu_plain(w, o, d, mt, nt)
+            torch.cuda.synchronize()
+            hit, whit = got[1] >= 0, want[1] >= 0
+            assert (hit == whit).float().mean() >= 1 - 1e-4, label
+            assert (got[1] == want[1]).float().mean() >= 1 - 1e-4, label
+            both = hit & whit
+            torch.testing.assert_close(got[0][both], want[0][both],
+                                       rtol=1e-4, atol=0)
+            assert torch.isinf(got[0][~hit]).all()
+
+
+def test_cbox_render_matches_cpu_render(card):
+    """cornell_box(32, 32), path depth 4 / rr 9, 4 seeds x 16 spp on the
+    card and on the CPU: the same samples, so the images agree within the
+    golden z-test; B1 and B2 launch once per bounce on the card."""
+    from scipy.stats import norm
+
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+
+    integ = PathIntegrator(max_depth=4, rr_depth=9)
+    imgs = {}
+    for dev in (card, "cpu"):
+        scene = cornell_box(32, 32, device=dev)
+        ops.reset_launch_counts()
+        imgs[str(dev)] = np.stack([
+            render(scene, integ, seed=s, spp=16).cpu().numpy()
+            for s in range(4)])
+        counts = ops.launch_counts()
+        if dev == card:
+            assert counts.pop("intersect_q") == 16
+            assert counts.pop("occluded_q") == 16
+        assert not any(counts.values())
+    a, b = imgs[str(card)], imgs["cpu"]
+    assert np.isfinite(a).all() and a.mean() > 0.05
+    z = np.abs(a.mean(0) - b.mean(0)) / np.sqrt(
+        (a.var(0, ddof=1) + b.var(0, ddof=1)) / 4 + 1e-8)
+    alpha = 1.0 - (1.0 - 0.01) ** (1.0 / z.size)
+    assert int((z > norm.isf(alpha / 2)).sum()) == 0, z.max()

@@ -42,12 +42,15 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
-    assert sorted(os.listdir(csrc)) == ["grating.cu", "intersect_bvh.cu",
-                                        "intersect_clu2.cu", "intersect_q.cu"]
+    assert sorted(os.listdir(csrc)) == [
+        "grating.cu", "intersect_bvh.cu", "intersect_classic.cu",
+        "intersect_clu2.cu", "intersect_mxu.cu", "intersect_q.cu"]
     from mitsuba3_plt_tpu_torch.ops import build
 
     assert sorted(build.SOURCES) == sorted(os.listdir(csrc))
-    assert {"plt_intersect_bvh", "plt_occluded_bvh"} <= set(build.SIGNATURES)
+    assert {"plt_intersect_bvh", "plt_occluded_bvh", "plt_intersect_classic",
+            "plt_occluded_classic", "plt_intersect_mxu"} <= set(
+                build.SIGNATURES)
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
 
 
@@ -103,4 +106,6 @@ def test_launch_counters_stay_zero_on_the_cpu():
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
                                    "intersect_clu2": 0, "occluded_clu2": 0,
                                    "intersect_bvh": 0, "occluded_bvh": 0,
+                                   "intersect_classic": 0,
+                                   "occluded_classic": 0, "intersect_mxu": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}

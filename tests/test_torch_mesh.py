@@ -247,7 +247,8 @@ def test_point_emitter_matches_jax():
         jscene.emitters, jscene.geo, jnp.asarray(ref), jnp.asarray(u1),
         jnp.asarray(u2), jnp.asarray(active))
     tds = tem.sample_emitter_direction(
-        tscene.emitters, torch.as_tensor(ref), torch.as_tensor(u1),
+        tscene.emitters, tscene.geo, torch.as_tensor(ref),
+        torch.as_tensor(u1),
         torch.as_tensor(u2), torch.as_tensor(active))
     for field in ("d", "dist", "pdf"):
         np.testing.assert_allclose(getattr(tds, field).numpy(),

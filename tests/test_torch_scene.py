@@ -80,8 +80,8 @@ def test_preset_arrays_equal_bridged_jax_scene(kw):
 
 
 def test_bridge_refuses_unported_scenes():
-    # area emitters and conductors: the Cornell box is not in this slice
-    jscene, _ = jpresets.cornell_box(8, 8)
+    # conductors: the Cornell box's conductor boxes are not ported
+    jscene, _ = jpresets.cornell_box(8, 8, box_material="conductor")
     with pytest.raises(NotImplementedError):
         scene_from_arrays(*jax_scene_arrays(jscene), device="cpu")
     arrays, static = tpresets.grating_scene_arrays(4, 4)
@@ -89,10 +89,12 @@ def test_bridge_refuses_unported_scenes():
         scene_from_arrays({**arrays, "geo.sph_center": np.zeros((1, 3))},
                           static, device="cpu")
     with pytest.raises(NotImplementedError):
-        scene_from_arrays(arrays, {**static, "emitters.present_types": (0,)},
+        # an environment map (type 4)
+        scene_from_arrays(arrays, {**static, "emitters.present_types": (4,)},
                           device="cpu")
     with pytest.raises(NotImplementedError):
-        tpresets._emitters([{"type": "spot", "radiance": (1, 1, 1)}], 1.0)
+        tpresets._emitters([{"type": "spot", "radiance": (1, 1, 1)}], 1.0,
+                           {})
 
 
 def test_camera_rays_match():
