@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py            # one card, ~2 min with the build
 
-Five paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth path
-tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
+Seven paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
+path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
 packet-BVH route (B7a, B7b), the intersection bench tool
 (`mitsuba3_plt_tpu_torch/tools/bench_isect.py`: B1, B2, B7a and the brute
 forces B8a, B8b, B9 on the Cornell box's rays and on a 5,120-face
-icosphere), and the path tracer on the Cornell box (B1, B2, area light).
+icosphere), the cluster-mask sort tool (`tools/isect_mask_sort.py`: the
+flat cluster kernels B10a, B10b beside B1, B2) and the unroll sweep
+(`tools/isect_unroll_sweep.py`: B11a, B11b beside B1, B2) on the same two
+scenes, and the path tracer on the Cornell box (B1, B2, area light).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
@@ -28,10 +31,23 @@ Phases, each printing one JSON line with its seconds:
                   sets of the Cornell box and of the 5,120-face icosphere at
                   1,048,576 lanes, held to their plain versions on all the
                   box's lanes and on the icosphere's first 131,072 (B8 to
-                  the bit, B9 within its tolerance);
+                  the bit, B9 within its tolerance). B10a (incoherent,
+                  depth0) and B10b (shadow0) on the mask-sort tool's
+                  icosphere sets, B11a at every unroll with one and two
+                  accumulators and B11b at every unroll on the sweep's
+                  rays of both scenes, all at 1,048,576 lanes, each equal
+                  to its plain version to the bit on 131,072 lanes (all of
+                  the Cornell box's for B11);
   isect-tool      bench_isect.run on both scenes: one row per route and ray
                   set (ms, M rays/s, agreement with brute-classic), and the
                   launches of one run on one set;
+  mask-sort       isect_mask_sort.run on both scenes (1,048,576 rays a
+                  set): the launches of one run on two sets, each sorted
+                  and Morton pipeline equal to the unsorted kernel on every
+                  lane, one row per route and set (ms, ms per M rays,
+                  agreement with q);
+  unroll-sweep    isect_unroll_sweep.run on both scenes (2^20 rays): the
+                  launches of one run, one row per variant;
   golden          grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
                   4 seeds x 12 spp, Sidak z-test against tests/golden/
                   grating_plt.npz;
@@ -64,8 +80,9 @@ Phases, each printing one JSON line with its seconds:
                   times per pass, no other kernel;
   split-cbox      to chiprun_out/chip_smoke_profile_cbox.json.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
-and B9 from one tool run on one ray set), the nvidia-smi line, and the
-final status line. Every failure raises and exits non-zero.
+and B9 from one tool run on one ray set, B10 and B11 from one run of
+their tools), the nvidia-smi line, and the final status line. Every
+failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -99,7 +116,9 @@ ITER = "iteration"
 NO_LAUNCHES = dict.fromkeys(
     ("intersect_q", "occluded_q", "grating_sample", "grating_lobe_sum",
      "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh",
-     "intersect_classic", "occluded_classic", "intersect_mxu"), 0)
+     "intersect_classic", "occluded_classic", "intersect_mxu",
+     "intersect_clu", "occluded_clu", "intersect_q_variant",
+     "occluded_q_variant"), 0)
 GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
                     "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
                     "grating_lobe_sum": MAIN_DEPTH}
@@ -111,8 +130,10 @@ REGEN_CLU2_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": ITER,
 CBOX_LAUNCHES = {**NO_LAUNCHES, "intersect_q": CBOX_DEPTH,
                  "occluded_q": CBOX_DEPTH}
 REGEN = {"regen": True, "pixel_order": "morton"}
-# kernels whose launches in the kernels line come from the tool's run
+# kernels whose launches in the kernels line come from a tool's run
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
+MASK_KERNELS = ("intersect_clu", "occluded_clu")
+SWEEP_KERNELS = ("intersect_q_variant", "occluded_q_variant")
 
 
 def emit(obj):
@@ -215,7 +236,8 @@ def kernel_registers(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            k = re.search(r"(clu2_kernel|bvh_kernel|q_kernel|lobe_sum_kernel|"
+            k = re.search(r"(clu2_kernel|clu_kernel|bvh_kernel|sweep_q_kernel|"
+                          r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
                           r"sample_kernel|classic_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
             if k:
@@ -254,6 +276,10 @@ CLASSIC_ANYHIT_TEST_OPS = BVH_ANYHIT_TEST_OPS
 MXU_RAY_SETUP_OPS = 15    # 9 products of phi, maxt check, miss selects
 MXU_TEST_OPS = 158        # 4 x 16 FMAs (2 each), sign fold, guarded 1/|det|,
                           # t, hit, best update with u and v
+CLU_RAY_SETUP_OPS = CLU2_RAY_SETUP_OPS  # the same ray terms
+SWEEP_RAY_SETUP_OPS = 15  # anchor shift, o x d, maxt check, final divide
+SWEEP_TEST_OPS = 53       # the q test with a best pair of (t|det|, |det|)
+DUAL_MERGE_OPS = 6        # two products, a compare, three selects
 
 
 def bessel_ops(half):
@@ -349,16 +375,13 @@ def check_intersect(scene, n_rays, rng):
     # or a triangle boundary: at most 1 lane in 10,000
     require(frac_occ >= 1 - 1e-4, f"occluded_q agreement {frac_occ}")
     # triangles tested per ray: up to the first hit (the loop leaves there)
-    tested = torch.full((n,), geo.n_faces, dtype=torch.int64, device=dev)
-    o3, d3, c, mt = isect._ray_terms(geo.tri_anchor, so, sd, smt)
-    for ti in reversed(range(geo.n_faces)):
-        ad, _, _, ts, inside = isect._q_terms(geo.tri_q[ti], o3, d3, c)
-        tested = torch.where(inside & (ts < mt * ad), ti + 1, tested)
+    tested = anyhit_tests(geo.tri_q, geo.tri_anchor, so, sd, smt,
+                          geo.n_faces)
     ms_a = time_ms(lambda: isect.occluded_q(*sargs))
     plain_a = time_ms(lambda: isect.occluded_q_plain(*sargs))
     b_a, by_a = bound_ms(
         nbytes(geo.tri_q, geo.tri_anchor, so, sd, smt, occ),
-        n * Q_RAY_SETUP_OPS + tested.sum().item() * Q_ANYHIT_TEST_OPS)
+        n * Q_RAY_SETUP_OPS + tested * Q_ANYHIT_TEST_OPS)
     anyhit = {"name": "occluded_q", "route": "cuda",
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411 "
@@ -881,6 +904,278 @@ def check_brute(label, scene, sets, plain_lanes=None):
     return out
 
 
+def check_clu(label, tabs, sets, plain_lanes):
+    """B10a and B10b against their plain versions over the mask-sort
+    tool's ctab64 on its ray sets {set: (o, d, maxt)}: the closest hit on
+    the non-shadow sets, the any hit on the shadow sets, each equal to the
+    plain version to the bit on `plain_lanes` lanes spread evenly over the
+    set (the sets are in image order; the kernel gates each lane on its
+    own, as the plain version does) and timed on all. The bound counts
+    each ray's own slab and triangle tests (the plain version's counts,
+    scaled to all lanes). Returns {set: row}."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    ct = tabs["ctab64"]
+    tables = (ct.boxes, ct.rows, ct.anchor)
+    out = {}
+    for set_label, (o, d, mt) in sets.items():
+        any_hit = set_label.startswith("shadow")
+        n = o.shape[0]
+        step = max(1, n // plain_lanes)
+        part = tuple(x[::step].contiguous() for x in (o, d, mt))
+        m = part[0].shape[0]
+        counts = {}
+        kernel = isect.occluded_clu if any_hit else isect.intersect_clu
+        plain = (isect.occluded_clu_plain if any_hit
+                 else isect.intersect_clu_plain)
+        got = kernel(ct, *part)
+        want, plain_ms = time_once(lambda: plain(ct, *part, counts=counts))
+        name = "occluded_clu" if any_hit else "intersect_clu"
+        if any_hit:
+            agree = (got == want).double().mean().item()
+            require(torch.equal(got, want),
+                    f"{name} {label} {set_label}: agreement {agree}")
+            err = 1.0 - agree
+            share = {"occluded_share": want.double().mean().item()}
+            out_bytes = n
+        else:
+            hit = want[1] >= 0
+            err = max((got[k][hit] - want[k][hit]).abs().max().item()
+                      if hit.any() else 0.0 for k in (0, 2, 3))
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"{name} {label} {set_label}: differs, max {err}")
+            share = {"hit_share": hit.double().mean().item()}
+            out_bytes = 16 * n
+        ms = time_ms(lambda: kernel(ct, o, d, mt))
+        scale = n / m
+        ops = (n * CLU_RAY_SETUP_OPS
+               + counts["cluster_tests"] * scale * SLAB_OPS
+               + counts["triangle_tests"] * scale
+               * (Q_ANYHIT_TEST_OPS if any_hit else Q_TEST_OPS))
+        b, by = bound_ms(nbytes(tables, o, d, mt) + out_bytes, ops)
+        row = {"name": name, "route": "cuda", "n": n, "plain_lanes": m,
+               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_clu.cu",
+               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
+                           + ("1093 (pallas_occluded_clu)" if any_hit
+                              else "1080 (pallas_intersect_clu)"),
+               "rays": f"{label} {set_label}", "library_ms": None,
+               "plain_timing": "the comparison call, once, on plain_lanes",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "agreement": 1.0 - err
+               if any_hit else 1.0, **share, "boxes": ct.boxes.shape[0],
+               "tests_per_ray": {k: v / m for k, v in counts.items()}}
+        emit({"phase": "kernels", **row})
+        out[set_label] = row
+        del got, want
+    return out
+
+
+def anyhit_tests(tri_q, anchor, o, d, mt, rows, chunk=256):
+    """The triangle tests of an any-hit brute force that stops at each
+    ray's first hit (all `rows` where it has none), summed over the rays:
+    the rows tested chunk at a time as one [rays, chunk] block."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    (o3, d3, c, m) = isect._ray_terms(anchor, o, d, mt)
+    split = lambda x: tuple(v[:, None] for v in x)  # noqa: E731
+    o3, d3, c = split(o3), split(d3), split(c)
+    first = torch.full(m.shape, rows, dtype=torch.int64, device=m.device)
+    # from the last chunk to the first, so the earliest hit stays
+    for s0 in reversed(range(0, rows, chunk)):
+        qt = tri_q[s0: min(rows, s0 + chunk)].T.unsqueeze(1)
+        ad, _, _, ts, inside = isect._q_terms(qt, o3, d3, c)
+        hit = inside & (ts < m[:, None] * ad)
+        any_hit = hit.any(1)
+        first = torch.where(any_hit, s0 + hit.to(torch.int8).argmax(1) + 1,
+                            first)
+    return int(first.sum())
+
+
+def check_sweep(label, scene, rays, plain_lanes=None):
+    """B11a at every unroll, with one and with two accumulators, and B11b
+    at every unroll against their plain versions on the sweep's rays, equal
+    to the bit on the first `plain_lanes` lanes (all where None), timed on
+    all. The closest hit runs with maxt inf. The any hit is timed and
+    bounded on the tool's maxt (0.99 of B1's t where B1 hits, else 2.0: no
+    lane is occluded, every lane tests every row) and checked on a mixed
+    one (0.99 or 1.01 of B1's t on alternate lanes, inf on every third
+    lane) so that lanes stop at a hit and the inf rule is held. A plain
+    version depends on the unroll only through the rows it runs, so it is
+    run once per row count. Returns {(kind, unroll, dual): row}."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    geo, F = scene.geo, scene.geo.n_faces
+    q = (geo.tri_q, geo.tri_anchor)
+    o, d, mt = rays
+    n = o.shape[0]
+    m = n if plain_lanes is None else min(n, plain_lanes)
+    t0 = isect.intersect_q(*q, o, d, mt, F)[0]
+    msh = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
+    lane = torch.arange(m, device=o.device)
+    mix = torch.where(torch.isfinite(t0[:m]),
+                      t0[:m] * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
+    mix = torch.where(lane % 3 == 0, float("inf"), mix)
+    del t0
+    common = {"route": "cuda", "n": n, "plain_lanes": m,
+              "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_sweep.cu",
+              "rays": f"{label} sweep", "library_ms": None,
+              "plain_timing": "the comparison call, once, on plain_lanes"}
+    plain, out = {}, {}
+    for unroll in isect.Q_VARIANT_UNROLLS:
+        rows = isect.q_variant_rows(geo.tri_q.shape[0], F, unroll)
+        for dual in (False, True):
+            got = isect.intersect_q_variant(*q, o[:m], d[:m], mt[:m], F,
+                                            unroll, dual)
+            if (rows, dual) not in plain:
+                plain[rows, dual] = time_once(
+                    lambda: isect.intersect_q_variant_plain(
+                        *q, o[:m], d[:m], mt[:m], F, unroll, dual))
+            want, plain_ms = plain[rows, dual]
+            hit = want[1] >= 0
+            err = ((got[0][hit] - want[0][hit]).abs().max().item()
+                   if hit.any() else 0.0)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"intersect_q_variant {label} unroll {unroll} dual "
+                    f"{dual}: differs, max {err}")
+            ms = time_ms(lambda: isect.intersect_q_variant(
+                *q, o, d, mt, F, unroll, dual))
+            b, by = bound_ms(
+                nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 8 * n,
+                n * (SWEEP_RAY_SETUP_OPS + rows * SWEEP_TEST_OPS
+                     + (DUAL_MERGE_OPS if dual else 0)))
+            out["closest", unroll, dual] = {
+                "name": "intersect_q_variant", **common,
+                "replaces": "tools/experiments/isect_unroll_sweep.py:91 "
+                            "(q_variant)",
+                "unroll": unroll, "dual": dual, "rows": rows,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "agreement": 1.0,
+                "hit_share": hit.double().mean().item()}
+        occ = isect.occluded_q_variant(*q, o[:m], d[:m], mix, F, unroll)
+        if rows not in plain:
+            plain[rows] = time_once(lambda: isect.occluded_q_variant_plain(
+                *q, o[:m], d[:m], mix, F, unroll))
+        want, plain_ms = plain[rows]
+        agree = (occ == want).double().mean().item()
+        require(torch.equal(occ, want) and want.any()
+                and not want[::3].any(),
+                f"occluded_q_variant {label} unroll {unroll}: {agree}")
+        ms = time_ms(lambda: isect.occluded_q_variant(*q, o, d, msh, F,
+                                                      unroll))
+        if ("tests", rows) not in plain:
+            plain["tests", rows] = anyhit_tests(*q, o[:m], d[:m], msh[:m],
+                                                rows) * n / m
+        tests = plain["tests", rows]
+        b, by = bound_ms(
+            nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, msh) + n,
+            n * SWEEP_RAY_SETUP_OPS + tests * Q_ANYHIT_TEST_OPS)
+        out["any hit", unroll, False] = {
+            "name": "occluded_q_variant", **common,
+            "replaces": "tools/experiments/isect_unroll_sweep.py:203 "
+                        "(a_variant)",
+            "unroll": unroll, "dual": False, "rows": rows,
+            "max_abs_err": 1.0 - agree, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "agreement": agree,
+            "checked_occluded_share": want.double().mean().item(),
+            "tests_per_ray": tests / n}
+    for r in out.values():
+        emit({"phase": "kernels", **r})
+    return out
+
+
+def mask_sort_tool(scenes):
+    """The cluster-mask sort tool on each (label, scene, tables, ray sets):
+    the launches of one run on the Cornell box's depth1 and shadow1 sets,
+    then per scene each sorted and Morton pipeline held to the unsorted
+    kernel over the same table on every lane of every set, and one timed
+    run, a row per route and set. Each cluster route agrees with q on >=
+    99.99% of lanes (the JAX tool's check) on the JAX tool's sets (camera,
+    bounce and shadow rays); on the incoherent set, whose origins lie
+    inside the Cornell box's boxes, the bottoms and the floor are coplanar
+    and tie exactly, and the first in table order wins, so there >= 99.99%
+    of lanes must have the same prim or their hit at the same distance.
+    Returns the launches."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+
+    ph = Phase("mask-sort")
+    _, cscene, ctabs, csets = scenes[0]
+    pick = {k: csets[k] for k in ("depth1", "shadow1")}
+    ops.reset_launch_counts()
+    ms.run(cscene, pick, tabs=ctabs)
+    launches = ops.launch_counts()
+    want = {**NO_LAUNCHES, "intersect_q": 1, "occluded_q": 1,
+            "intersect_clu": 4, "occluded_clu": 4}
+    require(launches == want, f"mask-sort launches {launches}")
+    n_rows = 0
+    for label, scene, tabs, sets in scenes:
+        fns = ms.route_fns(scene, tabs)
+        unsorted = {"m64": fns["clu"],
+                    "m128": (ms._clu_fn(tabs["ctab128"], False),
+                             ms._clu_fn(tabs["ctab128"], True)),
+                    "clu-morton": fns["clu"]}
+        for set_label, (o, d, mt) in sets.items():
+            any_hit = set_label.startswith("shadow")
+            for name, base in unsorted.items():
+                got = fns[name][any_hit](o, d, mt)
+                ref = base[any_hit](o, d, mt)
+                same = (torch.equal(got, ref) if any_hit else
+                        all(torch.equal(a, b) for a, b in zip(got, ref)))
+                require(same, f"mask-sort {label} {set_label} {name}: "
+                              "differs from the unsorted kernel")
+        rows = ms.run(scene, sets, tabs=tabs,
+                      timer=lambda fn: time_ms(fn, reps=3, calls=3,
+                                               warmup=1))
+        for r in rows:
+            emit({"phase": "mask-sort", "scene": label, **r})
+            agree = (r["occ_agree"] if r["kind"] == "any hit"
+                     else r["same_hit"] if r["set"] == "incoherent"
+                     else r["prim_agree"])
+            require(agree >= 0.9999, f"mask-sort {label} {r['set']} "
+                                     f"{r['route']}: agreement {agree}")
+        n_rows += len(rows)
+    ph.emit(rows=n_rows, launches_one_run=launches,
+            boxes={label: {k: t.boxes.shape[0] for k, t in tabs.items()}
+                   for label, _, tabs, _ in scenes})
+    return launches
+
+
+def unroll_sweep_tool(scenes):
+    """The unroll-sweep tool on each (label, scene, rays): the launches of
+    one run on the Cornell box's rays, then one timed run per scene, a row
+    per variant with its agreement with B1 or B2. Returns the launches."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+
+    ph = Phase("unroll-sweep")
+    _, cscene, crays = scenes[0]
+    ops.reset_launch_counts()
+    us.run(cscene, crays)
+    launches = ops.launch_counts()
+    want = {**NO_LAUNCHES, "intersect_q": 1, "occluded_q": 1,
+            "intersect_q_variant": len(us.CLOSEST),
+            "occluded_q_variant": len(us.ANYHIT)}
+    require(launches == want, f"unroll-sweep launches {launches}")
+    n_rows = 0
+    for label, scene, rays in scenes:
+        rows = us.run(scene, rays,
+                      timer=lambda fn: time_ms(fn, reps=3, calls=3,
+                                               warmup=1))
+        for r in rows:
+            emit({"phase": "unroll-sweep", "scene": label, **r})
+        n_rows += len(rows)
+    ph.emit(rows=n_rows, launches_one_run=launches)
+    return launches
+
+
 def isect_tool(scenes):
     """The intersection tool on each (label, scene, ray sets): the launches
     of one run on one set (the Cornell box's first bounce), then one timed
@@ -1093,6 +1388,8 @@ def main():
                                                       grating_scene,
                                                       mesh_scene)
     from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1140,8 +1437,16 @@ def main():
     csets = {**bi.ray_sets(cscene, TOOL_LANES, 0),
              **bi.cbox_ray_sets(cscene, TOOL_LANES // (CBOX_W * CBOX_H), 0)}
     tsets = bi.ray_sets(tscene, TOOL_LANES, 0)
+    spp = TOOL_LANES // (CBOX_W * CBOX_H)
+    mask_scenes = [(label, sc, ms.tables(sc), ms.ray_sets(sc, spp, 0))
+                   for label, sc in (("cbox", cscene), ("mesh5k", tscene))]
+    sweep_scenes = [(label, sc, us.sweep_rays(sc, TOOL_LANES, 0))
+                    for label, sc in (("cbox", cscene), ("mesh5k", tscene))]
     ph.emit(cbox_sets=list(csets), mesh_faces=tscene.geo.n_faces,
-            mesh_sets=list(tsets), lanes=TOOL_LANES)
+            mesh_sets=list(tsets), lanes=TOOL_LANES,
+            mask_sets=list(mask_scenes[0][3]),
+            clusters={label: {k: t.boxes.shape[0] for k, t in tabs.items()}
+                      for label, _, tabs, _ in mask_scenes})
 
     ph = Phase("kernels")
     n = MAIN_W * MAIN_H * MAIN_SPP_PASS
@@ -1159,10 +1464,23 @@ def main():
     brute = check_brute("cbox", cscene, pick)
     check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
     rows += brute["incoherent"]
+    _, _, ttabs, tmask = mask_scenes[1]
+    clu = check_clu("mesh5k", ttabs,
+                    {k: tmask[k] for k in ("incoherent", "depth0",
+                                           "shadow0")}, PLAIN_LANES)
+    rows += [clu["incoherent"], clu["shadow0"]]
+    check_sweep("cbox", cscene, sweep_scenes[0][2])
+    sweep = check_sweep("mesh5k", tscene, sweep_scenes[1][2], PLAIN_LANES)
+    rows += [sweep["closest", 16, False], sweep["any hit", 16, False]]
     ph.emit(checked=[r["name"] for r in rows])
     tool_launches = isect_tool([("cbox", cscene, csets),
                                 ("mesh5k", tscene, tsets)])
     del csets, tsets
+    mask_launches = mask_sort_tool(mask_scenes)
+    sweep_launches = unroll_sweep_tool(sweep_scenes)
+    # the tools' rays and tables (~0.3 GB) must not count in the main
+    # paths' peak memory
+    del mask_scenes, sweep_scenes, ttabs, tmask
 
     golden_ztest("golden", grating_scene(24, 24, coherence=1e3,
                                          device="cuda"),
@@ -1214,6 +1532,8 @@ def main():
         own = (p_res["launches"] if PACKET_LAUNCHES[r["name"]]
                else m_res["launches"] if MESH_LAUNCHES[r["name"]]
                else tool_launches if r["name"] in TOOL_KERNELS
+               else mask_launches if r["name"] in MASK_KERNELS
+               else sweep_launches if r["name"] in SWEEP_KERNELS
                else g_res["launches"])
         r = dict(r, launches=own[r["name"]])
         kernels.append({k: r[k] for k in keys})

@@ -1,4 +1,4 @@
-"""The kernels of the main paths and of the intersection tool. Each wrapper
+"""The kernels of the main paths and of the intersection tools. Each wrapper
 runs its CUDA kernel on CUDA tensors (counting the launch) and its plain
 PyTorch version on CPU tensors."""
 from __future__ import annotations
@@ -18,6 +18,10 @@ def launch_counts() -> dict:
         "intersect_classic": intersect.INTERSECT_CLASSIC_LAUNCHES,
         "occluded_classic": intersect.OCCLUDED_CLASSIC_LAUNCHES,
         "intersect_mxu": intersect.INTERSECT_MXU_LAUNCHES,
+        "intersect_clu": intersect.INTERSECT_CLU_LAUNCHES,
+        "occluded_clu": intersect.OCCLUDED_CLU_LAUNCHES,
+        "intersect_q_variant": intersect.INTERSECT_Q_VARIANT_LAUNCHES,
+        "occluded_q_variant": intersect.OCCLUDED_Q_VARIANT_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
     }
@@ -33,5 +37,9 @@ def reset_launch_counts() -> None:
     intersect.INTERSECT_CLASSIC_LAUNCHES = 0
     intersect.OCCLUDED_CLASSIC_LAUNCHES = 0
     intersect.INTERSECT_MXU_LAUNCHES = 0
+    intersect.INTERSECT_CLU_LAUNCHES = 0
+    intersect.OCCLUDED_CLU_LAUNCHES = 0
+    intersect.INTERSECT_Q_VARIANT_LAUNCHES = 0
+    intersect.OCCLUDED_Q_VARIANT_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0

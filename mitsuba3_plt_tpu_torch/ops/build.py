@@ -19,7 +19,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("intersect_q.cu", "intersect_clu2.cu", "intersect_bvh.cu",
-           "intersect_classic.cu", "intersect_mxu.cu", "grating.cu")
+           "intersect_classic.cu", "intersect_mxu.cu", "intersect_clu.cu",
+           "intersect_sweep.cu", "grating.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +39,11 @@ SIGNATURES = {
     "plt_intersect_classic": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5,
     "plt_occluded_classic": [_P, _I] + [_P] * 3 + [_I, _P, _P],
     "plt_intersect_mxu": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 5,
+    "plt_intersect_clu": [_P, _I] + [_P] * 5 + [_I] + [_P] * 5,
+    "plt_occluded_clu": [_P, _I] + [_P] * 5 + [_I, _P, _P],
+    "plt_intersect_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _P, _I, _I,
+                                                      _P],
+    "plt_occluded_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "plt_grating_lobe_sum": [_P] * 11 + [_I, _I, _I, _I, _P, _P],
     "plt_grating_sample": [_P] * 11 + [_I, _I, _I] + [_P] * 7 + [_P],
 }

@@ -1,10 +1,12 @@
 """Closest-hit and any-hit ray/triangle queries: brute force over the
-precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`), over
-the classic (p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one
-product of ray features with a weight table (`csrc/intersect_mxu.cu`), the
-two-level treelet walk over a ClusterTable2 (`csrc/intersect_clu2.cu`) and
-the per-ray skip-link walk over a PacketBVH (`csrc/intersect_bvh.cu`),
-their plain PyTorch versions, and the host-side q and MXU table packers.
+precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`, and
+its unroll-sweep variants in `csrc/intersect_sweep.cu`), over the classic
+(p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one product of ray
+features with a weight table (`csrc/intersect_mxu.cu`), the treelet walks
+over a flat ClusterTable (`csrc/intersect_clu.cu`) and a two-level
+ClusterTable2 (`csrc/intersect_clu2.cu`), the per-ray skip-link walk over a
+PacketBVH (`csrc/intersect_bvh.cu`), their plain PyTorch versions, and the
+host-side q and MXU table packers.
 
 Möller-Trumbore re-associated around per-triangle constants so the
 triangle loop does no cross product and no division:
@@ -29,6 +31,10 @@ OCCLUDED_BVH_LAUNCHES = 0
 INTERSECT_CLASSIC_LAUNCHES = 0
 OCCLUDED_CLASSIC_LAUNCHES = 0
 INTERSECT_MXU_LAUNCHES = 0
+INTERSECT_CLU_LAUNCHES = 0
+OCCLUDED_CLU_LAUNCHES = 0
+INTERSECT_Q_VARIANT_LAUNCHES = 0
+OCCLUDED_Q_VARIANT_LAUNCHES = 0
 
 # Möller-Trumbore needs |det| above this to count a hit
 _DET_EPS = 1e-12
@@ -112,17 +118,16 @@ def _q_terms(tr, o, d, c):
     return ad, us, vs, ts, inside
 
 
-def intersect_q_plain(tri_q, anchor, o, d, maxt, n_tris=None):
-    """Plain version of `intersect_q`: rows in order, strict-less pair
-    comparison, so the first of two tied rows wins."""
-    n_tris = tri_q.shape[0] if n_tris is None else n_tris
-    o3, d3, c, mt = _ray_terms(anchor, o, d, maxt)
+def _q_best(tri_q, rows, o3, d3, c, mt):
+    """(t|det|, |det|, u|det|, v|det|, prim) of the nearest of the table
+    `rows`, taken in their order with the strict-less pair comparison, so
+    the first of two tied rows wins; (mt, 1, 0, 0, -1) on a miss."""
     ts_b = mt
     ad_b = torch.ones_like(mt)
     us_b = torch.zeros_like(mt)
     vs_b = torch.zeros_like(mt)
     prim = torch.full(mt.shape, -1, dtype=torch.int32, device=mt.device)
-    for ti in range(n_tris):
+    for ti in rows:
         ad, us, vs, ts, inside = _q_terms(tri_q[ti], o3, d3, c)
         hit = inside & (ts * ad_b < ts_b * ad)
         ts_b = torch.where(hit, ts, ts_b)
@@ -130,6 +135,15 @@ def intersect_q_plain(tri_q, anchor, o, d, maxt, n_tris=None):
         us_b = torch.where(hit, us, us_b)
         vs_b = torch.where(hit, vs, vs_b)
         prim = torch.where(hit, ti, prim)
+    return ts_b, ad_b, us_b, vs_b, prim
+
+
+def intersect_q_plain(tri_q, anchor, o, d, maxt, n_tris=None):
+    """Plain version of `intersect_q`: rows in order, strict-less pair
+    comparison, so the first of two tied rows wins."""
+    n_tris = tri_q.shape[0] if n_tris is None else n_tris
+    ts_b, ad_b, us_b, vs_b, prim = _q_best(
+        tri_q, range(n_tris), *_ray_terms(anchor, o, d, maxt))
     inv = 1.0 / ad_b
     t = torch.where(prim >= 0, ts_b * inv, float("inf"))
     return t, prim, us_b * inv, vs_b * inv
@@ -217,6 +231,109 @@ def occluded_q(tri_q, anchor, o, d, maxt, n_tris=None):
         d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), stream),
         "occluded_q")
     OCCLUDED_Q_LAUNCHES += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# the q brute force of the unroll sweep (tools/isect_unroll_sweep.py): a
+# row loop unrolled UNROLL deep, optionally with two accumulators
+# ---------------------------------------------------------------------------
+
+Q_VARIANT_UNROLLS = (2, 8, 16, 32)  # the depths the kernels are built for
+
+
+def q_variant_rows(n_rows, n_tris, unroll):
+    """Rows the sweep's kernels run: n_tris rounded up to a multiple of
+    `unroll`, capped at the largest such multiple within the table's n_rows
+    rows (the JAX tool's rule); rows past the scene's are zero (never
+    hit)."""
+    return min(-(-n_tris // unroll) * unroll, n_rows - n_rows % unroll)
+
+
+def _check_variant(name, tri_q, anchor, o, d, maxt, n_tris, unroll):
+    dev, n, n_tris = _check(name, tri_q, anchor, o, d, maxt, n_tris)
+    if unroll not in Q_VARIANT_UNROLLS:
+        raise ValueError(f"{name}: unroll {unroll} not in "
+                         f"{Q_VARIANT_UNROLLS}")
+    return dev, n, q_variant_rows(tri_q.shape[0], n_tris, unroll)
+
+
+def intersect_q_variant_plain(tri_q, anchor, o, d, maxt, n_tris, unroll=2,
+                              dual=False):
+    """Plain version of `intersect_q_variant`: `intersect_q_plain` over the
+    rounded row count; with `dual`, the even and the odd rows in two
+    accumulators, the odd one taken where ts2 |det|1 < ts1 |det|2."""
+    rows = q_variant_rows(tri_q.shape[0], n_tris, unroll)
+    terms = _ray_terms(anchor, o, d, maxt)
+    if dual:
+        ts1, ad1, _, _, p1 = _q_best(tri_q, range(0, rows, 2), *terms)
+        ts2, ad2, _, _, p2 = _q_best(tri_q, range(1, rows, 2), *terms)
+        win = ts2 * ad1 < ts1 * ad2
+        ts_b = torch.where(win, ts2, ts1)
+        ad_b = torch.where(win, ad2, ad1)
+        prim = torch.where(win, p2, p1)
+    else:
+        ts_b, ad_b, _, _, prim = _q_best(tri_q, range(rows), *terms)
+    return torch.where(prim >= 0, ts_b * (1.0 / ad_b), float("inf")), prim
+
+
+def occluded_q_variant_plain(tri_q, anchor, o, d, maxt, n_tris, unroll=2):
+    """Plain version of `occluded_q_variant`: `occluded_q_plain` over the
+    rounded row count, with an infinite maxt taken as -1 (never
+    occluded)."""
+    rows = q_variant_rows(tri_q.shape[0], n_tris, unroll)
+    mt = torch.where(torch.isfinite(maxt), maxt, -1.0)
+    return occluded_q_plain(tri_q, anchor, o, d, mt, rows)
+
+
+def intersect_q_variant(tri_q, anchor, o, d, maxt, n_tris, unroll=2,
+                        dual=False):
+    """Closest hit over the q table with the row loop unrolled `unroll`
+    deep (one of Q_VARIANT_UNROLLS) and, with `dual`, two accumulators
+    (even and odd rows) merged at the end; the rows run are
+    `q_variant_rows`. Returns (t [N], prim [N] int32), t inf on a miss.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    global INTERSECT_Q_VARIANT_LAUNCHES
+    dev, n, rows = _check_variant("intersect_q_variant", tri_q, anchor, o,
+                                  d, maxt, n_tris, unroll)
+    if dev.type == "cpu":
+        return intersect_q_variant_plain(tri_q, anchor, o, d, maxt, n_tris,
+                                         unroll, dual)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_q_variant(
+        tri_q.data_ptr(), rows, anchor.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
+        unroll, int(bool(dual)), stream), "intersect_q_variant")
+    INTERSECT_Q_VARIANT_LAUNCHES += 1
+    return t, prim
+
+
+def occluded_q_variant(tri_q, anchor, o, d, maxt, n_tris, unroll=2):
+    """Any hit with 0 < t < maxt over the q table, the row loop unrolled
+    `unroll` deep: [N] bool. An infinite maxt is taken as -1, so such a
+    lane is never occluded (the JAX tool's rule; `occluded_q` takes it as
+    3.4e38)."""
+    global OCCLUDED_Q_VARIANT_LAUNCHES
+    dev, n, rows = _check_variant("occluded_q_variant", tri_q, anchor, o, d,
+                                  maxt, n_tris, unroll)
+    if dev.type == "cpu":
+        return occluded_q_variant_plain(tri_q, anchor, o, d, maxt, n_tris,
+                                        unroll)
+    from .build import check, load_library
+
+    lib = load_library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_occluded_q_variant(
+        tri_q.data_ptr(), rows, anchor.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), unroll, stream),
+        "occluded_q_variant")
+    OCCLUDED_Q_VARIANT_LAUNCHES += 1
     return occ
 
 
@@ -480,29 +597,34 @@ def intersect_mxu(tri_mxu, o, d, maxt, n_tris=None):
 
 
 # ---------------------------------------------------------------------------
-# two-level treelet walk (ClusterTable2, scene/bvh.py::pack_clusters2)
+# treelet walks: the two-level ClusterTable2 (scene/bvh.py::pack_clusters2)
+# and the flat ClusterTable (scene/bvh.py::pack_clusters)
 # ---------------------------------------------------------------------------
 
 # a lane whose two smallest candidate distances lie within this relative gap
 # is resolved by the sequential strict compare, triangle by triangle
 _TIE_GAP = 1e-5
+# triangle rows per trip of a flat cluster (its row count pads to this)
+CLU_UNROLL = 8
+_CLU2_WIDTHS = {"supers": 16, "boxes": 16, "rows": 128}
+_CLU_WIDTHS = {"boxes": 16, "rows": 32}
 
 
-def _check_clu2(name, ctab2, o, d, maxt):
+def _check_clu(name, ctab, o, d, maxt, widths):
+    """Checks of the treelet wrappers; `widths` gives the table's arrays
+    and their row widths."""
+    tables = {arg: (getattr(ctab, arg), torch.float32, None)
+              for arg in (*widths, "anchor")}
     dev, n = check_tensors(name, {
         "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
-        "maxt": (maxt, torch.float32, ()),
-        "supers": (ctab2.supers, torch.float32, None),
-        "boxes": (ctab2.boxes, torch.float32, None),
-        "rows": (ctab2.rows, torch.float32, None),
-        "anchor": (ctab2.anchor, torch.float32, None),
+        "maxt": (maxt, torch.float32, ()), **tables,
     }, n=o.shape[0] if o.dim() == 2 else -1)
-    for arg, width in (("supers", 16), ("boxes", 16), ("rows", 128)):
-        t = getattr(ctab2, arg)
+    for arg, width in widths.items():
+        t = getattr(ctab, arg)
         if t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: {arg} must be [*, {width}], got "
                              f"{tuple(t.shape)}")
-    if tuple(ctab2.anchor.shape) != (3,):
+    if tuple(ctab.anchor.shape) != (3,):
         raise ValueError(f"{name}: anchor must be [3]")
     return dev, n
 
@@ -512,24 +634,36 @@ def _signed_eps(x):
                        torch.where(x >= 0, _DET_EPS, -_DET_EPS))
 
 
-class _Clu2Walk:
-    """Per-lane gated walk of the plain versions: supers in order, the
-    clusters of each super, each entered cluster's triangles as one
-    [lanes, 4 * n_rows] block in table order. `counts` (a dict, or None)
-    accumulates the slab tests and triangle tests performed."""
+class _CluWalk:
+    """Per-lane gated walk of the plain treelet versions. Over a
+    ClusterTable2: the supers in order, then the clusters of each super a
+    lane enters; over a flat ClusterTable (no supers): every cluster in
+    order. Each entered cluster's triangles come as one [lanes, T] block in
+    table order. `counts` (a dict, or None) accumulates the slab tests and
+    triangle tests performed."""
 
-    def __init__(self, ctab2, o, d, maxt, counts):
-        o3, d3, c3, self.mt = _ray_terms(ctab2.anchor, o, d, maxt)
+    def __init__(self, ctab, o, d, maxt, counts):
+        o3, d3, c3, self.mt = _ray_terms(ctab.anchor, o, d, maxt)
         self.o = torch.stack(o3, -1)
         self.d = torch.stack(d3, -1)
         self.c = torch.stack(c3, -1)
         self.inv = 1.0 / _signed_eps(self.d)
-        self.ctab2 = ctab2
-        self.sup_meta = ctab2.supers[:, 6:8].to(torch.int64).tolist()
-        self.box_meta = ctab2.boxes[:, 6:8].to(torch.int64).tolist()
+        self.supers = getattr(ctab, "supers", None)
+        self.boxes = ctab.boxes
+        self.tri = ctab.rows.reshape(-1, 32)  # one triangle a row
+        meta = ctab.boxes[:, 6:8].to(torch.int64).tolist()
+        keys = ("cluster_tests", "triangle_tests")
+        if self.supers is None:
+            # (first row, trips of CLU_UNROLL rows)
+            self.spans = [(f, CLU_UNROLL * k) for f, k in meta]
+        else:
+            # (first row, rows) of rows that hold 4 triangles each
+            self.spans = [(4 * f, 4 * k) for f, k in meta]
+            self.sup_meta = self.supers[:, 6:8].to(torch.int64).tolist()
+            keys = ("super_tests",) + keys
         self.counts = counts
         if counts is not None:
-            for key in ("super_tests", "cluster_tests", "triangle_tests"):
+            for key in keys:
                 counts.setdefault(key, 0)
 
     def _count(self, key, k):
@@ -544,47 +678,53 @@ class _Clu2Walk:
         far = torch.maximum(t0, t1).amin(-1)
         return near, far
 
-    def walk(self, gate):
-        """Yield (lanes, box index) for every cluster a lane enters;
-        gate(near, lanes) -> bool mask is evaluated when a box is tested, so
-        it sees the caller's updates from earlier clusters."""
-        all_lanes = torch.arange(self.o.shape[0], device=self.o.device)
-        sup, box = self.ctab2.supers, self.ctab2.boxes
+    def _groups(self, gate, all_lanes):
+        """(lanes, clusters) of every super some lane enters; the flat
+        table is one group of every lane and every cluster."""
+        if self.supers is None:
+            yield all_lanes, range(self.boxes.shape[0])
+            return
         for s, (c0, ncl) in enumerate(self.sup_meta):
-            near, far = self.slab(sup[s], self.o, self.inv)
+            near, far = self.slab(self.supers[s], self.o, self.inv)
             self._count("super_tests", self.o.shape[0])
             ent = (near <= far) & (far > 0.0) & gate(near, all_lanes)
             lanes_s = all_lanes[ent]
-            if ncl == 0 or lanes_s.numel() == 0:
-                continue
+            if ncl and lanes_s.numel():
+                yield lanes_s, range(c0, c0 + ncl)
+
+    def walk(self, gate):
+        """Yield (lanes, box index) for every cluster with triangles that a
+        lane enters; gate(near, lanes) -> bool mask is evaluated when a box
+        is tested, so it sees the caller's updates from earlier clusters."""
+        all_lanes = torch.arange(self.o.shape[0], device=self.o.device)
+        for lanes_s, clusters in self._groups(gate, all_lanes):
             o_s, inv_s = self.o[lanes_s], self.inv[lanes_s]
-            for cl in range(c0, c0 + ncl):
-                near, far = self.slab(box[cl], o_s, inv_s)
+            for cl in clusters:
+                near, far = self.slab(self.boxes[cl], o_s, inv_s)
                 self._count("cluster_tests", lanes_s.numel())
                 ent = (near <= far) & (far > 0.0) & gate(near, lanes_s)
                 lanes = lanes_s[ent]
-                if lanes.numel():
+                if lanes.numel() and self.spans[cl][1]:
                     yield lanes, cl
 
     def triangles(self, lanes, cl):
         """(ad, us, vs, ts, inside) [lanes, T] of cluster cl's triangles and
         their face indices [T] (-1 on padding)."""
-        first, nr = self.box_meta[cl]
-        tri = self.ctab2.rows[first: first + nr].reshape(4 * nr, 32)
+        first, nt = self.spans[cl]
+        tri = self.tri[first: first + nt]
         qt = tri[:, :16].T.unsqueeze(1)  # [16, 1, T]
         split = lambda x: tuple(x[lanes, k: k + 1] for k in range(3))  # noqa: E731
         terms = _q_terms(qt, split(self.o), split(self.d), split(self.c))
         return terms, tri[:, 16]
 
 
-def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
-    """Plain version of `intersect_clu2` with per-lane box gating. Within a
+def _walk_closest(walk):
+    """Closest hit along a _CluWalk with per-lane box gating. Within a
     cluster the nearest triangle is found on t = t|det| / |det|; a lane whose
     two nearest candidates (the incoming best included) lie within 1e-5 of
-    each other is decided by the kernel's sequential strict compare of
+    each other is decided by the kernels' sequential strict compare of
     cross-multiplied pairs, so the first of two tied triangles in table
-    order wins as in the kernel."""
-    walk = _Clu2Walk(ctab2, o, d, maxt, counts)
+    order wins as in the kernels."""
     ts_b = walk.mt.clone()
     ad_b = torch.ones_like(ts_b)
     us_b = torch.zeros_like(ts_b)
@@ -632,11 +772,9 @@ def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
     return t, prim_i, us_b * inv, vs_b * inv
 
 
-def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
-    """Plain version of `occluded_clu2` with per-lane box gating; a lane's
-    triangle tests are counted up to its first hit, where the kernel's lane
-    stops."""
-    walk = _Clu2Walk(ctab2, o, d, maxt, counts)
+def _walk_anyhit(walk):
+    """Any hit along a _CluWalk with per-lane box gating; a lane's triangle
+    tests are counted up to its first hit, where the kernels' lane stops."""
     occ = torch.zeros(walk.mt.shape, dtype=torch.bool, device=walk.mt.device)
 
     def gate(near, lanes):
@@ -646,13 +784,37 @@ def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
         (ad, _, _, ts, inside), _ = walk.triangles(lanes, cl)
         hit = inside & (ts < walk.mt[lanes, None] * ad)
         any_hit = hit.any(1)
-        if counts is not None:
+        if walk.counts is not None:
             n_tri = hit.shape[1]
             first = torch.where(any_hit, hit.to(torch.int8).argmax(1) + 1,
                                 n_tri)
             walk._count("triangle_tests", first.sum().item())
         occ[lanes] = any_hit
     return occ
+
+
+def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `intersect_clu2` (`_walk_closest`)."""
+    return _walk_closest(_CluWalk(ctab2, o, d, maxt, counts))
+
+
+def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `occluded_clu2` (`_walk_anyhit`)."""
+    return _walk_anyhit(_CluWalk(ctab2, o, d, maxt, counts))
+
+
+def intersect_clu_plain(ctab, o, d, maxt, counts=None):
+    """Plain version of `intersect_clu`: every cluster in table order, a
+    lane entering a box where near <= far, far > 0 and near * |det|_best <
+    (t |det|)_best (`_walk_closest`)."""
+    return _walk_closest(_CluWalk(ctab, o, d, maxt, counts))
+
+
+def occluded_clu_plain(ctab, o, d, maxt, counts=None):
+    """Plain version of `occluded_clu`: a lane enters a box where near <=
+    far, far > 0, near < maxt and it is not yet occluded
+    (`_walk_anyhit`)."""
+    return _walk_anyhit(_CluWalk(ctab, o, d, maxt, counts))
 
 
 def intersect_clu2(ctab2, o, d, maxt):
@@ -663,7 +825,7 @@ def intersect_clu2(ctab2, o, d, maxt):
     miss. CPU tensors run the plain version; CUDA tensors launch the
     kernel."""
     global INTERSECT_CLU2_LAUNCHES
-    dev, n = _check_clu2("intersect_clu2", ctab2, o, d, maxt)
+    dev, n = _check_clu("intersect_clu2", ctab2, o, d, maxt, _CLU2_WIDTHS)
     if dev.type == "cpu":
         return intersect_clu2_plain(ctab2, o, d, maxt)
     from .build import check, load_library
@@ -687,7 +849,7 @@ def intersect_clu2(ctab2, o, d, maxt):
 def occluded_clu2(ctab2, o, d, maxt):
     """Any hit with 0 < t < maxt over a ClusterTable2: [N] bool."""
     global OCCLUDED_CLU2_LAUNCHES
-    dev, n = _check_clu2("occluded_clu2", ctab2, o, d, maxt)
+    dev, n = _check_clu("occluded_clu2", ctab2, o, d, maxt, _CLU2_WIDTHS)
     if dev.type == "cpu":
         return occluded_clu2_plain(ctab2, o, d, maxt)
     from .build import check, load_library
@@ -701,6 +863,57 @@ def occluded_clu2(ctab2, o, d, maxt):
         ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
         n, occ.data_ptr(), stream), "occluded_clu2")
     OCCLUDED_CLU2_LAUNCHES += 1
+    return occ
+
+
+def intersect_clu(ctab, o, d, maxt):
+    """Closest hit over a flat ClusterTable (scene/bvh.py::pack_clusters).
+
+    o, d [N, 3], maxt [N] float32 on the table's device. Returns (t [N],
+    prim [N] int32 face index (-1 on a miss), u [N], v [N]); on a miss t is
+    inf and u = v = 0. Each lane gates each box on its own (the TPU kernel
+    gates a whole ray tile on the union of its lanes; the two differ only
+    where a lane's own slab test fails by rounding on a box that holds its
+    hit). CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    global INTERSECT_CLU_LAUNCHES
+    dev, n = _check_clu("intersect_clu", ctab, o, d, maxt, _CLU_WIDTHS)
+    if dev.type == "cpu":
+        return intersect_clu_plain(ctab, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_clu(
+        ctab.boxes.data_ptr(), ctab.boxes.shape[0], ctab.rows.data_ptr(),
+        ctab.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+        n, t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        stream), "intersect_clu")
+    INTERSECT_CLU_LAUNCHES += 1
+    return t, prim, u, v
+
+
+def occluded_clu(ctab, o, d, maxt):
+    """Any hit with 0 < t < maxt over a flat ClusterTable: [N] bool, each
+    lane gating each box on its own."""
+    global OCCLUDED_CLU_LAUNCHES
+    dev, n = _check_clu("occluded_clu", ctab, o, d, maxt, _CLU_WIDTHS)
+    if dev.type == "cpu":
+        return occluded_clu_plain(ctab, o, d, maxt)
+    from .build import check, load_library
+
+    lib = load_library()
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_occluded_clu(
+        ctab.boxes.data_ptr(), ctab.boxes.shape[0], ctab.rows.data_ptr(),
+        ctab.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+        n, occ.data_ptr(), stream), "occluded_clu")
+    OCCLUDED_CLU_LAUNCHES += 1
     return occ
 
 

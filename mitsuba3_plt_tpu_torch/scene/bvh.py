@@ -1,5 +1,5 @@
-"""Host-side BVH, the two-level treelet tables of the clu2 kernels and the
-packet tables of the skip-link BVH walk.
+"""Host-side BVH, the flat and the two-level treelet tables of the clu and
+clu2 kernels, and the packet tables of the skip-link BVH walk.
 
 `build_bvh` gives the SAH tree of the native builder in its flat skip-link
 layout (DFS pre-order):
@@ -8,7 +8,9 @@ layout (DFS pre-order):
                       padded prim-index array (multiple of LEAF_SIZE)
   node_count [NN]     0 for inner nodes, #prims (<= LEAF_SIZE) for leaves
   node_miss  [NN]     next node after the subtree, -1 at the end
-`pack_clusters2` cuts that tree into treelets of at most CLU2_MAX_LEAF
+`pack_clusters` cuts that tree into treelets of at most `max_leaf`
+triangles with one q row per triangle (see ClusterTable);
+`pack_clusters2` cuts it into treelets of at most CLU2_MAX_LEAF
 triangles, groups CLU2_SUPER consecutive treelets under a super box, and
 packs the triangles 4 to a row (see ClusterTable2). `pack_packet_bvh`
 collapses every subtree of at most PACKET_LEAF triangles into one leaf
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.intersect import pack_tri_q
+from ..ops.intersect import CLU_UNROLL, pack_tri_q
 from .native import build_bvh_native
 
 CLU2_SUPER = 16     # DFS-consecutive clusters per super box
@@ -53,6 +55,25 @@ def build_bvh(vertices: np.ndarray, faces: np.ndarray) -> BVH:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClusterTable:
+    """Flat treelet tables, relative to `anchor` (the root box centre):
+
+    boxes [K_pad, 16]: lo(3) hi(3) first_row trips pad(8); the cluster's
+      triangles are rows [first_row, first_row + CLU_UNROLL * trips).
+    rows [R_pad, 32]: one triangle a row, the pack_tri_q quantities e1 e2
+      m1 m2 n2 k in columns 0..15 and its original face index (as f32) in
+      column 16. A cluster's rows pad to a multiple of CLU_UNROLL and the
+      table to a multiple of 8 with zero rows (n2 = 0, so det = 0 and they
+      never hit) of face index -1.
+    Padding boxes (`_pad8`) hold no rows.
+    """
+
+    boxes: torch.Tensor
+    rows: torch.Tensor
+    anchor: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class ClusterTable2:
     """Two-level treelet tables, relative to `anchor` (the root box centre):
 
@@ -62,7 +83,7 @@ class ClusterTable2:
       pack_tri_q quantities e1 e2 m1 m2 n2 k in columns 32j..32j+15 and its
       original face index (as f32) in column 32j+16. Padding triangles
       have n2 = 0 (so det = 0 and they never hit) and face index -1.
-    Padding supers and boxes have lo = 1e30 > hi = -1e30: never entered.
+    Padding supers and boxes (`_pad8`) hold no clusters or rows.
     """
 
     supers: torch.Tensor
@@ -71,9 +92,9 @@ class ClusterTable2:
     anchor: torch.Tensor
 
 
-def _clusters(bvh: BVH):
+def _clusters(bvh: BVH, max_leaf: int):
     """Treelets in DFS order: a pre-order walk emits one at the first node
-    whose subtree holds <= CLU2_MAX_LEAF prims (or at a leaf), then jumps its
+    whose subtree holds <= max_leaf prims (or at a leaf), then jumps its
     skip link. Returns [(node, face indices)]."""
     first, count, miss = bvh.node_first, bvh.node_count, bvh.node_miss
     prim = bvh.prim_idx
@@ -84,7 +105,7 @@ def _clusters(bvh: BVH):
     out = []
     i = 0
     while i < nn:
-        if count[i] > 0 or sub_prims[i] <= CLU2_MAX_LEAF:
+        if count[i] > 0 or sub_prims[i] <= max_leaf:
             seg = np.arange(i, end[i])
             seg = seg[count[seg] > 0]
             ids = (np.concatenate([prim[first[j]: first[j] + count[j]]
@@ -100,7 +121,9 @@ def _clusters(bvh: BVH):
 
 
 def _pad8(a):
-    """Pad box rows to a multiple of 8 with never-entered boxes."""
+    """Pad box rows to a multiple of 8 with empty boxes (lo = 1e30 > hi =
+    -1e30: the slab test's min and max swap the planes, so every ray
+    enters them, but they hold no clusters or rows)."""
     p = (-len(a)) % 8
     if p:
         pad = np.zeros((p, a.shape[1]), np.float32)
@@ -110,19 +133,67 @@ def _pad8(a):
     return a
 
 
+def _treelets(name, bvh: BVH, tri_p0, tri_p1, tri_p2, max_leaf):
+    """(node AABBs lo, hi, the anchor (root box centre), p0, p1, p2 as
+    float32, `_clusters`) of a treelet table; raises when the mesh has no
+    triangles."""
+    lo = np.asarray(bvh.node_lo, np.float32)
+    hi = np.asarray(bvh.node_hi, np.float32)
+    p = [np.asarray(x, np.float32) for x in (tri_p0, tri_p1, tri_p2)]
+    clusters = _clusters(bvh, max_leaf)
+    if not clusters:
+        raise ValueError(f"{name}: the BVH holds no triangles")
+    return lo, hi, (lo[0] + hi[0]) * 0.5, *p, clusters
+
+
+def pack_clusters_arrays(bvh: BVH, tri_p0, tri_p1, tri_p2,
+                         max_leaf: int = 64) -> dict:
+    """The ClusterTable arrays as numpy: {"boxes", "rows", "anchor"}, one
+    cluster per treelet of at most `max_leaf` triangles. Raises when the
+    mesh has no triangles."""
+    lo, hi, anchor, p0, p1, p2, clusters = _treelets(
+        "pack_clusters", bvh, tri_p0, tri_p1, tri_p2, max_leaf)
+    boxes, row_parts, n_rows = [], [], 0
+    for ni, ids in clusters:
+        q, _ = pack_tri_q(p0[ids], p1[ids], p2[ids], anchor=anchor)
+        t_pad = -(-len(ids) // CLU_UNROLL) * CLU_UNROLL
+        rows = np.zeros((t_pad, 32), np.float32)
+        rows[:, :16] = q[:t_pad]
+        rows[: len(ids), 16] = ids.astype(np.float32)
+        rows[len(ids):, 16] = -1.0
+        boxes.append(np.concatenate([
+            lo[ni] - anchor, hi[ni] - anchor,
+            [np.float32(n_rows), np.float32(t_pad // CLU_UNROLL)],
+            np.zeros(8, np.float32),
+        ]))
+        row_parts.append(rows)
+        n_rows += t_pad
+    rows = np.concatenate(row_parts, axis=0)
+    r_pad = (-rows.shape[0]) % 8
+    if r_pad:
+        pad = np.zeros((r_pad, 32), np.float32)
+        pad[:, 16] = -1.0
+        rows = np.concatenate([rows, pad], axis=0)
+    return {"boxes": _pad8(np.stack(boxes).astype(np.float32)),
+            "rows": rows, "anchor": anchor.astype(np.float32)}
+
+
+def pack_clusters(bvh: BVH, tri_p0, tri_p1, tri_p2, max_leaf: int = 64,
+                  device="cuda") -> ClusterTable:
+    """ClusterTable of the triangles (p0, p1, p2) [F, 3] cut from `bvh` into
+    treelets of at most `max_leaf` triangles, as float32 tensors on
+    `device`."""
+    dev = resolve_device(device)
+    arrays = pack_clusters_arrays(bvh, tri_p0, tri_p1, tri_p2, max_leaf)
+    return ClusterTable(**{k: torch.as_tensor(v, device=dev)
+                           for k, v in arrays.items()})
+
+
 def pack_clusters2_arrays(bvh: BVH, tri_p0, tri_p1, tri_p2) -> dict:
     """The ClusterTable2 arrays as numpy: {"supers", "boxes", "rows",
     "anchor"}. Raises when the mesh has no triangles."""
-    lo = np.asarray(bvh.node_lo, np.float32)
-    hi = np.asarray(bvh.node_hi, np.float32)
-    p0 = np.asarray(tri_p0, np.float32)
-    p1 = np.asarray(tri_p1, np.float32)
-    p2 = np.asarray(tri_p2, np.float32)
-    clusters = _clusters(bvh)
-    if not clusters:
-        raise ValueError("pack_clusters2: the BVH holds no triangles")
-    anchor = (lo[0] + hi[0]) * 0.5
-
+    lo, hi, anchor, p0, p1, p2, clusters = _treelets(
+        "pack_clusters2", bvh, tri_p0, tri_p1, tri_p2, CLU2_MAX_LEAF)
     boxes, row_parts, n_rows = [], [], 0
     for ni, ids in clusters:
         q, _ = pack_tri_q(p0[ids], p1[ids], p2[ids], anchor=anchor)

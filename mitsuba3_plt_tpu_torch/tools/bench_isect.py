@@ -93,14 +93,15 @@ def ray_sets(scene, n, seed=0):
             "incoherent": _tensors(scene, o_inc, d_inc, maxt)}
 
 
-def cbox_ray_sets(scene, spp, seed=0):
+def cbox_ray_sets(scene, spp, seed=0, kill=0.0, light=CBOX_LIGHT):
     """The path's ray sets on a scene's camera (`isect_q_vs_classic.py`):
     "depth0" the camera rays of W x H x spp lanes (lane // spp is the
     pixel, jittered), "depth1".."depth3" the cosine-sampled bounces from
-    the previous set's hits (found by intersect_classic), dead lanes at
-    o = 1e8, d = +z; "shadow0".."shadow3" the shadow rays from each set's
-    hits toward the point CBOX_LIGHT, maxt 0.999 of the distance (-1 on
-    lanes without a hit)."""
+    the previous set's hits (found by intersect_classic), each hit lane
+    killed with probability `kill` (as roulette would; 0 draws nothing),
+    dead lanes at o = 1e8, d = +z; "shadow0".."shadow3" the shadow rays
+    from each set's hits toward the point `light`, maxt 0.999 of the
+    distance (-1 on lanes without a hit)."""
     rng = np.random.default_rng(seed)
     W, H = scene.sensor.resolution
     N = W * H * spp
@@ -112,7 +113,7 @@ def cbox_ray_sets(scene, spp, seed=0):
             for x in scene.sensor.sample_ray(_tensors(scene, uv)[0]))
     _, e1, e2 = _soup(scene)
     geo = scene.geo
-    light = np.asarray(CBOX_LIGHT)
+    light = np.asarray(light, np.float64)
     alive = np.ones(N, bool)
     sets = {}
     for depth in range(4):
@@ -139,10 +140,26 @@ def cbox_ray_sets(scene, spp, seed=0):
         ty = np.cross(nrm, tx)
         nd = ((r * np.cos(ph))[:, None] * tx + (r * np.sin(ph))[:, None] * ty
               + np.sqrt(np.maximum(1 - cu[:, 0], 0))[:, None] * nrm)
-        alive = hit
+        alive = hit & (rng.random(N) < 1.0 - kill) if kill else hit
         o = np.where(alive[:, None], hp + 1e-4 * nd, 1e8)
         d = np.where(alive[:, None], nd, [[0.0, 0.0, 1.0]])
     return sets
+
+
+def soup_bvh(scene):
+    """(BVH, p0, p1, p2) of the scene's faces as a triangle soup."""
+    p0, e1, e2 = _soup(scene)
+    p1, p2 = p0 + e1, p0 + e2
+    F = len(p0)
+    faces = np.arange(3 * F, dtype=np.int32).reshape(3, F).T.copy()
+    return build_bvh(np.concatenate([p0, p1, p2]), faces), p0, p1, p2
+
+
+def packet_scene(scene):
+    """A copy of the scene that carries a PacketBVH of its faces (the
+    packet routes' tables and `Scene._packet_perm`'s root box)."""
+    return dataclasses.replace(scene, pbvh=pack_packet_bvh(
+        *soup_bvh(scene), device=scene.device))
 
 
 def route_fns(scene):
@@ -152,11 +169,8 @@ def route_fns(scene):
     p0, e1, e2 = _soup(scene)
     tri_mxu = _tensors(scene, isect.regroup_tri_mxu(
         isect.pack_tri_mxu(p0, e1, e2)))[0]
-    p1, p2 = p0 + e1, p0 + e2
-    faces = np.arange(3 * F, dtype=np.int32).reshape(3, F).T.copy()
-    pbvh = pack_packet_bvh(build_bvh(np.concatenate([p0, p1, p2]), faces),
-                           p0, p1, p2, device=scene.device)
-    packet = dataclasses.replace(scene, pbvh=pbvh)
+    packet = packet_scene(scene)
+    pbvh = packet.pbvh
 
     def sorted_walk(o, d, mt):
         perm, inv = packet._packet_perm(o, d)

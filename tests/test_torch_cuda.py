@@ -115,6 +115,9 @@ def test_render_launches_each_kernel_once_per_bounce(card):
                                    "intersect_bvh": 0, "occluded_bvh": 0,
                                    "intersect_classic": 0,
                                    "occluded_classic": 0, "intersect_mxu": 0,
+                                   "intersect_clu": 0, "occluded_clu": 0,
+                                   "intersect_q_variant": 0,
+                                   "occluded_q_variant": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8}
 
 
@@ -191,6 +194,9 @@ def test_path_render_launches_clu2_once_per_bounce(card):
                                    "intersect_bvh": 0, "occluded_bvh": 0,
                                    "intersect_classic": 0,
                                    "occluded_classic": 0, "intersect_mxu": 0,
+                                   "intersect_clu": 0, "occluded_clu": 0,
+                                   "intersect_q_variant": 0,
+                                   "occluded_q_variant": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
 
 
@@ -342,3 +348,112 @@ def test_cbox_render_matches_cpu_render(card):
         (a.var(0, ddof=1) + b.var(0, ddof=1)) / 4 + 1e-8)
     alpha = 1.0 - (1.0 - 0.01) ** (1.0 / z.size)
     assert int((z > norm.isf(alpha / 2)).sum()) == 0, z.max()
+
+
+def _tool_scenes(card):
+    """The Cornell box (one cluster) and a 5,120-face icosphere (K > 32)."""
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
+
+    return [cornell_box(32, 32, device=card),
+            mesh_scene(32, 32, subdiv=4, device=card)]
+
+
+def test_clu_kernels_match_plain(card):
+    """B10a and B10b equal their plain versions to the bit on the mask-sort
+    tool's sets, over both tables of each scene."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+
+    for scene in _tool_scenes(card):
+        sets = ms.ray_sets(scene, 4, seed=2)
+        for ctab in ms.tables(scene).values():
+            for label, (o, d, mt) in sets.items():
+                if label.startswith("shadow"):
+                    occ = isect.occluded_clu(ctab, o, d, mt)
+                    assert torch.equal(
+                        occ, isect.occluded_clu_plain(ctab, o, d, mt)), label
+                    continue
+                got = isect.intersect_clu(ctab, o, d, mt)
+                want = isect.intersect_clu_plain(ctab, o, d, mt)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), label
+                # bounce rays leave the convex icosphere
+                if label in ("incoherent", "depth0"):
+                    assert (got[1] >= 0).any(), label
+
+
+def test_q_variant_kernels_match_plain(card):
+    """B11a at every unroll, with one and two accumulators, and B11b at
+    every unroll equal their plain versions to the bit on the sweep's rays
+    (maxt inf; for the any hit 0.99 or 1.01 of B1's t on alternate lanes,
+    inf on every third)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+
+    for scene in _tool_scenes(card):
+        g = scene.geo
+        q = (g.tri_q, g.tri_anchor)
+        o, d, mt = us.sweep_rays(scene, 8192, seed=4)
+        t0 = isect.intersect_q(*q, o, d, mt, g.n_faces)[0]
+        lane = torch.arange(t0.shape[0], device=card)
+        msh = torch.where(torch.isfinite(t0),
+                          t0 * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
+        msh[::3] = float("inf")
+        plain = {}  # the plain versions depend on the unroll by its rows
+        for unroll in isect.Q_VARIANT_UNROLLS:
+            rows = isect.q_variant_rows(g.tri_q.shape[0], g.n_faces, unroll)
+            for dual in (False, True):
+                got = isect.intersect_q_variant(*q, o, d, mt, g.n_faces,
+                                                unroll, dual)
+                if (rows, dual) not in plain:
+                    plain[rows, dual] = isect.intersect_q_variant_plain(
+                        *q, o, d, mt, g.n_faces, unroll, dual)
+                want = plain[rows, dual]
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (unroll, dual)
+            occ = isect.occluded_q_variant(*q, o, d, msh, g.n_faces, unroll)
+            if rows not in plain:
+                plain[rows] = isect.occluded_q_variant_plain(
+                    *q, o, d, msh, g.n_faces, unroll)
+            assert torch.equal(occ, plain[rows]), unroll
+            assert occ.any() and not occ[::3].any()
+
+
+def test_tools_launch_their_kernels(card):
+    """The mask-sort tool's sorted and Morton pipelines equal the unsorted
+    kernel on every lane; one run of each tool launches its kernels as
+    many times as it has routes or variants."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+
+    scene = _tool_scenes(card)[1]
+    sets = ms.ray_sets(scene, 4, seed=3)
+    pick = {k: sets[k] for k in ("depth1", "shadow1")}
+    fns = ms.route_fns(scene)
+    for label, (o, d, mt) in pick.items():
+        any_hit = label.startswith("shadow")
+        base = fns["clu"][any_hit](o, d, mt)
+        for name in ("m64", "m128", "clu-morton"):
+            got = fns[name][any_hit](o, d, mt)
+            same = (torch.equal(got, base) if any_hit
+                    else all(torch.equal(a, b) for a, b in zip(got, base)))
+            assert same, (label, name)
+    ops.reset_launch_counts()
+    rows = ms.run(scene, pick)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "intersect_q": 1, "occluded_q": 1, "intersect_clu": 4,
+        "occluded_clu": 4}
+    for r in rows:
+        assert r["prim_agree" if r["kind"] == "closest"
+                 else "occ_agree"] >= 0.999, r
+    ops.reset_launch_counts()
+    us.run(scene, us.sweep_rays(scene, 8192))
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "intersect_q": 1, "occluded_q": 1,
+        "intersect_q_variant": len(us.CLOSEST),
+        "occluded_q_variant": len(us.ANYHIT)}

@@ -44,13 +44,15 @@ def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
     assert sorted(os.listdir(csrc)) == [
         "grating.cu", "intersect_bvh.cu", "intersect_classic.cu",
-        "intersect_clu2.cu", "intersect_mxu.cu", "intersect_q.cu"]
+        "intersect_clu.cu", "intersect_clu2.cu", "intersect_mxu.cu",
+        "intersect_q.cu", "intersect_sweep.cu"]
     from mitsuba3_plt_tpu_torch.ops import build
 
     assert sorted(build.SOURCES) == sorted(os.listdir(csrc))
     assert {"plt_intersect_bvh", "plt_occluded_bvh", "plt_intersect_classic",
-            "plt_occluded_classic", "plt_intersect_mxu"} <= set(
-                build.SIGNATURES)
+            "plt_occluded_classic", "plt_intersect_mxu", "plt_intersect_clu",
+            "plt_occluded_clu", "plt_intersect_q_variant",
+            "plt_occluded_q_variant"} <= set(build.SIGNATURES)
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
 
 
@@ -108,4 +110,30 @@ def test_launch_counters_stay_zero_on_the_cpu():
                                    "intersect_bvh": 0, "occluded_bvh": 0,
                                    "intersect_classic": 0,
                                    "occluded_classic": 0, "intersect_mxu": 0,
+                                   "intersect_clu": 0, "occluded_clu": 0,
+                                   "intersect_q_variant": 0,
+                                   "occluded_q_variant": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
+
+
+def test_tool_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """The cluster tables and the tools' rays follow the device they are
+    given; without one the tables need a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+    from mitsuba3_plt_tpu_torch.scene.bvh import pack_clusters
+
+    scene = cornell_box(8, 8, device="cpu")
+    bvh, p0, p1, p2 = bi.soup_bvh(scene)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pack_clusters(bvh, p0, p1, p2)
+    assert pack_clusters(bvh, p0, p1, p2, device="cpu").rows.device.type \
+        == "cpu"
+    assert all(t.device.type == "cpu" for t in ms.tables(scene)["ctab128"]
+               .__dict__.values())
+    assert us.sweep_rays(scene, 16)[0].device.type == "cpu"
+    assert ms.ray_sets(scene, 1)["shadow2"][2].device.type == "cpu"
