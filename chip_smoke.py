@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~2 min with the build
+    python3 chip_smoke.py            # one card, ~3 min with the build
 
-Seven paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
+Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
 packet-BVH route (B7a, B7b), the intersection bench tool
@@ -11,12 +11,16 @@ packet-BVH route (B7a, B7b), the intersection bench tool
 forces B8a, B8b, B9 on the Cornell box's rays and on a 5,120-face
 icosphere), the cluster-mask sort tool (`tools/isect_mask_sort.py`: the
 flat cluster kernels B10a, B10b beside B1, B2) and the unroll sweep
-(`tools/isect_unroll_sweep.py`: B11a, B11b beside B1, B2) on the same two
-scenes, and the path tracer on the Cornell box (B1, B2, area light).
+(`tools/isect_unroll_sweep.py`: B11a, B11b beside B1, B2) and the
+multi-accumulator q closest hit (`tools/isect_q_multiacc.py`: B11c beside
+B1) on the same two scenes, the per-kernel MFU tool
+(`tools/kernel_mfu.py`: the FMA roof probe B11d, an HBM probe, B1, B2, B5
+and B4 against the card's measured and published roofs), and the path
+tracer on the Cornell box (B1, B2, area light).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
-                  started together), with nvcc's register report;
+                  started together), with nvcc's register and spill report;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
@@ -37,7 +41,12 @@ Phases, each printing one JSON line with its seconds:
                   accumulators and B11b at every unroll on the sweep's
                   rays of both scenes, all at 1,048,576 lanes, each equal
                   to its plain version to the bit on 131,072 lanes (all of
-                  the Cornell box's for B11);
+                  the Cornell box's for B11); B11c at nacc 2, 4 and 8 on
+                  the multi-accumulator tool's 2,097,152 rays of both
+                  scenes, equal to its plain version to the bit (t, prim,
+                  u, v) on 131,072 lanes of the icosphere and all of the
+                  Cornell box's; B11d at 8,192 x 128 on random inputs,
+                  within 1 ulp of its plain version;
   isect-tool      bench_isect.run on both scenes: one row per route and ray
                   set (ms, M rays/s, agreement with brute-classic), and the
                   launches of one run on one set;
@@ -48,6 +57,16 @@ Phases, each printing one JSON line with its seconds:
                   agreement with q);
   unroll-sweep    isect_unroll_sweep.run on both scenes (2^20 rays): the
                   launches of one run, one row per variant;
+  q-multiacc      isect_q_multiacc.run on both scenes (2^21 rays): the
+                  launches of one run, one row per nacc (prim agreement
+                  with B1 >= 0.99);
+  kernel-mfu      B11d's SASS (one FFMA and one FMNMX a chain a step), the
+                  launches of one run of every probe, then the probes
+                  timed: the FMA roof and HBM bandwidth chained, B1/B2 on
+                  the q-multiacc rays of both scenes, B5 on the camera
+                  rays of mesh_scene(1024, 1024, 6) with the host BVH walk,
+                  B4 on the JAX tool's inputs, each against the measured
+                  and the published roofs;
   golden          grating_scene(24, 24, coherence=1e3), PLT depth 3 / rr 9,
                   4 seeds x 12 spp, Sidak z-test against tests/golden/
                   grating_plt.npz;
@@ -81,8 +100,9 @@ Phases, each printing one JSON line with its seconds:
   split-cbox      to chiprun_out/chip_smoke_profile_cbox.json.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
 and B9 from one tool run on one ray set, B10 and B11 from one run of
-their tools), the nvidia-smi line, and the final status line. Every
-failure raises and exits non-zero.
+their tools; each bound against the published peaks and against the
+roofs the kernel-mfu phase measured), the nvidia-smi line, and the final
+status line. Every failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -106,6 +126,9 @@ MESH_DEPTH, MESH_RR = 4, 3
 CBOX_W, CBOX_H, CBOX_SPP_PASS = 512, 512, 8
 CBOX_DEPTH, CBOX_RR = 7, 50
 TOOL_LANES = 1 << 20       # rays per set of the intersection tool
+MACC_LANES = 1 << 21       # rays of the multi-accumulator tool and the
+                           # MFU tool's q probes
+FMA_WIDE_ROWS = 1 << 16    # the FMA roof probe at 8x the JAX tool's rows
 TOOL_SUBDIV = 4            # its icosphere: 5,120 faces
 PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
 TIMED_PASSES = 3
@@ -118,7 +141,7 @@ NO_LAUNCHES = dict.fromkeys(
      "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh",
      "intersect_classic", "occluded_classic", "intersect_mxu",
      "intersect_clu", "occluded_clu", "intersect_q_variant",
-     "occluded_q_variant"), 0)
+     "occluded_q_variant", "intersect_q_macc", "fma_roof"), 0)
 GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
                     "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
                     "grating_lobe_sum": MAIN_DEPTH}
@@ -134,6 +157,8 @@ REGEN = {"regen": True, "pixel_order": "morton"}
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
 MASK_KERNELS = ("intersect_clu", "occluded_clu")
 SWEEP_KERNELS = ("intersect_q_variant", "occluded_q_variant")
+MACC_KERNELS = ("intersect_q_macc",)
+MFU_KERNELS = ("fma_roof",)
 
 
 def emit(obj):
@@ -197,10 +222,59 @@ def time_once(fn):
     return out, start.elapsed_time(end)
 
 
-def bound_ms(n_bytes, n_ops):
+def chained_ms(step, x, reps=7, calls=10):
+    """Device time of one step(x) in ms with each call fed the last one's
+    output (the JAX tool's chained timing): CUDA events around `calls`
+    chained calls, the median of `reps` such runs."""
+    import torch
+
+    x = step(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            x = step(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(n_bytes, n_ops, n_fma=0):
+    """A kernel's least time against the published peaks: the larger of
+    its bytes / 3.35 TB/s and its operations (an FMA two) / 67 TFLOP/s;
+    with the bytes and the issue slots (the operations less one per FMA) that
+    `measured_bound` sets against the card's measured roofs."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_slots": n_ops - n_fma}
+
+
+def contracted_bound(n_bytes, n_ops):
+    """`bound` of a kernel that nvcc builds with FMA contraction (grating.cu:
+    B3, B4), whose operation count does not tell the FMAs apart: its issue
+    slots are taken as n_ops / 2, the fewest it could issue (an FFMA, two
+    operations, is the most one slot does), so its measured bound is a
+    floor. Their SASS cannot give the count as B11d's does: it keeps loops
+    and calls whose trips a static count cannot read."""
+    return bound(n_bytes, n_ops, n_ops // 2)
+
+
+def measured_bound(row, roofs):
+    """The row's least time against the measured roofs (`kernel_mfu.roofs`):
+    the larger of its bytes / the HBM probe's bytes/s and its issue slots /
+    the FMA probe's instructions a second."""
+    t_bytes = row["bound_bytes"] / roofs["bytes"] * 1e3
+    t_slots = row["bound_slots"] / roofs["slots"] * 1e3
+    return {"measured_bound_ms": max(t_bytes, t_slots),
+            "measured_bound_by": "bytes" if t_bytes >= t_slots
+            else "operations"}
 
 
 def nbytes(*tensors):
@@ -226,12 +300,13 @@ def frac_close(a, b, rtol, atol):
     return ok.double().mean().item() if ok.numel() else 1.0
 
 
-def kernel_registers(log: str) -> dict:
-    """{kernel instance: registers per thread} from nvcc's -Xptxas -v
-    report (entry names shortened to name<template args>)."""
+def ptxas_report(log: str) -> tuple:
+    """({kernel instance: registers per thread}, {kernel instance: spill
+    bytes stored and loaded, where not 0}) from nvcc's -Xptxas -v report
+    (entry names shortened to name<template args>)."""
     import re
 
-    out, entry = {}, None
+    regs, spills, entry = {}, {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -245,11 +320,17 @@ def kernel_registers(log: str) -> dict:
                 entry = f"{k.group(1)}<{','.join(v for _, v in args)}>"
             elif "mxu_kernel" in entry:
                 entry = "mxu_kernel"
+            elif "fma_roof_kernel" in entry:
+                entry = "fma_roof_kernel"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry and int(m.group(1)) + int(m.group(2)):
+            spills[entry] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            out[entry] = int(m.group(1))
+            regs[entry] = int(m.group(1))
             entry = None
-    return out
+    return regs, spills
 
 
 def require(cond, msg):
@@ -276,10 +357,15 @@ CLASSIC_ANYHIT_TEST_OPS = BVH_ANYHIT_TEST_OPS
 MXU_RAY_SETUP_OPS = 15    # 9 products of phi, maxt check, miss selects
 MXU_TEST_OPS = 158        # 4 x 16 FMAs (2 each), sign fold, guarded 1/|det|,
                           # t, hit, best update with u and v
+MXU_TEST_FMAS = 64        # the FMAs among them
 CLU_RAY_SETUP_OPS = CLU2_RAY_SETUP_OPS  # the same ray terms
 SWEEP_RAY_SETUP_OPS = 15  # anchor shift, o x d, maxt check, final divide
 SWEEP_TEST_OPS = 53       # the q test with a best pair of (t|det|, |det|)
 DUAL_MERGE_OPS = 6        # two products, a compare, three selects
+MACC_RAY_SETUP_OPS = SWEEP_RAY_SETUP_OPS + 2  # and u, v times 1/|det|
+MACC_TEST_OPS = Q_TEST_OPS  # the sweep's test keeping u|det| and v|det|
+MACC_MERGE_OPS = 12       # two products, three compares, two logic ops,
+                          # five selects
 
 
 def bessel_ops(half):
@@ -310,6 +396,7 @@ def check_intersect(scene, n_rays, rng):
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
     from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
 
     dev = scene.device
     geo = scene.geo
@@ -344,14 +431,14 @@ def check_intersect(scene, n_rays, rng):
               (got[3][both] - want[3][both]).abs().max().item())
     ms = time_ms(lambda: isect.intersect_q(*args))
     plain_ms = time_ms(lambda: isect.intersect_q_plain(*args))
-    b, by = bound_ms(nbytes(geo.tri_q, geo.tri_anchor, o, d, maxt, got),
-                     n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS))
+    bnd = bound(nbytes(geo.tri_q, geo.tri_anchor, o, d, maxt, got),
+                n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS))
     closest = {"name": "intersect_q", "route": "cuda",
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1373 "
                            "(pallas_intersect_q)",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "library_ms": None,
+               **bnd, "library_ms": None,
                "n": n, "prim_agreement": frac_prim}
 
     # any hit on shadow-like rays: origins in the scene's box off every
@@ -375,11 +462,11 @@ def check_intersect(scene, n_rays, rng):
     # or a triangle boundary: at most 1 lane in 10,000
     require(frac_occ >= 1 - 1e-4, f"occluded_q agreement {frac_occ}")
     # triangles tested per ray: up to the first hit (the loop leaves there)
-    tested = anyhit_tests(geo.tri_q, geo.tri_anchor, so, sd, smt,
-                          geo.n_faces)
+    tested = km.anyhit_tests(geo.tri_q, geo.tri_anchor, so, sd, smt,
+                             geo.n_faces)
     ms_a = time_ms(lambda: isect.occluded_q(*sargs))
     plain_a = time_ms(lambda: isect.occluded_q_plain(*sargs))
-    b_a, by_a = bound_ms(
+    bnd_a = bound(
         nbytes(geo.tri_q, geo.tri_anchor, so, sd, smt, occ),
         n * Q_RAY_SETUP_OPS + tested * Q_ANYHIT_TEST_OPS)
     anyhit = {"name": "occluded_q", "route": "cuda",
@@ -387,7 +474,7 @@ def check_intersect(scene, n_rays, rng):
               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411 "
                           "(pallas_occluded_q)",
               "max_abs_err": 1.0 - frac_occ, "ms": ms_a, "plain_ms": plain_a,
-              "bound_ms": b_a, "bound_by": by_a, "library_ms": None,
+              **bnd_a, "library_ms": None,
               "n": n, "occ_agreement": frac_occ}
     return [closest, anyhit]
 
@@ -446,13 +533,14 @@ def check_lobe_sum(n, rng, dev):
             ms = time_ms(lambda: gops.grating_lobe_sum(**ins, **kw,
                                                        n_channels=3))
             plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(**ins, **kw))
-            b, by = bound_ms(nbytes(ins, got), nn * lobe_sum_ops(half, sep, 3))
+            bnd = contracted_bound(nbytes(ins, got),
+                                   nn * lobe_sum_ops(half, sep, 3))
             row = {"name": "grating_lobe_sum", "route": "cuda",
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
                                "(grating_lobe_sum)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   **bnd, "library_ms": None,
                    "n": nn, "agreement": frac}
     return row
 
@@ -513,13 +601,13 @@ def check_sample(n, rng, dev):
             ms = time_ms(lambda: gops.grating_sample(**ins, half=3, ndf=ndf))
             plain_ms = time_ms(lambda: gops.grating_sample_plain(
                 **ins, half=3, ndf=ndf))
-            b, by = bound_ms(nbytes(ins, got), n * sample_ops(3, ndf))
+            bnd = contracted_bound(nbytes(ins, got), n * sample_ops(3, ndf))
             row = {"name": "grating_sample", "route": "cuda",
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593 "
                                "(grating_sample)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   **bnd, "library_ms": None,
                    "n": n, "agreement": worst}
     return row
 
@@ -644,12 +732,12 @@ def check_clu2(scene, rng):
         ops = (n * CLU2_RAY_SETUP_OPS
                + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
                + counts["triangle_tests"] * Q_TEST_OPS)
-        b, by = bound_ms(nbytes(tables, o, d, mt, got), ops)
+        bnd = bound(nbytes(tables, o, d, mt, got), ops)
         row = {"name": "intersect_clu2", **common,
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352 "
                            "(pallas_intersect_clu2)",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "rays": label,
+               **bnd, "rays": label,
                "prim_agreement": frac_prim,
                "hit_share": (want[1] >= 0).float().mean().item(),
                "tests_per_ray": {k: v / n for k, v in counts.items()}}
@@ -669,12 +757,12 @@ def check_clu2(scene, rng):
         ops = (n * CLU2_RAY_SETUP_OPS
                + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
                + counts["triangle_tests"] * Q_ANYHIT_TEST_OPS)
-        b, by = bound_ms(nbytes(tables, o, d, mt, occ), ops)
+        bnd = bound(nbytes(tables, o, d, mt, occ), ops)
         return {"name": "occluded_clu2", **common,
                 "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364 "
                             "(pallas_occluded_clu2)",
                 "max_abs_err": 1.0 - frac_occ, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "plain_ms": plain_ms, **bnd,
                 "rays": label, "occ_agreement": frac_occ,
                 "occluded_share": occ_plain.float().mean().item(),
                 "tests_per_ray": {k: v / n for k, v in counts.items()}}
@@ -750,7 +838,7 @@ def check_bvh(scene, sets, clu2_ms, rng):
         ops = (n * BVH_RAY_SETUP_OPS + counts["slab_tests"] * SLAB_OPS
                + counts["triangle_tests"]
                * (BVH_ANYHIT_TEST_OPS if any_hit else BVH_TEST_OPS))
-        b, by = bound_ms(nbytes(pb.nodes, pb.tri, o, d, mt, got), ops)
+        bnd = bound(nbytes(pb.nodes, pb.tri, o, d, mt, got), ops)
         return {"name": name, "route": "cuda", "n": n,
                 "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_bvh.cu",
                 "plain_timing": "the comparison call, once",
@@ -759,7 +847,7 @@ def check_bvh(scene, sets, clu2_ms, rng):
                             + ("694 (pallas_bvh_occluded)" if any_hit
                                else "679 (pallas_bvh_intersect)"),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b, "bound_by": by, "rays": label,
+                **bnd, "rays": label,
                 "agreement": agree, **share, "walk_steps": counts["steps"],
                 "tests_per_ray": {k: counts[k] / n for k in
                                   ("slab_tests", "triangle_tests")}}
@@ -825,15 +913,15 @@ def check_brute(label, scene, sets, plain_lanes=None):
                 f"intersect_classic {label} {set_label}: differs, max {err}")
         ms = time_ms(lambda: isect.intersect_classic(geo.tri_isect, o, d, mt,
                                                      F))
-        b, by = bound_ms(nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n,
-                         n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
+        bnd = bound(nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n,
+                    n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
         closest = {"name": "intersect_classic", **common,
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/"
                              "intersect_classic.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:95 "
                                "(pallas_intersect)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b, "bound_by": by, "agreement": 1.0,
+                   **bnd, "agreement": 1.0,
                    "hit_share": hit.float().mean().item()}
 
         # B8b: any hit, equal to the bit; the tests a thread makes (up to
@@ -848,16 +936,16 @@ def check_brute(label, scene, sets, plain_lanes=None):
         ms_a = time_ms(lambda: isect.occluded_classic(geo.tri_isect, o, d, mt,
                                                       F))
         tests = counts["triangle_tests"] * n / m
-        b_a, by_a = bound_ms(nbytes(geo.tri_isect[:F], o, d, mt) + n,
-                             n * CLASSIC_RAY_SETUP_OPS
-                             + tests * CLASSIC_ANYHIT_TEST_OPS)
+        bnd_a = bound(nbytes(geo.tri_isect[:F], o, d, mt) + n,
+                      n * CLASSIC_RAY_SETUP_OPS
+                      + tests * CLASSIC_ANYHIT_TEST_OPS)
         anyhit = {"name": "occluded_classic", **common,
                   "source": "mitsuba3_plt_tpu_torch/ops/csrc/"
                             "intersect_classic.cu",
                   "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:183 "
                               "(pallas_occluded)",
                   "max_abs_err": 1.0 - agree, "ms": ms_a, "plain_ms": plain_a,
-                  "bound_ms": b_a, "bound_by": by_a, "agreement": agree,
+                  **bnd_a, "agreement": agree,
                   "occluded_share": occ_plain.float().mean().item(),
                   "tests_per_ray": tests / n}
 
@@ -882,8 +970,9 @@ def check_brute(label, scene, sets, plain_lanes=None):
         # group to T_pad are the TPU's tile, and the kernel skips them
         t_pad = w.shape[0] // 4
         w_f = w.view(4, t_pad, 16)[:, :F].reshape(4 * F, 16)
-        b_m, by_m = bound_ms(nbytes(w_f, o, d, mt) + 16 * n,
-                             n * (MXU_RAY_SETUP_OPS + F * MXU_TEST_OPS))
+        bnd_m = bound(nbytes(w_f, o, d, mt) + 16 * n,
+                      n * (MXU_RAY_SETUP_OPS + F * MXU_TEST_OPS),
+                      n * F * MXU_TEST_FMAS)
         k = n if plain_lanes is None else min(n, isect.MXU_CHUNK)
         phi = isect.mxu_features(o[:k], d[:k])
         mm_ms = time_ms(lambda: torch.matmul(phi, w_f.T), reps=3, calls=3)
@@ -893,7 +982,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:346 "
                            "(pallas_intersect_mxu)",
                "max_abs_err": err_m, "ms": ms_m, "plain_ms": plain_m,
-               "bound_ms": b_m, "bound_by": by_m, "t_pad": t_pad, "n_tris": F,
+               **bnd_m, "t_pad": t_pad, "n_tris": F,
                "hit_agreement": hit_agree, "prim_agreement": prim_agree,
                "matmul_ms": mm_ms, "matmul_lanes": k,
                "vs_classic": bi.agreement(got, got_m)}
@@ -954,7 +1043,7 @@ def check_clu(label, tabs, sets, plain_lanes):
                + counts["cluster_tests"] * scale * SLAB_OPS
                + counts["triangle_tests"] * scale
                * (Q_ANYHIT_TEST_OPS if any_hit else Q_TEST_OPS))
-        b, by = bound_ms(nbytes(tables, o, d, mt) + out_bytes, ops)
+        bnd = bound(nbytes(tables, o, d, mt) + out_bytes, ops)
         row = {"name": name, "route": "cuda", "n": n, "plain_lanes": m,
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_clu.cu",
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
@@ -963,36 +1052,13 @@ def check_clu(label, tabs, sets, plain_lanes):
                "rays": f"{label} {set_label}", "library_ms": None,
                "plain_timing": "the comparison call, once, on plain_lanes",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "agreement": 1.0 - err
+               **bnd, "agreement": 1.0 - err
                if any_hit else 1.0, **share, "boxes": ct.boxes.shape[0],
                "tests_per_ray": {k: v / m for k, v in counts.items()}}
         emit({"phase": "kernels", **row})
         out[set_label] = row
         del got, want
     return out
-
-
-def anyhit_tests(tri_q, anchor, o, d, mt, rows, chunk=256):
-    """The triangle tests of an any-hit brute force that stops at each
-    ray's first hit (all `rows` where it has none), summed over the rays:
-    the rows tested chunk at a time as one [rays, chunk] block."""
-    import torch
-
-    from mitsuba3_plt_tpu_torch.ops import intersect as isect
-
-    (o3, d3, c, m) = isect._ray_terms(anchor, o, d, mt)
-    split = lambda x: tuple(v[:, None] for v in x)  # noqa: E731
-    o3, d3, c = split(o3), split(d3), split(c)
-    first = torch.full(m.shape, rows, dtype=torch.int64, device=m.device)
-    # from the last chunk to the first, so the earliest hit stays
-    for s0 in reversed(range(0, rows, chunk)):
-        qt = tri_q[s0: min(rows, s0 + chunk)].T.unsqueeze(1)
-        ad, _, _, ts, inside = isect._q_terms(qt, o3, d3, c)
-        hit = inside & (ts < m[:, None] * ad)
-        any_hit = hit.any(1)
-        first = torch.where(any_hit, s0 + hit.to(torch.int8).argmax(1) + 1,
-                            first)
-    return int(first.sum())
 
 
 def check_sweep(label, scene, rays, plain_lanes=None):
@@ -1009,6 +1075,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
 
     geo, F = scene.geo, scene.geo.n_faces
     q = (geo.tri_q, geo.tri_anchor)
@@ -1045,7 +1112,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
                     f"{dual}: differs, max {err}")
             ms = time_ms(lambda: isect.intersect_q_variant(
                 *q, o, d, mt, F, unroll, dual))
-            b, by = bound_ms(
+            bnd = bound(
                 nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 8 * n,
                 n * (SWEEP_RAY_SETUP_OPS + rows * SWEEP_TEST_OPS
                      + (DUAL_MERGE_OPS if dual else 0)))
@@ -1055,7 +1122,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
                             "(q_variant)",
                 "unroll": unroll, "dual": dual, "rows": rows,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b, "bound_by": by, "agreement": 1.0,
+                **bnd, "agreement": 1.0,
                 "hit_share": hit.double().mean().item()}
         occ = isect.occluded_q_variant(*q, o[:m], d[:m], mix, F, unroll)
         if rows not in plain:
@@ -1069,10 +1136,10 @@ def check_sweep(label, scene, rays, plain_lanes=None):
         ms = time_ms(lambda: isect.occluded_q_variant(*q, o, d, msh, F,
                                                       unroll))
         if ("tests", rows) not in plain:
-            plain["tests", rows] = anyhit_tests(*q, o[:m], d[:m], msh[:m],
-                                                rows) * n / m
+            plain["tests", rows] = km.anyhit_tests(
+                *q, o[:m], d[:m], msh[:m], rows) * n / m
         tests = plain["tests", rows]
-        b, by = bound_ms(
+        bnd = bound(
             nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, msh) + n,
             n * SWEEP_RAY_SETUP_OPS + tests * Q_ANYHIT_TEST_OPS)
         out["any hit", unroll, False] = {
@@ -1081,12 +1148,100 @@ def check_sweep(label, scene, rays, plain_lanes=None):
                         "(a_variant)",
             "unroll": unroll, "dual": False, "rows": rows,
             "max_abs_err": 1.0 - agree, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "agreement": agree,
+            **bnd, "agreement": agree,
             "checked_occluded_share": want.double().mean().item(),
             "tests_per_ray": tests / n}
     for r in out.values():
         emit({"phase": "kernels", **r})
     return out
+
+
+def check_macc(label, scene, rays, plain_lanes=None):
+    """B11c at every nacc against its plain version on the
+    multi-accumulator tool's rays (maxt inf), equal to the bit (t, prim, u,
+    v) on the first `plain_lanes` lanes (all where None), timed on all.
+    Returns {nacc: row}."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    geo, F = scene.geo, scene.geo.n_faces
+    q = (geo.tri_q, geo.tri_anchor)
+    o, d, mt = rays
+    n = o.shape[0]
+    m = n if plain_lanes is None else min(n, plain_lanes)
+    rows = isect.q_variant_rows(geo.tri_q.shape[0], F, isect.Q_MACC_UNROLL)
+    out = {}
+    for nacc in isect.Q_MACC_NACCS:
+        got = isect.intersect_q_macc(*q, o[:m], d[:m], mt[:m], F, nacc)
+        want, plain_ms = time_once(lambda: isect.intersect_q_macc_plain(
+            *q, o[:m], d[:m], mt[:m], F, nacc))
+        hit = want[1] >= 0
+        err = max((got[k][hit] - want[k][hit]).abs().max().item()
+                  if hit.any() else 0.0 for k in (0, 2, 3))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"intersect_q_macc {label} nacc {nacc}: differs, max {err}")
+        ms = time_ms(lambda: isect.intersect_q_macc(*q, o, d, mt, F, nacc))
+        bnd = bound(
+            nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 16 * n,
+            n * (MACC_RAY_SETUP_OPS + rows * MACC_TEST_OPS
+                 + (nacc - 1) * MACC_MERGE_OPS))
+        out[nacc] = {
+            "name": "intersect_q_macc", "route": "cuda", "n": n,
+            "plain_lanes": m,
+            "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_sweep.cu",
+            "replaces": "tools/experiments/isect_q_multiacc.py:100 "
+                        "(intersect_macc)",
+            "rays": f"{label} multiacc", "library_ms": None,
+            "plain_timing": "the comparison call, once, on plain_lanes",
+            "nacc": nacc, "rows": rows, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bnd, "agreement": 1.0,
+            "hit_share": hit.double().mean().item()}
+        emit({"phase": "kernels", **out[nacc]})
+        del got, want
+    return out
+
+
+def check_fma(rng, dev):
+    """B11d against its plain version at the probe's 8,192 x 128, on random
+    x in [0.5, 2) and a in [0.98, 1.02) (a per row of the tile and lane)
+    with some chains driven into the 3e38 clamp: within 1 ulp an element
+    (the plain version forms x a + c in float64 and rounds it once more).
+    Timed on the same inputs (an FFMA's time does not depend on its
+    values)."""
+    import numpy as np
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import mfu
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
+
+    x = rng.uniform(0.5, 2.0, (km.FMA_ROWS, mfu.LANES)).astype(np.float32)
+    a = rng.uniform(0.98, 1.02, (mfu.SUB, mfu.LANES)).astype(np.float32)
+    x[3, :8] = 1e38
+    a[5, :4] = 1.5
+    x, a = (torch.as_tensor(v, device=dev) for v in (x, a))
+    got = mfu.fma_roof(x, a)
+    want, plain_ms = time_once(lambda: mfu.fma_roof_plain(x, a))
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32)).abs()
+    max_ulp = int(ulps.max())
+    fin = torch.isfinite(want)
+    require(max_ulp <= 1 and torch.equal(fin, torch.isfinite(got))
+            and bool((~fin).any()), f"fma_roof: {max_ulp} ulp")
+    ms = time_ms(lambda: mfu.fma_roof(x, a))
+    n = x.numel()
+    # per element: FMA_ITERS + 3 FMAs (2 each), FMA_ITERS mins, 3 adds
+    fmas = mfu.FMA_ITERS + 3
+    bnd = bound(nbytes(x, a, got), n * (2 * fmas + mfu.FMA_ITERS + 3),
+                n * fmas)
+    row = {"name": "fma_roof", "route": "cuda", "n": n,
+           "source": "mitsuba3_plt_tpu_torch/ops/csrc/fma_roof.cu",
+           "replaces": "tools/experiments/kernel_mfu.py:79 (vpu_fma_roof)",
+           "library_ms": None, "plain_timing": "the comparison call, once",
+           "max_abs_err": (got[fin] - want[fin]).abs().max().item(),
+           "max_ulp": max_ulp, "ulp_share": (ulps > 0).double().mean().item(),
+           "ms": ms, "plain_ms": plain_ms, **bnd}
+    emit({"phase": "kernels", **row})
+    return row
 
 
 def mask_sort_tool(scenes):
@@ -1174,6 +1329,102 @@ def unroll_sweep_tool(scenes):
         n_rows += len(rows)
     ph.emit(rows=n_rows, launches_one_run=launches)
     return launches
+
+
+def q_multiacc_tool(scenes):
+    """The multi-accumulator tool on each (label, scene, rays): the
+    launches of one run on the Cornell box's rays, then one timed run per
+    scene, a row per nacc with its prim agreement with B1, >= 0.99 (an
+    exact tie across groups goes to the lower group, B1 takes the first
+    row). Returns the launches."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import isect_q_multiacc as qm
+
+    ph = Phase("q-multiacc")
+    _, cscene, crays = scenes[0]
+    ops.reset_launch_counts()
+    qm.run(cscene, crays)
+    launches = ops.launch_counts()
+    want = {**NO_LAUNCHES, "intersect_q": 1,
+            "intersect_q_macc": len(qm.NACCS)}
+    require(launches == want, f"q-multiacc launches {launches}")
+    n_rows = 0
+    for label, scene, rays in scenes:
+        rows = qm.run(scene, rays,
+                      timer=lambda fn: time_ms(fn, reps=3, calls=3,
+                                               warmup=1))
+        for r in rows:
+            emit({"phase": "q-multiacc", "scene": label, **r})
+            require(r["prim_agree"] >= 0.99,
+                    f"q-multiacc {label} nacc {r['nacc']}: {r['prim_agree']}")
+        n_rows += len(rows)
+    ph.emit(rows=n_rows, launches_one_run=launches)
+    return launches
+
+
+def kernel_mfu_tool(q_scenes, dev):
+    """The MFU tool: B11d's SASS (one FFMA and one FMNMX a chain a step,
+    required), then one timed run of every probe, its launches counted
+    outside the timers (each probe's own first call): the FMA probe chained
+    at the JAX tool's 8,192 rows and at FMA_WIDE_ROWS (a grid of ~31
+    waves, against ~4 whose last is partial), the HBM probe's roll chained
+    and a copy, B1/B2 on each (label, scene, rays) of q_scenes, B5 on
+    mesh_scene(1024, 1024, 6), B4 on the JAX tool's inputs; a row each
+    against the measured and the published roofs. Returns (the launches,
+    the measured roofs)."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.ops import mfu
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
+
+    ph = Phase("kernel-mfu")
+    sass = mfu.fma_roof_sass()
+    require(sass["ffma"] == mfu.FMA_ITERS + 3
+            and sass["fmnmx"] == mfu.FMA_ITERS, f"fma_roof SASS {sass}")
+    mscene, bvh = km.clu2_setup(dev)
+    timed = {k: 0 for k in NO_LAUNCHES}
+
+    def untallied(measure):
+        def run(*args):
+            before = ops.launch_counts()
+            ms = measure(*args)
+            for k, v in ops.launch_counts().items():
+                timed[k] += v - before[k]
+            return ms
+        return run
+
+    timer = untallied(lambda fn: time_ms(fn, reps=3, calls=3, warmup=1))
+    chained = untallied(chained_ms)
+    ops.reset_launch_counts()
+    rows = [km.fma_roof_probe(dev, chained, sass),
+            km.fma_roof_probe(dev, chained, sass, FMA_WIDE_ROWS),
+            km.hbm_probe(dev, chained, timer)]
+    for label, scene, rays in q_scenes:
+        rows += [dict(r, scene=label) for r in km.q_probe(scene, rays, timer)]
+    rows.append(km.clu2_probe(mscene, bvh, timer))
+    rows.append(km.lobe_sum_probe(dev, timer))
+    launches = {k: v - timed[k] for k, v in ops.launch_counts().items()}
+    want = {**NO_LAUNCHES, "fma_roof": 2, "intersect_q": len(q_scenes),
+            "occluded_q": len(q_scenes), "intersect_clu2": 1,
+            "grating_lobe_sum": 1}
+    require(launches == want, f"kernel-mfu launches {launches}")
+    roofs = km.roofs(rows[:2], rows[2])
+    # the lobe sum against the roofs by chip_smoke's operation count (an FMA
+    # two operations, two FLOP), its slots the floor of contracted_bound
+    lobe = rows[-1]
+    lobe["flop"] = lobe["n"] * lobe_sum_ops(km.LOBE_HALF, True, 3)
+    lobe["slots_floor"] = lobe["flop"] // 2
+    lobe["flop_per_s"] = lobe["flop"] / lobe["ms"] * 1e3
+    lobe["slots_per_s"] = lobe["slots_floor"] / lobe["ms"] * 1e3
+    for r in rows:
+        emit({"phase": "kernel-mfu", **km.shares(r, roofs)})
+    require(rows[0]["finite"] and rows[1]["finite"] and rows[2]["correct"]
+            and rows[-1]["finite"] and rows[-2]["hit_share"] > 0,
+            "kernel-mfu: a probe's output is wrong")
+    ph.emit(roofs=roofs, sass=sass, launches_one_run=launches,
+            fma_roof_tflops=roofs["flops"] / 1e12,
+            slot_roof_tslots=roofs["slots"] / 1e12,
+            hbm_tb_per_s=roofs["bytes"] / 1e12)
+    return launches, roofs
 
 
 def isect_tool(scenes):
@@ -1401,8 +1652,8 @@ def main():
 
     ph = Phase("build")
     build.load_library()
-    ph.emit(sources=list(build.SOURCES),
-            registers=kernel_registers(build.build_log))
+    registers, spills = ptxas_report(build.build_log)
+    ph.emit(sources=list(build.SOURCES), registers=registers, spills=spills)
 
     ph = Phase("mesh82k-scene")
     mscene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, device="cuda")
@@ -1442,6 +1693,8 @@ def main():
                    for label, sc in (("cbox", cscene), ("mesh5k", tscene))]
     sweep_scenes = [(label, sc, us.sweep_rays(sc, TOOL_LANES, 0))
                     for label, sc in (("cbox", cscene), ("mesh5k", tscene))]
+    macc_scenes = [(label, sc, us.sweep_rays(sc, MACC_LANES, 0))
+                   for label, sc in (("cbox", cscene), ("mesh5k", tscene))]
     ph.emit(cbox_sets=list(csets), mesh_faces=tscene.geo.n_faces,
             mesh_sets=list(tsets), lanes=TOOL_LANES,
             mask_sets=list(mask_scenes[0][3]),
@@ -1472,15 +1725,20 @@ def main():
     check_sweep("cbox", cscene, sweep_scenes[0][2])
     sweep = check_sweep("mesh5k", tscene, sweep_scenes[1][2], PLAIN_LANES)
     rows += [sweep["closest", 16, False], sweep["any hit", 16, False]]
+    check_macc("cbox", cscene, macc_scenes[0][2])
+    macc = check_macc("mesh5k", tscene, macc_scenes[1][2], PLAIN_LANES)
+    rows += [macc[8], check_fma(rng, "cuda")]
     ph.emit(checked=[r["name"] for r in rows])
     tool_launches = isect_tool([("cbox", cscene, csets),
                                 ("mesh5k", tscene, tsets)])
     del csets, tsets
     mask_launches = mask_sort_tool(mask_scenes)
     sweep_launches = unroll_sweep_tool(sweep_scenes)
-    # the tools' rays and tables (~0.3 GB) must not count in the main
+    macc_launches = q_multiacc_tool(macc_scenes)
+    mfu_launches, roofs = kernel_mfu_tool(macc_scenes, "cuda")
+    # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
-    del mask_scenes, sweep_scenes, ttabs, tmask
+    del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask
 
     golden_ztest("golden", grating_scene(24, 24, coherence=1e3,
                                          device="cuda"),
@@ -1526,7 +1784,8 @@ def main():
           CBOX_SPP_PASS, "chip_smoke_profile_cbox.json")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "measured_bound_ms",
+            "measured_bound_by", "library_ms")
     kernels = []
     for r in rows:
         own = (p_res["launches"] if PACKET_LAUNCHES[r["name"]]
@@ -1534,8 +1793,10 @@ def main():
                else tool_launches if r["name"] in TOOL_KERNELS
                else mask_launches if r["name"] in MASK_KERNELS
                else sweep_launches if r["name"] in SWEEP_KERNELS
+               else macc_launches if r["name"] in MACC_KERNELS
+               else mfu_launches if r["name"] in MFU_KERNELS
                else g_res["launches"])
-        r = dict(r, launches=own[r["name"]])
+        r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
         kernels.append({k: r[k] for k in keys})
     emit({"kernels": kernels})
     print(smi, flush=True)

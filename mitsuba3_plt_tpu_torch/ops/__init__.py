@@ -1,9 +1,9 @@
-"""The kernels of the main paths and of the intersection tools. Each wrapper
-runs its CUDA kernel on CUDA tensors (counting the launch) and its plain
-PyTorch version on CPU tensors."""
+"""The kernels of the main paths, of the intersection tools and of the
+FMA roof probe. Each wrapper runs its CUDA kernel on CUDA tensors (counting
+the launch) and its plain PyTorch version on CPU tensors."""
 from __future__ import annotations
 
-from . import grating, intersect
+from . import grating, intersect, mfu
 
 
 def launch_counts() -> dict:
@@ -22,8 +22,10 @@ def launch_counts() -> dict:
         "occluded_clu": intersect.OCCLUDED_CLU_LAUNCHES,
         "intersect_q_variant": intersect.INTERSECT_Q_VARIANT_LAUNCHES,
         "occluded_q_variant": intersect.OCCLUDED_Q_VARIANT_LAUNCHES,
+        "intersect_q_macc": intersect.INTERSECT_Q_MACC_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
+        "fma_roof": mfu.FMA_ROOF_LAUNCHES,
     }
 
 
@@ -41,5 +43,7 @@ def reset_launch_counts() -> None:
     intersect.OCCLUDED_CLU_LAUNCHES = 0
     intersect.INTERSECT_Q_VARIANT_LAUNCHES = 0
     intersect.OCCLUDED_Q_VARIANT_LAUNCHES = 0
+    intersect.INTERSECT_Q_MACC_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0
+    mfu.FMA_ROOF_LAUNCHES = 0

@@ -20,7 +20,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("intersect_q.cu", "intersect_clu2.cu", "intersect_bvh.cu",
            "intersect_classic.cu", "intersect_mxu.cu", "intersect_clu.cu",
-           "intersect_sweep.cu", "grating.cu")
+           "intersect_sweep.cu", "grating.cu", "fma_roof.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +44,11 @@ SIGNATURES = {
     "plt_intersect_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _P, _I, _I,
                                                       _P],
     "plt_occluded_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "plt_intersect_q_macc": [_P, _I] + [_P] * 4 + [_I] + [_P] * 4 + [_I,
+                                                                      _P],
     "plt_grating_lobe_sum": [_P] * 11 + [_I, _I, _I, _I, _P, _P],
     "plt_grating_sample": [_P] * 11 + [_I, _I, _I] + [_P] * 7 + [_P],
+    "plt_fma_roof": [_P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -109,12 +112,17 @@ def _build(target: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def library_file() -> str:
+    """The path of the kernel library for the sources as they stand."""
+    return os.path.join(BUILD_DIR, f"libplt_kernels_{_digest()}.so")
+
+
 def load_library():
     """The bound kernel library, built on first use."""
     global _lib
     if _lib is not None:
         return _lib
-    target = os.path.join(BUILD_DIR, f"libplt_kernels_{_digest()}.so")
+    target = library_file()
     if not os.path.exists(target):
         _build(target)
     lib = ctypes.CDLL(target)

@@ -1,6 +1,7 @@
 """Closest-hit and any-hit ray/triangle queries: brute force over the
 precomputed-quantities ("q") triangle table (`csrc/intersect_q.cu`, and
-its unroll-sweep variants in `csrc/intersect_sweep.cu`), over the classic
+its unroll-sweep and multi-accumulator variants in
+`csrc/intersect_sweep.cu`), over the classic
 (p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one product of ray
 features with a weight table (`csrc/intersect_mxu.cu`), the treelet walks
 over a flat ClusterTable (`csrc/intersect_clu.cu`) and a two-level
@@ -35,6 +36,7 @@ INTERSECT_CLU_LAUNCHES = 0
 OCCLUDED_CLU_LAUNCHES = 0
 INTERSECT_Q_VARIANT_LAUNCHES = 0
 OCCLUDED_Q_VARIANT_LAUNCHES = 0
+INTERSECT_Q_MACC_LAUNCHES = 0
 
 # Möller-Trumbore needs |det| above this to count a hit
 _DET_EPS = 1e-12
@@ -258,22 +260,42 @@ def _check_variant(name, tri_q, anchor, o, d, maxt, n_tris, unroll):
     return dev, n, q_variant_rows(tri_q.shape[0], n_tris, unroll)
 
 
+def _q_groups(tri_q, rows, nacc, o3, d3, c, mt):
+    """`_q_best` of `rows` rows split into nacc groups (row r in group
+    r % nacc), merged in order 1..nacc-1 into group 0: group g is taken
+    where it hit and group 0 missed or ts_g |det|0 < ts0 |det|g, so an
+    exact tie across groups goes to the lower group."""
+    return _merge_groups([_q_best(tri_q, range(g, rows, nacc), o3, d3, c, mt)
+                          for g in range(nacc)])
+
+
+def _merge_groups(groups):
+    """`_q_groups`' merge of its groups' (ts, |det|, us, vs, prim)."""
+    ts_b, ad_b, us_b, vs_b, prim = groups[0]
+    for ts2, ad2, us2, vs2, p2 in groups[1:]:
+        win = (p2 >= 0) & ((prim < 0) | (ts2 * ad_b < ts_b * ad2))
+        ts_b = torch.where(win, ts2, ts_b)
+        ad_b = torch.where(win, ad2, ad_b)
+        us_b = torch.where(win, us2, us_b)
+        vs_b = torch.where(win, vs2, vs_b)
+        prim = torch.where(win, p2, prim)
+    return ts_b, ad_b, us_b, vs_b, prim
+
+
 def intersect_q_variant_plain(tri_q, anchor, o, d, maxt, n_tris, unroll=2,
                               dual=False):
     """Plain version of `intersect_q_variant`: `intersect_q_plain` over the
-    rounded row count; with `dual`, the even and the odd rows in two
-    accumulators, the odd one taken where ts2 |det|1 < ts1 |det|2."""
+    rounded row count; with `dual`, the even and the odd rows in two groups
+    merged as `_q_groups` merges them. The JAX tool's merge,
+    ts2 |det|1 < ts1 |det|2 with no test of which group hit, is the same
+    wherever no group's best hit lies within rounding of maxt: a group that
+    reached its best through more than one update can fail ts |det|0 <
+    maxt |det| against a group that missed (a rounded compare is not
+    transitive), and there the JAX merge drops the hit where this one keeps
+    it (`tests/test_torch_macc.py::test_dual_merge_differs_only_at_maxt`)."""
     rows = q_variant_rows(tri_q.shape[0], n_tris, unroll)
-    terms = _ray_terms(anchor, o, d, maxt)
-    if dual:
-        ts1, ad1, _, _, p1 = _q_best(tri_q, range(0, rows, 2), *terms)
-        ts2, ad2, _, _, p2 = _q_best(tri_q, range(1, rows, 2), *terms)
-        win = ts2 * ad1 < ts1 * ad2
-        ts_b = torch.where(win, ts2, ts1)
-        ad_b = torch.where(win, ad2, ad1)
-        prim = torch.where(win, p2, p1)
-    else:
-        ts_b, ad_b, _, _, prim = _q_best(tri_q, range(rows), *terms)
+    ts_b, ad_b, _, _, prim = _q_groups(tri_q, rows, 2 if dual else 1,
+                                       *_ray_terms(anchor, o, d, maxt))
     return torch.where(prim >= 0, ts_b * (1.0 / ad_b), float("inf")), prim
 
 
@@ -335,6 +357,58 @@ def occluded_q_variant(tri_q, anchor, o, d, maxt, n_tris, unroll=2):
         "occluded_q_variant")
     OCCLUDED_Q_VARIANT_LAUNCHES += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# the multi-accumulator q closest hit (tools/isect_q_multiacc.py): the row
+# loop unrolled Q_MACC_UNROLL deep, row r updating group r % nacc
+# ---------------------------------------------------------------------------
+
+Q_MACC_UNROLL = 16        # the JAX tool's UNROLL
+Q_MACC_NACCS = (2, 4, 8)  # the group counts the kernel is built for
+
+
+def intersect_q_macc_plain(tri_q, anchor, o, d, maxt, n_tris, nacc):
+    """Plain version of `intersect_q_macc`: the rounded row count in nacc
+    groups (`_q_groups`), t, u and v as the pairs times 1/|det|."""
+    rows = q_variant_rows(tri_q.shape[0], n_tris, Q_MACC_UNROLL)
+    ts_b, ad_b, us_b, vs_b, prim = _q_groups(
+        tri_q, rows, nacc, *_ray_terms(anchor, o, d, maxt))
+    inv = 1.0 / ad_b
+    t = torch.where(prim >= 0, ts_b * inv, float("inf"))
+    return t, prim, us_b * inv, vs_b * inv
+
+
+def intersect_q_macc(tri_q, anchor, o, d, maxt, n_tris, nacc):
+    """Closest hit over the q table with nacc (one of Q_MACC_NACCS)
+    accumulator groups, row r updating group r % nacc, merged at the end
+    (an exact tie across groups goes to the lower group); the rows run are
+    `q_variant_rows(T, n_tris, 16)`. Returns (t [N], prim [N] int32, u [N],
+    v [N]), t inf on a miss. CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    global INTERSECT_Q_MACC_LAUNCHES
+    dev, n, rows = _check_variant("intersect_q_macc", tri_q, anchor, o, d,
+                                  maxt, n_tris, Q_MACC_UNROLL)
+    if nacc not in Q_MACC_NACCS:
+        raise ValueError(f"intersect_q_macc: nacc {nacc} not in "
+                         f"{Q_MACC_NACCS}")
+    if dev.type == "cpu":
+        return intersect_q_macc_plain(tri_q, anchor, o, d, maxt, n_tris,
+                                      nacc)
+    from .build import check, load_library
+
+    lib = load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_intersect_q_macc(
+        tri_q.data_ptr(), rows, anchor.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), nacc, stream), "intersect_q_macc")
+    INTERSECT_Q_MACC_LAUNCHES += 1
+    return t, prim, u, v
 
 
 # ---------------------------------------------------------------------------

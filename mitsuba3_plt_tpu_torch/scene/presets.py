@@ -227,6 +227,12 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6,
     (2, 2, 3), and a 45-degree camera at (0, 0, 4) looking at the origin.
     Above BRUTE_FORCE_MAX_FACES faces it carries the tables of `accel`: its
     ClusterTable2 ("clu2") or, in their place, its PacketBVH ("packet")."""
+    return _mesh_scene_arrays(width, height, subdiv, accel)[:2]
+
+
+def _mesh_scene_arrays(width, height, subdiv, accel):
+    """`mesh_scene_arrays` and the skip-link BVH its tables were packed
+    from (None at or below BRUTE_FORCE_MAX_FACES faces)."""
     if accel not in ("clu2", "packet"):
         raise ValueError(f"accel must be 'clu2' or 'packet', got {accel!r}")
     mesh = make_sphere(subdiv)
@@ -236,10 +242,12 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6,
         np.linalg.norm(mesh.normals, axis=-1, keepdims=True), 1e-20)
     uv = np.zeros((len(v), 2), np.float32)
     geo, radius = _geometry([(v, f, n, uv)], [0], [-1])
+    bvh = None
     if len(f) > BRUTE_FORCE_MAX_FACES:
         pack, prefix = ((pack_clusters2_arrays, "ctab2.") if accel == "clu2"
                         else (pack_packet_bvh_arrays, "pbvh."))
-        tables = pack(build_bvh(v, f), v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
+        bvh = build_bvh(v, f)
+        tables = pack(bvh, v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
         geo.update({prefix + k: x for k, x in tables.items()})
     mats, mat_static = _materials([(BSDF_DIFFUSE,
                                     {"base_color": (0.7, 0.7, 0.7)})])
@@ -250,7 +258,7 @@ def mesh_scene_arrays(width: int = 512, height: int = 512, subdiv: int = 6,
     sens, sens_static = _sensor(tf.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
                                 45.0, width, height)
     return ({**geo, **mats, **ems, **sens},
-            {**mat_static, **em_static, **sens_static})
+            {**mat_static, **em_static, **sens_static}, bvh)
 
 
 def mesh_scene(width: int = 512, height: int = 512, subdiv: int = 6, *,
@@ -258,8 +266,20 @@ def mesh_scene(width: int = 512, height: int = 512, subdiv: int = 6, *,
     """The mesh scene on `device` (the configuration of the JAX package's
     mesh82k bench at subdiv 6, of its mesh20k golden at subdiv 5), routed
     to the clu2 kernels or, with accel="packet", to the packet-BVH walk."""
-    arrays, static = mesh_scene_arrays(width, height, subdiv, accel)
+    arrays, static, _ = _mesh_scene_arrays(width, height, subdiv, accel)
     return scene_from_arrays(arrays, static, device=device)
+
+
+def mesh_scene_with_bvh(width: int = 512, height: int = 512,
+                        subdiv: int = 6, *, device="cuda"):
+    """(`mesh_scene` on the clu2 route, the skip-link BVH of its icosphere
+    that its ClusterTable2 was packed from), for a host walk of the same
+    tree; the icosphere must have more than BRUTE_FORCE_MAX_FACES faces."""
+    arrays, static, bvh = _mesh_scene_arrays(width, height, subdiv, "clu2")
+    if bvh is None:
+        raise ValueError(f"mesh_scene_with_bvh: subdiv {subdiv} gives "
+                         f"{20 * 4 ** subdiv} faces, routed brute force")
+    return scene_from_arrays(arrays, static, device=device), bvh
 
 
 def cornell_box_arrays(width: int = 256, height: int = 256):

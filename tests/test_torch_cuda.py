@@ -118,6 +118,7 @@ def test_render_launches_each_kernel_once_per_bounce(card):
                                    "intersect_clu": 0, "occluded_clu": 0,
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
+                                   "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8}
 
 
@@ -197,6 +198,7 @@ def test_path_render_launches_clu2_once_per_bounce(card):
                                    "intersect_clu": 0, "occluded_clu": 0,
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
+                                   "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
 
 
@@ -457,3 +459,82 @@ def test_tools_launch_their_kernels(card):
         "intersect_q": 1, "occluded_q": 1,
         "intersect_q_variant": len(us.CLOSEST),
         "occluded_q_variant": len(us.ANYHIT)}
+
+
+def test_q_macc_kernel_matches_plain(card):
+    """B11c at nacc 2, 4 and 8 equals its plain version to the bit (t,
+    prim, u, v) on the sweep's rays of both tool scenes, with maxt inf and
+    on every fifth lane 0.5; at nacc 2 it answers as B11a's two
+    accumulators do."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+
+    for scene in _tool_scenes(card):
+        g = scene.geo
+        q = (g.tri_q, g.tri_anchor)
+        o, d, mt = us.sweep_rays(scene, 8192, seed=6)
+        mt[::5] = 0.5
+        for nacc in isect.Q_MACC_NACCS:
+            got = isect.intersect_q_macc(*q, o, d, mt, g.n_faces, nacc)
+            want = isect.intersect_q_macc_plain(*q, o, d, mt, g.n_faces,
+                                                nacc)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), nacc
+            assert (got[1] >= 0).any() and (got[1] < 0).any()
+            if nacc == 2:
+                dual = isect.intersect_q_variant(*q, o, d, mt, g.n_faces,
+                                                 16, True)
+                assert torch.equal(dual[0], got[0])
+                assert torch.equal(dual[1], got[1])
+
+
+def test_fma_roof_kernel_matches_plain(card):
+    """B11d within 1 ulp of its plain version (the plain version's double
+    rounding) on random inputs with clamped chains, and its SASS: one FFMA
+    and one FMNMX a chain a step."""
+    from mitsuba3_plt_tpu_torch.ops import mfu
+
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0.5, 2.0, (256, 128)).astype(np.float32)
+    a = rng.uniform(0.98, 1.02, (8, 128)).astype(np.float32)
+    x[3, :8] = 1e38
+    a[5, :4] = 1.5
+    x, a = torch.as_tensor(x, device=card), torch.as_tensor(a, device=card)
+    got = mfu.fma_roof(x, a)
+    want = mfu.fma_roof_plain(x, a)
+    torch.cuda.synchronize()
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32)).abs()
+    assert int(ulps.max()) <= 1
+    assert torch.isinf(got).any() and torch.isfinite(got).float().mean() > 0.9
+    sass = mfu.fma_roof_sass()
+    assert sass["ffma"] == mfu.FMA_ITERS + 3, sass
+    assert sass["fmnmx"] == mfu.FMA_ITERS, sass
+
+
+def test_macc_and_mfu_tools_launch_their_kernels(card):
+    """One run of the multi-accumulator tool launches B1 once and B11c
+    once per nacc; the MFU tool's probes launch B11d, B1, B2, B5 and B4
+    once each, and its HBM probe none of the port's kernels."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.tools import isect_q_multiacc as qm
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
+
+    scene = _tool_scenes(card)[0]
+    rays = us.sweep_rays(scene, 8192)
+    ops.reset_launch_counts()
+    rows = qm.run(scene, rays)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "intersect_q": 1, "intersect_q_macc": len(qm.NACCS)}
+    assert all(r["prim_agree"] >= 0.99 for r in rows), rows
+    ops.reset_launch_counts()
+    assert km.hbm_probe(card, n=1 << 20)["correct"]
+    assert km.fma_roof_probe(card, rows=64)["finite"]
+    km.q_probe(scene, rays)
+    km.clu2_probe(*km.clu2_setup(card, 64, 5), samples=16)
+    assert km.lobe_sum_probe(card, n=4096)["finite"]
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fma_roof": 1, "intersect_q": 1, "occluded_q": 1,
+        "intersect_clu2": 1, "grating_lobe_sum": 1}

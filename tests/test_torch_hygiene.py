@@ -43,16 +43,17 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
     assert sorted(os.listdir(csrc)) == [
-        "grating.cu", "intersect_bvh.cu", "intersect_classic.cu",
-        "intersect_clu.cu", "intersect_clu2.cu", "intersect_mxu.cu",
-        "intersect_q.cu", "intersect_sweep.cu"]
+        "fma_roof.cu", "grating.cu", "intersect_bvh.cu",
+        "intersect_classic.cu", "intersect_clu.cu", "intersect_clu2.cu",
+        "intersect_mxu.cu", "intersect_q.cu", "intersect_sweep.cu"]
     from mitsuba3_plt_tpu_torch.ops import build
 
     assert sorted(build.SOURCES) == sorted(os.listdir(csrc))
     assert {"plt_intersect_bvh", "plt_occluded_bvh", "plt_intersect_classic",
             "plt_occluded_classic", "plt_intersect_mxu", "plt_intersect_clu",
             "plt_occluded_clu", "plt_intersect_q_variant",
-            "plt_occluded_q_variant"} <= set(build.SIGNATURES)
+            "plt_occluded_q_variant", "plt_intersect_q_macc",
+            "plt_fma_roof"} <= set(build.SIGNATURES)
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
 
 
@@ -113,6 +114,7 @@ def test_launch_counters_stay_zero_on_the_cpu():
                                    "intersect_clu": 0, "occluded_clu": 0,
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
+                                   "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0}
 
 
@@ -125,6 +127,7 @@ def test_tool_entry_points_need_a_card_unless_asked_for_the_cpu():
     from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
     from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
     from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+    from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
     from mitsuba3_plt_tpu_torch.scene.bvh import pack_clusters
 
     scene = cornell_box(8, 8, device="cpu")
@@ -137,3 +140,6 @@ def test_tool_entry_points_need_a_card_unless_asked_for_the_cpu():
                .__dict__.values())
     assert us.sweep_rays(scene, 16)[0].device.type == "cpu"
     assert ms.ray_sets(scene, 1)["shadow2"][2].device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in km.pixel_rays(scene))
+    assert all(t.device.type == "cpu"
+               for t in km.lobe_inputs(4, "cpu").values())
