@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # one card, ~3 min with the build
 
+    python3 chip_smoke.py --turns ROOT   # B4 and B7a of the package in ROOT
+
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
@@ -20,17 +22,22 @@ tracer on the Cornell box (B1, B2, area light).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
-                  started together), with nvcc's register and spill report;
+                  started together), with nvcc's register and spill report
+                  and the special functions' fast paths in the SASS
+                  (`ops/mfu.py::special_fn_counts`), which weigh B4's bound;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
                   card, at the main paths' lane counts, with the tolerance
                   stated, timed with CUDA events (10 back-to-back calls,
                   median of 7; the clu2 and BVH plain walks once per ray
-                  set). B7 runs on the five mesh82k ray sets of B5/B6 at
-                  1,048,576 lanes, unsorted and sorted by the route's
-                  coherence sort, whose own time is printed, and on the
-                  131,072-lane wavefront the regenerative path gives it.
+                  set). B4 on four cases (its bound counted by
+                  `lobe_sum_count`). B7 runs on the five mesh82k ray sets
+                  of B5/B6 at 1,048,576 lanes, unsorted and sorted by the
+                  route's coherence sort, whose own time is printed, and on
+                  the 131,072-lane wavefront the regenerative path gives
+                  it; B7a's rows carry the plain walk's pops and triangle
+                  tests a ray (mean, and the mean of each warp's most).
                   B8a, B8b and B9 run on the tool's coherent and incoherent
                   sets of the Cornell box and of the 5,120-face icosphere at
                   1,048,576 lanes, held to their plain versions on all the
@@ -258,11 +265,12 @@ def bound(n_bytes, n_ops, n_fma=0):
 
 def contracted_bound(n_bytes, n_ops):
     """`bound` of a kernel that nvcc builds with FMA contraction (grating.cu:
-    B3, B4), whose operation count does not tell the FMAs apart: its issue
-    slots are taken as n_ops / 2, the fewest it could issue (an FFMA, two
-    operations, is the most one slot does), so its measured bound is a
-    floor. Their SASS cannot give the count as B11d's does: it keeps loops
-    and calls whose trips a static count cannot read."""
+    B3's sample_kernel), whose operation count does not tell the FMAs
+    apart: its issue slots are taken as n_ops / 2, the fewest it could
+    issue (an FFMA, two operations, is the most one slot does), so its
+    measured bound is a floor. Its SASS cannot give the count as B11d's
+    does: it keeps loops and calls whose trips a static count cannot
+    read."""
     return bound(n_bytes, n_ops, n_ops // 2)
 
 
@@ -311,17 +319,17 @@ def ptxas_report(log: str) -> tuple:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            k = re.search(r"(clu2_kernel|clu_kernel|bvh_kernel|sweep_q_kernel|"
+            k = re.search(r"(clu2_kernel|clu_kernel|sweep_q_kernel|"
                           r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
-                          r"sample_kernel|classic_kernel)"
+                          r"sample_kernel|classic_kernel|fn_probe_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
+            plain = re.search(r"(mxu_kernel|fma_roof_kernel|wide_kernel|"
+                              r"anyhit_kernel)", entry)
             if k:
                 args = re.findall(r"L([ib])(\d+)E", k.group(2))
                 entry = f"{k.group(1)}<{','.join(v for _, v in args)}>"
-            elif "mxu_kernel" in entry:
-                entry = "mxu_kernel"
-            elif "fma_roof_kernel" in entry:
-                entry = "fma_roof_kernel"
+            elif plain:
+                entry = plain.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry and int(m.group(1)) + int(m.group(2)):
@@ -373,10 +381,69 @@ def bessel_ops(half):
     return 64 * 10 + (half + 1) * 16 + 4
 
 
-def lobe_sum_ops(half, separable, C):
-    lobes = (2 * half + 1) if separable else (2 * half + 1) ** 2
-    per_channel = 12 + bessel_ops(half) + 3 * half + lobes * 45 + 3
-    return 20 + C * per_channel
+# B4: a hand count of csrc/grating.cu::lobe_sum_kernel, whose products and
+# sums are each an fmaf or rounded on their own (so none is contracted
+# behind the count's back). Each add, multiply, compare, select, min/max,
+# logic operation, conversion and vote counts as one operation, an fmaf as
+# two and as one FMA; fabsf and negation are operand modifiers; loads are
+# bytes. (operations, FMAs):
+LOBE_LANE = (18, 3)        # index clamp, 2 conversions, px, py, sin_ix,
+                           # sin_iy, half_lobes, 3 profile flags, ny, 4 pi q
+LOBE_LANE_LOBE = {True: (3, 0), False: (7, 0)}  # lob_rx/ry, live compare
+LOBE_CHANNEL = (20, 0)     # + 5 half (+ 2 separable): wavelength, kwn, a,
+                           # three votes, at_zero, base, the exponent
+LOBE_LOBE = (40, 7)        # the grating equation, cd.wo, unit_angle, gates,
+                           # the Gaussian, the sum; the centre separable
+                           # + 3 (its correction), else - 1
+LOBE_TABLE = (7, 0)        # + 3 (half + 1) FMAs: the interval and t
+LOBE_ASYM = (3, 0)         # + 5 (half + 1) and 2 (half + 1) FMAs
+LOBE_RECT = (1, 0)         # a / 2 for sinf
+
+
+def lobe_sum_count(ins, half, separable, specials):
+    """B4's work on these inputs: {"ops", "fma", "calls", ...} with the
+    special functions' calls weighed by `specials`
+    (`ops/mfu.py::special_fn_counts`: an FFMA two operations and one FMA,
+    any other instruction one operation). Data-dependent parts counted as
+    these lanes need them: the lobes a lane's lobe count makes live, the
+    table for sinusoidal (lane, channel)s with |a| <= 48, the asymptotics
+    for those above, sin(a / 2) for rectangular ones."""
+    import torch
+
+    n, C = ins["wl_nm"].shape
+    wl_um = ins["wl_nm"] * 1e-3
+    x = (4.0 * 3.14159265358979323846 * ins["q"][:, None]
+         / torch.clamp_min(wl_um * ins["wi"][:, 2:3].abs(), 1e-12)).abs()
+    gt = ins["gtype"].float()
+    is_sin = (gt < 0.5)[:, None]
+    n_table = int((is_sin & (x <= 48.0)).sum())
+    n_asym = int((is_sin & (x > 48.0)).sum())
+    n_rect = int(((gt - 1.0).abs() < 0.5).sum()) * C
+    m = torch.clamp_max(torch.floor(ins["lobes"].float() * 0.5), half)
+    live = (2 * m + 1) if separable else (2 * m + 1) ** 2
+    n_live = int(live.sum())
+    centre = 3 if separable else -1
+    h1 = half + 1
+    ops = (n * (LOBE_LANE[0] + int(separable))
+           + n_live * LOBE_LANE_LOBE[separable][0]
+           + n * C * (LOBE_CHANNEL[0] + 5 * half + 2 * int(separable))
+           + C * (n_live * LOBE_LOBE[0] + n * centre)
+           + n_table * LOBE_TABLE[0] + n_asym * (LOBE_ASYM[0] + 5 * h1)
+           + n_rect * LOBE_RECT[0])
+    fma = (n * LOBE_LANE[1] + C * n_live * LOBE_LOBE[1]
+           + n_table * 3 * h1 + n_asym * 2 * h1)
+    calls = {"sqrt": 2 * n + 4 * C * n_live + n_asym,
+             "div": 2 * n + C * (2 * n + n_live) + 2 * n_asym,
+             "asin": C * n_live, "exp": C * n_live, "sincos": n_asym,
+             "sin": n_rect}
+    fn_ops = sum(k * (2 * specials[f]["ffma"] + specials[f]["other"])
+                 for f, k in calls.items())
+    fn_fma = sum(k * specials[f]["ffma"] for f, k in calls.items())
+    return {"ops": 2 * fma + ops + fn_ops, "fma": fma + fn_fma,
+            "calls": calls, "live_lobes_per_lane": n_live / n,
+            "asym_share": n_asym / (n * C),
+            "slots_per_lane": (fma + ops + fn_ops - fn_fma) / n,
+            "special_slots_per_lane": (fn_ops - fn_fma) / n}
 
 
 def sample_ops(half, ndf):
@@ -509,7 +576,9 @@ def lobe_sum_inputs(rng, n, gtype, ip_y, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in ins.items()}
 
 
-def check_lobe_sum(n, rng, dev):
+def check_lobe_sum(n, rng, dev, specials):
+    import torch
+
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
     # (half, separable, gtype, ip_y): the main path's case first, then the
@@ -524,24 +593,37 @@ def check_lobe_sum(n, rng, dev):
         want = gops.grating_lobe_sum_plain(**ins, **kw)
         # tolerance: rtol 2e-3, atol 2e-5 (the CPU tests'); a lane may fall
         # outside only where a cone or grating-equation gate flips at float
-        # rounding (FMA contraction): at most 1 lane in 100,000
+        # rounding (the kernel's Bessel table and FMAs): at most 1 lane in
+        # 100,000
         frac = frac_close(got, want, 2e-3, 2e-5)
+        require(bool(torch.isfinite(got).all()),
+                f"grating_lobe_sum {half, sep, gtype}: non-finite output")
         require(frac >= 1 - 1e-5,
                 f"grating_lobe_sum {half, sep, gtype} agreement {frac}")
+        count = lobe_sum_count(ins, half, sep, specials)
+        emit({"phase": "kernels", "name": "grating_lobe_sum",
+              "case": [half, sep, gtype, ip_y], "n": nn, "agreement": frac,
+              "asym_share": count["asym_share"]})
         if row is None:
             err = (got - want).abs().max().item()
             ms = time_ms(lambda: gops.grating_lobe_sum(**ins, **kw,
                                                        n_channels=3))
             plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(**ins, **kw))
-            bnd = contracted_bound(nbytes(ins, got),
-                                   nn * lobe_sum_ops(half, sep, 3))
+            bnd = bound(nbytes(ins, got, gops.bessel_table(dev)),
+                        count["ops"], count["fma"])
             row = {"name": "grating_lobe_sum", "route": "cuda",
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
                                "(grating_lobe_sum)",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    **bnd, "library_ms": None,
-                   "n": nn, "agreement": frac}
+                   "n": nn, "agreement": frac,
+                   "count": {**count, "how": (
+                       "operations and FMAs: a hand count of "
+                       "lobe_sum_kernel's source (chip_smoke.py LOBE_*) "
+                       "over the lobes, branches and profiles these lanes "
+                       "need; special functions: calls x their fast-path "
+                       "instructions in the SASS of fn_probe_kernel")}}
     return row
 
 
@@ -782,20 +864,39 @@ def check_clu2(scene, rng):
             {label: r["ms"] for label, r in rows.items()})
 
 
+def walk_stats(counts, rays_per_warp):
+    """The plain WideBVH walk's per-ray counts (`ray_pops`, entries popped,
+    and `ray_triangle_tests`): the mean a ray, the mean over warps of the
+    most in the warp (rays_per_warp consecutive rays: a warp runs as long
+    as its longest walk), and the most."""
+    import torch.nn.functional as F
+
+    out = {}
+    for key, name in (("ray_pops", "pops"),
+                      ("ray_triangle_tests", "triangle_tests")):
+        c = counts[key].double()
+        warp = F.pad(c, (0, (-c.numel()) % rays_per_warp))
+        warp = warp.view(-1, rays_per_warp).amax(-1)
+        out[name] = {"mean": c.mean().item(),
+                     "warp_max_mean": warp.mean().item(),
+                     "max": c.max().item()}
+    return out
+
+
 def check_bvh(scene, sets, clu2_ms, rng):
-    """B7a and B7b against their plain walks on the packet scene. First the
-    five 1,048,576-lane mesh82k ray sets of `check_clu2`, unsorted and
-    sorted by the route's coherence sort, with the sort's own time and the
-    clu2 kernel's time on the same set beside them; then the wavefront the
-    regenerative path gives the kernels: the 131,072 camera rays of its first
-    iteration in Morton order and the shadow rays of their hits, sorted as
-    the route sorts them. The kernels line carries the latter two."""
+    """B7a on the WideBVH and B7b on the PacketBVH against their plain walks
+    on the packet scene. First the five 1,048,576-lane mesh82k ray sets of
+    `check_clu2`, unsorted and sorted by the route's coherence sort, with the
+    sort's own time and the clu2 kernel's time on the same set beside them;
+    then the wavefront the regenerative path gives the kernels: the 131,072
+    camera rays of its first iteration in Morton order and the shadow rays
+    of their hits, sorted as the route sorts them. The kernels line carries
+    the latter two."""
     import torch
 
-    from mitsuba3_plt_tpu_torch.integrators.common import camera_rays_at
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
 
-    pb = scene.pbvh
+    pb, wb = scene.pbvh, scene.wbvh
 
     def sorted_rays(o, d, mt):
         """(the rays in the route's order, the permutation)."""
@@ -806,12 +907,13 @@ def check_bvh(scene, sets, clu2_ms, rng):
         """The wrapper's answer as one tensor: the flags, or prim."""
         if any_hit:
             return isect.occluded_bvh(pb, o, d, mt)
-        return isect.intersect_bvh(pb, o, d, mt)[1]
+        return isect.intersect_bvh(wb, o, d, mt)[1]
 
     def one(label, any_hit, o, d, mt):
         """The kernel on (o, d, mt) as given: tolerance none, the kernel
-        rounds every product and sum as the plain walk does, so prim, t, u,
-        v and the occlusion flags are equal on every lane."""
+        rounds every product and sum as the plain walk does and walks in
+        its order, so prim, t, u, v and the occlusion flags are equal on
+        every lane."""
         n, counts = o.shape[0], {}
         if any_hit:
             got = isect.occluded_bvh(pb, o, d, mt)
@@ -820,25 +922,32 @@ def check_bvh(scene, sets, clu2_ms, rng):
             agree = (got == want).double().mean().item()
             err = 1.0 - agree
             ms = time_ms(lambda: isect.occluded_bvh(pb, o, d, mt))
-            share = {"occluded_share": want.float().mean().item()}
+            extra = {"occluded_share": want.float().mean().item(),
+                     "walk_steps": counts["steps"]}
+            tables = (pb.nodes, pb.tri)
         else:
-            got = isect.intersect_bvh(pb, o, d, mt)
+            got = isect.intersect_bvh(wb, o, d, mt)
             want, plain_ms = time_once(lambda: isect.intersect_bvh_plain(
-                pb, o, d, mt, counts=counts))
+                wb, o, d, mt, counts=counts))
             agree = (got[1] == want[1]).double().mean().item()
             hit = want[1] >= 0
             err = max((got[k][hit] - want[k][hit]).abs().max().item()
                       if hit.any() else 0.0 for k in (0, 2, 3))
             require(all(torch.equal(got[k], want[k]) for k in (0, 2, 3)),
                     f"intersect_bvh {label}: t/u/v differ, max {err}")
-            ms = time_ms(lambda: isect.intersect_bvh(pb, o, d, mt))
-            share = {"hit_share": hit.float().mean().item()}
+            ms = time_ms(lambda: isect.intersect_bvh(wb, o, d, mt))
+            # a warp holds 32 / WIDE rays, one tile each
+            extra = {"hit_share": hit.float().mean().item(),
+                     "walk_steps": counts["steps"],
+                     "walk": walk_stats(counts, 32 // isect.WIDE),
+                     "wide_nodes": wb.nodes.shape[0], "stack": wb.stack}
+            tables = (wb.nodes, wb.tri)
         name = "occluded_bvh" if any_hit else "intersect_bvh"
         require(agree == 1.0, f"{name} {label}: agreement {agree}")
         ops = (n * BVH_RAY_SETUP_OPS + counts["slab_tests"] * SLAB_OPS
                + counts["triangle_tests"]
                * (BVH_ANYHIT_TEST_OPS if any_hit else BVH_TEST_OPS))
-        bnd = bound(nbytes(pb.nodes, pb.tri, o, d, mt, got), ops)
+        bnd = bound(nbytes(*tables, o, d, mt, got), ops)
         return {"name": name, "route": "cuda", "n": n,
                 "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_bvh.cu",
                 "plain_timing": "the comparison call, once",
@@ -847,8 +956,7 @@ def check_bvh(scene, sets, clu2_ms, rng):
                             + ("694 (pallas_bvh_occluded)" if any_hit
                                else "679 (pallas_bvh_intersect)"),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                **bnd, "rays": label,
-                "agreement": agree, **share, "walk_steps": counts["steps"],
+                **bnd, "rays": label, "agreement": agree, **extra,
                 "tests_per_ray": {k: counts[k] / n for k in
                                   ("slab_tests", "triangle_tests")}}
 
@@ -866,15 +974,33 @@ def check_bvh(scene, sets, clu2_ms, rng):
               "clu2_ms": clu2_ms[label]})
 
     # the regenerative path's own wavefront
+    cam, shadow = regen_wavefront(scene, rng)
+    return [one("regen camera, sorted", False,
+                *sorted_rays(cam.o, cam.d, cam.maxt)[0]),
+            one("regen shadow, sorted", True, *sorted_rays(*shadow)[0])]
+
+
+def regen_wavefront(scene, rng):
+    """The regenerative path's first wavefront on the packet scene: its
+    131,072 camera rays in Morton order, and the shadow rays of their
+    first bounce (`camera_hit_rays`)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.integrators.common import camera_rays_at
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
     W, H = scene.sensor.resolution
     n = W * H * MESH_SPP_PASS // 8
     cam, _ = camera_rays_at(scene, 0, torch.arange(n, device=scene.device),
                             W, H, MESH_SPP_PASS, "morton")
-    hit = isect.intersect_bvh(pb, cam.o, cam.d, cam.maxt)
-    _, shadow = camera_hit_rays(scene, cam, hit, rng)
-    return [one("regen camera, sorted", False,
-                *sorted_rays(cam.o, cam.d, cam.maxt)[0]),
-            one("regen shadow, sorted", True, *sorted_rays(*shadow)[0])]
+    hit = isect.intersect_bvh(closest_table(scene), cam.o, cam.d, cam.maxt)
+    return cam, camera_hit_rays(scene, cam, hit, rng)[1]
+
+
+def closest_table(scene):
+    """The packet scene's closest-hit table: its WideBVH, or, in a checkout
+    from before the WideBVH (`--turns`), its PacketBVH."""
+    return getattr(scene, "wbvh", None) or scene.pbvh
 
 
 def check_brute(label, scene, sets, plain_lanes=None):
@@ -1362,22 +1488,23 @@ def q_multiacc_tool(scenes):
     return launches
 
 
-def kernel_mfu_tool(q_scenes, dev):
+def kernel_mfu_tool(q_scenes, dev, sass_text, specials):
     """The MFU tool: B11d's SASS (one FFMA and one FMNMX a chain a step,
     required), then one timed run of every probe, its launches counted
     outside the timers (each probe's own first call): the FMA probe chained
     at the JAX tool's 8,192 rows and at FMA_WIDE_ROWS (a grid of ~31
     waves, against ~4 whose last is partial), the HBM probe's roll chained
     and a copy, B1/B2 on each (label, scene, rays) of q_scenes, B5 on
-    mesh_scene(1024, 1024, 6), B4 on the JAX tool's inputs; a row each
-    against the measured and the published roofs. Returns (the launches,
-    the measured roofs)."""
+    mesh_scene(1024, 1024, 6), B4 on the JAX tool's inputs (its work by
+    `lobe_sum_count`); a row each against the measured and the published
+    roofs. sass_text: `cuobjdump -sass` of the kernel library. Returns (the
+    launches, the measured roofs)."""
     from mitsuba3_plt_tpu_torch import ops
     from mitsuba3_plt_tpu_torch.ops import mfu
     from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
 
     ph = Phase("kernel-mfu")
-    sass = mfu.fma_roof_sass()
+    sass = mfu.count_sass(sass_text, "fma_roof_kernel")
     require(sass["ffma"] == mfu.FMA_ITERS + 3
             and sass["fmnmx"] == mfu.FMA_ITERS, f"fma_roof SASS {sass}")
     mscene, bvh = km.clu2_setup(dev)
@@ -1408,13 +1535,15 @@ def kernel_mfu_tool(q_scenes, dev):
             "grating_lobe_sum": 1}
     require(launches == want, f"kernel-mfu launches {launches}")
     roofs = km.roofs(rows[:2], rows[2])
-    # the lobe sum against the roofs by chip_smoke's operation count (an FMA
-    # two operations, two FLOP), its slots the floor of contracted_bound
+    # the lobe sum against the roofs by its counted work (an FMA two
+    # operations, two FLOP, one slot)
     lobe = rows[-1]
-    lobe["flop"] = lobe["n"] * lobe_sum_ops(km.LOBE_HALF, True, 3)
-    lobe["slots_floor"] = lobe["flop"] // 2
+    count = lobe_sum_count(km.lobe_inputs(lobe["n"], dev), km.LOBE_HALF,
+                           True, specials)
+    lobe["flop"] = count["ops"]
+    lobe["slots"] = count["ops"] - count["fma"]
     lobe["flop_per_s"] = lobe["flop"] / lobe["ms"] * 1e3
-    lobe["slots_per_s"] = lobe["slots_floor"] / lobe["ms"] * 1e3
+    lobe["slots_per_s"] = lobe["slots"] / lobe["ms"] * 1e3
     for r in rows:
         emit({"phase": "kernel-mfu", **km.shares(r, roofs)})
     require(rows[0]["finite"] and rows[1]["finite"] and rows[2]["correct"]
@@ -1601,8 +1730,8 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     rows.sort(key=lambda r: -r["device_ms"])
     total = sum(r["device_ms"] for r in rows)
     # clu2_kernel first: "q_kernel" must not take its rows
-    ours = {"clu2_kernel": 0.0, "bvh_kernel": 0.0, "q_kernel": 0.0,
-            "lobe_sum_kernel": 0.0, "sample_kernel": 0.0}
+    ours = {"clu2_kernel": 0.0, "wide_kernel": 0.0, "anyhit_kernel": 0.0,
+            "q_kernel": 0.0, "lobe_sum_kernel": 0.0, "sample_kernel": 0.0}
     n_kernels = 0
     for r in rows:
         for key in ours:
@@ -1623,9 +1752,85 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
             device_ops_launched=n_kernels, top_ops=rows[:12])
 
 
+def turns(root):
+    """`python3 chip_smoke.py --turns ROOT`: B4 and B7a of the package in
+    ROOT (this checkout, or another commit unpacked there) timed at the
+    paths' shapes, as one JSON line: B4 on the kernels phase's main case
+    (half 3, separable, 1,920,000 lanes), B7a on the mesh82k packet scene's
+    closest-hit sets (camera, bounce, bounce-random: 1,048,576 lanes,
+    unsorted and sorted by the route) and on the regenerative wavefront's
+    131,072 camera rays, sorted. The kernels build in ROOT. Run it over two
+    checkouts in turns (parent, change, change, parent) within one chip
+    call to compare them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        sys.exit(2)
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+
+    import mitsuba3_plt_tpu_torch as pkg
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+    from mitsuba3_plt_tpu_torch.ops import build
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    require(os.path.dirname(os.path.abspath(pkg.__file__))
+            == os.path.join(root, "mitsuba3_plt_tpu_torch"),
+            f"--turns {root}: imported {pkg.__file__}")
+    t0 = time.perf_counter()
+    build.load_library()
+    with open(build.library_file() + ".log") as f:
+        registers, spills = ptxas_report(f.read())
+    rng = np.random.default_rng(0)
+    ins = lobe_sum_inputs(rng, MAIN_W * MAIN_H * MAIN_SPP_PASS, 0, 0.0,
+                          "cuda")
+    lobe_ms = time_ms(lambda: gops.grating_lobe_sum(
+        **ins, half=3, separable=True, n_channels=3))
+    del ins
+    scene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, accel="packet",
+                       device="cuda")
+    table = closest_table(scene)
+    W, H = scene.sensor.resolution
+    cam, _ = sample_rays(scene, Sampler.create(
+        0, W * H * MESH_SPP_PASS, device="cuda"), W, H, MESH_SPP_PASS)
+    sets = {"camera": (cam.o, cam.d, cam.maxt)}
+    sets["bounce"] = camera_hit_rays(
+        scene, cam, isect.intersect_bvh(table, cam.o, cam.d, cam.maxt),
+        rng)[0]
+    sets["bounce-random"] = random_surface_rays(scene, cam.o.shape[0],
+                                                rng)[0]
+    rcam, _ = regen_wavefront(scene, rng)
+    bvh_ms = {}
+    for label, (o, d, mt) in sets.items():
+        perm, _ = scene._packet_perm(o, d)
+        in_order = (o[perm], d[perm], mt[perm])
+        bvh_ms[label] = {
+            "unsorted": time_ms(lambda: isect.intersect_bvh(table, o, d, mt)),
+            "sorted": time_ms(lambda: isect.intersect_bvh(table, *in_order))}
+    perm, _ = scene._packet_perm(rcam.o, rcam.d)
+    in_order = (rcam.o[perm], rcam.d[perm], rcam.maxt[perm])
+    bvh_ms["regen camera, sorted"] = time_ms(
+        lambda: isect.intersect_bvh(table, *in_order))
+    emit({"turns": root, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
+          "intersect_bvh_ms": bvh_ms, "closest_table": type(table).__name__,
+          "registers": {k: v for k, v in registers.items()
+                        if k.startswith(("lobe_sum", "bvh", "wide",
+                                         "anyhit"))},
+          "spills": spills, "seconds": time.perf_counter() - t0})
+
+
 def main():
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
+        turns(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
@@ -1634,7 +1839,7 @@ def main():
 
     from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
-    from mitsuba3_plt_tpu_torch.ops import build
+    from mitsuba3_plt_tpu_torch.ops import build, mfu
     from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
                                                       grating_scene,
                                                       mesh_scene)
@@ -1653,7 +1858,10 @@ def main():
     ph = Phase("build")
     build.load_library()
     registers, spills = ptxas_report(build.build_log)
-    ph.emit(sources=list(build.SOURCES), registers=registers, spills=spills)
+    sass = mfu.library_sass()
+    specials = mfu.special_fn_counts(sass)
+    ph.emit(sources=list(build.SOURCES), registers=registers, spills=spills,
+            special_fn_fast_paths=specials)
 
     ph = Phase("mesh82k-scene")
     mscene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, device="cuda")
@@ -1667,7 +1875,9 @@ def main():
                         device="cuda")
     ph.emit(faces=pscene.geo.n_faces, route=pscene.intersect_route(),
             nodes=list(pscene.pbvh.nodes.shape),
-            tri=list(pscene.pbvh.tri.shape))
+            tri=list(pscene.pbvh.tri.shape),
+            wide_nodes=list(pscene.wbvh.nodes.shape),
+            wide_stack=pscene.wbvh.stack)
     require(pscene.intersect_route() == "packet",
             "mesh82k with packet tables must route to packet")
 
@@ -1707,7 +1917,7 @@ def main():
     iscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     rows = check_intersect(iscene, n, rng)
     rows.append(check_sample(n, rng, "cuda"))
-    rows.append(check_lobe_sum(n, rng, "cuda"))
+    rows.append(check_lobe_sum(n, rng, "cuda", specials))
     clu2_rows, ray_sets, clu2_ms = check_clu2(mscene, rng)
     rows += clu2_rows + check_bvh(pscene, ray_sets, clu2_ms, rng)
     del ray_sets
@@ -1735,7 +1945,8 @@ def main():
     mask_launches = mask_sort_tool(mask_scenes)
     sweep_launches = unroll_sweep_tool(sweep_scenes)
     macc_launches = q_multiacc_tool(macc_scenes)
-    mfu_launches, roofs = kernel_mfu_tool(macc_scenes, "cuda")
+    mfu_launches, roofs = kernel_mfu_tool(macc_scenes, "cuda", sass,
+                                          specials)
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
     del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask

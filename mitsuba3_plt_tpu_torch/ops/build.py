@@ -34,7 +34,7 @@ SIGNATURES = {
     "plt_occluded_q": [_P, _I, _P, _P, _P, _P, _I, _P, _P],
     "plt_intersect_clu2": [_P, _I] + [_P] * 6 + [_I] + [_P] * 5,
     "plt_occluded_clu2": [_P, _I] + [_P] * 6 + [_I, _P, _P],
-    "plt_intersect_bvh": [_P] * 5 + [_I] + [_P] * 5,
+    "plt_intersect_bvh": [_P] * 5 + [_I, _I] + [_P] * 5,
     "plt_occluded_bvh": [_P] * 5 + [_I, _P, _P],
     "plt_intersect_classic": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5,
     "plt_occluded_classic": [_P, _I] + [_P] * 3 + [_I, _P, _P],
@@ -46,7 +46,7 @@ SIGNATURES = {
     "plt_occluded_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "plt_intersect_q_macc": [_P, _I] + [_P] * 4 + [_I] + [_P] * 4 + [_I,
                                                                       _P],
-    "plt_grating_lobe_sum": [_P] * 11 + [_I, _I, _I, _I, _P, _P],
+    "plt_grating_lobe_sum": [_P] * 12 + [_I, _I, _I, _I, _P, _P],
     "plt_grating_sample": [_P] * 11 + [_I, _I, _I] + [_P] * 7 + [_P],
     "plt_fma_roof": [_P, _P, _P, _I, _P],
 }

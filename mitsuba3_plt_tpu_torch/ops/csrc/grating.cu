@@ -3,26 +3,38 @@
 //
 //   plt_grating_lobe_sum  replaces mitsuba3_plt_tpu/ops/grating_pallas.py::
 //     grating_lobe_sum (Pallas body _kernel): per-wavelength sum of the
-//     diffraction lobes with a Miller Bessel sweep (M = 64, 1e18 rescale
-//     guard, Hankel asymptotics beyond 0.75 M), grating-equation lobe
-//     centres, the acceptance cone and the angular-coherence Gaussian.
+//     diffraction lobes: J_0..J_half of the groove phase, grating-equation
+//     lobe centres, the acceptance cone and the angular-coherence Gaussian.
 //   plt_grating_sample    replaces ::grating_sample (Pallas body
 //     _sample_kernel): visible-normal sample (GGX or Beckmann), microfacet
 //     frame, Bessel sweep at the hero wavelength, lobe-CDF pick, grating
 //     equation, pdf and Smith G1 times the lobe intensity.
 //
-// What bounds them on the H100: arithmetic, not memory. A lane reads 88
-// bytes and writes 12 (lobe sum, C = 3) or reads 76 and writes 66 (sample),
-// but does several thousand float operations and tens of special-function
-// calls (sinf, cosf, expf, asinf, erff, erfinvf) per lane: the Miller sweep
-// alone is 64 steps per wavelength. Design: the whole chain runs in
-// registers of one thread; the lobe count, the separable layout, the
-// channel count and the NDF are template parameters, so the sweep and the
-// lobe loops unroll fully and the small arrays (Bessel orders, per-order
-// intensities) stay in registers; nothing intermediate touches memory.
-// Built without --use_fast_math: the IEEE expf/sinf/asinf/sqrtf are what
-// the tolerances against the plain PyTorch version assume. asinf replaces
-// the TPU kernel's polynomial asin.
+// What bounds them on the H100: issue slots, not memory. A lane reads 88
+// bytes and writes 12 (lobe sum, C = 3) or reads 76 and writes 66
+// (sample), and does thousands of instructions. The sample kernel keeps
+// the first port's design: the whole chain in the registers of one thread,
+// the Miller sweep (64 steps, Hankel asymptotics beyond 48) unrolled.
+//
+// The lobe sum spent most of its slots on work its lanes threw away: 192
+// dependent Miller steps a lane, 8 Hankel cosf/sinf a channel computed and
+// then dropped by a select, sin(a/2) for every grating type. Design:
+// J_0..J_half for |a| <= 48 come from a table (ops/grating.py::
+// bessel_table: cubic Hermite coefficients of the sweep in float64 on a
+// grid of 1/32, off by ~1e-9, read through the read-only path), three FMAs
+// an order; the asymptotics beyond 48 cost one sincosf a channel (cos and
+// sin of the other orders' phases by quarter turns); each branch, and
+// sin(a/2) for the rectangular profile, runs only where a lane of the warp
+// needs it (__any_sync). Every product and sum is written out, as fmaf or
+// rounded on its own (__fmul_rn, __fadd_rn), so chip_smoke.py counts its
+// operations and FMAs; the IEEE special functions (sqrtf, division, asinf,
+// expf, sincosf, sinf) are weighed by their fast paths in the SASS of the
+// one-function probes at the end of this file. A lobe's chain (the
+// grating equation's division, four square roots, asinf, expf) is what is
+// left: 7 lobes x 3 channels of it a lane on the main path. Built without
+// --use_fast_math: the IEEE functions are what the tolerances against the
+// plain PyTorch version assume. asinf replaces the TPU kernel's
+// polynomial asin.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -147,6 +159,85 @@ __device__ __forceinline__ Diffracted diffract(float wl_um, float cg, float sg,
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// lobe sum over the Bessel table
+// ---------------------------------------------------------------------------
+
+constexpr int kTableN = 1536;           // intervals of the Bessel table
+constexpr float kTableInvStep = 32.0f;  // 1 / its grid step
+constexpr float kQuarterPi = 0.78539816339744831f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// every product and sum below is rounded on its own (these are never
+// contracted) or written as one fmaf, so each operation is counted
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+
+// J_0(|a|)..J_HALF(|a|) of the lanes that `need` them, 0 elsewhere. x <= 48
+// from the table: row nu, interval i = floor(32 x) holds the cubic Hermite
+// coefficients of J_nu on [i / 32, (i + 1) / 32] in t = 32 x - i (both
+// exact), three FMAs an order. x > 48: the two-term Hankel asymptotics,
+// with cos and sin of omega_nu = omega_0 - nu pi / 2 read off one sincosf of
+// omega_0 = x - pi / 4 by quarter turns. Each branch runs only where a lane
+// of the warp takes it. 1 and 0 at x < 1e-6, as the sweep gives.
+template <int HALF>
+__device__ __forceinline__ void bessel_lookup(float a, bool need,
+                                              const float4* __restrict__ table,
+                                              float (&res)[HALF + 1]) {
+  const float x = fabsf(a);
+  const bool use_asym = x > kAsympSwitch;
+#pragma unroll
+  for (int nu = 0; nu <= HALF; ++nu) res[nu] = 0.f;
+  if (__any_sync(kFull, need && !use_asym)) {
+    const float s = mul(fminf(x, kAsympSwitch), kTableInvStep);
+    const float fi = fminf(floorf(s), (float)(kTableN - 1));
+    const float t = sub(s, fi);
+    const float4* row = table + (int)fi;
+#pragma unroll
+    for (int nu = 0; nu <= HALF; ++nu) {
+      const float4 c = __ldg(row + nu * kTableN);
+      res[nu] = fmaf(t, fmaf(t, fmaf(t, c.w, c.z), c.y), c.x);
+    }
+  }
+  if (__any_sync(kFull, need && use_asym)) {
+    const float i8x = 1.0f / mul(8.0f, x);
+    const float sq = sqrtf(2.0f / mul(kPi, x));
+    float s0, c0;
+    sincosf(sub(x, kQuarterPi), &s0, &c0);
+#pragma unroll
+    for (int nu = 0; nu <= HALF; ++nu) {
+      const float mu = 4.0f * nu * nu;
+      const float p = fmaf(mul(-(mu - 1.0f) * (mu - 9.0f) * 0.5f, i8x), i8x,
+                           1.0f);
+      const float q = mul(mu - 1.0f, i8x);
+      const float cw = nu % 4 == 0 ? c0 : nu % 4 == 1 ? s0
+                     : nu % 4 == 2 ? -c0 : -s0;
+      const float sw = nu % 4 == 0 ? s0 : nu % 4 == 1 ? -c0
+                     : nu % 4 == 2 ? -s0 : c0;
+      const float asym = mul(sq, fmaf(cw, p, -mul(sw, q)));
+      res[nu] = use_asym ? asym : res[nu];
+    }
+  }
+  const bool at_zero = x < 1e-6f;
+#pragma unroll
+  for (int nu = 0; nu <= HALF; ++nu)
+    res[nu] = at_zero ? (nu == 0 ? 1.f : 0.f) : res[nu];
+}
+
+__device__ __forceinline__ float unit_angle(float dot_uv) {
+  const float d = safe_sqrt(fmaf(-2.0f, fabsf(dot_uv), 2.0f));
+  const float theta =
+      mul(2.0f, asinf(fminf(fmaxf(mul(0.5f, d), -1.f), 1.f)));
+  return dot_uv < 0.f ? sub(kPi, theta) : theta;
+}
+
 template <int HALF, bool SEP, int C>
 __global__ void __launch_bounds__(kBlock)
     lobe_sum_kernel(const float* __restrict__ wi, const float* __restrict__ wo,
@@ -156,10 +247,13 @@ __global__ void __launch_bounds__(kBlock)
                     const int* __restrict__ gtype,
                     const float* __restrict__ mult,
                     const float* __restrict__ coh,
-                    const float* __restrict__ acone, int n,
+                    const float* __restrict__ acone,
+                    const float4* __restrict__ table, int n,
                     float* __restrict__ out) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
+  // no early return: the warp votes below need all 32 threads, so a thread
+  // past the end repeats the last lane and stores nothing
+  const int i0 = blockIdx.x * kBlock + threadIdx.x;
+  const int i = i0 < n ? i0 : n - 1;
   const float wi_x = wi[3 * i], wi_y = wi[3 * i + 1], wi_z = wi[3 * i + 2];
   const float wo_x = wo[3 * i], wo_y = wo[3 * i + 1], wo_z = wo[3 * i + 2];
   const float cg = gdir[2 * i], sg = gdir[2 * i + 1];
@@ -168,27 +262,38 @@ __global__ void __launch_bounds__(kBlock)
   const float lob = (float)lobes[i], gt = (float)gtype[i];
 
   // channel-independent quantities
-  const float px = sqrtf(wi_x * wi_x + wi_z * wi_z);
-  const float py = sqrtf(wi_y * wi_y + wi_z * wi_z);
+  const float px = sqrtf(fmaf(wi_x, wi_x, mul(wi_z, wi_z)));
+  const float py = sqrtf(fmaf(wi_y, wi_y, mul(wi_z, wi_z)));
   const float sin_ix = px > kEpsilon ? wi_x / fmaxf(px, 1e-20f) : 0.f;
   const float sin_iy = py > kEpsilon ? wi_y / fmaxf(py, 1e-20f) : 0.f;
   const float cos_t = fabsf(wi_z);
-  const float half_lobes = floorf(lob * 0.5f);
+  const float half_lobes = floorf(mul(lob, 0.5f));
   const bool is_1d = ip_y < kEpsilon;
   const bool is_sin = gt < 0.5f;
-  const bool is_rect = fabsf(gt - 1.0f) < 0.5f;
-  const float ny = 2.0f * half_lobes + 1.0f;
+  const bool is_rect = fabsf(sub(gt, 1.0f)) < 0.5f;
+  const float ny = fmaf(2.0f, half_lobes, 1.0f);
+  const float four_pi_q = mul(4.0f * kPi, qv);
 
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float wl_um = wl_nm[C * i + c] * 1e-3f;
-    const float kwn = 2.0f * kPi / fmaxf(wl_um, 1e-6f);
-    const float a = 4.0f * kPi * qv / fmaxf(wl_um * cos_t, 1e-12f);
+    const float wl_um = mul(wl_nm[C * i + c], 1e-3f);
+    const float kwn = (2.0f * kPi) / fmaxf(wl_um, 1e-6f);
+    const float a = four_pi_q / fmaxf(mul(wl_um, cos_t), 1e-12f);
+    float J[HALF + 1];
+    bessel_lookup<HALF>(a, is_sin, table, J);
+    float sin_half_a = 0.f;
+    if (__any_sync(kFull, is_rect)) sin_half_a = sinf(mul(a, 0.5f));
     float base[HALF + 1];
-    base_intensities<HALF>(a, is_sin, is_rect, base);
-    // inverse coherence det of Coherence.isotropic(coh, opl = 1)
-    const float s = co_ * kwn * (float)(1.0 / (2.0 * kPiD * 1e3));
-    const float inv_det = s * s;
+    base[0] = 1.f;
+#pragma unroll
+    for (int j = 1; j <= HALF; ++j)
+      base[j] = is_sin ? mul(J[j], J[j])
+                       : (is_rect ? mul(sin_half_a, rect_sinc(j))
+                                  : linear_order(j));
+    // inverse coherence det of Coherence.isotropic(coh, opl = 1), times
+    // -1/2: the Gaussian's exponent is ang^2 times this
+    const float s = mul(mul(co_, kwn), (float)(1.0 / (2.0 * kPiD * 1e3)));
+    const float expo = mul(mul(s, s), -0.5f);
 
     float acc = 0.f, corr = 0.f;
 #pragma unroll
@@ -200,26 +305,42 @@ __global__ void __launch_bounds__(kBlock)
         const bool live = half_lobes >= (float)(ax > ay ? ax : ay);
         const float ix = base[ax];
         const float iy = is_1d ? ix : base[ay];
-        const float lobe_int = mu_ * ix * iy;
-        const Diffracted g = diffract(wl_um, cg, sg, (float)lx, (float)ly,
-                                      ip_x, ip_y, sin_ix, sin_iy);
+        const float lobe_int = mul(mul(mu_, ix), iy);
+        // the grating equation on the reciprocal lattice; ly = 0 leaves
+        // the products of lx exact, as the plain version's sums give them
+        const float flx = (float)lx, fly = (float)ly;
+        const float lob_rx =
+            SEP ? mul(cg, flx) : sub(mul(cg, flx), mul(sg, fly));
+        const float lob_ry =
+            SEP ? mul(sg, flx) : add(mul(sg, flx), mul(cg, fly));
+        const float aa = sub(mul(mul(wl_um, lob_rx), ip_x), sin_ix);
+        const float bb = sub(mul(mul(wl_um, lob_ry), ip_y), sin_iy);
+        const float aa2 = mul(aa, aa), bb2 = mul(bb, bb);
+        const float den = fmaf(mul(aa2, bb), bb, -1.0f);
+        const float mm = sub(aa2, 1.0f) / (fabsf(den) > 1e-12f ? den : 1e-12f);
+        const float qq = fmaf(-bb2, mm, 1.0f);
+        const bool ok = fabsf(aa) <= 1.0f && fabsf(bb) <= 1.0f;
+        const float rz = fmaf(-bb2, mm, fmaf(-aa2, qq, 1.0f));
         const float cd_dot_wo =
-            g.aa * safe_sqrt(g.qq) * wo_x + g.bb * safe_sqrt(g.mm) * wo_y +
-            safe_sqrt(1.0f - g.aa * g.aa * g.qq - g.bb * g.bb * g.mm) * wo_z;
-        const float ang = unit_angle_dot(cd_dot_wo);
-        const bool in_cone = fabsf(ang) < ac_;
-        const float ang_coh = expf(-0.5f * ang * ang * inv_det);
-        const bool sel = g.ok && in_cone && live;
+            fmaf(safe_sqrt(rz), wo_z,
+                 fmaf(mul(bb, safe_sqrt(mm)), wo_y,
+                      mul(mul(aa, safe_sqrt(qq)), wo_x)));
+        const float ang = unit_angle(cd_dot_wo);
+        const bool sel = ok && fabsf(ang) < ac_ && live;
+        const float ang_coh = expf(mul(mul(ang, ang), expo));
         if (lx == 0 && ly == 0) {
-          acc = acc + (sel ? lobe_int : 0.f);
-          if (SEP) corr = sel ? lobe_int * (ang_coh - 1.0f) * (ny - 1.0f) : 0.f;
+          acc = add(acc, sel ? lobe_int : 0.f);
+          if (SEP)
+            corr = sel ? mul(mul(lobe_int, sub(ang_coh, 1.0f)),
+                             sub(ny, 1.0f))
+                       : 0.f;
         } else {
-          acc = acc + (sel ? lobe_int * ang_coh : 0.f);
+          acc = add(acc, sel ? mul(lobe_int, ang_coh) : 0.f);
         }
       }
     }
-    if (SEP) acc = acc * ny + corr;
-    out[C * i + c] = acc;
+    if (SEP) acc = add(mul(acc, ny), corr);
+    if (i0 < n) out[C * i + c] = acc;
   }
 }
 
@@ -484,13 +605,14 @@ __global__ void __launch_bounds__(kBlock) sample_kernel(
 constexpr int kChannels = 3;
 
 template <int HALF, bool SEP>
-void launch_lobe_sum(int grid, cudaStream_t st, const float* wi,
-                     const float* wo, const float* wl, const float* gdir,
-                     const float* ip, const float* q, const int* lobes,
-                     const int* gtype, const float* mult, const float* coh,
-                     const float* acone, int n, float* out) {
+void launch_lobe_sum(cudaStream_t st, const float* wi, const float* wo,
+                     const float* wl, const float* gdir, const float* ip,
+                     const float* q, const int* lobes, const int* gtype,
+                     const float* mult, const float* coh, const float* acone,
+                     const float4* table, int n, float* out) {
+  const int grid = (n + kBlock - 1) / kBlock;
   lobe_sum_kernel<HALF, SEP, kChannels><<<grid, kBlock, 0, st>>>(
-      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, n, out);
+      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, n, out);
 }
 
 template <int HALF>
@@ -513,25 +635,27 @@ void launch_sample(int ndf, int grid, cudaStream_t st, const float* wi,
 }  // namespace
 
 // Returns cudaGetLastError(); cudaErrorInvalidValue (1) for an unsupported
-// static configuration (half outside 0..4, channels other than 3).
+// static configuration (half outside 0..4, channels other than 3). `table`
+// is ops/grating.py::bessel_table: [5, 1536] float4 coefficients.
 extern "C" int plt_grating_lobe_sum(
     const float* wi, const float* wo, const float* wl_nm, const float* gdir,
     const float* ip, const float* q, const int* lobes, const int* gtype,
-    const float* mult, const float* coh, const float* acone, int n, int half,
-    int separable, int n_channels, float* out, void* stream) {
+    const float* mult, const float* coh, const float* acone,
+    const float* table, int n, int half, int separable, int n_channels,
+    float* out, void* stream) {
   if (half < 0 || half > 4 || n_channels != kChannels)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
     cudaStream_t st = (cudaStream_t)stream;
-#define PLT_HALF(H)                                                          \
-  case H:                                                                    \
-    if (separable)                                                           \
-      launch_lobe_sum<H, true>(grid, st, wi, wo, wl_nm, gdir, ip, q, lobes,  \
-                               gtype, mult, coh, acone, n, out);             \
-    else                                                                     \
-      launch_lobe_sum<H, false>(grid, st, wi, wo, wl_nm, gdir, ip, q, lobes, \
-                                gtype, mult, coh, acone, n, out);            \
+    const float4* tab = reinterpret_cast<const float4*>(table);
+#define PLT_HALF(H)                                                        \
+  case H:                                                                  \
+    if (separable)                                                         \
+      launch_lobe_sum<H, true>(st, wi, wo, wl_nm, gdir, ip, q, lobes,      \
+                               gtype, mult, coh, acone, tab, n, out);      \
+    else                                                                   \
+      launch_lobe_sum<H, false>(st, wi, wo, wl_nm, gdir, ip, q, lobes,     \
+                                gtype, mult, coh, acone, tab, n, out);     \
     break;
     switch (half) {
       PLT_HALF(0)
@@ -573,3 +697,40 @@ extern "C" int plt_grating_sample(
   }
   return (int)cudaGetLastError();
 }
+
+// One-function probes, built for their SASS only and never launched:
+// o1 = f(a) + b (f(a, b) + b for the division; sin + b for sincos, whose
+// cos goes to o2), o2 = b. F = 0 is the identity, whose instructions are the
+// probes' own; `ops/mfu.py::special_fn_sass` counts each function's
+// shortest way through as the probe's less the identity's.
+template <int F>
+__global__ void fn_probe_kernel(const float* __restrict__ a,
+                                const float* __restrict__ b,
+                                float* __restrict__ o1,
+                                float* __restrict__ o2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float x = a[i], y = b[i];
+  float r = x, r2 = y;
+  if (F == 1) r = sqrtf(x);
+  if (F == 2) r = x / y;
+  if (F == 3) r = asinf(x);
+  if (F == 4) r = expf(x);
+  if (F == 5) sincosf(x, &r, &r2);
+  if (F == 6) r = sinf(x);
+  o1[i] = __fadd_rn(r, y);
+  o2[i] = r2;
+}
+template __global__ void fn_probe_kernel<0>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<1>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<2>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<3>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<4>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<5>(const float*, const float*,
+                                            float*, float*);
+template __global__ void fn_probe_kernel<6>(const float*, const float*,
+                                            float*, float*);

@@ -1,43 +1,64 @@
-// Closest-hit and any-hit by a stackless skip-link BVH walk over the packet
-// tables (PacketBVH) of big meshes, one thread per ray.
+// Closest hit over the WideBVH (a tile of lanes per ray) and any hit by
+// the stackless skip-link walk over the PacketBVH (one thread per ray), for
+// the packet route of big meshes.
 //
 // Replaces: mitsuba3_plt_tpu/ops/intersect_pallas.py::pallas_bvh_intersect
-// (Pallas body _bvh_kernel) and ::pallas_bvh_occluded (body
-// _bvh_anyhit_kernel).
+// (Pallas body _bvh_kernel; wide_kernel) and ::pallas_bvh_occluded (body
+// _bvh_anyhit_kernel; anyhit_kernel).
 //
-// Tables (scene/bvh.py::pack_packet_bvh, world coordinates):
-//   nodes [NN, 16]: lo(3) hi(3) first count miss pad(7), DFS pre-order;
-//                   count = 0 marks an inner node whose left child is
-//                   `first`; a leaf owns rows [first, first + count) of tri;
-//                   `miss` is the node after the subtree, -1 at the end.
-//   tri   [P, 16]:  p0(3) e1(3) e2(3), the face index as a float, pad(6).
-// Walk: node = (box entered and inner) ? first : miss, until node < 0. The
-// TPU kernel moves a whole ray tile through the tree and descends when any
-// lane enters a box; here every thread walks alone and tests only the
-// leaves whose box its own ray enters. A hit still has to pass the exact
-// triangle test, so the two agree except where the slab test rejects, by
-// rounding, a box whose triangle the ray grazes.
+// Tables (scene/bvh.py, world coordinates):
+//   PacketBVH nodes [NN, 16]: lo(3) hi(3) first count miss pad(7), DFS
+//     pre-order; count = 0 marks an inner node whose left child is `first`;
+//     a leaf owns rows [first, first + count) of tri; `miss` is the node
+//     after the subtree, -1 at the end.
+//   tri [P, 16]: p0(3) e1(3) e2(3), the face index as a float, pad(6).
+//   WideBVH nodes [NW, 64]: 8 child slots of lo(3) hi(3) first count, the
+//     PacketBVH collapsed to nodes of up to 8 children; count -1 an empty
+//     slot, 0 an inner child (wide node `first`), > 0 a leaf's rows.
 //
-// Triangle test: classic Moller-Trumbore on (p0, e1, e2) with the division
-// folded into inv_det = [|det| > 1e-12] / det, as the TPU kernel has it.
-// Every product and sum is rounded on its own, left to right (no FMA
-// contraction), so a lane equals the plain PyTorch version bit for bit.
-// Closest hit accepts on strict t < best with leaves in DFS order and rows
-// in order: the first of two equal hits wins. Box gates: closest hit
-// near <= far, far > 0, near < best; any hit near < maxt, and the thread
-// returns at its first hit with 0 < t < maxt. The inverse direction goes
-// through signed_eps (|d| >= 1e-12); an infinite maxt is carried as
-// 3.4e38. A dead ray (o = 1e8) fails the root's slab test and leaves.
+// Triangle test (both): classic Moller-Trumbore on (p0, e1, e2) with the
+// division folded into inv_det = [|det| > 1e-12] / det, as the TPU kernel
+// has it. Every product and sum is rounded on its own, left to right (no FMA
+// contraction), so a lane equals the plain PyTorch version bit for bit. The
+// inverse direction goes through signed_eps (|d| >= 1e-12); an infinite
+// maxt is carried as 3.4e38.
 //
-// What bounds it on the H100: operations, and in practice the latency of
-// the dependent loads behind them. A camera ray of the 81,920-face scene
-// visits 29 nodes (29 operations each) and tests 17 triangles (64 each)
-// on average against 28 bytes of ray in and 16 out; the 0.9 MB of nodes
-// and 5.2 MB of triangle rows stay in the 50 MB L2. Design: a node is three
-// 16-byte loads and a triangle three, through the read-only path; the ray,
-// its inverse direction and its best hit stay in registers; no stack, no
-// shared memory, no cooperation between the threads of a warp, so an
-// incoherent warp pays divergence but never another lane's subtree.
+// Closest hit. What bounded the per-ray skip-link walk on the H100 was its
+// critical path, not bytes or operations: 131,072 rays a launch (the
+// regenerative wavefront) are under 8 blocks of 128 threads an SM, each
+// thread a chain of dependent node loads, slab tests and up to 16 triangle
+// tests one after another, and a warp runs as long as the union of its 32
+// walks (44.5x its byte bound). Design: 8 lanes a ray, so the wavefront puts
+// 8x the threads in flight, over a table whose node holds its 8 children's
+// boxes: the tile tests a node's children in one step, one slot a lane (256
+// coalesced bytes), and a leaf's rows 8 at a time, so a walk takes ~3-5
+// pops where it took ~29 node steps. The ray keeps a stack of (child,
+// near) in shared memory (the table's `stack` entries, its worst case; 2 KB
+// a block of 8 rays at mesh82k): an inner node pushes every child the ray
+// enters, ranked by shuffles so that the nearest (then the lower slot) is
+// popped first, and an entry whose near lies beyond the best distance is
+// dropped. A warp's four tiles move in step: each trip pops one entry of
+// every tile, and the node step and the leaf step each run where a tile
+// needs them, so every shuffle takes the full warp (tiles that each ran
+// their own loop diverged, and the compiler wrapped each shuffle in
+// collective code; that design was 1.6x slower on the wavefront). What
+// bounds it now: the latency of a trip (a shared-memory pop, then the
+// node's or the rows' loads) times the longest walk of a warp (~3 trips a
+// ray on the wavefront, 38 at most), ~12-15x its byte bound. Box gate:
+// near <= far, far > 0, near <= best. Tie rule: the best hit is the least
+// (t, row) among hits with 0 < t < maxt, each lane keeping its own and the
+// tile reducing by shuffles at the end, so a tie goes to the lower
+// PacketBVH row, as the skip-link walk's strict t < best in DFS row order
+// gave it; the tile shares the least t after each leaf for the gates. The
+// walk's order decides only what the best distance culls, and the plain
+// version walks in the same order.
+//
+// Any hit (unchanged from the first port): node = (box entered and inner)
+// ? first : miss until node < 0; gate near <= far, far > 0, near < maxt; a
+// thread returns at its first hit with 0 < t < maxt. A dead ray (o = 1e8)
+// fails the root's slab test and leaves. What bounds it: the latency of its
+// dependent node loads, like the closest hit's old walk; it is the next to
+// take the tile-per-ray walk.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,14 +82,11 @@ __device__ __forceinline__ float signed_eps(float x) {
   return fabsf(x) > 1e-12f ? x : (x >= 0.f ? 1e-12f : -1e-12f);
 }
 
-template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
-    bvh_kernel(const float* __restrict__ nodes, const float* __restrict__ tri,
-               const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ maxt, int n,
-               float* __restrict__ t_out, int* __restrict__ prim_out,
-               float* __restrict__ u_out, float* __restrict__ v_out,
-               bool* __restrict__ occ_out) {
+    anyhit_kernel(const float* __restrict__ nodes,
+                  const float* __restrict__ tri, const float* __restrict__ o,
+                  const float* __restrict__ d, const float* __restrict__ maxt,
+                  int n, bool* __restrict__ occ_out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
@@ -77,9 +95,7 @@ __global__ void __launch_bounds__(kBlock)
   const float iy = 1.f / signed_eps(dy);
   const float iz = 1.f / signed_eps(dz);
   const float mt = maxt[i];
-  // the closest hit so far; the any-hit walk keeps it at maxt
-  float t_b = isfinite(mt) ? mt : 3.4e38f;
-  float prim_b = -1.f, u_b = 0.f, v_b = 0.f;
+  const float t_b = isfinite(mt) ? mt : 3.4e38f;
 
   int node = 0;
   while (node >= 0) {
@@ -117,44 +133,195 @@ __global__ void __launch_bounds__(kBlock)
         const float v = mul(dot3(dx, dy, dz, qvx, qvy, qvz), inv_det);
         const float t = mul(dot3(e2x, e2y, e2z, qvx, qvy, qvz), inv_det);
         // written out so that a NaN term fails
-        const bool hit = ok && u >= 0.f && v >= 0.f &&
-                         __fadd_rn(u, v) <= 1.f && t > 0.f && t < t_b;
-        if (hit) {
-          if (kAnyHit) {
-            occ_out[i] = true;
-            return;
-          }
-          t_b = t;
-          u_b = u;
-          v_b = v;
-          prim_b = q2.y;
+        if (ok && u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f &&
+            t > 0.f && t < t_b) {
+          occ_out[i] = true;
+          return;
         }
       }
     }
     node = (enter && count == 0) ? first : (int)c.x;
   }
-  if (kAnyHit) {
-    occ_out[i] = false;
-    return;
+  occ_out[i] = false;
+}
+
+// The closest hit over the WideBVH: a tile of kWide lanes per ray, four
+// tiles a warp kept in step (see the note at the top).
+constexpr int kWide = 8;  // lanes per ray = child slots per node
+constexpr int kMaxLeaf = 16;  // rows of a leaf at most (PACKET_LEAF)
+// 8 rays a block: 4 were slower on every ray set, 16 no faster in the
+// render (chip_smoke.py --turns; PERF.md section 6)
+constexpr int kWideBlock = 64;
+constexpr int kRaysPerBlock = kWideBlock / kWide;
+constexpr int kNoRow = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kWideBlock)
+    wide_kernel(const float* __restrict__ nodes, const float* __restrict__ tri,
+                const float* __restrict__ o, const float* __restrict__ d,
+                const float* __restrict__ maxt, int n, int cap,
+                float* __restrict__ t_out, int* __restrict__ prim_out,
+                float* __restrict__ u_out, float* __restrict__ v_out) {
+  extern __shared__ int stack_mem[];
+  const int lane = threadIdx.x & (kWide - 1);
+  const int slot = threadIdx.x / kWide;
+  const int base = threadIdx.x & 31 & ~(kWide - 1);
+  // no early return: the whole warp meets at every shuffle; a tile past
+  // the end repeats the last ray with an empty stack and stores nothing
+  const int i0 = blockIdx.x * kRaysPerBlock + slot;
+  const int i = i0 < n ? i0 : n - 1;
+  int* st_code = stack_mem + 2 * cap * slot;
+  float* st_near = reinterpret_cast<float*>(st_code + cap);
+
+  const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const float ix = 1.f / signed_eps(dx);
+  const float iy = 1.f / signed_eps(dy);
+  const float iz = 1.f / signed_eps(dz);
+  const float mt_in = maxt[i];
+  const float mt = isfinite(mt_in) ? mt_in : 3.4e38f;
+  // best: the tile's least hit distance (uniform over the tile); t_b, row_b,
+  // u_b, v_b: the least (t, row) among the hits this lane has tested
+  float best = mt, t_b = mt, u_b = 0.f, v_b = 0.f;
+  int row_b = kNoRow;
+
+  if (lane == 0) {
+    st_code[0] = 0;  // the root: inner node 0
+    st_near[0] = -INFINITY;
   }
-  const int prim = (int)prim_b;
-  prim_out[i] = prim;
-  t_out[i] = prim >= 0 ? t_b : INFINITY;
-  u_out[i] = u_b;
-  v_out[i] = v_b;
+  int sp = i0 < n ? 1 : 0;
+  __syncwarp();
+  // each trip pops one entry of every tile whose stack holds one; the node
+  // step and the leaf step run where a tile of the warp needs them
+  while (__any_sync(kFull, sp > 0)) {
+    int code = 0;
+    bool live = sp > 0;
+    if (live) {
+      --sp;
+      code = st_code[sp];
+      live = st_near[sp] <= best;
+    }
+    __syncwarp();  // read by all before a push overwrites it
+    const int count = code & 31, first = code >> 5;
+    const bool inner = live && count == 0;
+    const bool leaf = live && count > 0;
+    if (__any_sync(kFull, inner)) {
+      // an inner node: lane j tests child slot j (a = lo.xyz hi.x, b =
+      // hi.yz first count)
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (inner) {
+        const float4* np = reinterpret_cast<const float4*>(
+            nodes + 8 * (kWide * first + lane));
+        a = __ldg(np);
+        b = __ldg(np + 1);
+      }
+      const float tx0 = mul(sub(a.x, ox), ix), tx1 = mul(sub(a.w, ox), ix);
+      const float ty0 = mul(sub(a.y, oy), iy), ty1 = mul(sub(b.x, oy), iy);
+      const float tz0 = mul(sub(a.z, oz), iz), tz1 = mul(sub(b.y, oz), iz);
+      const float near =
+          fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+      const float far =
+          fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+      const bool enter = inner && b.w >= 0.f && near <= far && far > 0.f &&
+                         near <= best;
+      const unsigned entered =
+          (__ballot_sync(kFull, enter) >> base) & ((1u << kWide) - 1u);
+      // entered children after this one in (near, slot) order: the least
+      // lands on top of the stack
+      int above = 0;
+#pragma unroll
+      for (int j = 0; j < kWide; ++j) {
+        const float nj = __shfl_sync(kFull, near, j, kWide);
+        above += ((entered >> j) & 1u) &&
+                 (nj > near || (nj == near && j > lane));
+      }
+      if (enter) {
+        st_code[sp + above] = (int)b.z * 32 + (int)b.w;
+        st_near[sp + above] = near;
+      }
+      sp += __popc(entered);
+      __syncwarp();
+    }
+    if (__any_sync(kFull, leaf)) {
+      // a leaf: its rows kWide at a time, one a lane
+#pragma unroll
+      for (int k = lane; k < kMaxLeaf; k += kWide) {
+        if (!(leaf && k < count)) continue;
+        const int row = first + k;
+        const float4* tp = reinterpret_cast<const float4*>(tri + 16 * row);
+        // q0 = p0 e1.x, q1 = e1.yz e2.xy, q2 = e2.z face
+        const float4 q0 = __ldg(tp), q1 = __ldg(tp + 1), q2 = __ldg(tp + 2);
+        const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+        const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
+        const float pvx = sub(mul(dy, e2z), mul(dz, e2y));
+        const float pvy = sub(mul(dz, e2x), mul(dx, e2z));
+        const float pvz = sub(mul(dx, e2y), mul(dy, e2x));
+        const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
+        const bool ok = fabsf(det) > 1e-12f;
+        const float inv_det = (ok ? 1.f : 0.f) / (ok ? det : 1.f);
+        const float tvx = sub(ox, q0.x), tvy = sub(oy, q0.y),
+                    tvz = sub(oz, q0.z);
+        const float u = mul(dot3(tvx, tvy, tvz, pvx, pvy, pvz), inv_det);
+        const float qvx = sub(mul(tvy, e1z), mul(tvz, e1y));
+        const float qvy = sub(mul(tvz, e1x), mul(tvx, e1z));
+        const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
+        const float v = mul(dot3(dx, dy, dz, qvx, qvy, qvz), inv_det);
+        const float t = mul(dot3(e2x, e2y, e2z, qvx, qvy, qvz), inv_det);
+        // written out so that a NaN term fails
+        const bool hit = ok && u >= 0.f && v >= 0.f &&
+                         __fadd_rn(u, v) <= 1.f && t > 0.f && t < mt &&
+                         (t < t_b || (t == t_b && row < row_b));
+        if (hit) {
+          t_b = t;
+          row_b = row;
+          u_b = u;
+          v_b = v;
+        }
+      }
+      float m = t_b;
+#pragma unroll
+      for (int off = kWide / 2; off > 0; off >>= 1)
+        m = fminf(m, __shfl_xor_sync(kFull, m, off, kWide));
+      best = m;
+    }
+  }
+  // the least (t, row) of the tile
+#pragma unroll
+  for (int off = kWide / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(kFull, t_b, off, kWide);
+    const int r2 = __shfl_xor_sync(kFull, row_b, off, kWide);
+    const float u2 = __shfl_xor_sync(kFull, u_b, off, kWide);
+    const float v2 = __shfl_xor_sync(kFull, v_b, off, kWide);
+    if (t2 < t_b || (t2 == t_b && r2 < row_b)) {
+      t_b = t2;
+      row_b = r2;
+      u_b = u2;
+      v_b = v2;
+    }
+  }
+  if (lane == 0 && i0 < n) {
+    const bool found = row_b != kNoRow;
+    prim_out[i] = found ? (int)tri[16 * row_b + 9] : -1;
+    t_out[i] = found ? t_b : INFINITY;
+    u_out[i] = u_b;
+    v_out[i] = v_b;
+  }
 }
 
 }  // namespace
 
+// The WideBVH closest hit; `cap` is the table's stack bound (entries a ray),
+// which sets the shared memory: kRaysPerBlock x cap x 8 bytes.
 extern "C" int plt_intersect_bvh(const float* nodes, const float* tri,
                                  const float* o, const float* d,
-                                 const float* maxt, int n, float* t,
+                                 const float* maxt, int n, int cap, float* t,
                                  int* prim, float* u, float* v,
                                  void* stream) {
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
-    bvh_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        nodes, tri, o, d, maxt, n, t, prim, u, v, nullptr);
+    const int grid = (n + kRaysPerBlock - 1) / kRaysPerBlock;
+    const size_t smem = (size_t)kRaysPerBlock * cap * 2 * sizeof(int);
+    wide_kernel<<<grid, kWideBlock, smem, (cudaStream_t)stream>>>(
+        nodes, tri, o, d, maxt, n, cap, t, prim, u, v);
   }
   return (int)cudaGetLastError();
 }
@@ -165,8 +332,8 @@ extern "C" int plt_occluded_bvh(const float* nodes, const float* tri,
                                 void* stream) {
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
-    bvh_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        nodes, tri, o, d, maxt, n, nullptr, nullptr, nullptr, nullptr, occ);
+    anyhit_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        nodes, tri, o, d, maxt, n, occ);
   }
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,11 @@ to its multiplicity.
 microfacet frame, per-order intensities at the hero wavelength, lobe-CDF
 pick, grating equation, pdf and Smith G1 times the lobe intensity.
 
-Both use a Miller downward Bessel sweep (M = 64 with a 1e18 rescale guard;
-Hankel asymptotics beyond 0.75 M) for the per-order intensities.
+The plain versions and the sample kernel compute the per-order intensities
+with a Miller downward Bessel sweep (M = 64 with a 1e18 rescale guard;
+Hankel asymptotics beyond 0.75 M). The lobe-sum kernel reads J_0..J_half
+for |a| <= 0.75 M from `bessel_table`, cubic Hermite coefficients of that
+sweep taken in float64, built at the first call on a device and kept.
 """
 from __future__ import annotations
 
@@ -31,6 +34,12 @@ LOBE_SUM_LAUNCHES = 0
 MAX_HALF = 4            # MAX_LOBES = 9 -> at most 4 orders per side
 BESSEL_M = 64
 ASYMP_SWITCH = 0.75 * BESSEL_M
+# the lobe-sum kernel's Bessel table: BESSEL_TABLE_N intervals of
+# BESSEL_TABLE_STEP over [0, ASYMP_SWITCH] (csrc/grating.cu: kTableN,
+# kTableInvStep)
+BESSEL_TABLE_STEP = 1.0 / 32.0
+BESSEL_TABLE_N = int(ASYMP_SWITCH / BESSEL_TABLE_STEP)
+_bessel_tables = {}
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +86,62 @@ def bessel_sweep(a, half: int):
         r = torch.where(use_asym, asym, outs[nu] * inv_norm)
         res.append(torch.where(at_zero, 1.0 if nu == 0 else 0.0, r))
     return res
+
+
+def bessel_table_coefficients():
+    """[MAX_HALF + 1, BESSEL_TABLE_N, 4] float64: for order nu and interval
+    i the cubic Hermite coefficients (c0, c1, c2, c3) of J_nu on
+    [i h, (i + 1) h], h = BESSEL_TABLE_STEP, in t = x / h - i:
+    J_nu ~ c0 + t (c1 + t (c2 + t c3)). Values from `bessel_sweep` in
+    float64 at the grid points, derivatives from the recurrence
+    J_nu' = (J_{nu-1} - J_{nu+1}) / 2 (J_0' = -J_1), so the orders run to
+    MAX_HALF + 1. Against the float64 sweep the interpolant is off by at
+    most ~1e-9 at the interval midpoints (tests/test_torch_grating_ops.py),
+    far below float32 rounding."""
+    h = BESSEL_TABLE_STEP
+    x = torch.arange(BESSEL_TABLE_N + 1, dtype=torch.float64) * h
+    J = torch.stack(bessel_sweep(x, MAX_HALF + 1))
+    D = torch.empty_like(J[:-1])
+    D[0] = -J[1]
+    D[1:] = 0.5 * (J[:-2] - J[2:])
+    y0, y1 = J[:-1, :-1], J[:-1, 1:]
+    d0, d1 = D[:, :-1] * h, D[:, 1:] * h
+    return torch.stack([y0, d0, 3.0 * (y1 - y0) - 2.0 * d0 - d1,
+                        2.0 * (y0 - y1) + d0 + d1], dim=-1)
+
+
+def bessel_table(device) -> torch.Tensor:
+    """`bessel_table_coefficients` as float32 on `device`, the lobe-sum
+    kernel's table (~120 KB): built at the first call on a device and
+    kept."""
+    key = str(torch.device(device))
+    if key not in _bessel_tables:
+        _bessel_tables[key] = bessel_table_coefficients().to(
+            device=device, dtype=torch.float32).contiguous()
+    return _bessel_tables[key]
+
+
+def bessel_table_lookup(table, a, half: int):
+    """[J_0(|a|), .., J_half(|a|)] read from `table` (float32, as
+    `bessel_table`) as the lobe-sum kernel reads it for |a| <= ASYMP_SWITCH:
+    t = 32 min(|a|, 48) - i with i = min(floor(.), BESSEL_TABLE_N - 1),
+    three fmaf per order (each formed in float64 and rounded once to
+    float32: at most an ulp from the card's fmaf), and 1, 0, .. at
+    |a| < 1e-6."""
+    x = torch.abs(a)
+    s = torch.clamp_max(x, ASYMP_SWITCH) * (1.0 / BESSEL_TABLE_STEP)
+    fi = torch.clamp_max(torch.floor(s), float(BESSEL_TABLE_N - 1))
+    t = (s - fi).double()
+    c = table[: half + 1, fi.long()].double()
+
+    def fma(p, q, r):
+        return (p * q + r).float().double()
+
+    r = fma(t, fma(t, fma(t, c[..., 3], c[..., 2]), c[..., 1]),
+            c[..., 0]).float()
+    at_zero = x < 1e-6
+    return [torch.where(at_zero, 1.0 if nu == 0 else 0.0, r[nu])
+            for nu in range(half + 1)]
 
 
 def base_intensities(a, is_sin, is_rect, half: int):
@@ -189,7 +254,9 @@ def grating_lobe_sum(wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
     wi, wo [N, 3] local; wl_nm [N, C]; grating_dir, inv_period [N, 2];
     q, multiplier, coherence, a_cone [N] float32; lobes, gtype [N] int32
     (gtype already masked to its profile bits). CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, which reads J_0..J_half from
+    `bessel_table` (so it agrees with the plain version within rounding of
+    the table and of the special functions, not to the bit)."""
     global LOBE_SUM_LAUNCHES
     f32, i32 = torch.float32, torch.int32
     dev, n = check_tensors("grating_lobe_sum", {
@@ -212,15 +279,16 @@ def grating_lobe_sum(wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
     from .build import check, load_library
 
     lib = load_library()
+    table = bessel_table(dev)
     out = torch.empty((n, n_channels), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_grating_lobe_sum(
         wi.data_ptr(), wo.data_ptr(), wl_nm.data_ptr(),
         grating_dir.data_ptr(), inv_period.data_ptr(), q.data_ptr(),
         lobes.data_ptr(), gtype.data_ptr(), multiplier.data_ptr(),
-        coherence.data_ptr(), a_cone.data_ptr(), n, int(half),
-        int(bool(separable)), int(n_channels), out.data_ptr(), stream),
-        "grating_lobe_sum")
+        coherence.data_ptr(), a_cone.data_ptr(), table.data_ptr(), n,
+        int(half), int(bool(separable)), int(n_channels), out.data_ptr(),
+        stream), "grating_lobe_sum")
     LOBE_SUM_LAUNCHES += 1
     return out
 

@@ -5,7 +5,8 @@ its unroll-sweep and multi-accumulator variants in
 (p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one product of ray
 features with a weight table (`csrc/intersect_mxu.cu`), the treelet walks
 over a flat ClusterTable (`csrc/intersect_clu.cu`) and a two-level
-ClusterTable2 (`csrc/intersect_clu2.cu`), the per-ray skip-link walk over a
+ClusterTable2 (`csrc/intersect_clu2.cu`), the closest-hit walk of a tile of
+lanes per ray over a WideBVH and the per-ray any-hit skip-link walk over a
 PacketBVH (`csrc/intersect_bvh.cu`), their plain PyTorch versions, and the
 host-side q and MXU table packers.
 
@@ -42,6 +43,13 @@ INTERSECT_Q_MACC_LAUNCHES = 0
 _DET_EPS = 1e-12
 # an infinite maxt is carried as this finite bound
 _BIG = 3.4e38
+# the packet tables (scene/bvh.py): triangles per PacketBVH leaf at most,
+# children per WideBVH node at most; the stack entries the kernel's shared
+# memory holds a ray, and the row of no hit
+PACKET_LEAF = 16
+WIDE = 8
+WIDE_STACK_MAX = 384
+_NO_ROW = 1 << 62
 
 
 def pack_tri_q(p0, p1, p2, anchor=None):
@@ -1011,7 +1019,9 @@ def _check_bvh(name, pbvh, o, d, maxt):
 
 
 def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
-    """The walk of both plain versions: one node index per lane, a loop
+    """The skip-link walk over a PacketBVH (`occluded_bvh_plain`; with
+    any_hit False the closest hit the kernel took before the WideBVH walk,
+    which the tests hold the new walk to): one node index per lane, a loop
     until every lane's index is -1. A lane tests a node's box against its
     own best distance, runs an entered leaf's rows [first, first + count)
     in order, and follows `first` (entered inner node) or `miss`. `counts`
@@ -1070,13 +1080,136 @@ def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
     return t_b, prim_b, u_b, v_b, occ
 
 
-def intersect_bvh_plain(pbvh, o, d, maxt, counts=None):
-    """Plain version of `intersect_bvh`: the kernel's walk and arithmetic in
-    the kernel's order (strict t < best, leaves in DFS order, so the first
-    of two equal hits wins)."""
-    t, prim_f, u, v, _ = _bvh_walk(pbvh, o, d, maxt, False, counts)
-    prim = prim_f.to(torch.int32)
-    return torch.where(prim >= 0, t, float("inf")), prim, u, v
+def _check_wide(name, wbvh, o, d, maxt):
+    dev, n = check_tensors(name, {
+        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
+        "maxt": (maxt, torch.float32, ()),
+        "nodes": (wbvh.nodes, torch.float32, None),
+        "tri": (wbvh.tri, torch.float32, None),
+    }, n=o.shape[0] if o.dim() == 2 else -1)
+    for arg, width in (("nodes", 8 * WIDE), ("tri", 16)):
+        t = getattr(wbvh, arg)
+        if t.dim() != 2 or t.shape[1] != width or t.shape[0] == 0:
+            raise ValueError(f"{name}: {arg} must be [>0, {width}], got "
+                             f"{tuple(t.shape)}")
+    if not 1 <= wbvh.stack <= WIDE_STACK_MAX:
+        raise ValueError(f"{name}: a stack of {wbvh.stack} entries is "
+                         f"outside 1..{WIDE_STACK_MAX}")
+    return dev, n
+
+
+def _wide_walk(wbvh, o, d, maxt, counts):
+    """The closest-hit walk of the kernel over a WideBVH, per lane. A stack
+    of (child, near) entries starts with the root; a popped entry whose near
+    is above the lane's best distance is dropped, a leaf's rows are tested
+    (all of them), and an inner node's children are slab-tested against the
+    ray and the best distance, `near <= best`, and every entered one is
+    pushed, ordered so that the nearest (then the lower slot) is popped
+    first. The best hit is the least (t, row) among hits with 0 < t < maxt,
+    which the order of the tests cannot change; the walk's order decides
+    only which boxes the best distance has culled, and the kernel walks in
+    the same order. `counts` (a dict, or None) accumulates the slab tests,
+    triangle tests and loop steps, the most entries a stack held
+    ("stack_peak", at most the table's `stack`), and per lane ("ray_pops",
+    "ray_triangle_tests": int64 [N]) the entries popped and rows tested."""
+    n, dev = o.shape[0], o.device
+    cap = wbvh.stack
+    mt = torch.where(torch.isfinite(maxt), maxt, _BIG)
+    inv = 1.0 / _signed_eps(d)
+    t_b = mt.clone()
+    row_b = torch.full((n,), _NO_ROW, dtype=torch.int64, device=dev)
+    u_b = torch.zeros_like(mt)
+    v_b = torch.zeros_like(mt)
+    st_code = torch.zeros((n, cap), dtype=torch.int64, device=dev)
+    st_near = torch.full((n, cap), float("-inf"), device=dev)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    if counts is not None:
+        for key in ("slab_tests", "triangle_tests", "steps", "stack_peak"):
+            counts.setdefault(key, 0)
+        pops = torch.zeros((n,), dtype=torch.int64, device=dev)
+        tests = torch.zeros((n,), dtype=torch.int64, device=dev)
+    slot = torch.arange(WIDE, device=dev)
+    k16 = torch.arange(PACKET_LEAF, device=dev)
+    lanes = torch.arange(n, device=dev)
+    while lanes.numel():
+        sp_l = sp[lanes] - 1
+        sp[lanes] = sp_l
+        code, near = st_code[lanes, sp_l], st_near[lanes, sp_l]
+        go = near <= t_b[lanes]
+        cnt, first = code & 31, code >> 5
+        if counts is not None:
+            counts["steps"] += 1
+            pops[lanes] += 1
+
+        leaf = go & (cnt > 0)
+        l_k, f_k, c_k = lanes[leaf], first[leaf], cnt[leaf]
+        if l_k.numel():
+            live = k16 < c_k[:, None]                      # [L, 16]
+            rows = torch.where(live, f_k[:, None] + k16, f_k[:, None])
+            rep = lambda x: x[:, None, :].expand(-1, PACKET_LEAF, -1)  # noqa: E731
+            ok, t, u, v = (x.reshape(-1, PACKET_LEAF) for x in _classic_terms(
+                wbvh.tri[rows.reshape(-1)], rep(o[l_k]).reshape(-1, 3),
+                rep(d[l_k]).reshape(-1, 3)))
+            ok = ok & live & (t < mt[l_k, None])
+            t_c = torch.where(ok, t, float("inf"))
+            t_min = t_c.min(-1).values
+            # the first row at the least distance
+            k = ((t_c == t_min[:, None]) & ok).to(torch.int8).argmax(-1)
+            row = f_k + k
+            pick = lambda x: x.gather(1, k[:, None])[:, 0]  # noqa: E731
+            tb, rb = t_b[l_k], row_b[l_k]
+            better = ok.any(-1) & ((t_min < tb) | ((t_min == tb) & (row < rb)))
+            sel = l_k[better]
+            t_b[sel] = t_min[better]
+            row_b[sel] = row[better]
+            u_b[sel] = pick(u)[better]
+            v_b[sel] = pick(v)[better]
+            if counts is not None:
+                counts["triangle_tests"] += int(c_k.sum())
+                tests[l_k] += c_k
+
+        inner = go & (cnt == 0)
+        l_i, n_i = lanes[inner], first[inner]
+        if l_i.numel():
+            nd = wbvh.nodes[n_i].view(-1, WIDE, 8)
+            o_l, inv_l = o[l_i][:, None, :], inv[l_i][:, None, :]
+            t0 = (nd[..., 0:3] - o_l) * inv_l
+            t1 = (nd[..., 3:6] - o_l) * inv_l
+            c_near = torch.minimum(t0, t1).amax(-1)
+            c_far = torch.maximum(t0, t1).amin(-1)
+            present = nd[..., 7] >= 0.0
+            enter = (present & (c_near <= c_far) & (c_far > 0.0)
+                     & (c_near <= t_b[l_i, None]))
+            # entries above slot i: entered children after it in
+            # (near, slot) order, so the least is pushed last
+            nj, ni = c_near[:, None, :], c_near[:, :, None]
+            after = (nj > ni) | ((nj == ni) & (slot[None, :] > slot[:, None]))
+            above = (enter[:, None, :] & after).sum(-1)
+            pos = sp[l_i, None] + above
+            lane_e = l_i[:, None].expand(-1, WIDE)[enter]
+            st_code[lane_e, pos[enter]] = (
+                nd[..., 6].to(torch.int64) * 32 + nd[..., 7].to(torch.int64)
+            )[enter]
+            st_near[lane_e, pos[enter]] = c_near[enter]
+            sp[l_i] += enter.sum(-1)
+            if counts is not None:
+                counts["slab_tests"] += int(present.sum())
+                counts["stack_peak"] = max(counts["stack_peak"],
+                                           int(sp[l_i].max()))
+        lanes = lanes[sp[lanes] > 0]
+    if counts is not None:
+        counts["ray_pops"] = pops
+        counts["ray_triangle_tests"] = tests
+    found = row_b != _NO_ROW
+    prim = torch.where(found, wbvh.tri[torch.where(found, row_b, 0), 9],
+                       -1.0).to(torch.int32)
+    return torch.where(found, t_b, float("inf")), prim, u_b, v_b
+
+
+def intersect_bvh_plain(wbvh, o, d, maxt, counts=None):
+    """Plain version of `intersect_bvh`: the kernel's walk (`_wide_walk`)
+    and arithmetic, so it equals the kernel to the bit."""
+    return _wide_walk(wbvh, o, d, maxt, counts)
 
 
 def occluded_bvh_plain(pbvh, o, d, maxt, counts=None):
@@ -1085,17 +1218,18 @@ def occluded_bvh_plain(pbvh, o, d, maxt, counts=None):
     return _bvh_walk(pbvh, o, d, maxt, True, counts)[4]
 
 
-def intersect_bvh(pbvh, o, d, maxt):
-    """Closest hit over a PacketBVH (scene/bvh.py), rays in world space.
+def intersect_bvh(wbvh, o, d, maxt):
+    """Closest hit over a WideBVH (scene/bvh.py), rays in world space.
 
     o, d [N, 3], maxt [N] float32 on the tables' device. Returns (t [N],
     prim [N] int32 face index (-1 on a miss), u [N], v [N]); on a miss t is
-    inf and u = v = 0. CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    inf and u = v = 0. Of two hits at the same t the lower PacketBVH row
+    wins. CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
     global INTERSECT_BVH_LAUNCHES
-    dev, n = _check_bvh("intersect_bvh", pbvh, o, d, maxt)
+    dev, n = _check_wide("intersect_bvh", wbvh, o, d, maxt)
     if dev.type == "cpu":
-        return intersect_bvh_plain(pbvh, o, d, maxt)
+        return intersect_bvh_plain(wbvh, o, d, maxt)
     from .build import check, load_library
 
     lib = load_library()
@@ -1105,9 +1239,10 @@ def intersect_bvh(pbvh, o, d, maxt):
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_intersect_bvh(
-        pbvh.nodes.data_ptr(), pbvh.tri.data_ptr(), o.data_ptr(),
-        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), stream), "intersect_bvh")
+        wbvh.nodes.data_ptr(), wbvh.tri.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, int(wbvh.stack), t.data_ptr(),
+        prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream),
+        "intersect_bvh")
     INTERSECT_BVH_LAUNCHES += 1
     return t, prim, u, v
 

@@ -1,5 +1,8 @@
 """The FP32 FMA roof probe (`csrc/fma_roof.cu`), its plain PyTorch
-version, and the count of the instructions it issues, read from its SASS.
+version, and the count of the instructions it issues, read from its SASS;
+and the instructions of the special functions of the lobe sum on their
+fast paths, read from the SASS of one-function probes
+(`csrc/grating.cu::fn_probe_kernel`).
 
 The probe is the JAX tool's `tools/experiments/kernel_mfu.py::_fma_kernel`:
 per element of x [rows, 128] four chains of FMA_STEPS steps
@@ -125,13 +128,103 @@ def count_sass(sass: str, kernel: str) -> dict:
             "per_step": {k: v / FMA_STEPS for k, v in issued.items()}}
 
 
-def fma_roof_sass() -> dict:
-    """`count_sass` of the built probe (`cuobjdump -sass` of the kernel
-    library): needs the library, so a card's machine."""
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)(\.\S+)?\s*([^;]*);")
+_HEX = re.compile(r"0x([0-9a-f]+)")
+
+
+def fast_path(sass: str, kernel: str) -> dict:
+    """The fewest instructions a thread of `kernel` can issue from its entry
+    to an unpredicated EXIT, in `cuobjdump -sass` text: {"ffma", "other",
+    "slots"}. A predicated branch may go either way, a backward branch is
+    never taken (no loop trip), an unpredicated branch must be, a CALL
+    costs its callee's fewest instructions to RET, a predicated EXIT falls
+    through (the thread goes on). NOPs and the BRA to itself after EXIT
+    are not counted. For a kernel whose only branches are a library
+    function's tests for its slow path, that is its fast path."""
+    rows = []
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = _SASS_INSN.search(line) if inside else None
+        if m:
+            pred = (m.group(2) or "").strip()
+            rows.append((int(m.group(1), 16), pred not in ("", "@PT"),
+                         m.group(3), m.group(5).strip()))
+    if not rows:
+        raise RuntimeError(f"fast_path: no SASS for {kernel}")
+    at = {addr: k for k, (addr, _, _, _) in enumerate(rows)}
+    inf = (float("inf"), 0)
+    # the fewest (slots, ffma) from row k to EXIT and to RET
+    to_exit, to_ret = [inf] * (len(rows) + 1), [inf] * (len(rows) + 1)
+
+    def plus(w, c):
+        return (w[0] + c[0], w[1] + c[1])
+
+    for k in range(len(rows) - 1, -1, -1):
+        addr, cond, op, args = rows[k]
+        hexes = _HEX.findall(args)
+        target = at.get(int(hexes[-1], 16)) if hexes else None
+        w = (0, 0) if op == "NOP" or (op == "BRA" and args == hex(addr)) \
+            else (1, int(op == "FFMA"))
+        for table in (to_exit, to_ret):
+            if op in ("EXIT", "RET"):
+                done = (op == "EXIT") == (table is to_exit)
+                cost = table[k + 1] if cond else (w if done else inf)
+                cost = plus(w, cost) if cond else cost
+            elif op == "BRA":
+                # a BRA whose operands hold more than its target (BRA.DIV,
+                # a uniform predicate) is conditional too
+                branchy = cond or args != (hexes and "0x" + hexes[-1])
+                taken = (table[target] if target is not None
+                         and rows[target][0] > addr else inf)
+                cost = plus(w, min(taken, table[k + 1] if branchy else inf))
+            elif op == "CALL":
+                callee = (to_ret[target] if target is not None
+                          and rows[target][0] > addr else inf)
+                cost = plus(plus(w, callee), table[k + 1])
+            else:
+                cost = plus(w, table[k + 1])
+            table[k] = cost
+    slots, ffma = to_exit[0]
+    if slots == float("inf"):
+        raise RuntimeError(f"fast_path: no way to EXIT in {kernel}")
+    return {"ffma": ffma, "other": slots - ffma, "slots": slots}
+
+
+# the special functions of the lobe sum, by fn_probe_kernel<F>'s F
+SPECIAL_FNS = {"sqrt": 1, "div": 2, "asin": 3, "exp": 4, "sincos": 5,
+               "sin": 6}
+
+
+def special_fn_counts(sass: str) -> dict:
+    """{function: {"ffma", "other", "slots"}}: the fast path of each
+    special function (`fast_path` of its probe less that of the identity
+    probe, F = 0)."""
+    def probe(f):
+        return fast_path(sass, f"fn_probe_kernelILi{f}E")
+
+    own = probe(0)
+    out = {}
+    for name, f in SPECIAL_FNS.items():
+        c = probe(f)
+        out[name] = {k: c[k] - own[k] for k in ("ffma", "other", "slots")}
+    return out
+
+
+def library_sass() -> str:
+    """`cuobjdump -sass` of the built kernel library: needs the library,
+    so a card's machine."""
     from .build import find_nvcc, load_library, library_file
 
     load_library()
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", library_file()], check=True,
-                         stdout=subprocess.PIPE, text=True).stdout
-    return count_sass(out, "fma_roof_kernel")
+    return subprocess.run([tool, "-sass", library_file()], check=True,
+                          stdout=subprocess.PIPE, text=True).stdout
+
+
+def fma_roof_sass() -> dict:
+    """`count_sass` of the built probe."""
+    return count_sass(library_sass(), "fma_roof_kernel")

@@ -14,7 +14,10 @@ triangles with one q row per triangle (see ClusterTable);
 triangles, groups CLU2_SUPER consecutive treelets under a super box, and
 packs the triangles 4 to a row (see ClusterTable2). `pack_packet_bvh`
 collapses every subtree of at most PACKET_LEAF triangles into one leaf
-and stores each leaf's triangles as contiguous rows (see PacketBVH).
+and stores each leaf's triangles as contiguous rows (see PacketBVH);
+`pack_wide_bvh` collapses a PacketBVH into nodes of up to WIDE children
+whose boxes sit in the parent (see WideBVH), the table of the closest-hit
+walk.
 """
 from __future__ import annotations
 
@@ -24,12 +27,11 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.intersect import CLU_UNROLL, pack_tri_q
+from ..ops.intersect import CLU_UNROLL, PACKET_LEAF, WIDE, pack_tri_q
 from .native import build_bvh_native
 
 CLU2_SUPER = 16     # DFS-consecutive clusters per super box
 CLU2_MAX_LEAF = 64  # triangles per cluster at most
-PACKET_LEAF = 16    # triangles per PacketBVH leaf at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,3 +339,91 @@ def pack_packet_bvh(bvh: BVH, tri_p0, tri_p1, tri_p2,
     arrays = pack_packet_bvh_arrays(bvh, tri_p0, tri_p1, tri_p2)
     return PacketBVH(**{k: torch.as_tensor(v, device=dev)
                         for k, v in arrays.items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class WideBVH:
+    """A PacketBVH collapsed to nodes of up to WIDE children, each child's
+    box stored in its parent:
+
+    nodes [NW, 8 WIDE]: child slot j in columns 8j..8j+7: lo(3) hi(3)
+      first count. count -1: an empty slot; 0: an inner child, the wide
+      node `first`; > 0: a PacketBVH leaf, rows [first, first + count) of
+      `tri`. Node 0 is the root, the children of a node are consecutive
+      nodes (breadth-first order), and a node's slots keep the PacketBVH's
+      DFS order, so the lower slot holds the lower rows. first and count
+      are exact as f32 (below 2^24).
+    tri: the PacketBVH's rows (the same tensor).
+    stack: the most (child, near) entries a walk's stack holds when it
+      pushes every child its ray enters and pops them nearest first.
+    """
+
+    nodes: torch.Tensor
+    tri: torch.Tensor
+    stack: int
+
+
+def pack_wide_bvh_arrays(pnodes) -> tuple:
+    """(the WideBVH nodes as numpy, its stack bound) from PacketBVH node
+    rows [NN, 16] (`pack_packet_bvh_arrays`). A wide node starts from the
+    two children of a PacketBVH inner node and, while it has fewer than
+    WIDE children, replaces the inner child of largest box surface (the
+    first of equal ones) by its two children, in place; a PacketBVH whose
+    root is a leaf gives a root with that one child."""
+    pn = np.asarray(pnodes, np.float32)
+    lo, hi = pn[:, 0:3], pn[:, 3:6]
+    first, count, miss = (pn[:, k].astype(np.int64) for k in (6, 7, 8))
+    ext = (hi - lo).astype(np.float64)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+
+    def split(b):  # the two children of PacketBVH inner node b
+        return [int(first[b]), int(miss[first[b]])]
+
+    def collapse(b):
+        kids = split(b) if count[b] == 0 else [b]
+        while len(kids) < WIDE:
+            inner = [k for k in kids if count[k] == 0]
+            if not inner:
+                break
+            pick = max(inner, key=lambda k: area[k])
+            j = kids.index(pick)
+            kids[j: j + 1] = split(pick)
+        return kids
+
+    rows, links = [collapse(0)], []
+    i = 0
+    while i < len(rows):
+        link = []
+        for k in rows[i]:
+            if count[k] == 0:
+                link.append(len(rows))
+                rows.append(collapse(k))
+            else:
+                link.append(-1)
+        links.append(link)
+        i += 1
+
+    nodes = np.zeros((len(rows), 8 * WIDE), np.float32)
+    nodes[:, 7::8] = -1.0
+    for w, (kids, link) in enumerate(zip(rows, links)):
+        for j, (k, c) in enumerate(zip(kids, link)):
+            s = nodes[w, 8 * j: 8 * j + 8]
+            s[0:3], s[3:6] = lo[k], hi[k]
+            s[6], s[7] = (c, 0) if c >= 0 else (first[k], count[k])
+    if count.max() > PACKET_LEAF:
+        raise ValueError(f"pack_wide_bvh: a leaf holds more than "
+                         f"{PACKET_LEAF} rows")
+    # the peak of the stack below node w: k - 1 + max(1, the children's)
+    peak = np.zeros(len(rows), np.int64)
+    for w in range(len(rows) - 1, -1, -1):
+        inner = [peak[c] for c in links[w] if c >= 0]
+        peak[w] = len(rows[w]) - 1 + max([1] + inner)
+    return nodes, int(peak[0])
+
+
+def pack_wide_bvh(pbvh: PacketBVH) -> WideBVH:
+    """The WideBVH of a PacketBVH, on the PacketBVH's device and sharing
+    its triangle rows."""
+    nodes, stack = pack_wide_bvh_arrays(pbvh.nodes.cpu().numpy())
+    return WideBVH(nodes=torch.as_tensor(nodes, device=pbvh.nodes.device),
+                   tri=pbvh.tri, stack=stack)

@@ -3,8 +3,9 @@ ray_intersect building SurfaceInteraction records and ray_test answering
 shadow rays. Routing is by face count and the tables the scene holds: up
 to 4096 triangles every ray goes to the brute-force q kernels; above that
 to the two-level treelet (clu2) kernels over the scene's ClusterTable2 or,
-where it has none, to the skip-link walk over its PacketBVH on rays sorted
-for coherence (`ops/intersect.py`)."""
+where it has none, to the packet route on rays sorted for coherence: the
+closest hit walks the WideBVH built from the scene's PacketBVH, shadow rays
+the PacketBVH's skip links (`ops/intersect.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ from ..librender.bsdf import MaterialTable
 from ..librender.records import Ray, SurfaceInteraction
 from ..librender.sensor import Sensor
 from ..ops import intersect as isect
-from .bvh import ClusterTable2, PacketBVH
+from .bvh import ClusterTable2, PacketBVH, WideBVH, pack_wide_bvh
 from .emitters import EmitterTable
 
 BRUTE_FORCE_MAX_FACES = 4096
@@ -49,6 +50,13 @@ class Scene:
     sensor: Sensor
     ctab2: Optional[ClusterTable2] = None  # treelet tables of big meshes
     pbvh: Optional[PacketBVH] = None  # packet tables of big meshes
+    # the closest-hit table of the packet route, built from pbvh
+    wbvh: Optional[WideBVH] = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "wbvh", None if self.pbvh is None
+                           else pack_wide_bvh(self.pbvh))
 
     @property
     def device(self) -> torch.device:
@@ -111,7 +119,7 @@ class Scene:
         elif route == "packet":
             perm, inv = self._packet_perm(ray.o, ray.d)
             t, prim, u, v = (x[inv] for x in isect.intersect_bvh(
-                self.pbvh, ray.o[perm], ray.d[perm], ray.maxt[perm]))
+                self.wbvh, ray.o[perm], ray.d[perm], ray.maxt[perm]))
         else:
             t, prim, u, v = isect.intersect_q(
                 geo.tri_q, geo.tri_anchor, ray.o, ray.d, ray.maxt,

@@ -17,10 +17,11 @@ any hit, on the Cornell box's camera, bounce and shadow rays). Routes:
 
 The closest-hit routes run on every set but the shadow sets (labels that
 start with "shadow"), the any-hit routes on every set, with each set's
-maxt. The packet routes walk a PacketBVH built here from the scene's
-(p0, e1, e2) rows (`build_bvh`, `pack_packet_bvh`), so any scene can take
-them. The module has no timing loop: `run` takes a timer (a function of a
-callable that returns its device ms) or reports no times.
+maxt. The packet routes walk the WideBVH of a PacketBVH built here from
+the scene's (p0, e1, e2) rows (`build_bvh`, `pack_packet_bvh`; the Scene
+packs its WideBVH), so any scene can take them. The module has no timing
+loop: `run` takes a timer (a function of a callable that returns its
+device ms) or reports no times.
 
 Random numbers come from numpy's `default_rng(seed)`. The JAX tools drew
 theirs from `jax.random`, whose streams numpy cannot reproduce, so the ray
@@ -156,8 +157,9 @@ def soup_bvh(scene):
 
 
 def packet_scene(scene):
-    """A copy of the scene that carries a PacketBVH of its faces (the
-    packet routes' tables and `Scene._packet_perm`'s root box)."""
+    """A copy of the scene that carries a PacketBVH of its faces and its
+    WideBVH (the packet routes' tables and `Scene._packet_perm`'s root
+    box)."""
     return dataclasses.replace(scene, pbvh=pack_packet_bvh(
         *soup_bvh(scene), device=scene.device))
 
@@ -170,12 +172,12 @@ def route_fns(scene):
     tri_mxu = _tensors(scene, isect.regroup_tri_mxu(
         isect.pack_tri_mxu(p0, e1, e2)))[0]
     packet = packet_scene(scene)
-    pbvh = packet.pbvh
+    wbvh = packet.wbvh
 
     def sorted_walk(o, d, mt):
         perm, inv = packet._packet_perm(o, d)
         return tuple(x[inv] for x in isect.intersect_bvh(
-            pbvh, o[perm], d[perm], mt[perm]))
+            wbvh, o[perm], d[perm], mt[perm]))
 
     return {
         "brute-classic": lambda o, d, mt: isect.intersect_classic(
@@ -186,7 +188,7 @@ def route_fns(scene):
             tri_mxu, o, d, mt, n_tris=F),
         "packet-sorted": sorted_walk,
         "packet-unsorted": lambda o, d, mt: isect.intersect_bvh(
-            pbvh, o, d, mt),
+            wbvh, o, d, mt),
         "anyhit-classic": lambda o, d, mt: isect.occluded_classic(
             geo.tri_isect, o, d, mt, n_tris=F),
         "anyhit-q": lambda o, d, mt: isect.occluded_q(

@@ -211,13 +211,13 @@ def test_bvh_kernels_match_plain(card):
 
     scene = mesh_scene(64, 48, subdiv=5, accel="packet", device=card)
     assert scene.intersect_route() == "packet"
-    pb = scene.pbvh
+    pb, wb = scene.pbvh, scene.wbvh
     cam, bounce, shadow = _mesh_rays(scene, np.random.default_rng(3), card)
     # the camera rays once more with a finite maxt past the near surface
     for o, d, mt in (cam, bounce, (cam[0], cam[1],
                                    torch.full_like(cam[2], 3.5))):
-        got = isect.intersect_bvh(pb, o, d, mt)
-        want = isect.intersect_bvh_plain(pb, o, d, mt)
+        got = isect.intersect_bvh(wb, o, d, mt)
+        want = isect.intersect_bvh_plain(wb, o, d, mt)
         torch.cuda.synchronize()
         assert torch.equal(got[1], want[1])
         for k in (0, 2, 3):  # t, u, v
@@ -229,10 +229,105 @@ def test_bvh_kernels_match_plain(card):
         assert 0.05 < occ.float().mean() < 0.95
     # the route sorts, launches and unsorts
     si = scene.ray_intersect(Ray.create(cam[0], cam[1]))
-    assert torch.equal(si.prim_idx, isect.intersect_bvh(pb, *cam)[1])
+    assert torch.equal(si.prim_idx, isect.intersect_bvh(wb, *cam)[1])
     o, d, mt = shadow
     assert torch.equal(scene.ray_test(Ray(o=o, d=d, maxt=mt)),
                        isect.occluded_bvh(pb, o, d, mt))
+
+
+def test_wide_bvh_kernel_matches_plain_on_ties(card):
+    """B7a to the bit on a sphere whose every face appears twice (every hit
+    an exact tie, which the lower PacketBVH row wins) and on the 5,120-face
+    sphere with rays from inside and outside, maxt inf and finite."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.bvh import (
+        build_bvh, pack_packet_bvh, pack_wide_bvh)
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+
+    rng = np.random.default_rng(9)
+    m = make_sphere(4)
+    v, f = np.asarray(m.vertices, np.float32), np.asarray(m.faces)
+    n = 16384
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * rng.uniform(
+        0.2, 3.0, (n, 1))
+    d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    mt = np.where(rng.random(n) < 0.3, rng.uniform(0.1, 3.0, n), np.inf)
+    o, d, mt = (torch.as_tensor(x.astype(np.float32), device=card)
+                for x in (o, d, mt))
+    single = None
+    for faces in (f, np.concatenate([f, f])):
+        p = [v[faces[:, k]] for k in range(3)]
+        wb = pack_wide_bvh(pack_packet_bvh(build_bvh(v, faces), *p,
+                                           device=card))
+        got = isect.intersect_bvh(wb, o, d, mt)
+        want = isect.intersect_bvh_plain(wb, o, d, mt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert 0.3 < (got[1] >= 0).float().mean() < 1.0
+        if single is None:
+            single = got
+        else:
+            # either copy of a face answers as the face alone (another
+            # tree: a box may cull by rounding on a rare lane)
+            same = ((got[0] == single[0]) & (got[2] == single[2])
+                    & (got[3] == single[3])
+                    & (torch.where(got[1] >= 0, got[1] % len(f), -1)
+                       == single[1]))
+            assert same.float().mean() >= 0.999
+
+
+def test_lobe_sum_kernel_matches_plain_at_grazing_lanes(card):
+    """B4 within rtol 2e-3 / atol 2e-5 of its plain version on 1 - 1e-3 of
+    lanes in all four cases of chip_smoke.py, on random lanes with a set of
+    grazing ones (|wi.z| in [0.005, 0.05]: most of their channels have
+    x = 4 pi q / (lambda cos) above 48, the asymptotic branch)."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    rng = np.random.default_rng(4)
+    n, f32 = 16384, np.float32
+    for half, sep, gtype, ip_y in ((3, True, 0, 0.0), (3, False, 0, 1.5),
+                                   (4, True, 1, 0.0), (2, True, 2, 0.0)):
+        wi = _dirs(rng, n)
+        g = rng.normal(size=(n // 4, 2))
+        g = g / np.linalg.norm(g, axis=-1, keepdims=True)
+        z = rng.uniform(0.005, 0.05, n // 4)
+        wi[: n // 4] = np.stack([g[:, 0] * np.sqrt(1 - z * z),
+                                 g[:, 1] * np.sqrt(1 - z * z), z], -1)
+        ins = {k: torch.as_tensor(x, device=card) for k, x in dict(
+            wi=wi.astype(f32), wo=_dirs(rng, n),
+            wl_nm=rng.uniform(380, 680, (n, 3)).astype(f32),
+            grating_dir=np.tile([[1.0, 0.0]], (n, 1)).astype(f32),
+            inv_period=np.tile([[2.0, ip_y]], (n, 1)).astype(f32),
+            q=rng.uniform(0.02, 0.3, n).astype(f32),
+            lobes=rng.choice([3, 5, 7, 9], n).astype(np.int32),
+            gtype=np.full(n, gtype, np.int32),
+            multiplier=np.full(n, 1.3, f32),
+            coherence=rng.uniform(1.0, 120.0, n).astype(f32),
+            a_cone=rng.uniform(0.05, 0.4, n).astype(f32)).items()}
+        got = gops.grating_lobe_sum(**ins, half=half, separable=sep,
+                                    n_channels=3)
+        want = gops.grating_lobe_sum_plain(**ins, half=half, separable=sep)
+        torch.cuda.synchronize()
+        ok = torch.isclose(got, want, rtol=2e-3, atol=2e-5).all(-1)
+        assert ok.float().mean() >= 1 - 1e-3, (half, sep, gtype)
+        assert ok[: n // 4].float().mean() >= 1 - 1e-3, (half, sep, gtype)
+        x = (4 * np.pi * ins["q"][:, None] / (ins["wl_nm"] * 1e-3
+                                              * ins["wi"][:, 2:3].abs()))
+        assert (x[: n // 4] > 48).float().mean() > 0.5
+
+
+def test_special_function_probes_have_fast_paths(card):
+    """The SASS of the one-function probes gives each special function of
+    the lobe sum a fast path of a few to a few tens of instructions."""
+    from mitsuba3_plt_tpu_torch.ops import mfu
+
+    counts = mfu.special_fn_counts(mfu.library_sass())
+    assert set(counts) == set(mfu.SPECIAL_FNS)
+    for name, c in counts.items():
+        assert 2 <= c["slots"] <= 80 and 0 <= c["ffma"] <= c["slots"], (
+            name, c)
 
 
 def test_regen_render_launches_bvh_once_per_iteration(card):

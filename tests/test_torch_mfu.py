@@ -158,6 +158,58 @@ def test_count_sass_reads_the_issued_instructions(unroll):
         mfu.count_sass(_sass(4), "missing_kernel")
 
 
+def _probe_sass(body):
+    """cuobjdump -sass text of fn_probe_kernel<0> (load, add, store) and
+    fn_probe_kernel<1> whose function is `body`: [(op text)] between the
+    load and the add, with "@!P0 BRA +k" for a branch k instructions on,
+    "CALL sub" for a call of the subroutine placed after EXIT (three FFMAs,
+    a loop back to its start, RET)."""
+    out = ["\tcode for sm_90a"]
+    for f, rows in ((0, []), (1, body)):
+        out.append(f"\t\tFunction : _Z15fn_probe_kernelILi{f}EEvPKfS1_PfS2_")
+        text = (["LDC R1, c[0x0][0x28]", "LDG.E R2, desc[UR4][R2.64]"]
+                + list(rows) + ["FADD R0, R2, R5",
+                                "STG.E desc[UR4][R2.64], R0", "EXIT"])
+        sub = 16 * (len(text) + 1)
+        for k, t in enumerate(text):
+            m = t.split("+")
+            if " +" in t:  # a branch k rows on
+                t = f"{m[0]}{hex(16 * (k + int(m[1])))}"
+            elif t == "CALL sub":
+                t = f"CALL.REL.NOINC {hex(sub)}"
+            out.append(f"        /*{16 * k:04x}*/                   {t} ;")
+        k = len(text)
+        for t in (f"BRA {hex(16 * k)}", "FFMA R0, R1, R2, R3",
+                  f"@P1 BRA {hex(sub)}", "FFMA R0, R1, R2, R3",
+                  "FFMA R0, R1, R2, R3", "RET.REL.NODEC R8 0x0", "NOP"):
+            out.append(f"        /*{16 * k:04x}*/                   {t} ;")
+            k += 1
+    return "\n".join(out)
+
+
+def test_fast_path_takes_the_fewest_instructions_to_exit():
+    """A branch around a slow-path call: the fast path is the taken branch
+    (four instructions and its BSYNC); the call costs its callee to RET
+    (four, the loop back not taken); NOPs and the BRA to itself after EXIT
+    are not counted."""
+    body = ["MUFU.RSQ R3, R2", "BSSY B0, 0x100", "@!P0 BRA +4",
+            "MOV R8, 0x80", "CALL sub", "BRA +4", "FMUL.FTZ R5, R2, R3",
+            "FFMA R5, R0, R3, R5", "FFMA R5, R0, R3, R5", "BSYNC B0"]
+    sass = _probe_sass(body)
+    own = mfu.fast_path(sass, "fn_probe_kernelILi0E")
+    assert own == {"ffma": 0, "other": 5, "slots": 5}
+    c = mfu.fast_path(sass, "fn_probe_kernelILi1E")
+    # LDC LDG MUFU BSSY BRA, FMUL FFMA FFMA BSYNC, FADD STG EXIT
+    assert c == {"ffma": 2, "other": 10, "slots": 12}
+    # without the branch the call is the only way: LDC LDG MUFU BSSY MOV
+    # CALL, the callee's FFMA BRA FFMA FFMA RET, BRA to BSYNC, FADD STG EXIT
+    slow = mfu.fast_path(_probe_sass(body[:2] + body[3:]),
+                         "fn_probe_kernelILi1E")
+    assert slow == {"ffma": 3, "other": 13, "slots": 16}
+    with pytest.raises(RuntimeError):
+        mfu.fast_path(sass, "missing_kernel")
+
+
 def _jax_walk(lo, hi, first, cnt, miss, o_np, d_np):
     """`kernel_mfu.py:236-255` as written there, per ray."""
     nodes_v = 0

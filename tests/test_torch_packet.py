@@ -1,7 +1,10 @@
 """The packet-BVH route of the port against the JAX package (CPU): the
-packet tables, the plain skip-link walk against the Pallas packet kernels in
-interpret mode, against the brute-force oracle and against the port's clu2
-walk, the coherence sort, the bridge's `pbvh.*` leaves and the routing."""
+packet tables and the WideBVH collapsed from them, the plain walks (the
+closest hit over the WideBVH, the any-hit skip-link walk) against the
+Pallas packet kernels in interpret mode, against the brute-force oracle,
+against the port's clu2 walk and the closest hit against the skip-link
+walk it replaced, the coherence sort, the bridge's `pbvh.*` leaves and the
+routing."""
 import dataclasses
 
 import numpy as np
@@ -21,8 +24,9 @@ from mitsuba3_plt_tpu_torch.librender.records import Ray
 from mitsuba3_plt_tpu_torch.ops import intersect as tisect
 from mitsuba3_plt_tpu_torch.scene import presets as tpresets
 from mitsuba3_plt_tpu_torch.scene.bridge import scene_from_arrays
+from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
 from mitsuba3_plt_tpu_torch.scene.bvh import (
-    build_bvh, pack_clusters2, pack_packet_bvh,
+    WIDE, build_bvh, pack_clusters2, pack_packet_bvh, pack_wide_bvh,
 )
 from test_torch_mesh import _mesh_of, _soup, jax_mesh_scene
 from test_torch_scene import jax_scene_arrays
@@ -36,16 +40,17 @@ def _sphere4():
 
 @pytest.fixture(scope="module")
 def tables():
-    """{name: (p, JAX PacketBVH, port PacketBVH)}: the 5,120-face sphere of
-    tests/test_bvh_pallas.py, the three spheres over a plane, and the sphere
-    whose every face appears twice (every hit an exact tie)."""
+    """{name: (p, JAX PacketBVH, port PacketBVH, port WideBVH)}: the
+    5,120-face sphere of tests/test_bvh_pallas.py, the three spheres over a
+    plane, and the sphere whose every face appears twice (every hit an
+    exact tie)."""
     out = {}
     for name in ("sphere4", "spheres", "twins"):
         p = _sphere4() if name == "sphere4" else _soup(name)
         verts, faces = _mesh_of(p)
         jpb = j_pack_packet_bvh(j_build_bvh(verts, faces), *p)
         tpb = pack_packet_bvh(build_bvh(verts, faces), *p, device="cpu")
-        out[name] = (p, jpb, tpb)
+        out[name] = (p, jpb, tpb, pack_wide_bvh(tpb))
     return out
 
 
@@ -72,7 +77,7 @@ def _j(*xs):
 
 @pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
 def test_pack_packet_bvh_bit_identical(tables, name):
-    _, jpb, tpb = tables[name]
+    _, jpb, tpb, _ = tables[name]
     for field in ("nodes", "tri"):
         got = getattr(tpb, field)
         assert got.dtype == torch.float32, field
@@ -90,16 +95,132 @@ def test_pack_packet_bvh_bit_identical(tables, name):
                                   leaves[1:, 6])
 
 
+def _wide_invariants(twb, tpb):
+    """Check the WideBVH against its PacketBVH: every row in exactly one
+    leaf slot (so every face of the table in exactly one leaf), each slot's
+    box containing its subtree (the boxes of an inner child's slots, the
+    vertices of a leaf's rows), an inner child linking a later node that
+    no other slot links, the lower slot holding the lower rows, and the
+    leaves of at most PACKET_LEAF rows. Returns the rows' leaf count."""
+    nodes = twb.nodes.numpy().reshape(-1, WIDE, 8)
+    tri = tpb.tri.numpy()
+    n_rows = int((tpb.nodes[:, 7]).sum())
+    seen = np.zeros(n_rows, np.int64)
+    parents = np.zeros(len(nodes), np.int64)
+    first_row = np.full(len(nodes), np.iinfo(np.int64).max)
+
+    def rows_of(w):  # the least row below node w
+        out = []
+        for lo_hi_first_count in nodes[w]:
+            f, c = int(lo_hi_first_count[6]), int(lo_hi_first_count[7])
+            out.append(f if c > 0 else rows_of(f) if c == 0 else None)
+        return min(r for r in out if r is not None)
+
+    for w in range(len(nodes) - 1, -1, -1):
+        prev = -1
+        for slot in nodes[w]:
+            lo, hi, f, c = slot[0:3], slot[3:6], int(slot[6]), int(slot[7])
+            if c < 0:
+                continue
+            if c > 0:
+                assert c <= tisect.PACKET_LEAF
+                seen[f: f + c] += 1
+                r = tri[f: f + c]
+                for v in (r[:, 0:3], r[:, 0:3] + r[:, 3:6],
+                          r[:, 0:3] + r[:, 6:9]):
+                    assert (v >= lo - 1e-6).all() and (v <= hi + 1e-6).all()
+                low = f
+            else:
+                assert w < f < len(nodes)
+                parents[f] += 1
+                kids = nodes[f][nodes[f][:, 7] >= 0]
+                assert (kids[:, 0:3] >= lo).all()
+                assert (kids[:, 3:6] <= hi).all()
+                low = rows_of(f)
+            assert low > prev
+            prev = low
+    assert (seen == 1).all()
+    assert parents[0] == 0 and (parents[1:] == 1).all()
+    faces = np.sort(tri[:n_rows, 9].astype(np.int64))
+    np.testing.assert_array_equal(faces, np.arange(n_rows))
+    return n_rows
+
+
+@pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
+def test_wide_bvh_invariants(tables, name):
+    p, _, tpb, twb = tables[name]
+    assert twb.nodes.dtype == torch.float32
+    assert twb.nodes.shape[1] == 8 * WIDE and twb.tri is tpb.tri
+    assert _wide_invariants(twb, tpb) == len(p[0])
+    # wide: the nodes hold ~3 children on average, and far fewer nodes than
+    # the PacketBVH's
+    slots = int((twb.nodes[:, 7::8] >= 0).sum())
+    assert slots == len(twb.nodes) - 1 + int((tpb.nodes[:, 7] > 0).sum())
+    assert len(twb.nodes) < len(tpb.nodes) // 2
+    assert 1 <= twb.stack <= tisect.WIDE_STACK_MAX
+
+
+def test_wide_bvh_of_the_packet_scene(packet_scenes):
+    """The scene's WideBVH is built from its PacketBVH, rebuilt with it,
+    and holds the icosphere's faces once each."""
+    _, ts = packet_scenes
+    assert ts.wbvh.tri is ts.pbvh.tri
+    assert _wide_invariants(ts.wbvh, ts.pbvh) == ts.geo.n_faces
+    other = pack_packet_bvh(*bi.soup_bvh(ts), device="cpu")
+    swapped = dataclasses.replace(ts, pbvh=other)
+    assert swapped.wbvh.tri is other.tri
+    # a one-leaf PacketBVH gives a root with that one child
+    p = [x[:5] for x in _sphere4()]
+    small = pack_packet_bvh(build_bvh(*_mesh_of(p)), *p, device="cpu")
+    wb = pack_wide_bvh(small)
+    assert wb.nodes.shape[0] == 1 and wb.stack == 1
+    assert int((wb.nodes[0, 7::8] >= 0).sum()) == 1
+    o, d = _rays(64, seed=4)
+    t, prim, _, _ = tisect.intersect_bvh(wb, *_t(o, d, np.full(
+        64, np.inf, np.float32)))
+    assert ((prim >= 0) == torch.isfinite(t)).all()
+
+
+@pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
+def test_wide_walk_matches_skip_link_walk(tables, name):
+    """The closest hit over the WideBVH against the skip-link walk it
+    replaced, on the same rays, maxt inf and finite: the least (t, row)
+    with near <= best gates is the skip-link walk's first hit in row order
+    with near < best gates, so prim, t, u and v agree on every lane here
+    (a box culled by rounding could part them on a rare lane); the stack
+    never outgrows the table's bound."""
+    _, _, tpb, twb = tables[name]
+    n = 4096
+    o, d = _rays(n, seed=7)
+    if name == "spheres":
+        o[:, 0] *= 2.0
+    rng = np.random.default_rng(3)
+    mt = np.where(rng.random(n) < 0.3, rng.uniform(0.5, 4.0, n),
+                  np.inf).astype(np.float32)
+    counts = {}
+    t, prim, u, v = tisect.intersect_bvh_plain(twb, *_t(o, d, mt),
+                                               counts=counts)
+    ot, oprim, ou, ov, _ = tisect._bvh_walk(tpb, *_t(o, d, mt), False, None)
+    oprim = oprim.to(torch.int32)
+    assert torch.equal(prim, oprim)
+    assert torch.equal(t, torch.where(oprim >= 0, ot, float("inf")))
+    assert torch.equal(u, ou) and torch.equal(v, ov)
+    assert 0.2 < (prim >= 0).float().mean() < 0.9
+    assert 0 < counts["stack_peak"] <= twb.stack
+    assert counts["steps"] == int(counts["ray_pops"].max())
+    assert counts["triangle_tests"] == int(counts["ray_triangle_tests"].sum())
+
+
 @pytest.mark.parametrize("name", ["sphere4", "spheres", "twins"])
 def test_intersect_bvh_plain_matches_jax_kernel(tables, name):
-    _, jpb, tpb = tables[name]
+    _, jpb, _, twb = tables[name]
     o, d = _rays(1024, seed=len(name))
     if name == "spheres":
         o[:, 0] *= 2.0  # spread the origins over the three spheres
     mt = np.full(1024, np.inf, np.float32)
     jt, jp, ju, jv = map(np.asarray, pallas_bvh_intersect(
         jpb, *_j(o, d, mt), interpret=True))
-    t, p, u, v = (x.numpy() for x in tisect.intersect_bvh(tpb, *_t(o, d, mt)))
+    t, p, u, v = (x.numpy() for x in tisect.intersect_bvh(twb, *_t(o, d, mt)))
     assert p.dtype == np.int32
     # the tolerances of tests/test_bvh_pallas.py: equal hit masks, prim
     # equal or tied, t at rtol 1e-4 / atol 1e-5, u and v at rtol 1e-3 /
@@ -122,7 +243,7 @@ def test_intersect_bvh_plain_matches_oracle_and_clu2(tables):
     against the port's clu2 walk on the same mesh: 1,024 rays with equal hit
     masks (the JAX test's demand of its kernel), and 8,192 rays on which the
     share of lanes that differ is stated."""
-    p, _, tpb = tables["sphere4"]
+    p, _, _, twb = tables["sphere4"]
     verts, faces = _mesh_of(p)
     ct = pack_clusters2(build_bvh(verts, faces), *p, device="cpu")
     for n, seed in ((1024, 0), (8192, 5)):
@@ -131,7 +252,7 @@ def test_intersect_bvh_plain_matches_oracle_and_clu2(tables):
         rt, rp, ru, _ = map(np.asarray, brute_force_intersect(
             *_j(*p), *_j(o, d, mt)))
         t, prim, u, _ = (x.numpy() for x in tisect.intersect_bvh_plain(
-            tpb, *_t(o, d, mt)))
+            twb, *_t(o, d, mt)))
         ct_t, ct_p, _, _ = (x.numpy() for x in tisect.intersect_clu2_plain(
             ct, *_t(o, d, mt)))
         hit = prim >= 0
@@ -153,10 +274,10 @@ def test_intersect_bvh_plain_matches_oracle_and_clu2(tables):
 def test_bvh_maxt(tables):
     """Segments that end before the sphere miss; an infinite maxt is carried
     as a finite bound and a miss returns t = inf, prim = -1."""
-    _, jpb, tpb = tables["sphere4"]
+    _, jpb, tpb, twb = tables["sphere4"]
     o, d = _rays(256, seed=1)
     mt = np.full(256, 0.5, np.float32)  # the surface is >= 2 from |o| = 3
-    t, prim, u, v = tisect.intersect_bvh(tpb, *_t(o, d, mt))
+    t, prim, u, v = tisect.intersect_bvh(twb, *_t(o, d, mt))
     assert (prim == -1).all() and torch.isinf(t).all()
     assert (u == 0).all() and (v == 0).all()
     assert not tisect.occluded_bvh(tpb, *_t(o, d, mt)).any()
@@ -167,9 +288,9 @@ def test_bvh_maxt(tables):
 
 @pytest.mark.parametrize("name", ["sphere4", "spheres"])
 def test_occluded_bvh_plain_matches_jax_kernel(tables, name):
-    _, jpb, tpb = tables[name]
+    _, jpb, tpb, twb = tables[name]
     o, d = _rays(1024, seed=2)
-    t0 = tisect.intersect_bvh(tpb, *_t(o, d, np.full(1024, np.inf,
+    t0 = tisect.intersect_bvh(twb, *_t(o, d, np.full(1024, np.inf,
                                                       np.float32)))[0].numpy()
     rng = np.random.default_rng(11)
     # segments ending just short of / past the closest hit, random ones,
@@ -185,41 +306,58 @@ def test_occluded_bvh_plain_matches_jax_kernel(tables, name):
     got = tisect.occluded_bvh_plain(tpb, *_t(o, d, mt), counts=counts).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0.1 < got.mean() < 0.9
-    # the any-hit walk stops at the first hit: fewer tests than closest hit
-    tisect.intersect_bvh_plain(tpb, *_t(o, d, mt), counts=full)
+    # the any-hit walk stops at the first hit: fewer tests than the same
+    # skip-link walk to the closest hit
+    tisect._bvh_walk(tpb, *_t(o, d, mt), False, full)
     assert 0 < counts["triangle_tests"] < full["triangle_tests"]
     assert 1024 <= counts["slab_tests"] < full["slab_tests"]
 
 
 def test_bvh_dead_lane_convention(tables):
-    """The canonical dead ray (o = 1e8, d = +z) fails the root's slab test:
-    one box test per lane and no triangle test."""
-    _, _, tpb = tables["sphere4"]
+    """The canonical dead ray (o = 1e8, d = +z) fails the root's slab test
+    of the skip-link walk (one box test per lane, no triangle test) and the
+    slab tests of the WideBVH root's children (one pop per lane)."""
+    _, _, tpb, twb = tables["sphere4"]
     n = 256
     o = torch.full((n, 3), 1e8)
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(n, 1)
-    counts = {}
-    t, p, _, _ = tisect.intersect_bvh_plain(
-        tpb, o, d, torch.full((n,), float("inf")), counts=counts)
-    assert (p == -1).all() and torch.isinf(t).all()
+    counts, wide = {}, {}
+    occ = tisect.occluded_bvh_plain(tpb, o, d, torch.full((n,), 1e30),
+                                    counts=counts)
+    assert not occ.any()
     assert counts == {"slab_tests": n, "triangle_tests": 0, "steps": 1}
+    t, p, _, _ = tisect.intersect_bvh_plain(
+        twb, o, d, torch.full((n,), float("inf")), counts=wide)
+    assert (p == -1).all() and torch.isinf(t).all()
+    root = int((twb.nodes[0, 7::8] >= 0).sum())
+    assert {k: wide[k] for k in ("slab_tests", "triangle_tests", "steps",
+                                 "stack_peak")} == {
+        "slab_tests": n * root, "triangle_tests": 0, "steps": 1,
+        "stack_peak": 0}
+    assert (wide["ray_pops"] == 1).all()
     assert not tisect.occluded_bvh(tpb, o, d, torch.zeros(n)).any()
 
 
 def test_bvh_wrappers_check_arguments(tables):
-    _, _, tpb = tables["sphere4"]
+    _, _, tpb, twb = tables["sphere4"]
     o, d, mt = torch.zeros((5, 3)), torch.ones((5, 3)), torch.ones(5)
     with pytest.raises(TypeError):
-        tisect.intersect_bvh(tpb, o.double(), d, mt)
+        tisect.intersect_bvh(twb, o.double(), d, mt)
     with pytest.raises(ValueError):
         tisect.occluded_bvh(tpb, o, d[:4], mt)
     with pytest.raises(ValueError):
         tisect.intersect_bvh(
-            dataclasses.replace(tpb, tri=tpb.tri[:, :8].contiguous()),
+            dataclasses.replace(twb, tri=twb.tri[:, :8].contiguous()),
             o, d, mt)
     with pytest.raises(ValueError):
         tisect.occluded_bvh(
             dataclasses.replace(tpb, nodes=tpb.nodes[:0]), o, d, mt)
+    # a PacketBVH is not the closest hit's table, and the stack must fit
+    with pytest.raises(ValueError):
+        tisect.intersect_bvh(tpb, o, d, mt)
+    with pytest.raises(ValueError):
+        tisect.intersect_bvh(dataclasses.replace(
+            twb, stack=tisect.WIDE_STACK_MAX + 1), o, d, mt)
 
 
 def _mixed_rays(scene, seed):
@@ -296,7 +434,7 @@ def test_packet_route_sorts_and_unsorts(packet_scenes):
     ray = Ray.create(*_t(o, d))
     ops.reset_launch_counts()
     si = ts.ray_intersect(ray)
-    t, prim, _, _ = tisect.intersect_bvh(ts.pbvh, ray.o, ray.d, ray.maxt)
+    t, prim, _, _ = tisect.intersect_bvh(ts.wbvh, ray.o, ray.d, ray.maxt)
     np.testing.assert_array_equal(si.prim_idx.numpy(), prim.numpy())
     np.testing.assert_array_equal(si.t.numpy(), t.numpy())
     assert 0.2 < si.valid.float().mean() < 0.9
@@ -322,6 +460,6 @@ def test_packet_entry_points_need_a_card_unless_asked_for_the_cpu(tables):
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tpresets.mesh_scene(8, 8, 2, accel="packet")
-    p, _, _ = tables["sphere4"]
+    p, _, _, _ = tables["sphere4"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pack_packet_bvh(build_bvh(*_mesh_of(p)), *p)
