@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # one card, ~3 min with the build
 
-    python3 chip_smoke.py --turns ROOT   # B4 and B7a of the package in ROOT
+    python3 chip_smoke.py --turns ROOT   # B4, B7a, B5, B6 of the package
+                                         # in ROOT
 
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -32,7 +33,14 @@ Phases, each printing one JSON line with its seconds:
                   stated, timed with CUDA events (10 back-to-back calls,
                   median of 7; the clu2 and BVH plain walks once per ray
                   set). B4 on four cases (its bound counted by
-                  `lobe_sum_count`). B7 runs on the five mesh82k ray sets
+                  `lobe_sum_count`). B5 (camera, bounce, bounce-random,
+                  dead) and B6 (shadow, shadow-random, dead) on the mesh82k
+                  scene at 1,048,576 lanes, equal to their plain walk (root
+                  box, groups of supers, then the DFS walk) to the bit and
+                  to the DFS walk without the gates, each row with the
+                  plain walk's tests a ray (its bound's count) and the DFS
+                  walk's beside them. B7
+                  runs on the five live mesh82k ray sets
                   of B5/B6 at 1,048,576 lanes, unsorted and sorted by the
                   route's coherence sort, whose own time is printed, and on
                   the 131,072-lane wavefront the regenerative path gives
@@ -92,6 +100,7 @@ Phases, each printing one JSON line with its seconds:
                   per pass, as `main`: the clu2 kernels launch 4 times per
                   pass, the q and grating kernels never;
   split-mesh82k   as `split`, to chiprun_out/chip_smoke_profile_mesh82k.json;
+                  its line also gives B5's and B6's device ms a launch;
   main-mesh82k-packet  the same scene on the packet route,
                   render(regen=True, pixel_order="morton"): 131,072 lanes,
                   B7a and B7b launch once per loop iteration, B1-B6 never;
@@ -763,14 +772,40 @@ def random_surface_rays(scene, n, rng):
     return hemisphere_rays(scene, p, ng, np.ones(n, bool), rng)
 
 
+def dead_rays(n, dev):
+    """n of the integrator's canonical dead rays (o = 1e8, d = +z): the
+    mesh path's launches after the first bounce off the convex icosphere
+    carry only these. maxt inf for a closest hit, 0 for a shadow ray."""
+    import torch
+
+    o = torch.full((n, 3), 1e8, device=dev)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=dev).repeat(n, 1)
+    return ((o, d, torch.full((n,), float("inf"), device=dev)),
+            (o, d, torch.zeros((n,), device=dev)))
+
+
+def clu2_ops(n, counts, test_ops):
+    """The operations of a clu2 walk's counts: the ray terms, a slab test
+    for each root, group, super and cluster test, test_ops for each
+    triangle."""
+    slabs = sum(counts.get(k, 0) for k in ("root_tests", "group_tests",
+                                           "super_tests", "cluster_tests"))
+    return (n * CLU2_RAY_SETUP_OPS + slabs * SLAB_OPS
+            + counts["triangle_tests"] * test_ops)
+
+
 def check_clu2(scene, rng):
-    """B5 and B6 against their plain versions on the mesh82k scene. Closest
-    hit: the camera rays, the first bounce's rays from their hits, and
-    incoherent rays from random surface points; any hit: the shadow rays
-    of the first bounce and of the random points. The kernels line carries
-    the path's own sets: camera rays (B5) and first-bounce shadow rays
-    (B6). Returns (those two rows, the ray sets {label: (o, d, maxt)}, the
-    kernels' ms on each {label: ms})."""
+    """B5 and B6 against their plain walk on the mesh82k scene, to the bit,
+    and the plain walk against the DFS walk without the gates
+    (`intersect_clu2_dfs`, the first port's), to the bit. Closest hit: the
+    camera rays, the first bounce's rays from their hits, incoherent rays
+    from random surface points and canonical dead rays; any hit: the shadow
+    rays of the first bounce and of the random points, and dead rays. Each
+    row carries the plain walk's tests a ray, which its bound counts, and
+    the DFS walk's beside them. The kernels line carries the path's own sets:
+    camera rays (B5) and first-bounce shadow rays (B6). Returns (those two
+    rows, the ray sets {label: (o, d, maxt)} but the dead ones, the kernels'
+    ms on each {label: ms})."""
     import torch
 
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
@@ -787,34 +822,36 @@ def check_clu2(scene, rng):
     common = {"route": "cuda",
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_clu2.cu",
               "plain_timing": "the comparison call, once at full width",
-              "library_ms": None,
-              "n": n}
+              "library_ms": None, "n": n}
+
+    def per_ray(counts):
+        return {k: v / n for k, v in counts.items()}
 
     def closest(label, o, d, mt):
-        counts = {}
+        counts, dfs = {}, {}
         got = isect.intersect_clu2(ct, o, d, mt)
         want, plain_ms = time_once(lambda: isect.intersect_clu2_plain(
             ct, o, d, mt, counts=counts))
+        ref = isect.intersect_clu2_dfs(ct, o, d, mt, counts=dfs)
         prim_same = got[1] == want[1]
         frac_prim = prim_same.float().mean().item()
         both = prim_same & (want[1] >= 0)
-        # tolerance: t, u, v at rtol 1e-5 / atol 1e-6 on lanes that hit the
-        # same triangle (the kernel rounds as the plain version does, so
-        # these agree to the bit); prim may differ only where the plain
-        # version's per-lane box gate rejects a hit on a box face within
-        # float rounding: at most 1 lane in 10,000
-        oks = [frac_close(got[k][both], want[k][both], 1e-5, 1e-6)
-               for k in (0, 2, 3)]
+        # tolerance: none. The kernel rounds every product and sum as the
+        # plain walk does and walks in its order, so prim, t, u and v are
+        # equal on every lane (the first port's floor, prim on all but 1
+        # lane in 10,000, stays checked first); the gates change no result
         require(frac_prim >= 1 - 1e-4,
                 f"intersect_clu2 {label} prim agreement {frac_prim}")
-        require(min(oks) == 1.0, f"intersect_clu2 {label} t/u/v {oks}")
+        require(all(torch.equal(got[k], want[k]) for k in range(4)),
+                f"intersect_clu2 {label}: prim/t/u/v differ from the plain "
+                f"walk")
+        require(all(torch.equal(ref[k], want[k]) for k in range(4)),
+                f"intersect_clu2 {label}: the gates changed a result")
         err = max((got[k][both] - want[k][both]).abs().max().item()
                   if both.any() else 0.0 for k in (0, 2, 3))
         ms = time_ms(lambda: isect.intersect_clu2(ct, o, d, mt))
-        ops = (n * CLU2_RAY_SETUP_OPS
-               + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
-               + counts["triangle_tests"] * Q_TEST_OPS)
-        bnd = bound(nbytes(tables, o, d, mt, got), ops)
+        bnd = bound(nbytes(tables, o, d, mt, got),
+                    clu2_ops(n, counts, Q_TEST_OPS))
         row = {"name": "intersect_clu2", **common,
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352 "
                            "(pallas_intersect_clu2)",
@@ -822,24 +859,31 @@ def check_clu2(scene, rng):
                **bnd, "rays": label,
                "prim_agreement": frac_prim,
                "hit_share": (want[1] >= 0).float().mean().item(),
-               "tests_per_ray": {k: v / n for k, v in counts.items()}}
+               "tests_per_ray": per_ray(counts),
+               "dfs_tests_per_ray": per_ray(dfs),
+               "dfs_bound_ms": bound(nbytes(tables, o, d, mt, got),
+                                     clu2_ops(n, dfs, Q_TEST_OPS))["bound_ms"]}
         return row, got
 
     def anyhit(label, o, d, mt):
-        counts = {}
+        counts, dfs = {}, {}
         occ = isect.occluded_clu2(ct, o, d, mt)
         occ_plain, plain_ms = time_once(lambda: isect.occluded_clu2_plain(
             ct, o, d, mt, counts=counts))
-        frac_occ = (occ == occ_plain).float().mean().item()
-        # tolerance: equal except where t lies within float rounding of 0,
-        # maxt or a box face: at most 1 lane in 10,000
+        ref = isect.occluded_clu2_dfs(ct, o, d, mt, counts=dfs)
+        frac_occ = (occ == occ_plain).double().mean().item()
+        # tolerance: none (the first port's floor, all but 1 lane in
+        # 10,000, first)
         require(frac_occ >= 1 - 1e-4,
                 f"occluded_clu2 {label} agreement {frac_occ}")
+        require(frac_occ == 1.0,
+                f"occluded_clu2 {label}: differs from the plain walk on "
+                f"{1.0 - frac_occ} of lanes")
+        require(torch.equal(ref, occ_plain),
+                f"occluded_clu2 {label}: the gates changed a result")
         ms = time_ms(lambda: isect.occluded_clu2(ct, o, d, mt))
-        ops = (n * CLU2_RAY_SETUP_OPS
-               + (counts["super_tests"] + counts["cluster_tests"]) * SLAB_OPS
-               + counts["triangle_tests"] * Q_ANYHIT_TEST_OPS)
-        bnd = bound(nbytes(tables, o, d, mt, occ), ops)
+        bnd = bound(nbytes(tables, o, d, mt, occ),
+                    clu2_ops(n, counts, Q_ANYHIT_TEST_OPS))
         return {"name": "occluded_clu2", **common,
                 "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364 "
                             "(pallas_occluded_clu2)",
@@ -847,7 +891,11 @@ def check_clu2(scene, rng):
                 "plain_ms": plain_ms, **bnd,
                 "rays": label, "occ_agreement": frac_occ,
                 "occluded_share": occ_plain.float().mean().item(),
-                "tests_per_ray": {k: v / n for k, v in counts.items()}}
+                "tests_per_ray": per_ray(counts),
+                "dfs_tests_per_ray": per_ray(dfs),
+                "dfs_bound_ms": bound(
+                    nbytes(tables, o, d, mt, occ),
+                    clu2_ops(n, dfs, Q_ANYHIT_TEST_OPS))["bound_ms"]}
 
     cam_row, cam_hit = closest("camera", cam.o, cam.d, cam.maxt)
     sets = {"camera": (cam.o, cam.d, cam.maxt)}
@@ -858,7 +906,11 @@ def check_clu2(scene, rng):
     for label in ("bounce", "bounce-random"):
         rows[label] = closest(label, *sets[label])[0]
     rows["shadow-random"] = anyhit("shadow-random", *sets["shadow-random"])
-    for label in ("bounce", "bounce-random", "shadow-random"):
+    dead, dead_shadow = dead_rays(n, dev)
+    rows["dead"] = closest("dead", *dead)[0]
+    rows["dead-shadow"] = anyhit("dead", *dead_shadow)
+    for label in ("bounce", "bounce-random", "shadow-random", "dead",
+                  "dead-shadow"):
         emit({"phase": "kernels", **rows[label]})
     return ([rows["camera"], rows["shadow"]], sets,
             {label: r["ms"] for label, r in rows.items()})
@@ -1743,23 +1795,28 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     with open(os.path.join(OUT_DIR, out_file), "w") as f:
         json.dump({"pass_wall_ms": pass_s * 1e3, "device_ms": total,
                    "ops": rows}, f, indent=1)
+    # B5/B6 a launch: the clu2 kernel's rows (one per instance)
+    clu2 = {r["name"]: {"launches": r["count"], "device_ms": r["device_ms"],
+                        "ms_per_launch": r["device_ms"] / r["count"]}
+            for r in rows if "clu2_kernel" in r["name"]}
     ph.emit(pass_wall_ms=pass_s * 1e3, device_busy_ms=total,
             device_idle_share=(1.0 - total / (pass_s * 1e3)
                                if total > 0 else None),
-            our_kernels_ms=ours,
+            our_kernels_ms=ours, clu2_per_launch=clu2,
             our_kernels_share_of_busy=(sum(ours.values()) / total
                                        if total > 0 else None),
             device_ops_launched=n_kernels, top_ops=rows[:12])
 
 
 def turns(root):
-    """`python3 chip_smoke.py --turns ROOT`: B4 and B7a of the package in
-    ROOT (this checkout, or another commit unpacked there) timed at the
-    paths' shapes, as one JSON line: B4 on the kernels phase's main case
-    (half 3, separable, 1,920,000 lanes), B7a on the mesh82k packet scene's
-    closest-hit sets (camera, bounce, bounce-random: 1,048,576 lanes,
-    unsorted and sorted by the route) and on the regenerative wavefront's
-    131,072 camera rays, sorted. The kernels build in ROOT. Run it over two
+    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B5 and B6 of the
+    package in ROOT (this checkout, or another commit unpacked there) timed
+    at the paths' shapes, as one JSON line: B4 on the kernels phase's main
+    case (half 3, separable, 1,920,000 lanes), B7a on the mesh82k packet
+    scene's closest-hit sets (camera, bounce, bounce-random: 1,048,576
+    lanes, unsorted and sorted by the route) and on the regenerative
+    wavefront's 131,072 camera rays, sorted, B5 and B6 on the six sets of
+    `turns_clu2`. The kernels build in ROOT. Run it over two
     checkouts in turns (parent, change, change, parent) within one chip
     call to compare them on one card."""
     import torch
@@ -1816,13 +1873,46 @@ def turns(root):
     in_order = (rcam.o[perm], rcam.d[perm], rcam.maxt[perm])
     bvh_ms["regen camera, sorted"] = time_ms(
         lambda: isect.intersect_bvh(table, *in_order))
+    del scene, sets, rcam, in_order
+    clu2_ms = turns_clu2(isect, rng)
     emit({"turns": root, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
           "intersect_bvh_ms": bvh_ms, "closest_table": type(table).__name__,
+          "clu2_ms": clu2_ms,
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
-                                         "anyhit"))},
+                                         "anyhit", "clu2"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
+
+
+def turns_clu2(isect, rng):
+    """B5 and B6 of the package `isect` belongs to, timed on the mesh82k
+    clu2 scene's sets of the kernels phase at 1,048,576 lanes: {set: ms},
+    B5 on the camera, bounce, bounce-random and dead rays, B6 on the
+    shadow, shadow-random and dead rays."""
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+
+    scene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, device="cuda")
+    ct = scene.ctab2
+    W, H = scene.sensor.resolution
+    cam, _ = sample_rays(scene, Sampler.create(
+        0, W * H * MESH_SPP_PASS, device="cuda"), W, H, MESH_SPP_PASS)
+    n = cam.o.shape[0]
+    closest = {"camera": (cam.o, cam.d, cam.maxt)}
+    closest["bounce"], shadow = camera_hit_rays(
+        scene, cam, isect.intersect_clu2(ct, cam.o, cam.d, cam.maxt), rng)
+    closest["bounce-random"], shadow_random = random_surface_rays(
+        scene, n, rng)
+    closest["dead"], dead_shadow = dead_rays(n, "cuda")
+    anyhit = {"shadow": shadow, "shadow-random": shadow_random,
+              "dead": dead_shadow}
+    out = {f"B5 {label}": time_ms(lambda: isect.intersect_clu2(ct, *r))
+           for label, r in closest.items()}
+    out.update({f"B6 {label}": time_ms(lambda: isect.occluded_clu2(ct, *r))
+                for label, r in anyhit.items()})
+    return out
 
 
 def main():

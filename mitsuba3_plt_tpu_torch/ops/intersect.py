@@ -721,10 +721,13 @@ class _CluWalk:
     ClusterTable2: the supers in order, then the clusters of each super a
     lane enters; over a flat ClusterTable (no supers): every cluster in
     order. Each entered cluster's triangles come as one [lanes, T] block in
-    table order. `counts` (a dict, or None) accumulates the slab tests and
-    triangle tests performed."""
+    table order. With `gates` (a ClusterTable2 only) a lane first tests the
+    table's root box, then each group of supers (`clu2_gates`), and tests
+    only the supers of the groups it enters; the gates change no result.
+    `counts` (a dict, or None) accumulates the slab tests and triangle
+    tests performed."""
 
-    def __init__(self, ctab, o, d, maxt, counts):
+    def __init__(self, ctab, o, d, maxt, counts, gates=False):
         o3, d3, c3, self.mt = _ray_terms(ctab.anchor, o, d, maxt)
         self.o = torch.stack(o3, -1)
         self.d = torch.stack(d3, -1)
@@ -743,6 +746,11 @@ class _CluWalk:
             self.spans = [(4 * f, 4 * k) for f, k in meta]
             self.sup_meta = self.supers[:, 6:8].to(torch.int64).tolist()
             keys = ("super_tests",) + keys
+        self.gates = gates
+        if gates:
+            self.root, self.groups = ctab.root, ctab.groups
+            self.group_meta = self.groups[:, 6:8].to(torch.int64).tolist()
+            keys = ("root_tests", "group_tests") + keys
         self.counts = counts
         if counts is not None:
             for key in keys:
@@ -766,13 +774,31 @@ class _CluWalk:
         if self.supers is None:
             yield all_lanes, range(self.boxes.shape[0])
             return
-        for s, (c0, ncl) in enumerate(self.sup_meta):
-            near, far = self.slab(self.supers[s], self.o, self.inv)
-            self._count("super_tests", self.o.shape[0])
-            ent = (near <= far) & (far > 0.0) & gate(near, all_lanes)
-            lanes_s = all_lanes[ent]
-            if ncl and lanes_s.numel():
-                yield lanes_s, range(c0, c0 + ncl)
+        if not self.gates:
+            for s, (c0, ncl) in enumerate(self.sup_meta):
+                near, far = self.slab(self.supers[s], self.o, self.inv)
+                self._count("super_tests", self.o.shape[0])
+                ent = (near <= far) & (far > 0.0) & gate(near, all_lanes)
+                lanes_s = all_lanes[ent]
+                if ncl and lanes_s.numel():
+                    yield lanes_s, range(c0, c0 + ncl)
+            return
+
+        def enter(box, lanes, key):
+            near, far = self.slab(box, self.o[lanes], self.inv[lanes])
+            self._count(key, lanes.numel())
+            return lanes[(near <= far) & (far > 0.0) & gate(near, lanes)]
+
+        lanes = enter(self.root, all_lanes, "root_tests")
+        for g, (s0, ns) in enumerate(self.group_meta):
+            lanes_g = enter(self.groups[g], lanes, "group_tests")
+            for s in range(s0, s0 + ns):
+                if not lanes_g.numel():
+                    break
+                lanes_s = enter(self.supers[s], lanes_g, "super_tests")
+                c0, ncl = self.sup_meta[s]
+                if ncl and lanes_s.numel():
+                    yield lanes_s, range(c0, c0 + ncl)
 
     def walk(self, gate):
         """Yield (lanes, box index) for every cluster with triangles that a
@@ -875,14 +901,59 @@ def _walk_anyhit(walk):
     return occ
 
 
-def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
-    """Plain version of `intersect_clu2` (`_walk_closest`)."""
+def intersect_clu2_dfs(ctab2, o, d, maxt, counts=None):
+    """The walk over a ClusterTable2 without the gates (`_walk_closest`):
+    every super in order, then the clusters of each super a lane enters in
+    table order, gated per lane by near * |det|_best < (t |det|)_best; the
+    first of two tied triangles in table order wins. The first clu2 kernels
+    walked this way; it stays as the reference of `intersect_clu2_plain`,
+    which returns the same and counts the tests the gates save."""
     return _walk_closest(_CluWalk(ctab2, o, d, maxt, counts))
 
 
-def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
-    """Plain version of `occluded_clu2` (`_walk_anyhit`)."""
+def occluded_clu2_dfs(ctab2, o, d, maxt, counts=None):
+    """The any-hit walk over a ClusterTable2 without the gates
+    (`_walk_anyhit`)."""
     return _walk_anyhit(_CluWalk(ctab2, o, d, maxt, counts))
+
+
+# supers a group of the clu2 walks' gates
+CLU2_GROUP = 16
+
+
+def clu2_gates(supers):
+    """The two gates of the clu2 walks above the supers, from a
+    ClusterTable2's supers [S, 16]: (root [8], groups [G, 8]). A group is
+    CLU2_GROUP consecutive supers that hold clusters (the padding supers at
+    the end hold none): lo(3) hi(3) first_super n_supers, its planes the
+    exact least and greatest of theirs; the root's are those of all groups
+    (0 0 in its last two columns). Each slab plane is rounded monotonically
+    in its box plane, so a ray that enters a super also passes its group's
+    test and the root's, and the gates change no result."""
+    n_real = int((supers[:, 7] > 0).sum())
+    groups = []
+    for g0 in range(0, n_real, CLU2_GROUP):
+        seg = supers[g0: min(g0 + CLU2_GROUP, n_real)]
+        groups.append(torch.cat([
+            seg[:, 0:3].amin(0), seg[:, 3:6].amax(0),
+            seg.new_tensor([g0, seg.shape[0]])]))
+    groups = torch.stack(groups)
+    root = torch.cat([groups[:, 0:3].amin(0), groups[:, 3:6].amax(0),
+                      groups.new_zeros(2)])
+    return root, groups
+
+
+def intersect_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `intersect_clu2`: the kernel's walk, the root box,
+    the groups and then `intersect_clu2_dfs`'s walk below the groups a lane
+    enters (`_CluWalk` with gates). `counts` also takes root_tests and
+    group_tests."""
+    return _walk_closest(_CluWalk(ctab2, o, d, maxt, counts, gates=True))
+
+
+def occluded_clu2_plain(ctab2, o, d, maxt, counts=None):
+    """Plain version of `occluded_clu2` (`_CluWalk` with gates)."""
+    return _walk_anyhit(_CluWalk(ctab2, o, d, maxt, counts, gates=True))
 
 
 def intersect_clu_plain(ctab, o, d, maxt, counts=None):
@@ -899,6 +970,18 @@ def occluded_clu_plain(ctab, o, d, maxt, counts=None):
     return _walk_anyhit(_CluWalk(ctab, o, d, maxt, counts))
 
 
+def _check_clu2(name, ctab2, o, d, maxt):
+    """`_check_clu` of a ClusterTable2 and its gates (`clu2_gates`)."""
+    dev, n = _check_clu(name, ctab2, o, d, maxt, _CLU2_WIDTHS)
+    for arg, dims in (("root", 1), ("groups", 2)):
+        t = getattr(ctab2, arg)
+        if (t.dtype != torch.float32 or t.dim() != dims or t.shape[-1] != 8
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be a {dims}-d [.., 8] "
+                             f"float32 tensor on {dev}")
+    return dev, n
+
+
 def intersect_clu2(ctab2, o, d, maxt):
     """Closest hit over a ClusterTable2 (scene/bvh.py).
 
@@ -907,7 +990,7 @@ def intersect_clu2(ctab2, o, d, maxt):
     miss. CPU tensors run the plain version; CUDA tensors launch the
     kernel."""
     global INTERSECT_CLU2_LAUNCHES
-    dev, n = _check_clu("intersect_clu2", ctab2, o, d, maxt, _CLU2_WIDTHS)
+    dev, n = _check_clu2("intersect_clu2", ctab2, o, d, maxt)
     if dev.type == "cpu":
         return intersect_clu2_plain(ctab2, o, d, maxt)
     from .build import check, load_library
@@ -919,11 +1002,11 @@ def intersect_clu2(ctab2, o, d, maxt):
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_intersect_clu2(
-        ctab2.supers.data_ptr(), ctab2.supers.shape[0],
-        ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
-        ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
-        n, t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        stream), "intersect_clu2")
+        ctab2.supers.data_ptr(), ctab2.groups.data_ptr(),
+        ctab2.groups.shape[0], ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
+        ctab2.anchor.data_ptr(), ctab2.root.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), stream), "intersect_clu2")
     INTERSECT_CLU2_LAUNCHES += 1
     return t, prim, u, v
 
@@ -931,7 +1014,7 @@ def intersect_clu2(ctab2, o, d, maxt):
 def occluded_clu2(ctab2, o, d, maxt):
     """Any hit with 0 < t < maxt over a ClusterTable2: [N] bool."""
     global OCCLUDED_CLU2_LAUNCHES
-    dev, n = _check_clu("occluded_clu2", ctab2, o, d, maxt, _CLU2_WIDTHS)
+    dev, n = _check_clu2("occluded_clu2", ctab2, o, d, maxt)
     if dev.type == "cpu":
         return occluded_clu2_plain(ctab2, o, d, maxt)
     from .build import check, load_library
@@ -940,10 +1023,11 @@ def occluded_clu2(ctab2, o, d, maxt):
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_occluded_clu2(
-        ctab2.supers.data_ptr(), ctab2.supers.shape[0],
-        ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
-        ctab2.anchor.data_ptr(), o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
-        n, occ.data_ptr(), stream), "occluded_clu2")
+        ctab2.supers.data_ptr(), ctab2.groups.data_ptr(),
+        ctab2.groups.shape[0], ctab2.boxes.data_ptr(), ctab2.rows.data_ptr(),
+        ctab2.anchor.data_ptr(), ctab2.root.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), stream),
+        "occluded_clu2")
     OCCLUDED_CLU2_LAUNCHES += 1
     return occ
 

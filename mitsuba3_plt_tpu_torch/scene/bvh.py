@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.intersect import CLU_UNROLL, PACKET_LEAF, WIDE, pack_tri_q
+from ..ops.intersect import (CLU_UNROLL, PACKET_LEAF, WIDE, clu2_gates,
+                             pack_tri_q)
 from .native import build_bvh_native
 
 CLU2_SUPER = 16     # DFS-consecutive clusters per super box
@@ -86,12 +87,21 @@ class ClusterTable2:
       original face index (as f32) in column 32j+16. Padding triangles
       have n2 = 0 (so det = 0 and they never hit) and face index -1.
     Padding supers and boxes (`_pad8`) hold no clusters or rows.
+    Beside the fields (which mirror the JAX package's table), `root` [8]
+    and `groups` [G, 8] are the boxes of the clu2 walks' gates above the
+    supers (`ops/intersect.py::clu2_gates`), taken from `supers` whenever a
+    table is made.
     """
 
     supers: torch.Tensor
     boxes: torch.Tensor
     rows: torch.Tensor
     anchor: torch.Tensor
+
+    def __post_init__(self):
+        root, groups = clu2_gates(self.supers)
+        object.__setattr__(self, "root", root)
+        object.__setattr__(self, "groups", groups)
 
 
 def _clusters(bvh: BVH, max_leaf: int):

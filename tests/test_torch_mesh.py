@@ -192,10 +192,16 @@ def test_occluded_clu2_plain_matches_jax_kernel(tables, name):
         interpret=True))
     counts = {}
     got = tisect.occluded_clu2_plain(tct, torch.as_tensor(o),
-                                     torch.as_tensor(d), torch.as_tensor(mt),
-                                     counts=counts).numpy()
+                                     torch.as_tensor(d),
+                                     torch.as_tensor(mt)).numpy()
     assert (got == want).mean() >= 0.999
     assert 0.1 < got.mean() < 0.9
+    # the DFS walk without the gates tests every super of every lane and
+    # gives the same answers
+    dfs = tisect.occluded_clu2_dfs(tct, torch.as_tensor(o),
+                                   torch.as_tensor(d), torch.as_tensor(mt),
+                                   counts=counts).numpy()
+    np.testing.assert_array_equal(dfs, got)
     assert counts["super_tests"] == 1024 * tct.supers.shape[0]
     assert 0 < counts["triangle_tests"] < 1024 * 4 * tct.rows.shape[0]
 
