@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # one card, ~3 min with the build
 
-    python3 chip_smoke.py --turns ROOT   # B4, B7a, B5, B6 of the package
-                                         # in ROOT
+    python3 chip_smoke.py --turns ROOT   # B4, B7a, B7b, B5, B6 of the
+                                         # package in ROOT
 
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -32,20 +32,31 @@ Phases, each printing one JSON line with its seconds:
                   card, at the main paths' lane counts, with the tolerance
                   stated, timed with CUDA events (10 back-to-back calls,
                   median of 7; the clu2 and BVH plain walks once per ray
-                  set). B4 on four cases (its bound counted by
+                  set); a kernel whose calls take under 0.15 ms so is timed
+                  again on the device, a CUDA graph of 10 calls replayed
+                  between events, and keeps the event time as
+                  `wrapper_ms` (`kernel_times`). B1 and B2 on the
+                  grating's rays and on the Cornell box path's own first
+                  camera and shadow rays (2,097,152 lanes, 36 faces). B4
+                  on four cases (its bound counted by
                   `lobe_sum_count`). B5 (camera, bounce, bounce-random,
                   dead) and B6 (shadow, shadow-random, dead) on the mesh82k
                   scene at 1,048,576 lanes, equal to their plain walk (root
                   box, groups of supers, then the DFS walk) to the bit and
                   to the DFS walk without the gates, each row with the
                   plain walk's tests a ray (its bound's count) and the DFS
-                  walk's beside them. B7
-                  runs on the five live mesh82k ray sets
-                  of B5/B6 at 1,048,576 lanes, unsorted and sorted by the
-                  route's coherence sort, whose own time is printed, and on
-                  the 131,072-lane wavefront the regenerative path gives
-                  it; B7a's rows carry the plain walk's pops and triangle
-                  tests a ray (mean, and the mean of each warp's most).
+                  walk's beside them. B7a and B7b (both over the WideBVH)
+                  run on the five live mesh82k ray sets of B5/B6 and on
+                  all-dead sets at 1,048,576 lanes, unsorted and sorted by
+                  the route's coherence sort, whose own time is printed,
+                  and on the 131,072-lane wavefront the regenerative path
+                  gives them, each equal to its plain walk to the bit and
+                  B7b also to the skip-link walk over the PacketBVH; the
+                  rows carry the plain walk's pops and triangle tests a ray
+                  (mean, and the mean of each warp's most). For the
+                  wavefront's shadow rays one line says whether the sort
+                  pays for B7b (the kernel unsorted against sorted plus
+                  the sort, gathers and unsort).
                   B8a, B8b and B9 run on the tool's coherent and incoherent
                   sets of the Cornell box and of the 5,120-face icosphere at
                   1,048,576 lanes, held to their plain versions on all the
@@ -100,7 +111,8 @@ Phases, each printing one JSON line with its seconds:
                   per pass, as `main`: the clu2 kernels launch 4 times per
                   pass, the q and grating kernels never;
   split-mesh82k   as `split`, to chiprun_out/chip_smoke_profile_mesh82k.json;
-                  its line also gives B5's and B6's device ms a launch;
+                  each split line also gives the intersection kernels'
+                  device ms a launch;
   main-mesh82k-packet  the same scene on the packet route,
                   render(regen=True, pixel_order="morton"): 131,072 lanes,
                   B7a and B7b launch once per loop iteration, B1-B6 never;
@@ -148,6 +160,8 @@ FMA_WIDE_ROWS = 1 << 16    # the FMA roof probe at 8x the JAX tool's rows
 TOOL_SUBDIV = 4            # its icosphere: 5,120 faces
 PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
 TIMED_PASSES = 3
+# wrapper times below this are timed again on the device (`kernel_times`)
+DEVICE_TIMED_BELOW_MS = 0.15
 
 # kernel launches per pass of each main path; ITER stands for the
 # iterations of the regenerative loop in that pass
@@ -202,9 +216,11 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, reps=7, calls=10, warmup=2):
-    """Device time of one fn() call in ms: CUDA events around `calls`
-    back-to-back calls (so the host's launch latency overlaps the device
-    work), divided by `calls`; the median of `reps` such runs."""
+    """Time of one fn() call in ms: CUDA events around `calls` back-to-back
+    calls, divided by `calls`; the median of `reps` such runs. The host's
+    launches overlap the device's work, so this is the device time where
+    the device is the slower and the wrapper's host time where the kernel
+    ends first (`kernel_times` then replays a CUDA graph)."""
     import torch
 
     for _ in range(warmup):
@@ -222,6 +238,53 @@ def time_ms(fn, reps=7, calls=10, warmup=2):
         times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, calls=10, reps=7):
+    """Device time of one fn() call in ms: a CUDA graph of `calls` calls,
+    replayed between CUDA events, divided by `calls`; the median of `reps`
+    replays. The host launches the graph once, so this holds no host time,
+    only the device's gaps between the graph's kernels (~1 us a launch).
+    For calls that end before their wrapper returns, where `time_ms` times
+    the host. (torch.profiler's sums of kernel durations agreed with this
+    to ~1 us a launch in --turns, but read ~30% below it and below the
+    event time in the kernels phase of a full run: PERF.md.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_times(fn):
+    """{"ms", "wrapper_ms", "ms_by"}: `time_ms` of fn (the wrapper's time,
+    10 back-to-back calls between CUDA events), and as "ms" the device time
+    by `graph_ms` where that is under DEVICE_TIMED_BELOW_MS (the host's
+    launch then takes about as long as the kernel or longer), else the
+    same event time."""
+    wrapper = time_ms(fn)
+    if wrapper >= DEVICE_TIMED_BELOW_MS:
+        return {"ms": wrapper, "wrapper_ms": wrapper, "ms_by": "events"}
+    return {"ms": graph_ms(fn), "wrapper_ms": wrapper, "ms_by": "graph"}
 
 
 def time_once(fn):
@@ -332,7 +395,9 @@ def ptxas_report(log: str) -> tuple:
                           r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
                           r"sample_kernel|classic_kernel|fn_probe_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
-            plain = re.search(r"(mxu_kernel|fma_roof_kernel|wide_kernel|"
+            # anyhit_kernel: B7b before the WideBVH (--turns)
+            plain = re.search(r"(mxu_kernel|fma_roof_kernel|"
+                              r"wide_anyhit_kernel|wide_kernel|"
                               r"anyhit_kernel)", entry)
             if k:
                 args = re.findall(r"L([ib])(\d+)E", k.group(2))
@@ -466,25 +531,70 @@ def sample_ops(half, ndf):
 # ---------------------------------------------------------------------------
 
 def check_intersect(scene, n_rays, rng):
+    """B1 and B2 on the grating scene: n_rays camera rays (maxt inf), and
+    shadow-like rays: origins in the scene's box off every surface, uniform
+    directions, maxt uniform in [0, 6] with 10% inf and 10% zero."""
     import numpy as np
     import torch
 
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
     from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+
+    dev = scene.device
+    W, H = scene.sensor.resolution
+    spp = max(1, n_rays // (W * H))
+    ray, _ = sample_rays(scene, Sampler.create(0, W * H * spp, device=dev),
+                         W, H, spp)
+    n = ray.o.shape[0]
+    lo = np.array([-2.0, -0.45, -2.0]); hi = np.array([2.0, 1.5, 2.0])
+    so = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+    sd = rng.normal(size=(n, 3))
+    sd = (sd / np.linalg.norm(sd, axis=-1, keepdims=True)).astype(np.float32)
+    smt = rng.uniform(0.0, 6.0, n).astype(np.float32)
+    pick = rng.random(n)
+    smt[pick < 0.1] = np.inf
+    smt[(pick >= 0.1) & (pick < 0.2)] = 0.0
+    shadow = tuple(torch.as_tensor(x, device=dev) for x in (so, sd, smt))
+    return check_q("grating", scene, (ray.o, ray.d, ray.maxt), shadow)
+
+
+def path_q_rays(scene, integ, spp_pass):
+    """The rays of a render pass's first closest-hit and first any-hit call
+    on the brute route ((o, d, maxt) each): one pass at spp_pass with
+    `intersect_q` and `occluded_q` recording their first arguments."""
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    seen, kept = {}, {}
+    for name in ("intersect_q", "occluded_q"):
+        fn = kept[name] = getattr(isect, name)
+
+        def record(*args, _fn=fn, _name=name, **kw):
+            seen.setdefault(_name, tuple(a.clone() for a in args[2:5]))
+            return _fn(*args, **kw)
+        setattr(isect, name, record)
+    try:
+        render(scene, integ, seed=0, spp=spp_pass, spp_per_pass=spp_pass)
+    finally:
+        for name, fn in kept.items():
+            setattr(isect, name, fn)
+    return seen["intersect_q"], seen["occluded_q"]
+
+
+def check_q(label, scene, closest_rays, shadow_rays):
+    """B1 on closest_rays and B2 on shadow_rays ((o, d, maxt) each) of a
+    brute-route scene against their plain versions, with the tolerance
+    stated; rows timed by `kernel_times` (device time where the wrapper
+    takes longer than the kernel)."""
+    import torch
+
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
     from mitsuba3_plt_tpu_torch.tools import kernel_mfu as km
 
-    dev = scene.device
     geo = scene.geo
-    W, H = scene.sensor.resolution
-    spp = max(1, n_rays // (W * H))
-    sampler = Sampler.create(0, W * H * spp, device=dev)
-    ray, _ = sample_rays(scene, sampler, W, H, spp)
-    o, d, maxt = ray.o, ray.d, ray.maxt
+    o, d, maxt = closest_rays
     n = o.shape[0]
     args = (geo.tri_q, geo.tri_anchor, o, d, maxt, geo.n_faces)
-
-    # closest hit on the camera rays (maxt = inf)
     got = isect.intersect_q(*args)
     want = isect.intersect_q_plain(*args)
     torch.cuda.synchronize()
@@ -499,13 +609,14 @@ def check_intersect(scene, n_rays, rng):
     t_ok = frac_close(got[0][both], want[0][both], 1e-5, 1e-6)
     u_ok = frac_close(got[2][both], want[2][both], 1e-5, 1e-5)
     v_ok = frac_close(got[3][both], want[3][both], 1e-5, 1e-5)
-    require(frac_prim >= 1 - 1e-4, f"intersect_q prim agreement {frac_prim}")
+    require(frac_prim >= 1 - 1e-4,
+            f"intersect_q {label} prim agreement {frac_prim}")
     require(min(t_ok, u_ok, v_ok) == 1.0,
-            f"intersect_q t/u/v agreement {t_ok} {u_ok} {v_ok}")
+            f"intersect_q {label} t/u/v agreement {t_ok} {u_ok} {v_ok}")
     err = max((got[0][both] - want[0][both]).abs().max().item(),
               (got[2][both] - want[2][both]).abs().max().item(),
               (got[3][both] - want[3][both]).abs().max().item())
-    ms = time_ms(lambda: isect.intersect_q(*args))
+    times = kernel_times(lambda: isect.intersect_q(*args))
     plain_ms = time_ms(lambda: isect.intersect_q_plain(*args))
     bnd = bound(nbytes(geo.tri_q, geo.tri_anchor, o, d, maxt, got),
                 n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS))
@@ -513,22 +624,13 @@ def check_intersect(scene, n_rays, rng):
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1373 "
                            "(pallas_intersect_q)",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               **bnd, "library_ms": None,
-               "n": n, "prim_agreement": frac_prim}
+               "max_abs_err": err, **times, "plain_ms": plain_ms,
+               **bnd, "library_ms": None, "rays": label,
+               "n": n, "faces": geo.n_faces, "prim_agreement": frac_prim,
+               "hit_share": (want[1] >= 0).float().mean().item()}
 
-    # any hit on shadow-like rays: origins in the scene's box off every
-    # surface, uniform directions, maxt uniform in [0, 6] with 10% inf and
-    # 10% zero
-    lo = np.array([-2.0, -0.45, -2.0]); hi = np.array([2.0, 1.5, 2.0])
-    so = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
-    sd = rng.normal(size=(n, 3))
-    sd = (sd / np.linalg.norm(sd, axis=-1, keepdims=True)).astype(np.float32)
-    smt = rng.uniform(0.0, 6.0, n).astype(np.float32)
-    pick = rng.random(n)
-    smt[pick < 0.1] = np.inf
-    smt[(pick >= 0.1) & (pick < 0.2)] = 0.0
-    so, sd, smt = (torch.as_tensor(x, device=dev) for x in (so, sd, smt))
+    so, sd, smt = shadow_rays
+    n = so.shape[0]
     sargs = (geo.tri_q, geo.tri_anchor, so, sd, smt, geo.n_faces)
     occ = isect.occluded_q(*sargs)
     occ_plain = isect.occluded_q_plain(*sargs)
@@ -536,11 +638,11 @@ def check_intersect(scene, n_rays, rng):
     frac_occ = (occ == occ_plain).float().mean().item()
     # tolerance: equal except where t lies within float rounding of 0, maxt
     # or a triangle boundary: at most 1 lane in 10,000
-    require(frac_occ >= 1 - 1e-4, f"occluded_q agreement {frac_occ}")
+    require(frac_occ >= 1 - 1e-4, f"occluded_q {label} agreement {frac_occ}")
     # triangles tested per ray: up to the first hit (the loop leaves there)
     tested = km.anyhit_tests(geo.tri_q, geo.tri_anchor, so, sd, smt,
                              geo.n_faces)
-    ms_a = time_ms(lambda: isect.occluded_q(*sargs))
+    times_a = kernel_times(lambda: isect.occluded_q(*sargs))
     plain_a = time_ms(lambda: isect.occluded_q_plain(*sargs))
     bnd_a = bound(
         nbytes(geo.tri_q, geo.tri_anchor, so, sd, smt, occ),
@@ -549,9 +651,11 @@ def check_intersect(scene, n_rays, rng):
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411 "
                           "(pallas_occluded_q)",
-              "max_abs_err": 1.0 - frac_occ, "ms": ms_a, "plain_ms": plain_a,
-              **bnd_a, "library_ms": None,
-              "n": n, "occ_agreement": frac_occ}
+              "max_abs_err": 1.0 - frac_occ, **times_a, "plain_ms": plain_a,
+              **bnd_a, "library_ms": None, "rays": label,
+              "n": n, "faces": geo.n_faces, "occ_agreement": frac_occ,
+              "occluded_share": occ_plain.float().mean().item(),
+              "tests_per_ray": tested / n}
     return [closest, anyhit]
 
 
@@ -615,8 +719,8 @@ def check_lobe_sum(n, rng, dev, specials):
               "asym_share": count["asym_share"]})
         if row is None:
             err = (got - want).abs().max().item()
-            ms = time_ms(lambda: gops.grating_lobe_sum(**ins, **kw,
-                                                       n_channels=3))
+            times = kernel_times(lambda: gops.grating_lobe_sum(
+                **ins, **kw, n_channels=3))
             plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(**ins, **kw))
             bnd = bound(nbytes(ins, got, gops.bessel_table(dev)),
                         count["ops"], count["fma"])
@@ -624,7 +728,7 @@ def check_lobe_sum(n, rng, dev, specials):
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
                                "(grating_lobe_sum)",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, **times, "plain_ms": plain_ms,
                    **bnd, "library_ms": None,
                    "n": nn, "agreement": frac,
                    "count": {**count, "how": (
@@ -689,7 +793,8 @@ def check_sample(n, rng, dev):
                 f"wo {fr_wo} mvec {fr_m} pdf {fr_pdf} w {fr_w}")
         if row is None:
             err = (got["wo"][live] - want["wo"][live]).abs().max().item()
-            ms = time_ms(lambda: gops.grating_sample(**ins, half=3, ndf=ndf))
+            times = kernel_times(lambda: gops.grating_sample(**ins, half=3,
+                                                             ndf=ndf))
             plain_ms = time_ms(lambda: gops.grating_sample_plain(
                 **ins, half=3, ndf=ndf))
             bnd = contracted_bound(nbytes(ins, got), n * sample_ops(3, ndf))
@@ -697,7 +802,7 @@ def check_sample(n, rng, dev):
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593 "
                                "(grating_sample)",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, **times, "plain_ms": plain_ms,
                    **bnd, "library_ms": None,
                    "n": n, "agreement": worst}
     return row
@@ -849,13 +954,13 @@ def check_clu2(scene, rng):
                 f"intersect_clu2 {label}: the gates changed a result")
         err = max((got[k][both] - want[k][both]).abs().max().item()
                   if both.any() else 0.0 for k in (0, 2, 3))
-        ms = time_ms(lambda: isect.intersect_clu2(ct, o, d, mt))
+        times = kernel_times(lambda: isect.intersect_clu2(ct, o, d, mt))
         bnd = bound(nbytes(tables, o, d, mt, got),
                     clu2_ops(n, counts, Q_TEST_OPS))
         row = {"name": "intersect_clu2", **common,
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1352 "
                            "(pallas_intersect_clu2)",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, **times, "plain_ms": plain_ms,
                **bnd, "rays": label,
                "prim_agreement": frac_prim,
                "hit_share": (want[1] >= 0).float().mean().item(),
@@ -881,13 +986,13 @@ def check_clu2(scene, rng):
                 f"{1.0 - frac_occ} of lanes")
         require(torch.equal(ref, occ_plain),
                 f"occluded_clu2 {label}: the gates changed a result")
-        ms = time_ms(lambda: isect.occluded_clu2(ct, o, d, mt))
+        times = kernel_times(lambda: isect.occluded_clu2(ct, o, d, mt))
         bnd = bound(nbytes(tables, o, d, mt, occ),
                     clu2_ops(n, counts, Q_ANYHIT_TEST_OPS))
         return {"name": "occluded_clu2", **common,
                 "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1364 "
                             "(pallas_occluded_clu2)",
-                "max_abs_err": 1.0 - frac_occ, "ms": ms,
+                "max_abs_err": 1.0 - frac_occ, **times,
                 "plain_ms": plain_ms, **bnd,
                 "rays": label, "occ_agreement": frac_occ,
                 "occluded_share": occ_plain.float().mean().item(),
@@ -936,14 +1041,16 @@ def walk_stats(counts, rays_per_warp):
 
 
 def check_bvh(scene, sets, clu2_ms, rng):
-    """B7a on the WideBVH and B7b on the PacketBVH against their plain walks
-    on the packet scene. First the five 1,048,576-lane mesh82k ray sets of
-    `check_clu2`, unsorted and sorted by the route's coherence sort, with the
+    """B7a and B7b over the WideBVH against their plain walks on the packet
+    scene, and B7b's plain walk against the skip-link walk over the
+    PacketBVH that it replaced (`_bvh_walk`), all to the bit. First the
+    five 1,048,576-lane mesh82k ray sets of `check_clu2` and the all-dead
+    sets, unsorted and sorted by the route's coherence sort, with the
     sort's own time and the clu2 kernel's time on the same set beside them;
     then the wavefront the regenerative path gives the kernels: the 131,072
     camera rays of its first iteration in Morton order and the shadow rays
-    of their hits, sorted as the route sorts them. The kernels line carries
-    the latter two."""
+    of their hits, sorted as the route sorts them, and whether that sort
+    pays for B7b (`sort_pays`). The kernels line carries the latter two."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -958,25 +1065,38 @@ def check_bvh(scene, sets, clu2_ms, rng):
     def answer(any_hit, o, d, mt):
         """The wrapper's answer as one tensor: the flags, or prim."""
         if any_hit:
-            return isect.occluded_bvh(pb, o, d, mt)
+            return isect.occluded_bvh(wb, o, d, mt)
         return isect.intersect_bvh(wb, o, d, mt)[1]
 
     def one(label, any_hit, o, d, mt):
         """The kernel on (o, d, mt) as given: tolerance none, the kernel
         rounds every product and sum as the plain walk does and walks in
         its order, so prim, t, u, v and the occlusion flags are equal on
-        every lane."""
+        every lane; B7b's flags equal the skip-link walk's too (the two
+        walks enter the same leaves)."""
         n, counts = o.shape[0], {}
         if any_hit:
-            got = isect.occluded_bvh(pb, o, d, mt)
+            got = isect.occluded_bvh(wb, o, d, mt)
             want, plain_ms = time_once(lambda: isect.occluded_bvh_plain(
-                pb, o, d, mt, counts=counts))
+                wb, o, d, mt, counts=counts))
+            skip = {}
+            ref = isect._bvh_walk(pb, o, d, mt, True, skip)[4]
             agree = (got == want).double().mean().item()
             err = 1.0 - agree
-            ms = time_ms(lambda: isect.occluded_bvh(pb, o, d, mt))
+            require(torch.equal(ref, want),
+                    f"occluded_bvh {label}: the WideBVH walk differs from "
+                    f"the skip-link walk on "
+                    f"{(ref != want).double().mean().item()} of lanes")
+            times = kernel_times(lambda: isect.occluded_bvh(wb, o, d, mt))
             extra = {"occluded_share": want.float().mean().item(),
-                     "walk_steps": counts["steps"]}
-            tables = (pb.nodes, pb.tri)
+                     "skip_link_tests_per_ray": {
+                         k: skip[k] / n for k in ("slab_tests",
+                                                  "triangle_tests")},
+                     "skip_link_bound_ms": bound(
+                         nbytes(pb.nodes, pb.tri, o, d, mt, got),
+                         n * BVH_RAY_SETUP_OPS + skip["slab_tests"]
+                         * SLAB_OPS + skip["triangle_tests"]
+                         * BVH_ANYHIT_TEST_OPS)["bound_ms"]}
         else:
             got = isect.intersect_bvh(wb, o, d, mt)
             want, plain_ms = time_once(lambda: isect.intersect_bvh_plain(
@@ -987,19 +1107,14 @@ def check_bvh(scene, sets, clu2_ms, rng):
                       if hit.any() else 0.0 for k in (0, 2, 3))
             require(all(torch.equal(got[k], want[k]) for k in (0, 2, 3)),
                     f"intersect_bvh {label}: t/u/v differ, max {err}")
-            ms = time_ms(lambda: isect.intersect_bvh(wb, o, d, mt))
-            # a warp holds 32 / WIDE rays, one tile each
-            extra = {"hit_share": hit.float().mean().item(),
-                     "walk_steps": counts["steps"],
-                     "walk": walk_stats(counts, 32 // isect.WIDE),
-                     "wide_nodes": wb.nodes.shape[0], "stack": wb.stack}
-            tables = (wb.nodes, wb.tri)
+            times = kernel_times(lambda: isect.intersect_bvh(wb, o, d, mt))
+            extra = {"hit_share": hit.float().mean().item()}
         name = "occluded_bvh" if any_hit else "intersect_bvh"
         require(agree == 1.0, f"{name} {label}: agreement {agree}")
         ops = (n * BVH_RAY_SETUP_OPS + counts["slab_tests"] * SLAB_OPS
                + counts["triangle_tests"]
                * (BVH_ANYHIT_TEST_OPS if any_hit else BVH_TEST_OPS))
-        bnd = bound(nbytes(*tables, o, d, mt, got), ops)
+        bnd = bound(nbytes(wb.nodes, wb.tri, o, d, mt, got), ops)
         return {"name": name, "route": "cuda", "n": n,
                 "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_bvh.cu",
                 "plain_timing": "the comparison call, once",
@@ -1007,29 +1122,67 @@ def check_bvh(scene, sets, clu2_ms, rng):
                 "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
                             + ("694 (pallas_bvh_occluded)" if any_hit
                                else "679 (pallas_bvh_intersect)"),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, **times, "plain_ms": plain_ms,
                 **bnd, "rays": label, "agreement": agree, **extra,
+                "walk_steps": counts["steps"],
+                # a warp holds 32 / WIDE rays, one tile each
+                "walk": walk_stats(counts, 32 // isect.WIDE),
+                "wide_nodes": wb.nodes.shape[0], "stack": wb.stack,
+                "stack_peak": counts["stack_peak"],
                 "tests_per_ray": {k: counts[k] / n for k in
                                   ("slab_tests", "triangle_tests")}}
 
+    n = next(iter(sets.values()))[0].shape[0]
+    sets = dict(sets)
+    sets["dead"], sets["dead-shadow"] = dead_rays(n, scene.device)
     for label, (o, d, mt) in sets.items():
-        any_hit = label.startswith("shadow")
+        any_hit = label in ("shadow", "shadow-random", "dead-shadow")
         row = one(label, any_hit, o, d, mt)
         in_order, perm = sorted_rays(o, d, mt)
         require(torch.equal(answer(any_hit, *in_order),
                             answer(any_hit, o, d, mt)[perm]),
                 f"{row['name']} {label}: sorted and unsorted rays differ")
         emit({"phase": "kernels", **row, "order": "unsorted",
-              "sorted_ms": time_ms(lambda: answer(any_hit, *in_order)),
+              "sorted": kernel_times(lambda: answer(any_hit, *in_order)),
               "packet_perm_ms": time_ms(lambda: scene._packet_perm(o, d)),
               "gather_ms": time_ms(lambda: (o[perm], d[perm], mt[perm])),
               "clu2_ms": clu2_ms[label]})
 
     # the regenerative path's own wavefront
     cam, shadow = regen_wavefront(scene, rng)
+    sort_pays(scene, *shadow)
     return [one("regen camera, sorted", False,
                 *sorted_rays(cam.o, cam.d, cam.maxt)[0]),
             one("regen shadow, sorted", True, *sorted_rays(*shadow)[0])]
+
+
+def sort_pays(scene, o, d, mt):
+    """Whether the packet route's coherence sort pays for B7b on the given
+    shadow rays: one line with the kernel's time on the rays unsorted and
+    sorted, and the time of what the route adds around it, the sort
+    (`_packet_perm`), the three gathers and the unsort of the flags; each
+    as device time (`graph_ms`) and as the events' time of back-to-back
+    calls (`time_ms`, the host's where it is the slower)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    wb = scene.wbvh
+    perm, inv = scene._packet_perm(o, d)
+    in_order = (o[perm], d[perm], mt[perm])
+    occ = isect.occluded_bvh(wb, *in_order)
+
+    def around():
+        p, i = scene._packet_perm(o, d)
+        return o[p], d[p], mt[p], occ[i]
+
+    times = {label: {"device_ms": graph_ms(fn), "wrapper_ms": time_ms(fn)}
+             for label, fn in (
+                 ("unsorted", lambda: isect.occluded_bvh(wb, o, d, mt)),
+                 ("sorted", lambda: isect.occluded_bvh(wb, *in_order)),
+                 ("sort_gathers_unsort", around))}
+    pays = {k: times["sorted"][k] + times["sort_gathers_unsort"][k]
+            < times["unsorted"][k] for k in ("device_ms", "wrapper_ms")}
+    emit({"phase": "kernels", "sort_pays": "occluded_bvh",
+          "rays": "regen shadow", "n": o.shape[0], **times, "pays": pays})
 
 
 def regen_wavefront(scene, rng):
@@ -1053,6 +1206,16 @@ def closest_table(scene):
     """The packet scene's closest-hit table: its WideBVH, or, in a checkout
     from before the WideBVH (`--turns`), its PacketBVH."""
     return getattr(scene, "wbvh", None) or scene.pbvh
+
+
+def anyhit_table(scene, isect):
+    """The packet scene's table for `isect.occluded_bvh`, by the name of
+    its first parameter: the WideBVH, or, in a checkout from before B7b
+    took it (`--turns`), the PacketBVH."""
+    import inspect
+
+    first = next(iter(inspect.signature(isect.occluded_bvh).parameters))
+    return scene.wbvh if first == "wbvh" else scene.pbvh
 
 
 def check_brute(label, scene, sets, plain_lanes=None):
@@ -1089,8 +1252,8 @@ def check_brute(label, scene, sets, plain_lanes=None):
                   if hit.any() else 0.0 for k in (0, 2, 3))
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"intersect_classic {label} {set_label}: differs, max {err}")
-        ms = time_ms(lambda: isect.intersect_classic(geo.tri_isect, o, d, mt,
-                                                     F))
+        times = kernel_times(lambda: isect.intersect_classic(
+            geo.tri_isect, o, d, mt, F))
         bnd = bound(nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n,
                     n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
         closest = {"name": "intersect_classic", **common,
@@ -1098,7 +1261,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
                              "intersect_classic.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:95 "
                                "(pallas_intersect)",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, **times, "plain_ms": plain_ms,
                    **bnd, "agreement": 1.0,
                    "hit_share": hit.float().mean().item()}
 
@@ -1111,8 +1274,8 @@ def check_brute(label, scene, sets, plain_lanes=None):
         agree = (occ == occ_plain).double().mean().item()
         require(torch.equal(occ, occ_plain),
                 f"occluded_classic {label} {set_label}: agreement {agree}")
-        ms_a = time_ms(lambda: isect.occluded_classic(geo.tri_isect, o, d, mt,
-                                                      F))
+        times_a = kernel_times(lambda: isect.occluded_classic(
+            geo.tri_isect, o, d, mt, F))
         tests = counts["triangle_tests"] * n / m
         bnd_a = bound(nbytes(geo.tri_isect[:F], o, d, mt) + n,
                       n * CLASSIC_RAY_SETUP_OPS
@@ -1122,7 +1285,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
                             "intersect_classic.cu",
                   "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:183 "
                               "(pallas_occluded)",
-                  "max_abs_err": 1.0 - agree, "ms": ms_a, "plain_ms": plain_a,
+                  "max_abs_err": 1.0 - agree, **times_a, "plain_ms": plain_a,
                   **bnd_a, "agreement": agree,
                   "occluded_share": occ_plain.float().mean().item(),
                   "tests_per_ray": tests / n}
@@ -1143,7 +1306,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
         same = (got_m[1] == want_m[1]) & mhit
         err_m = max((got_m[k][same] - want_m[k][same]).abs().max().item()
                     if same.any() else 0.0 for k in (0, 2, 3))
-        ms_m = time_ms(lambda: isect.intersect_mxu(w, o, d, mt, F))
+        times_m = kernel_times(lambda: isect.intersect_mxu(w, o, d, mt, F))
         # the work of the mesh's F triangles: the zero rows that pad each
         # group to T_pad are the TPU's tile, and the kernel skips them
         t_pad = w.shape[0] // 4
@@ -1159,7 +1322,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_mxu.cu",
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:346 "
                            "(pallas_intersect_mxu)",
-               "max_abs_err": err_m, "ms": ms_m, "plain_ms": plain_m,
+               "max_abs_err": err_m, **times_m, "plain_ms": plain_m,
                **bnd_m, "t_pad": t_pad, "n_tris": F,
                "hit_agreement": hit_agree, "prim_agreement": prim_agree,
                "matmul_ms": mm_ms, "matmul_lanes": k,
@@ -1215,7 +1378,7 @@ def check_clu(label, tabs, sets, plain_lanes):
                     f"{name} {label} {set_label}: differs, max {err}")
             share = {"hit_share": hit.double().mean().item()}
             out_bytes = 16 * n
-        ms = time_ms(lambda: kernel(ct, o, d, mt))
+        times = kernel_times(lambda: kernel(ct, o, d, mt))
         scale = n / m
         ops = (n * CLU_RAY_SETUP_OPS
                + counts["cluster_tests"] * scale * SLAB_OPS
@@ -1229,7 +1392,7 @@ def check_clu(label, tabs, sets, plain_lanes):
                               else "1080 (pallas_intersect_clu)"),
                "rays": f"{label} {set_label}", "library_ms": None,
                "plain_timing": "the comparison call, once, on plain_lanes",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, **times, "plain_ms": plain_ms,
                **bnd, "agreement": 1.0 - err
                if any_hit else 1.0, **share, "boxes": ct.boxes.shape[0],
                "tests_per_ray": {k: v / m for k, v in counts.items()}}
@@ -1288,7 +1451,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
             require(all(torch.equal(a, b) for a, b in zip(got, want)),
                     f"intersect_q_variant {label} unroll {unroll} dual "
                     f"{dual}: differs, max {err}")
-            ms = time_ms(lambda: isect.intersect_q_variant(
+            times = kernel_times(lambda: isect.intersect_q_variant(
                 *q, o, d, mt, F, unroll, dual))
             bnd = bound(
                 nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 8 * n,
@@ -1299,7 +1462,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
                 "replaces": "tools/experiments/isect_unroll_sweep.py:91 "
                             "(q_variant)",
                 "unroll": unroll, "dual": dual, "rows": rows,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, **times, "plain_ms": plain_ms,
                 **bnd, "agreement": 1.0,
                 "hit_share": hit.double().mean().item()}
         occ = isect.occluded_q_variant(*q, o[:m], d[:m], mix, F, unroll)
@@ -1311,8 +1474,8 @@ def check_sweep(label, scene, rays, plain_lanes=None):
         require(torch.equal(occ, want) and want.any()
                 and not want[::3].any(),
                 f"occluded_q_variant {label} unroll {unroll}: {agree}")
-        ms = time_ms(lambda: isect.occluded_q_variant(*q, o, d, msh, F,
-                                                      unroll))
+        times = kernel_times(lambda: isect.occluded_q_variant(
+            *q, o, d, msh, F, unroll))
         if ("tests", rows) not in plain:
             plain["tests", rows] = km.anyhit_tests(
                 *q, o[:m], d[:m], msh[:m], rows) * n / m
@@ -1325,7 +1488,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
             "replaces": "tools/experiments/isect_unroll_sweep.py:203 "
                         "(a_variant)",
             "unroll": unroll, "dual": False, "rows": rows,
-            "max_abs_err": 1.0 - agree, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": 1.0 - agree, **times, "plain_ms": plain_ms,
             **bnd, "agreement": agree,
             "checked_occluded_share": want.double().mean().item(),
             "tests_per_ray": tests / n}
@@ -1359,7 +1522,8 @@ def check_macc(label, scene, rays, plain_lanes=None):
                   if hit.any() else 0.0 for k in (0, 2, 3))
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"intersect_q_macc {label} nacc {nacc}: differs, max {err}")
-        ms = time_ms(lambda: isect.intersect_q_macc(*q, o, d, mt, F, nacc))
+        times = kernel_times(lambda: isect.intersect_q_macc(
+            *q, o, d, mt, F, nacc))
         bnd = bound(
             nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 16 * n,
             n * (MACC_RAY_SETUP_OPS + rows * MACC_TEST_OPS
@@ -1372,7 +1536,7 @@ def check_macc(label, scene, rays, plain_lanes=None):
                         "(intersect_macc)",
             "rays": f"{label} multiacc", "library_ms": None,
             "plain_timing": "the comparison call, once, on plain_lanes",
-            "nacc": nacc, "rows": rows, "max_abs_err": err, "ms": ms,
+            "nacc": nacc, "rows": rows, "max_abs_err": err, **times,
             "plain_ms": plain_ms, **bnd, "agreement": 1.0,
             "hit_share": hit.double().mean().item()}
         emit({"phase": "kernels", **out[nacc]})
@@ -1405,7 +1569,7 @@ def check_fma(rng, dev):
     fin = torch.isfinite(want)
     require(max_ulp <= 1 and torch.equal(fin, torch.isfinite(got))
             and bool((~fin).any()), f"fma_roof: {max_ulp} ulp")
-    ms = time_ms(lambda: mfu.fma_roof(x, a))
+    times = kernel_times(lambda: mfu.fma_roof(x, a))
     n = x.numel()
     # per element: FMA_ITERS + 3 FMAs (2 each), FMA_ITERS mins, 3 adds
     fmas = mfu.FMA_ITERS + 3
@@ -1417,7 +1581,7 @@ def check_fma(rng, dev):
            "library_ms": None, "plain_timing": "the comparison call, once",
            "max_abs_err": (got[fin] - want[fin]).abs().max().item(),
            "max_ulp": max_ulp, "ulp_share": (ulps > 0).double().mean().item(),
-           "ms": ms, "plain_ms": plain_ms, **bnd}
+           **times, "plain_ms": plain_ms, **bnd}
     emit({"phase": "kernels", **row})
     return row
 
@@ -1782,43 +1946,48 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     rows.sort(key=lambda r: -r["device_ms"])
     total = sum(r["device_ms"] for r in rows)
     # clu2_kernel first: "q_kernel" must not take its rows
-    ours = {"clu2_kernel": 0.0, "wide_kernel": 0.0, "anyhit_kernel": 0.0,
-            "q_kernel": 0.0, "lobe_sum_kernel": 0.0, "sample_kernel": 0.0}
+    ours = {"clu2_kernel": 0.0, "wide_anyhit_kernel": 0.0,
+            "wide_kernel": 0.0, "q_kernel": 0.0, "lobe_sum_kernel": 0.0,
+            "sample_kernel": 0.0}
     n_kernels = 0
+    per_launch = {}
     for r in rows:
         for key in ours:
             if key in r["name"]:
                 ours[key] += r["device_ms"]
+                # B1/B2, B5/B6, B7a/B7b a launch (one row per instance)
+                if key not in ("lobe_sum_kernel", "sample_kernel"):
+                    per_launch[r["name"]] = {
+                        "launches": r["count"], "device_ms": r["device_ms"],
+                        "ms_per_launch": r["device_ms"] / r["count"]}
                 break
         n_kernels += r["count"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, out_file), "w") as f:
         json.dump({"pass_wall_ms": pass_s * 1e3, "device_ms": total,
                    "ops": rows}, f, indent=1)
-    # B5/B6 a launch: the clu2 kernel's rows (one per instance)
-    clu2 = {r["name"]: {"launches": r["count"], "device_ms": r["device_ms"],
-                        "ms_per_launch": r["device_ms"] / r["count"]}
-            for r in rows if "clu2_kernel" in r["name"]}
     ph.emit(pass_wall_ms=pass_s * 1e3, device_busy_ms=total,
             device_idle_share=(1.0 - total / (pass_s * 1e3)
                                if total > 0 else None),
-            our_kernels_ms=ours, clu2_per_launch=clu2,
+            our_kernels_ms=ours, per_launch=per_launch,
             our_kernels_share_of_busy=(sum(ours.values()) / total
                                        if total > 0 else None),
             device_ops_launched=n_kernels, top_ops=rows[:12])
 
 
 def turns(root):
-    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B5 and B6 of the
+    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B7b, B5 and B6 of the
     package in ROOT (this checkout, or another commit unpacked there) timed
     at the paths' shapes, as one JSON line: B4 on the kernels phase's main
-    case (half 3, separable, 1,920,000 lanes), B7a on the mesh82k packet
-    scene's closest-hit sets (camera, bounce, bounce-random: 1,048,576
-    lanes, unsorted and sorted by the route) and on the regenerative
-    wavefront's 131,072 camera rays, sorted, B5 and B6 on the six sets of
-    `turns_clu2`. The kernels build in ROOT. Run it over two
-    checkouts in turns (parent, change, change, parent) within one chip
-    call to compare them on one card."""
+    case (half 3, separable, 1,920,000 lanes); on the mesh82k packet
+    scene (1,048,576 lanes a set, unsorted and sorted by the route) B7a on
+    the camera, bounce and bounce-random sets and B7b on the shadow,
+    shadow-random and all-dead sets, and both on the regenerative
+    wavefront's 131,072 rays, sorted; B5 and B6 on the six sets of
+    `turns_clu2`. B7 is timed by `kernel_times` (device time where the
+    wrapper takes longer than the kernel). The kernels build in ROOT. Run
+    it over two checkouts in turns (parent, change, change, parent) within
+    one chip call to compare them on one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1851,34 +2020,48 @@ def turns(root):
     del ins
     scene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, accel="packet",
                        device="cuda")
-    table = closest_table(scene)
+    table, any_table = closest_table(scene), anyhit_table(scene, isect)
     W, H = scene.sensor.resolution
     cam, _ = sample_rays(scene, Sampler.create(
         0, W * H * MESH_SPP_PASS, device="cuda"), W, H, MESH_SPP_PASS)
-    sets = {"camera": (cam.o, cam.d, cam.maxt)}
-    sets["bounce"] = camera_hit_rays(
-        scene, cam, isect.intersect_bvh(table, cam.o, cam.d, cam.maxt),
-        rng)[0]
-    sets["bounce-random"] = random_surface_rays(scene, cam.o.shape[0],
-                                                rng)[0]
-    rcam, _ = regen_wavefront(scene, rng)
-    bvh_ms = {}
-    for label, (o, d, mt) in sets.items():
+    n = cam.o.shape[0]
+    closest = {"camera": (cam.o, cam.d, cam.maxt)}
+    closest["bounce"], shadow = camera_hit_rays(
+        scene, cam, isect.intersect_bvh(table, cam.o, cam.d, cam.maxt), rng)
+    closest["bounce-random"], shadow_random = random_surface_rays(scene, n,
+                                                                  rng)
+    anyhit = {"shadow": shadow, "shadow-random": shadow_random,
+              "dead": dead_rays(n, "cuda")[1]}
+    rcam, rshadow = regen_wavefront(scene, rng)
+
+    def both_orders(kernel, tab, rays):
+        out = {}
+        for label, (o, d, mt) in rays.items():
+            perm, _ = scene._packet_perm(o, d)
+            in_order = (o[perm], d[perm], mt[perm])
+            out[label] = {
+                "unsorted": kernel_times(lambda: kernel(tab, o, d, mt)),
+                "sorted": kernel_times(lambda: kernel(tab, *in_order))}
+        return out
+
+    def regen(kernel, tab, o, d, mt):
         perm, _ = scene._packet_perm(o, d)
         in_order = (o[perm], d[perm], mt[perm])
-        bvh_ms[label] = {
-            "unsorted": time_ms(lambda: isect.intersect_bvh(table, o, d, mt)),
-            "sorted": time_ms(lambda: isect.intersect_bvh(table, *in_order))}
-    perm, _ = scene._packet_perm(rcam.o, rcam.d)
-    in_order = (rcam.o[perm], rcam.d[perm], rcam.maxt[perm])
-    bvh_ms["regen camera, sorted"] = time_ms(
-        lambda: isect.intersect_bvh(table, *in_order))
-    del scene, sets, rcam, in_order
+        return kernel_times(lambda: kernel(tab, *in_order))
+
+    bvh_ms = both_orders(isect.intersect_bvh, table, closest)
+    bvh_ms["regen camera, sorted"] = regen(isect.intersect_bvh, table,
+                                           rcam.o, rcam.d, rcam.maxt)
+    occ_ms = both_orders(isect.occluded_bvh, any_table, anyhit)
+    occ_ms["regen shadow, sorted"] = regen(isect.occluded_bvh, any_table,
+                                           *rshadow)
+    del scene, closest, anyhit, rcam, rshadow
     clu2_ms = turns_clu2(isect, rng)
     emit({"turns": root, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
-          "intersect_bvh_ms": bvh_ms, "closest_table": type(table).__name__,
-          "clu2_ms": clu2_ms,
+          "intersect_bvh_ms": bvh_ms, "occluded_bvh_ms": occ_ms,
+          "closest_table": type(table).__name__,
+          "anyhit_table": type(any_table).__name__, "clu2_ms": clu2_ms,
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
                                          "anyhit", "clu2"))},
@@ -2013,6 +2196,12 @@ def main():
     del ray_sets
     for r in rows:
         emit({"phase": "kernels", **r})
+    # B1 and B2 at the Cornell box path's shape: its own first camera and
+    # shadow rays (2,097,152 lanes, 36 faces); printed with the measured
+    # roofs below
+    cbox_q = check_q("cbox path", cscene, *path_q_rays(
+        cscene, PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
+        CBOX_SPP_PASS))
     pick = {k: csets[k] for k in ("coherent", "incoherent")}
     brute = check_brute("cbox", cscene, pick)
     check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
@@ -2037,6 +2226,9 @@ def main():
     macc_launches = q_multiacc_tool(macc_scenes)
     mfu_launches, roofs = kernel_mfu_tool(macc_scenes, "cuda", sass,
                                           specials)
+    for r in cbox_q:
+        emit({"phase": "kernels", **r, **measured_bound(r, roofs),
+              "launches_per_pass": CBOX_LAUNCHES[r["name"]]})
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
     del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask
@@ -2085,8 +2277,8 @@ def main():
           CBOX_SPP_PASS, "chip_smoke_profile_cbox.json")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "measured_bound_ms",
-            "measured_bound_by", "library_ms")
+            "ms", "wrapper_ms", "ms_by", "plain_ms", "bound_ms", "bound_by",
+            "measured_bound_ms", "measured_bound_by", "library_ms")
     kernels = []
     for r in rows:
         own = (p_res["launches"] if PACKET_LAUNCHES[r["name"]]

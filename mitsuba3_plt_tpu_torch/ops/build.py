@@ -35,7 +35,7 @@ SIGNATURES = {
     "plt_intersect_clu2": [_P, _P, _I] + [_P] * 7 + [_I] + [_P] * 5,
     "plt_occluded_clu2": [_P, _P, _I] + [_P] * 7 + [_I, _P, _P],
     "plt_intersect_bvh": [_P] * 5 + [_I, _I] + [_P] * 5,
-    "plt_occluded_bvh": [_P] * 5 + [_I, _P, _P],
+    "plt_occluded_bvh": [_P] * 5 + [_I, _I, _P, _P],
     "plt_intersect_classic": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5,
     "plt_occluded_classic": [_P, _I] + [_P] * 3 + [_I, _P, _P],
     "plt_intersect_mxu": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 5,

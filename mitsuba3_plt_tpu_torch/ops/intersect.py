@@ -5,9 +5,9 @@ its unroll-sweep and multi-accumulator variants in
 (p0, e1, e2) soup (`csrc/intersect_classic.cu`) and as one product of ray
 features with a weight table (`csrc/intersect_mxu.cu`), the treelet walks
 over a flat ClusterTable (`csrc/intersect_clu.cu`) and a two-level
-ClusterTable2 (`csrc/intersect_clu2.cu`), the closest-hit walk of a tile of
-lanes per ray over a WideBVH and the per-ray any-hit skip-link walk over a
-PacketBVH (`csrc/intersect_bvh.cu`), their plain PyTorch versions, and the
+ClusterTable2 (`csrc/intersect_clu2.cu`), the closest-hit and any-hit
+walks of a tile of lanes per ray over a WideBVH (`csrc/intersect_bvh.cu`),
+their plain PyTorch versions, and the
 host-side q and MXU table packers.
 
 Möller-Trumbore re-associated around per-triangle constants so the
@@ -1084,28 +1084,15 @@ def occluded_clu(ctab, o, d, maxt):
 
 
 # ---------------------------------------------------------------------------
-# per-ray skip-link walk (PacketBVH, scene/bvh.py::pack_packet_bvh)
+# the packet route's walks: the per-ray skip-link walk over a PacketBVH
+# (scene/bvh.py::pack_packet_bvh), the reference, and the tile walks over
+# its WideBVH, the kernels'
 # ---------------------------------------------------------------------------
 
-def _check_bvh(name, pbvh, o, d, maxt):
-    dev, n = check_tensors(name, {
-        "o": (o, torch.float32, (3,)), "d": (d, torch.float32, (3,)),
-        "maxt": (maxt, torch.float32, ()),
-        "nodes": (pbvh.nodes, torch.float32, None),
-        "tri": (pbvh.tri, torch.float32, None),
-    }, n=o.shape[0] if o.dim() == 2 else -1)
-    for arg in ("nodes", "tri"):
-        t = getattr(pbvh, arg)
-        if t.dim() != 2 or t.shape[1] != 16 or t.shape[0] == 0:
-            raise ValueError(f"{name}: {arg} must be [>0, 16], got "
-                             f"{tuple(t.shape)}")
-    return dev, n
-
-
 def _bvh_walk(pbvh, o, d, maxt, any_hit, counts):
-    """The skip-link walk over a PacketBVH (`occluded_bvh_plain`; with
-    any_hit False the closest hit the kernel took before the WideBVH walk,
-    which the tests hold the new walk to): one node index per lane, a loop
+    """The skip-link walk over a PacketBVH, the walk of the first port's
+    kernels, which the tests and chip_smoke.py hold the WideBVH walks to
+    (`_wide_walk`, closest and any hit): one node index per lane, a loop
     until every lane's index is -1. A lane tests a node's box against its
     own best distance, runs an entered leaf's rows [first, first + count)
     in order, and follows `first` (entered inner node) or `miss`. `counts`
@@ -1182,20 +1169,32 @@ def _check_wide(name, wbvh, o, d, maxt):
     return dev, n
 
 
-def _wide_walk(wbvh, o, d, maxt, counts):
-    """The closest-hit walk of the kernel over a WideBVH, per lane. A stack
-    of (child, near) entries starts with the root; a popped entry whose near
-    is above the lane's best distance is dropped, a leaf's rows are tested
-    (all of them), and an inner node's children are slab-tested against the
-    ray and the best distance, `near <= best`, and every entered one is
-    pushed, ordered so that the nearest (then the lower slot) is popped
-    first. The best hit is the least (t, row) among hits with 0 < t < maxt,
-    which the order of the tests cannot change; the walk's order decides
-    only which boxes the best distance has culled, and the kernel walks in
-    the same order. `counts` (a dict, or None) accumulates the slab tests,
-    triangle tests and loop steps, the most entries a stack held
-    ("stack_peak", at most the table's `stack`), and per lane ("ray_pops",
-    "ray_triangle_tests": int64 [N]) the entries popped and rows tested."""
+def _wide_walk(wbvh, o, d, maxt, any_hit, counts):
+    """The kernels' walk over a WideBVH, per lane: a stack of entries that
+    starts with the root, popped until every lane's is empty.
+
+    Closest hit (any_hit False): entries are (child, near); a popped entry
+    whose near is above the lane's best distance is dropped, a leaf's rows
+    are tested (all of them), and an inner node's children are slab-tested
+    against the ray and the best distance, `near <= best`, and every
+    entered one is pushed, ordered so that the nearest (then the lower
+    slot) is popped first. The best hit is the least (t, row) among hits
+    with 0 < t < maxt, which the order of the tests cannot change; the
+    walk's order decides only which boxes the best distance has culled.
+    Returns (t, prim, u, v).
+
+    Any hit: entries are child codes alone; an inner node's children are
+    slab-tested against maxt, `near < maxt`, and every entered one is
+    pushed in slot order (the highest slot popped first); a leaf's rows are
+    tested WIDE at a time, and a lane whose ray is occluded after such a
+    step empties its stack. Returns the flags [N] bool, a function of the
+    leaves the ray enters alone.
+
+    Both walk in their kernel's order. `counts` (a dict, or None)
+    accumulates the slab tests, triangle tests and loop steps, the most
+    entries a stack held ("stack_peak", at most the table's `stack`), and
+    per lane ("ray_pops", "ray_triangle_tests": int64 [N]) the entries
+    popped and rows tested."""
     n, dev = o.shape[0], o.device
     cap = wbvh.stack
     mt = torch.where(torch.isfinite(maxt), maxt, _BIG)
@@ -1204,8 +1203,10 @@ def _wide_walk(wbvh, o, d, maxt, counts):
     row_b = torch.full((n,), _NO_ROW, dtype=torch.int64, device=dev)
     u_b = torch.zeros_like(mt)
     v_b = torch.zeros_like(mt)
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     st_code = torch.zeros((n, cap), dtype=torch.int64, device=dev)
-    st_near = torch.full((n, cap), float("-inf"), device=dev)
+    st_near = None if any_hit else torch.full((n, cap), float("-inf"),
+                                              device=dev)
     sp = torch.ones((n,), dtype=torch.int64, device=dev)
     if counts is not None:
         for key in ("slab_tests", "triangle_tests", "steps", "stack_peak"):
@@ -1218,8 +1219,9 @@ def _wide_walk(wbvh, o, d, maxt, counts):
     while lanes.numel():
         sp_l = sp[lanes] - 1
         sp[lanes] = sp_l
-        code, near = st_code[lanes, sp_l], st_near[lanes, sp_l]
-        go = near <= t_b[lanes]
+        code = st_code[lanes, sp_l]
+        go = (torch.ones_like(lanes, dtype=torch.bool) if any_hit
+              else st_near[lanes, sp_l] <= t_b[lanes])
         cnt, first = code & 31, code >> 5
         if counts is not None:
             counts["steps"] += 1
@@ -1235,22 +1237,32 @@ def _wide_walk(wbvh, o, d, maxt, counts):
                 wbvh.tri[rows.reshape(-1)], rep(o[l_k]).reshape(-1, 3),
                 rep(d[l_k]).reshape(-1, 3)))
             ok = ok & live & (t < mt[l_k, None])
-            t_c = torch.where(ok, t, float("inf"))
-            t_min = t_c.min(-1).values
-            # the first row at the least distance
-            k = ((t_c == t_min[:, None]) & ok).to(torch.int8).argmax(-1)
-            row = f_k + k
-            pick = lambda x: x.gather(1, k[:, None])[:, 0]  # noqa: E731
-            tb, rb = t_b[l_k], row_b[l_k]
-            better = ok.any(-1) & ((t_min < tb) | ((t_min == tb) & (row < rb)))
-            sel = l_k[better]
-            t_b[sel] = t_min[better]
-            row_b[sel] = row[better]
-            u_b[sel] = pick(u)[better]
-            v_b[sel] = pick(v)[better]
+            if any_hit:
+                # a hit among the first WIDE rows ends the leaf there
+                first_step = ok[:, :WIDE].any(-1)
+                hit = ok.any(-1)
+                occ[l_k[hit]] = True
+                sp[l_k[hit]] = 0
+                tested = torch.where(first_step, c_k.clamp(max=WIDE), c_k)
+            else:
+                t_c = torch.where(ok, t, float("inf"))
+                t_min = t_c.min(-1).values
+                # the first row at the least distance
+                k = ((t_c == t_min[:, None]) & ok).to(torch.int8).argmax(-1)
+                row = f_k + k
+                pick = lambda x: x.gather(1, k[:, None])[:, 0]  # noqa: E731
+                tb, rb = t_b[l_k], row_b[l_k]
+                better = ok.any(-1) & ((t_min < tb)
+                                       | ((t_min == tb) & (row < rb)))
+                sel = l_k[better]
+                t_b[sel] = t_min[better]
+                row_b[sel] = row[better]
+                u_b[sel] = pick(u)[better]
+                v_b[sel] = pick(v)[better]
+                tested = c_k
             if counts is not None:
-                counts["triangle_tests"] += int(c_k.sum())
-                tests[l_k] += c_k
+                counts["triangle_tests"] += int(tested.sum())
+                tests[l_k] += tested
 
         inner = go & (cnt == 0)
         l_i, n_i = lanes[inner], first[inner]
@@ -1262,19 +1274,26 @@ def _wide_walk(wbvh, o, d, maxt, counts):
             c_near = torch.minimum(t0, t1).amax(-1)
             c_far = torch.maximum(t0, t1).amin(-1)
             present = nd[..., 7] >= 0.0
-            enter = (present & (c_near <= c_far) & (c_far > 0.0)
-                     & (c_near <= t_b[l_i, None]))
-            # entries above slot i: entered children after it in
-            # (near, slot) order, so the least is pushed last
-            nj, ni = c_near[:, None, :], c_near[:, :, None]
-            after = (nj > ni) | ((nj == ni) & (slot[None, :] > slot[:, None]))
-            above = (enter[:, None, :] & after).sum(-1)
+            gate = (c_near < mt[l_i, None] if any_hit
+                    else c_near <= t_b[l_i, None])
+            enter = present & (c_near <= c_far) & (c_far > 0.0) & gate
+            if any_hit:
+                # entries below slot i: the entered lower slots
+                above = enter.cumsum(-1) - enter.to(torch.int64)
+            else:
+                # entries above slot i: entered children after it in
+                # (near, slot) order, so the least is pushed last
+                nj, ni = c_near[:, None, :], c_near[:, :, None]
+                after = (nj > ni) | ((nj == ni)
+                                     & (slot[None, :] > slot[:, None]))
+                above = (enter[:, None, :] & after).sum(-1)
             pos = sp[l_i, None] + above
             lane_e = l_i[:, None].expand(-1, WIDE)[enter]
             st_code[lane_e, pos[enter]] = (
                 nd[..., 6].to(torch.int64) * 32 + nd[..., 7].to(torch.int64)
             )[enter]
-            st_near[lane_e, pos[enter]] = c_near[enter]
+            if not any_hit:
+                st_near[lane_e, pos[enter]] = c_near[enter]
             sp[l_i] += enter.sum(-1)
             if counts is not None:
                 counts["slab_tests"] += int(present.sum())
@@ -1284,6 +1303,8 @@ def _wide_walk(wbvh, o, d, maxt, counts):
     if counts is not None:
         counts["ray_pops"] = pops
         counts["ray_triangle_tests"] = tests
+    if any_hit:
+        return occ
     found = row_b != _NO_ROW
     prim = torch.where(found, wbvh.tri[torch.where(found, row_b, 0), 9],
                        -1.0).to(torch.int32)
@@ -1293,13 +1314,14 @@ def _wide_walk(wbvh, o, d, maxt, counts):
 def intersect_bvh_plain(wbvh, o, d, maxt, counts=None):
     """Plain version of `intersect_bvh`: the kernel's walk (`_wide_walk`)
     and arithmetic, so it equals the kernel to the bit."""
-    return _wide_walk(wbvh, o, d, maxt, counts)
+    return _wide_walk(wbvh, o, d, maxt, False, counts)
 
 
-def occluded_bvh_plain(pbvh, o, d, maxt, counts=None):
-    """Plain version of `occluded_bvh`: a lane leaves the walk at its first
-    hit with 0 < t < maxt."""
-    return _bvh_walk(pbvh, o, d, maxt, True, counts)[4]
+def occluded_bvh_plain(wbvh, o, d, maxt, counts=None):
+    """Plain version of `occluded_bvh`: the kernel's any-hit walk
+    (`_wide_walk`), which equals the skip-link walk over the PacketBVH
+    (`_bvh_walk`, any_hit True) and the kernel to the bit."""
+    return _wide_walk(wbvh, o, d, maxt, True, counts)
 
 
 def intersect_bvh(wbvh, o, d, maxt):
@@ -1331,20 +1353,22 @@ def intersect_bvh(wbvh, o, d, maxt):
     return t, prim, u, v
 
 
-def occluded_bvh(pbvh, o, d, maxt):
-    """Any hit with 0 < t < maxt over a PacketBVH: [N] bool."""
+def occluded_bvh(wbvh, o, d, maxt):
+    """Any hit with 0 < t < maxt over a WideBVH (scene/bvh.py), rays in
+    world space: [N] bool. CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
     global OCCLUDED_BVH_LAUNCHES
-    dev, n = _check_bvh("occluded_bvh", pbvh, o, d, maxt)
+    dev, n = _check_wide("occluded_bvh", wbvh, o, d, maxt)
     if dev.type == "cpu":
-        return occluded_bvh_plain(pbvh, o, d, maxt)
+        return occluded_bvh_plain(wbvh, o, d, maxt)
     from .build import check, load_library
 
     lib = load_library()
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_occluded_bvh(
-        pbvh.nodes.data_ptr(), pbvh.tri.data_ptr(), o.data_ptr(),
-        d.data_ptr(), maxt.data_ptr(), n, occ.data_ptr(), stream),
-        "occluded_bvh")
+        wbvh.nodes.data_ptr(), wbvh.tri.data_ptr(), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, int(wbvh.stack), occ.data_ptr(),
+        stream), "occluded_bvh")
     OCCLUDED_BVH_LAUNCHES += 1
     return occ

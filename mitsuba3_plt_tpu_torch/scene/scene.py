@@ -50,7 +50,7 @@ class Scene:
     sensor: Sensor
     ctab2: Optional[ClusterTable2] = None  # treelet tables of big meshes
     pbvh: Optional[PacketBVH] = None  # packet tables of big meshes
-    # the closest-hit table of the packet route, built from pbvh
+    # the table of the packet route's walks, built from pbvh
     wbvh: Optional[WideBVH] = dataclasses.field(init=False, repr=False,
                                                 compare=False)
 
@@ -156,7 +156,7 @@ class Scene:
             return isect.occluded_clu2(self.ctab2, ray.o, ray.d, ray.maxt)
         if route == "packet":
             perm, inv = self._packet_perm(ray.o, ray.d)
-            return isect.occluded_bvh(self.pbvh, ray.o[perm], ray.d[perm],
+            return isect.occluded_bvh(self.wbvh, ray.o[perm], ray.d[perm],
                                       ray.maxt[perm])[inv]
         return isect.occluded_q(geo.tri_q, geo.tri_anchor, ray.o, ray.d,
                                 ray.maxt, n_tris=geo.n_faces)

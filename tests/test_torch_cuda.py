@@ -214,8 +214,9 @@ def test_path_render_launches_clu2_once_per_bounce(card):
 
 
 def test_bvh_kernels_match_plain(card):
-    """B7 against its plain walk, to the bit: camera, bounce-like and shadow
-    rays, unsorted and through the route's coherence sort."""
+    """B7a and B7b against their plain walks over the WideBVH, to the bit:
+    camera, bounce-like and shadow rays, unsorted and through the route's
+    coherence sort."""
     from mitsuba3_plt_tpu_torch.librender.records import Ray
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
     from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
@@ -234,16 +235,19 @@ def test_bvh_kernels_match_plain(card):
         for k in (0, 2, 3):  # t, u, v
             assert torch.equal(got[k], want[k])
     assert (got[1] >= 0).float().mean() > 0.1
+    # B7b over the WideBVH: its plain walk, and the skip-link walk over the
+    # PacketBVH, to the bit
     for o, d, mt in (shadow, (cam[0], cam[1], torch.full_like(cam[2], 5.))):
-        occ = isect.occluded_bvh(pb, o, d, mt)
-        assert torch.equal(occ, isect.occluded_bvh_plain(pb, o, d, mt))
+        occ = isect.occluded_bvh(wb, o, d, mt)
+        assert torch.equal(occ, isect.occluded_bvh_plain(wb, o, d, mt))
+        assert torch.equal(occ, isect._bvh_walk(pb, o, d, mt, True, None)[4])
         assert 0.05 < occ.float().mean() < 0.95
     # the route sorts, launches and unsorts
     si = scene.ray_intersect(Ray.create(cam[0], cam[1]))
     assert torch.equal(si.prim_idx, isect.intersect_bvh(wb, *cam)[1])
     o, d, mt = shadow
     assert torch.equal(scene.ray_test(Ray(o=o, d=d, maxt=mt)),
-                       isect.occluded_bvh(pb, o, d, mt))
+                       isect.occluded_bvh(wb, o, d, mt))
 
 
 def test_wide_bvh_kernel_matches_plain_on_ties(card):
@@ -287,6 +291,49 @@ def test_wide_bvh_kernel_matches_plain_on_ties(card):
                     & (torch.where(got[1] >= 0, got[1] % len(f), -1)
                        == single[1]))
             assert same.float().mean() >= 0.999
+
+
+def test_wide_anyhit_kernel_matches_plain_at_edges(card):
+    """B7b to the bit against its plain walk and the skip-link walk on the
+    5,120-face sphere, rays from inside and outside, with maxt one ulp short
+    of the closest hit, at it, one ulp past it, inf, 0 and from a dead ray,
+    and ray counts that leave the last block's tiles empty (n = 1, 13)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.bvh import (
+        build_bvh, pack_packet_bvh, pack_wide_bvh)
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+
+    rng = np.random.default_rng(10)
+    m = make_sphere(4)
+    v, f = np.asarray(m.vertices, np.float32), np.asarray(m.faces)
+    p = [v[f[:, k]] for k in range(3)]
+    pb = pack_packet_bvh(build_bvh(v, f), *p, device=card)
+    wb = pack_wide_bvh(pb)
+    n = 16384
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * rng.uniform(
+        0.2, 3.0, (n, 1))
+    d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o[::9], d[::9] = 1e8, (0.0, 0.0, 1.0)
+    o, d = (torch.as_tensor(x.astype(np.float32), device=card)
+            for x in (o, d))
+    inf = torch.full((n,), float("inf"), device=card)
+    t0 = isect.intersect_bvh_plain(wb, o, d, inf)[0]
+    hit = torch.isfinite(t0)
+    cases = [torch.where(hit, torch.nextafter(t0, torch.zeros_like(t0)), 1.),
+             torch.where(hit, t0, 1.),
+             torch.where(hit, torch.nextafter(t0, inf), 1.), inf,
+             torch.zeros_like(inf)]
+    for mt in cases:
+        for k in (n, 13, 1):
+            got = isect.occluded_bvh(wb, o[:k], d[:k], mt[:k])
+            torch.cuda.synchronize()
+            assert torch.equal(got, isect.occluded_bvh_plain(
+                wb, o[:k], d[:k], mt[:k]))
+            assert torch.equal(got, isect._bvh_walk(
+                pb, o[:k], d[:k], mt[:k], True, None)[4])
+    assert 0.3 < isect.occluded_bvh(wb, o, d, inf).float().mean() < 1.0
 
 
 def test_lobe_sum_kernel_matches_plain_at_grazing_lanes(card):

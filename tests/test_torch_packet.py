@@ -1,10 +1,10 @@
 """The packet-BVH route of the port against the JAX package (CPU): the
-packet tables and the WideBVH collapsed from them, the plain walks (the
-closest hit over the WideBVH, the any-hit skip-link walk) against the
-Pallas packet kernels in interpret mode, against the brute-force oracle,
-against the port's clu2 walk and the closest hit against the skip-link
-walk it replaced, the coherence sort, the bridge's `pbvh.*` leaves and the
-routing."""
+packet tables and the WideBVH collapsed from them, the plain walks over
+the WideBVH (closest and any hit) against the Pallas packet kernels in
+interpret mode, against the brute-force oracle, against the port's clu2
+walk and against the skip-link walks they replaced, the coherence sort,
+the bridge's `pbvh.*` leaves and the routing. More of the any-hit walk:
+tests/test_torch_anyhit_wide.py."""
 import dataclasses
 
 import numpy as np
@@ -280,7 +280,8 @@ def test_bvh_maxt(tables):
     t, prim, u, v = tisect.intersect_bvh(twb, *_t(o, d, mt))
     assert (prim == -1).all() and torch.isinf(t).all()
     assert (u == 0).all() and (v == 0).all()
-    assert not tisect.occluded_bvh(tpb, *_t(o, d, mt)).any()
+    assert not tisect.occluded_bvh(twb, *_t(o, d, mt)).any()
+    assert not tisect._bvh_walk(tpb, *_t(o, d, mt), True, None)[4].any()
     jp = np.asarray(pallas_bvh_intersect(jpb, *_j(o, d, mt),
                                          interpret=True)[1])
     assert (jp == -1).all()
@@ -302,40 +303,54 @@ def test_occluded_bvh_plain_matches_jax_kernel(tables, name):
     mt = mt.astype(np.float32)
     want = np.asarray(pallas_bvh_occluded(jpb, *_j(o, d, mt),
                                           interpret=True))
-    counts, full = {}, {}
-    got = tisect.occluded_bvh_plain(tpb, *_t(o, d, mt), counts=counts).numpy()
+    counts, full, skip = {}, {}, {}
+    got = tisect.occluded_bvh_plain(twb, *_t(o, d, mt), counts=counts).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0.1 < got.mean() < 0.9
-    # the any-hit walk stops at the first hit: fewer tests than the same
-    # skip-link walk to the closest hit
-    tisect._bvh_walk(tpb, *_t(o, d, mt), False, full)
+    # the skip-link walk over the PacketBVH, to the bit
+    np.testing.assert_array_equal(
+        tisect._bvh_walk(tpb, *_t(o, d, mt), True, skip)[4].numpy(), want)
+    # an any-hit walk stops at the first hit: fewer tests than the same
+    # walk to the closest hit, over either table
+    tisect.intersect_bvh_plain(twb, *_t(o, d, mt), counts=full)
     assert 0 < counts["triangle_tests"] < full["triangle_tests"]
-    assert 1024 <= counts["slab_tests"] < full["slab_tests"]
+    assert 0 < counts["stack_peak"] <= twb.stack
+    skip_full = {}
+    tisect._bvh_walk(tpb, *_t(o, d, mt), False, skip_full)
+    assert 0 < skip["triangle_tests"] < skip_full["triangle_tests"]
+    assert 1024 <= skip["slab_tests"] < skip_full["slab_tests"]
 
 
 def test_bvh_dead_lane_convention(tables):
     """The canonical dead ray (o = 1e8, d = +z) fails the root's slab test
     of the skip-link walk (one box test per lane, no triangle test) and the
-    slab tests of the WideBVH root's children (one pop per lane)."""
+    slab tests of the WideBVH root's children in both wide walks (one pop
+    per lane, no triangle test)."""
     _, _, tpb, twb = tables["sphere4"]
     n = 256
     o = torch.full((n, 3), 1e8)
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(n, 1)
-    counts, wide = {}, {}
-    occ = tisect.occluded_bvh_plain(tpb, o, d, torch.full((n,), 1e30),
-                                    counts=counts)
+    counts, wide, skip = {}, {}, {}
+    occ = tisect._bvh_walk(tpb, o, d, torch.full((n,), 1e30), True,
+                           skip)[4]
     assert not occ.any()
-    assert counts == {"slab_tests": n, "triangle_tests": 0, "steps": 1}
+    assert skip == {"slab_tests": n, "triangle_tests": 0, "steps": 1}
+    root = int((twb.nodes[0, 7::8] >= 0).sum())
+    one_pop = {"slab_tests": n * root, "triangle_tests": 0, "steps": 1,
+               "stack_peak": 0}
+    for mt in (torch.full((n,), 1e30), torch.zeros(n)):
+        counts = {}
+        assert not tisect.occluded_bvh_plain(twb, o, d, mt,
+                                             counts=counts).any()
+        assert {k: counts[k] for k in one_pop} == one_pop
+        assert (counts["ray_pops"] == 1).all()
+        assert (counts["ray_triangle_tests"] == 0).all()
     t, p, _, _ = tisect.intersect_bvh_plain(
         twb, o, d, torch.full((n,), float("inf")), counts=wide)
     assert (p == -1).all() and torch.isinf(t).all()
-    root = int((twb.nodes[0, 7::8] >= 0).sum())
-    assert {k: wide[k] for k in ("slab_tests", "triangle_tests", "steps",
-                                 "stack_peak")} == {
-        "slab_tests": n * root, "triangle_tests": 0, "steps": 1,
-        "stack_peak": 0}
+    assert {k: wide[k] for k in one_pop} == one_pop
     assert (wide["ray_pops"] == 1).all()
-    assert not tisect.occluded_bvh(tpb, o, d, torch.zeros(n)).any()
+    assert not tisect.occluded_bvh(twb, o, d, torch.zeros(n)).any()
 
 
 def test_bvh_wrappers_check_arguments(tables):
@@ -344,20 +359,31 @@ def test_bvh_wrappers_check_arguments(tables):
     with pytest.raises(TypeError):
         tisect.intersect_bvh(twb, o.double(), d, mt)
     with pytest.raises(ValueError):
-        tisect.occluded_bvh(tpb, o, d[:4], mt)
+        tisect.occluded_bvh(twb, o, d[:4], mt)
     with pytest.raises(ValueError):
         tisect.intersect_bvh(
             dataclasses.replace(twb, tri=twb.tri[:, :8].contiguous()),
             o, d, mt)
     with pytest.raises(ValueError):
         tisect.occluded_bvh(
-            dataclasses.replace(tpb, nodes=tpb.nodes[:0]), o, d, mt)
-    # a PacketBVH is not the closest hit's table, and the stack must fit
-    with pytest.raises(ValueError):
-        tisect.intersect_bvh(tpb, o, d, mt)
-    with pytest.raises(ValueError):
-        tisect.intersect_bvh(dataclasses.replace(
-            twb, stack=tisect.WIDE_STACK_MAX + 1), o, d, mt)
+            dataclasses.replace(twb, nodes=twb.nodes[:0]), o, d, mt)
+    # a PacketBVH is not the table of either walk, and the stack must fit
+    for fn in (tisect.intersect_bvh, tisect.occluded_bvh):
+        with pytest.raises(ValueError):
+            fn(tpb, o, d, mt)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(twb, stack=tisect.WIDE_STACK_MAX + 1),
+               o, d, mt)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(twb, stack=0), o, d, mt)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(twb, tri=twb.tri[:, :9].contiguous()),
+               o, d, mt)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(twb, nodes=twb.nodes[:, :32].contiguous()),
+               o, d, mt)
+        with pytest.raises(TypeError):
+            fn(twb, o, d, mt.double())
 
 
 def _mixed_rays(scene, seed):
@@ -447,7 +473,9 @@ def test_packet_route_sorts_and_unsorts(packet_scenes):
     occ = ts.ray_test(sray)
     np.testing.assert_array_equal(
         occ.numpy(),
-        tisect.occluded_bvh(ts.pbvh, sray.o, sray.d, sray.maxt).numpy())
+        tisect.occluded_bvh(ts.wbvh, sray.o, sray.d, sray.maxt).numpy())
+    np.testing.assert_array_equal(occ.numpy(), tisect._bvh_walk(
+        ts.pbvh, sray.o, sray.d, sray.maxt, True, None)[4].numpy())
     np.testing.assert_array_equal(occ.numpy(), clu2.ray_test(sray).numpy())
     assert 0.1 < occ.float().mean() < 0.9
     # on the CPU the plain versions ran: no launch is counted
