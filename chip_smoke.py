@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # one card, ~3 min with the build
 
-    python3 chip_smoke.py --turns ROOT   # B4, B7a, B7b, B5, B6 of the
-                                         # package in ROOT
+    python3 chip_smoke.py --turns ROOT   # B4, B7a, B7b, B5, B6, B8a,
+                                         # B8b, B10a, B10b of the package
+                                         # in ROOT
 
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -158,6 +159,7 @@ MACC_LANES = 1 << 21       # rays of the multi-accumulator tool and the
                            # MFU tool's q probes
 FMA_WIDE_ROWS = 1 << 16    # the FMA roof probe at 8x the JAX tool's rows
 TOOL_SUBDIV = 4            # its icosphere: 5,120 faces
+CHUNKED_SUBDIV = 5         # 20,480 faces: above B8b's resident table
 PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
 TIMED_PASSES = 3
 # wrapper times below this are timed again on the device (`kernel_times`)
@@ -393,11 +395,15 @@ def ptxas_report(log: str) -> tuple:
             entry = m.group(1)
             k = re.search(r"(clu2_kernel|clu_kernel|sweep_q_kernel|"
                           r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
-                          r"sample_kernel|classic_kernel|fn_probe_kernel)"
+                          r"sample_kernel|classic_kernel|fn_probe_kernel|"
+                          r"anyhit_resident_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
-            # anyhit_kernel: B7b before the WideBVH (--turns)
+            # anyhit_kernel: B7b before the WideBVH; clu_kernel<0 / 1> and
+            # classic_kernel<0 / 1>: B10 and B8 one thread a ray (--turns)
             plain = re.search(r"(mxu_kernel|fma_roof_kernel|"
                               r"wide_anyhit_kernel|wide_kernel|"
+                              r"clu_closest_kernel|clu_anyhit_kernel|"
+                              r"anyhit_chunked_kernel|classic_kernel|"
                               r"anyhit_kernel)", entry)
             if k:
                 args = re.findall(r"L([ib])(\d+)E", k.group(2))
@@ -1220,8 +1226,10 @@ def anyhit_table(scene, isect):
 
 def check_brute(label, scene, sets, plain_lanes=None):
     """B8a, B8b and B9 against their plain versions on the tool's ray sets
-    {set: (o, d, maxt)} of one scene: on the first `plain_lanes` lanes (all
-    where None), timed on all. B8 must equal its plain version to the bit;
+    {set: (o, d, maxt)} of one scene: each kernel runs on all lanes, as it
+    is timed (B8b's grid, span and ray replacement depend on n), and its
+    first `plain_lanes` lanes (all where None) are held to the plain
+    version on those lanes. B8 must equal its plain version to the bit;
     B9's hit masks and prims must agree on >= 99.99% of lanes and t within
     rtol 1e-4 where both hit. Returns {set: [B8a row, B8b row, B9 row]}."""
     import torch
@@ -1244,7 +1252,8 @@ def check_brute(label, scene, sets, plain_lanes=None):
                   "plain_timing": "the comparison call, once, on plain_lanes"}
 
         # B8a: closest hit, equal to the bit
-        got = isect.intersect_classic(geo.tri_isect, *part, F)
+        got = tuple(x[:m] for x in isect.intersect_classic(
+            geo.tri_isect, o, d, mt, F))
         want, plain_ms = time_once(lambda: isect.intersect_classic_plain(
             geo.tri_isect, *part, F))
         hit = want[1] >= 0
@@ -1268,7 +1277,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
         # B8b: any hit, equal to the bit; the tests a thread makes (up to
         # its first hit) counted on the compared lanes, scaled to n
         counts = {}
-        occ = isect.occluded_classic(geo.tri_isect, *part, F)
+        occ = isect.occluded_classic(geo.tri_isect, o, d, mt, F)[:m]
         occ_plain, plain_a = time_once(lambda: isect.occluded_classic_plain(
             geo.tri_isect, *part, F, counts=counts))
         agree = (occ == occ_plain).double().mean().item()
@@ -1291,7 +1300,7 @@ def check_brute(label, scene, sets, plain_lanes=None):
                   "tests_per_ray": tests / n}
 
         # B9: the MXU form, within its tolerance
-        got_m = isect.intersect_mxu(w, *part, F)
+        got_m = tuple(x[:m] for x in isect.intersect_mxu(w, o, d, mt, F))
         want_m, plain_m = time_once(lambda: isect.intersect_mxu_plain(
             w, *part, F))
         mhit, whit = got_m[1] >= 0, want_m[1] >= 0
@@ -1334,33 +1343,35 @@ def check_brute(label, scene, sets, plain_lanes=None):
     return out
 
 
-def check_clu(label, tabs, sets, plain_lanes):
+def check_clu(label, tabs, sets, plain_lanes=None, tab="ctab64"):
     """B10a and B10b against their plain versions over the mask-sort
-    tool's ctab64 on its ray sets {set: (o, d, maxt)}: the closest hit on
-    the non-shadow sets, the any hit on the shadow sets, each equal to the
-    plain version to the bit on `plain_lanes` lanes spread evenly over the
-    set (the sets are in image order; the kernel gates each lane on its
-    own, as the plain version does) and timed on all. The bound counts
+    tool's table `tab` on its ray sets {set: (o, d, maxt)}: the closest hit
+    on the non-shadow sets, the any hit on the shadow sets. Each kernel
+    runs on all lanes, as it is timed (which rays share a warp decides
+    whether B10a runs a cluster a lane or a tile a ray), and its output on
+    `plain_lanes` lanes spread evenly over the set (all where None) must
+    equal the plain version's on those lanes to the bit. The bound counts
     each ray's own slab and triangle tests (the plain version's counts,
     scaled to all lanes). Returns {set: row}."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
 
-    ct = tabs["ctab64"]
+    ct = tabs[tab]
     tables = (ct.boxes, ct.rows, ct.anchor)
     out = {}
     for set_label, (o, d, mt) in sets.items():
         any_hit = set_label.startswith("shadow")
         n = o.shape[0]
-        step = max(1, n // plain_lanes)
+        step = 1 if plain_lanes is None else max(1, n // plain_lanes)
         part = tuple(x[::step].contiguous() for x in (o, d, mt))
         m = part[0].shape[0]
         counts = {}
         kernel = isect.occluded_clu if any_hit else isect.intersect_clu
         plain = (isect.occluded_clu_plain if any_hit
                  else isect.intersect_clu_plain)
-        got = kernel(ct, *part)
+        got = kernel(ct, o, d, mt)
+        got = got[::step] if any_hit else tuple(x[::step] for x in got)
         want, plain_ms = time_once(lambda: plain(ct, *part, counts=counts))
         name = "occluded_clu" if any_hit else "intersect_clu"
         if any_hit:
@@ -1390,7 +1401,7 @@ def check_clu(label, tabs, sets, plain_lanes):
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:"
                            + ("1093 (pallas_occluded_clu)" if any_hit
                               else "1080 (pallas_intersect_clu)"),
-               "rays": f"{label} {set_label}", "library_ms": None,
+               "rays": f"{label} {tab} {set_label}", "library_ms": None,
                "plain_timing": "the comparison call, once, on plain_lanes",
                "max_abs_err": err, **times, "plain_ms": plain_ms,
                **bnd, "agreement": 1.0 - err
@@ -1976,18 +1987,20 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
 
 
 def turns(root):
-    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B7b, B5 and B6 of the
-    package in ROOT (this checkout, or another commit unpacked there) timed
-    at the paths' shapes, as one JSON line: B4 on the kernels phase's main
+    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B7b, B5, B6 and the
+    tool kernels B8a, B8b, B10a, B10b of the package in ROOT (this
+    checkout, or another commit unpacked there) timed at the paths' and
+    the tools' shapes, as one JSON line: B4 on the kernels phase's main
     case (half 3, separable, 1,920,000 lanes); on the mesh82k packet
     scene (1,048,576 lanes a set, unsorted and sorted by the route) B7a on
     the camera, bounce and bounce-random sets and B7b on the shadow,
     shadow-random and all-dead sets, and both on the regenerative
     wavefront's 131,072 rays, sorted; B5 and B6 on the six sets of
-    `turns_clu2`. B7 is timed by `kernel_times` (device time where the
-    wrapper takes longer than the kernel). The kernels build in ROOT. Run
-    it over two checkouts in turns (parent, change, change, parent) within
-    one chip call to compare them on one card."""
+    `turns_clu2`; B8a, B8b, B10a and B10b on the tools' sets of
+    `turns_tools`. B7, B8 and B10 are timed by `kernel_times` (device time
+    where the wrapper takes longer than the kernel). The kernels build in
+    ROOT. Run it over two checkouts in turns (parent, change, change,
+    parent) within one chip call to compare them on one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2057,14 +2070,16 @@ def turns(root):
                                            *rshadow)
     del scene, closest, anyhit, rcam, rshadow
     clu2_ms = turns_clu2(isect, rng)
+    tool_ms = turns_tools(isect)
     emit({"turns": root, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
           "intersect_bvh_ms": bvh_ms, "occluded_bvh_ms": occ_ms,
           "closest_table": type(table).__name__,
           "anyhit_table": type(any_table).__name__, "clu2_ms": clu2_ms,
+          **tool_ms,
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
-                                         "anyhit", "clu2"))},
+                                         "anyhit", "clu", "classic"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
 
 
@@ -2096,6 +2111,48 @@ def turns_clu2(isect, rng):
     out.update({f"B6 {label}": time_ms(lambda: isect.occluded_clu2(ct, *r))
                 for label, r in anyhit.items()})
     return out
+
+
+def turns_tools(isect):
+    """The tool kernels of the package `isect` belongs to, timed by
+    `kernel_times` on the Cornell box and the 5,120-face icosphere at
+    1,048,576 lanes a set: {"classic_ms": B8a and B8b on the intersection
+    tool's coherent and incoherent sets, "clu_ms": B10a on the mask-sort
+    tool's incoherent and depth0-depth3 sets and B10b on its shadow0-shadow3
+    sets, each over ctab64 and ctab128}; B8b also on the intersection
+    tool's sets of the 20,480-face icosphere, a table too large for its
+    shared memory."""
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+
+    classic_ms, clu_ms = {}, {}
+    for label, scene in (
+            ("cbox", cornell_box(CBOX_W, CBOX_H, device="cuda")),
+            ("mesh5k", mesh_scene(CBOX_W, CBOX_H, TOOL_SUBDIV,
+                                  device="cuda"))):
+        g, F = scene.geo, scene.geo.n_faces
+        for set_label, (o, d, mt) in bi.ray_sets(scene, TOOL_LANES,
+                                                 0).items():
+            classic_ms[f"B8a {label} {set_label}"] = kernel_times(
+                lambda: isect.intersect_classic(g.tri_isect, o, d, mt, F))
+            classic_ms[f"B8b {label} {set_label}"] = kernel_times(
+                lambda: isect.occluded_classic(g.tri_isect, o, d, mt, F))
+        sets = ms.ray_sets(scene, TOOL_LANES // (CBOX_W * CBOX_H), 0)
+        for tab_label, ct in ms.tables(scene).items():
+            for set_label, (o, d, mt) in sets.items():
+                any_hit = set_label.startswith("shadow")
+                kernel = isect.occluded_clu if any_hit else isect.intersect_clu
+                key = (f"{'B10b' if any_hit else 'B10a'} {label} {tab_label} "
+                       f"{set_label}")
+                clu_ms[key] = kernel_times(lambda: kernel(ct, o, d, mt))
+        del sets
+    scene = mesh_scene(CBOX_W, CBOX_H, CHUNKED_SUBDIV, device="cuda")
+    g, F = scene.geo, scene.geo.n_faces
+    for set_label, (o, d, mt) in bi.ray_sets(scene, TOOL_LANES, 0).items():
+        classic_ms[f"B8b mesh20k {set_label}"] = kernel_times(
+            lambda: isect.occluded_classic(g.tri_isect, o, d, mt, F))
+    return {"classic_ms": classic_ms, "clu_ms": clu_ms}
 
 
 def main():
@@ -2206,6 +2263,11 @@ def main():
     brute = check_brute("cbox", cscene, pick)
     check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
     rows += brute["incoherent"]
+    # the Cornell box at full size on both tables: its incoherent rays
+    # start inside the boxes, whose bottoms tie the floor exactly
+    _, _, ctabs, cmask = mask_scenes[0]
+    for tab in ctabs:
+        check_clu("cbox", ctabs, cmask, tab=tab)
     _, _, ttabs, tmask = mask_scenes[1]
     clu = check_clu("mesh5k", ttabs,
                     {k: tmask[k] for k in ("incoherent", "depth0",

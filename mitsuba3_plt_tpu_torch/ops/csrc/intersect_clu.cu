@@ -1,5 +1,7 @@
 // Closest-hit and any-hit over the flat treelet tables (ClusterTable) of
-// mid-size scenes, one thread per ray.
+// mid-size scenes, one thread per ray walking the boxes; the closest hit
+// runs a cluster that few lanes of a warp enter with a tile of lanes per
+// ray.
 //
 // Replaces: mitsuba3_plt_tpu/ops/intersect_pallas.py::pallas_intersect_clu
 // (Pallas body _clu_kernel) and ::pallas_occluded_clu (body
@@ -11,12 +13,11 @@
 //   rows  [R, 32]: one triangle a row: e1 e2 m1 m2 n2 k, then the face
 //                  index as a float in column 16 (-1 on padding rows, whose
 //                  n2 = 0 never hits).
-// Walk: every box in table order; a lane enters a box when its own slab
-// test passes (near <= far, far > 0) and its own gate holds (closest hit
-// near * ad_b < ts_b; any hit near < maxt and not yet occluded). A warp
-// runs a cluster's rows when any of its lanes enters (__any_sync), but a
-// lane that did not enter takes nothing from them, so each lane's answer
-// is that of its own walk, the plain version's, to the bit. (The TPU kernel
+// Walk (both, the plain version's): every box in table order; a ray enters
+// a box when its slab test passes (near <= far, far > 0) and its gate
+// holds (closest hit near * ad_b < ts_b against its best so far; any hit
+// near < maxt and not yet occluded), then tests the box's rows in order.
+// Each ray's answer is that of its own walk, to the bit. (The TPU kernel
 // lets every lane of an 8,192-ray tile take the rows that any lane of the
 // tile needs; the two differ only where a lane's own slab test fails by
 // rounding on a box that holds its hit.)
@@ -28,16 +29,42 @@
 // wins, and divides once at the end. The inverse direction goes through
 // signed_eps (|d| >= 1e-12); an infinite maxt is carried as 3.4e38.
 //
-// What bounds it on the H100: operations. On the 5,120-face icosphere a
+// What bounds them on the H100: operations. On the 5,120-face icosphere a
 // ray makes 128 slab tests and, on rays from inside it, ~80 triangle tests
 // of its own (~29 and ~55 operations each) against 28 bytes of ray in and
-// 16 out; the tables (~0.7 MB) stay in L2. But a warp runs the rows of
-// every cluster any of its lanes enters, so incoherent rays cost the
-// union of 32 walks. Design: boxes and rows read as warp-uniform broadcast
-// loads through the read-only path (every lane of a warp reads the same
-// address), the ray and its best hit in registers, no shared memory; the
-// any-hit warp leaves a cluster, and the walk, when no lane that entered
-// is left unoccluded.
+// 16 out; the tables (~0.7 MB) stay in L2. Boxes and rows are read through
+// the read-only path, a box as a warp-uniform broadcast load.
+//
+// Closest hit (clu_closest_kernel). The first port ran a cluster's rows for
+// the whole warp, one lane a ray, when any lane entered it, so on
+// incoherent rays a warp paid for the union of 32 walks: 18.9x its measured
+// bound on the icosphere's interior rays (PERF.md). A tile of 8 lanes a ray
+// over the whole walk cut that 2.8x but ran the coherent sets 3.7-6x
+// slower: a warp then holds 4 rays, and every box and row it loads serves
+// 4 rays where it served 32. Design: each lane walks its own ray's boxes
+// (slab test and gate, one thread a ray), and per entered cluster the warp
+// counts its entrants. Above kTileRays, every lane runs the cluster's rows
+// for its own ray (broadcast loads, as before). At or below, the entrants
+// are taken kRaysPerRound at a time, one to each tile of kTile lanes: the
+// tile takes the entrant's ray terms and best from its lane by shuffles,
+// tests the cluster's rows kTile at a time (a trip a step, one row a
+// lane), applies the step's inside rows one by one in row order with the
+// strict cross-multiplied compare (one shuffle of ts, ad, us, vs a row),
+// so the first of two tied rows wins as in the sequential walk, and hands
+// the best back. A tree reduction would not give these bits: the rounded
+// compare is not transitive. All loops and shuffles are warp-uniform,
+// with per-tile masks. The best keeps its row; the face index is read
+// once at the end. kTileRays = 8 was the fastest of 4, 8, 16, 24 and 32 on
+// the mask-sort tool's sets (PERF.md section 6). What bounds it now, on
+// the icosphere's incoherent rays: the rows' bytes. A warp still enters
+// ~44 clusters (78% of them by one lane; the plain walk's counts) and
+// reads each one's rows from L2, ~5 GB a launch at ~3.1 TB/s; a tile of
+// the whole warp for a lone entrant cut its row steps 4x and moved
+// nothing.
+//
+// Any hit (clu_anyhit_kernel), one thread a ray: a warp runs a cluster's
+// rows when any of its lanes enters (__any_sync), and leaves a cluster, and
+// the walk, when no lane that entered is left unoccluded.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,7 +72,15 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kUnroll = 8;  // rows per trip (scene/bvh.py CLU_UNROLL)
+// The closest hit's tile mode: kTile lanes a ray (a trip's rows, one a
+// lane), so kRaysPerRound entrants a round; a cluster that more than
+// kTileRays lanes of a warp enter runs a lane a ray
+constexpr int kTile = 8;
+constexpr int kRaysPerRound = 32 / kTile;
+constexpr int kTileRays = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kTileMask = (1u << kTile) - 1u;
+static_assert(kUnroll % kTile == 0, "a trip is whole steps of a tile");
 
 struct CluRay {
   float ox, oy, oz, dx, dy, dz, cx, cy, cz, ix, iy, iz, tmax;
@@ -108,35 +143,194 @@ __device__ __forceinline__ void slab(const float4& a, const float4& b,
   far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
 }
 
-template <bool kAnyHit>
+// The q test of row k: (ad, us, vs, ts), |det| and the sign-folded
+// numerators, and whether the ray meets the triangle at 0 < t.
+// clu_anyhit_kernel holds a copy of it written out (see there).
+__device__ __forceinline__ bool row_test(const float* __restrict__ rows,
+                                         int k, const CluRay& r, float& ad,
+                                         float& us, float& vs, float& ts) {
+  const float4* tq = reinterpret_cast<const float4*>(rows + 32 * k);
+  // q0 = e1 e2.x, q1 = e2.yz m1.xy, q2 = m1.z m2, q3 = n2 k
+  const float4 q0 = __ldg(tq), q1 = __ldg(tq + 1);
+  const float4 q2 = __ldg(tq + 2), q3 = __ldg(tq + 3);
+  const float det = -dot3(r.dx, r.dy, r.dz, q3.x, q3.y, q3.z);
+  const float up = add(dot3(r.cx, r.cy, r.cz, q0.w, q1.x, q1.y),
+                       r.dx, r.dy, r.dz, q2.y, q2.z, q2.w);
+  const float vp = -add(dot3(r.cx, r.cy, r.cz, q0.x, q0.y, q0.z),
+                        r.dx, r.dy, r.dz, q1.z, q1.w, q2.x);
+  const float tp = sub(dot3(r.ox, r.oy, r.oz, q3.x, q3.y, q3.z), q3.w);
+  const float sg = det >= 0.f ? 1.f : -1.f;
+  ad = det * sg;
+  us = up * sg;
+  vs = vp * sg;
+  ts = tp * sg;
+  // written out so that a NaN term fails, as jnp.minimum(...) >= 0
+  return ad > 1e-12f && us >= 0.f && vs >= 0.f &&
+         sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
+}
+
+// The union over the warp's tiles of a ballot's per-tile bits, in the low
+// kTile bits (the same on every lane).
+__device__ __forceinline__ unsigned tile_union(unsigned ballot) {
+#pragma unroll
+  for (int s = kTile; s < 32; s <<= 1) ballot |= ballot >> s;
+  return ballot & kTileMask;
+}
+
+// The closest hit: one thread a ray walks the boxes; an entered cluster's
+// rows run a lane a ray when many lanes of the warp entered it, else a
+// tile a ray over a few entrants at a time (see the note at the top).
 __global__ void __launch_bounds__(kBlock)
-    clu_kernel(const float* __restrict__ boxes, int n_boxes,
-               const float* __restrict__ rows,
-               const float* __restrict__ anchor,
-               const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ maxt, int n,
-               float* __restrict__ t_out, int* __restrict__ prim_out,
-               float* __restrict__ u_out, float* __restrict__ v_out,
-               bool* __restrict__ occ_out) {
+    clu_closest_kernel(const float* __restrict__ boxes, int n_boxes,
+                       const float* __restrict__ rows,
+                       const float* __restrict__ anchor,
+                       const float* __restrict__ o,
+                       const float* __restrict__ d,
+                       const float* __restrict__ maxt, int n,
+                       float* __restrict__ t_out, int* __restrict__ prim_out,
+                       float* __restrict__ u_out, float* __restrict__ v_out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = i < n;
+  const int wl = threadIdx.x & 31;
+  const int lane = wl & (kTile - 1), tile = wl / kTile;
+  CluRay r = {};
+  r.ix = r.iy = r.iz = 1e12f;
+  if (live) r = load_ray(o, d, maxt, anchor, i);
+
+  // this lane's ray's best so far
+  float ts_b = r.tmax, ad_b = 1.f, us_b = 0.f, vs_b = 0.f;
+  int k_b = -1;
+  // every lane of a warp runs every iteration below: the loop bounds are
+  // read by all lanes from the same table row, and the votes are uniform
+  for (int c = 0; c < n_boxes; ++c) {
+    const float4* bp = reinterpret_cast<const float4*>(boxes + 16 * c);
+    const float4 ba = __ldg(bp), bb = __ldg(bp + 1);
+    float near, far;
+    slab(ba, bb, r, near, far);
+    const bool enter =
+        live && near <= far && far > 0.f && mul(near, ad_b) < ts_b;
+    const unsigned entered = __ballot_sync(kFull, enter);
+    if (!entered) continue;
+    const int first = (int)bb.z, k_end = first + kUnroll * (int)bb.w;
+    if (__popc(entered) > kTileRays) {
+      // a lane a ray: every row for every lane (broadcast loads), taken by
+      // the lanes that entered
+      for (int k = first; k < k_end; ++k) {
+        float ad, us, vs, ts;
+        const bool inside = row_test(rows, k, r, ad, us, vs, ts);
+        if (enter && inside && mul(ts, ad_b) < mul(ts_b, ad)) {
+          ts_b = ts;
+          ad_b = ad;
+          us_b = us;
+          vs_b = vs;
+          k_b = k;
+        }
+      }
+      continue;
+    }
+    // a tile a ray: the entrants in lane order, one a tile a round
+    for (unsigned rest = entered; rest;) {
+      // this tile's entrant: the tile-th set bit of rest, if any
+      unsigned mine = rest;
+      for (int s = 0; s < tile; ++s) mine &= mine - 1;
+      const bool busy = mine != 0;
+      const int src = busy ? __ffs(mine) - 1 : wl;
+      CluRay q = {};
+      q.ox = __shfl_sync(kFull, r.ox, src);
+      q.oy = __shfl_sync(kFull, r.oy, src);
+      q.oz = __shfl_sync(kFull, r.oz, src);
+      q.dx = __shfl_sync(kFull, r.dx, src);
+      q.dy = __shfl_sync(kFull, r.dy, src);
+      q.dz = __shfl_sync(kFull, r.dz, src);
+      q.cx = __shfl_sync(kFull, r.cx, src);
+      q.cy = __shfl_sync(kFull, r.cy, src);
+      q.cz = __shfl_sync(kFull, r.cz, src);
+      float qts = __shfl_sync(kFull, ts_b, src);
+      float qad = __shfl_sync(kFull, ad_b, src);
+      float qus = __shfl_sync(kFull, us_b, src);
+      float qvs = __shfl_sync(kFull, vs_b, src);
+      int qk = __shfl_sync(kFull, k_b, src);
+      for (int k0 = first; k0 < k_end; k0 += kTile) {
+        float ad = 0.f, us = 0.f, vs = 0.f, ts = 0.f;
+        const bool inside =
+            busy && row_test(rows, k0 + lane, q, ad, us, vs, ts);
+        const unsigned found = __ballot_sync(kFull, inside);
+        const unsigned own = (found >> (tile * kTile)) & kTileMask;
+        // the step's candidates in row order, against the running best
+        for (unsigned cand = tile_union(found); cand; cand &= cand - 1) {
+          const int j = __ffs(cand) - 1;
+          const float ts_j = __shfl_sync(kFull, ts, j, kTile);
+          const float ad_j = __shfl_sync(kFull, ad, j, kTile);
+          const float us_j = __shfl_sync(kFull, us, j, kTile);
+          const float vs_j = __shfl_sync(kFull, vs, j, kTile);
+          if (((own >> j) & 1u) && mul(ts_j, qad) < mul(qts, ad_j)) {
+            qts = ts_j;
+            qad = ad_j;
+            qus = us_j;
+            qvs = vs_j;
+            qk = k0 + j;
+          }
+        }
+      }
+      // each entrant's lane takes its tile's best back
+      const int rank = __popc(rest & ((1u << wl) - 1u));
+      const bool back = ((rest >> wl) & 1u) && rank < kRaysPerRound;
+      const int from = back ? rank * kTile : wl;
+      const float nts = __shfl_sync(kFull, qts, from);
+      const float nad = __shfl_sync(kFull, qad, from);
+      const float nus = __shfl_sync(kFull, qus, from);
+      const float nvs = __shfl_sync(kFull, qvs, from);
+      const int nk = __shfl_sync(kFull, qk, from);
+      if (back) {
+        ts_b = nts;
+        ad_b = nad;
+        us_b = nus;
+        vs_b = nvs;
+        k_b = nk;
+      }
+      for (int s = 0; s < kRaysPerRound; ++s) rest &= rest - 1;
+    }
+  }
+  if (!live) return;
+  const float inv = 1.f / ad_b;
+  const int prim = k_b >= 0 ? (int)__ldg(rows + 32 * k_b + 16) : -1;
+  prim_out[i] = prim;
+  t_out[i] = prim >= 0 ? ts_b * inv : INFINITY;
+  u_out[i] = us_b * inv;
+  v_out[i] = vs_b * inv;
+}
+
+// The any hit: one thread a ray (see the note at the top). Its row test
+// is `row_test` written out, every rounded operation the same and in the
+// same order; keep the two in step. Built on the helper it ran 5-6% slower
+// on each of the Cornell box's shadow sets: nvcc then carried `occ` across
+// the row loop as a byte (PRMT and SEL) where it keeps it in a predicate
+// here (PERF.md section 6).
+__global__ void __launch_bounds__(kBlock)
+    clu_anyhit_kernel(const float* __restrict__ boxes, int n_boxes,
+                      const float* __restrict__ rows,
+                      const float* __restrict__ anchor,
+                      const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const float* __restrict__ maxt, int n,
+                      bool* __restrict__ occ_out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n;
   CluRay r = {};
   r.ix = r.iy = r.iz = 1e12f;
   if (live) r = load_ray(o, d, maxt, anchor, i);
 
-  float ts_b = r.tmax, ad_b = 1.f, us_b = 0.f, vs_b = 0.f, prim_b = -1.f;
   bool occ = false;
   // every lane of a warp runs every iteration below: the loop bounds are
   // read by all lanes from the same table row, and the votes are uniform
   for (int c = 0; c < n_boxes; ++c) {
-    if (kAnyHit && !__any_sync(kFull, live && !occ)) break;
+    if (!__any_sync(kFull, live && !occ)) break;
     const float4* bp = reinterpret_cast<const float4*>(boxes + 16 * c);
     const float4 ba = __ldg(bp), bb = __ldg(bp + 1);
     float near, far;
     slab(ba, bb, r, near, far);
     const bool enter =
-        live && near <= far && far > 0.f &&
-        (kAnyHit ? (near < r.tmax && !occ) : (mul(near, ad_b) < ts_b));
+        live && near <= far && far > 0.f && (near < r.tmax && !occ);
     if (!__any_sync(kFull, enter)) continue;
     const int k_end = (int)bb.z + kUnroll * (int)bb.w;
     for (int k = (int)bb.z; k < k_end; ++k) {
@@ -155,33 +349,16 @@ __global__ void __launch_bounds__(kBlock)
       // written out so that a NaN term fails, as jnp.minimum(...) >= 0
       const bool inside = ad > 1e-12f && us >= 0.f && vs >= 0.f &&
                           sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
-      if (kAnyHit) {
-        occ = occ || (enter && inside && ts < mul(r.tmax, ad));
-        // the lane is done at its first hit, the warp when every lane
-        // that entered is
-        if ((k & (kUnroll - 1)) == kUnroll - 1 &&
-            !__any_sync(kFull, enter && !occ))
-          break;
-      } else if (enter && inside && mul(ts, ad_b) < mul(ts_b, ad)) {
-        ts_b = ts;
-        ad_b = ad;
-        us_b = us;
-        vs_b = vs;
-        prim_b = __ldg(rows + 32 * k + 16);
-      }
+      occ = occ || (enter && inside && ts < mul(r.tmax, ad));
+      // the lane is done at its first hit, the warp when every lane that
+      // entered is
+      if ((k & (kUnroll - 1)) == kUnroll - 1 &&
+          !__any_sync(kFull, enter && !occ))
+        break;
     }
   }
   if (!live) return;
-  if (kAnyHit) {
-    occ_out[i] = occ;
-    return;
-  }
-  const float inv = 1.f / ad_b;
-  const int prim = (int)prim_b;
-  prim_out[i] = prim;
-  t_out[i] = prim >= 0 ? ts_b * inv : INFINITY;
-  u_out[i] = us_b * inv;
-  v_out[i] = vs_b * inv;
+  occ_out[i] = occ;
 }
 
 }  // namespace
@@ -194,9 +371,8 @@ extern "C" int plt_intersect_clu(const float* boxes, int n_boxes,
                                  void* stream) {
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
-    clu_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        boxes, n_boxes, rows, anchor, o, d, maxt, n, t, prim, u, v,
-        nullptr);
+    clu_closest_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        boxes, n_boxes, rows, anchor, o, d, maxt, n, t, prim, u, v);
   }
   return (int)cudaGetLastError();
 }
@@ -208,9 +384,8 @@ extern "C" int plt_occluded_clu(const float* boxes, int n_boxes,
                                 void* stream) {
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
-    clu_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        boxes, n_boxes, rows, anchor, o, d, maxt, n, nullptr, nullptr,
-        nullptr, nullptr, occ);
+    clu_anyhit_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        boxes, n_boxes, rows, anchor, o, d, maxt, n, occ);
   }
   return (int)cudaGetLastError();
 }

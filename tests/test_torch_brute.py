@@ -165,6 +165,28 @@ def test_occluded_classic_plain_matches_pallas(cbox, table, kind):
     assert N_RAYS * 1 <= counts["triangle_tests"] < N_RAYS * nf
 
 
+@pytest.mark.parametrize("order", ["random", "strided"])
+@pytest.mark.parametrize("table", ["cbox", "twins"])
+def test_occluded_classic_plain_ignores_row_order(cbox, table, order):
+    """The any hit is an OR over rows, which its kernels rely on when they
+    split a ray's rows among the lanes of a tile: the plain version gives
+    the same answer over its rows in a random order and in the order of a
+    tile of 32 lanes taken lane by lane (rows l, l + 32, ... of lane l)."""
+    rows, nf = _table(table, cbox)
+    o, d = _rays("random", table, rows, nf, cbox)
+    rng = np.random.default_rng(7)
+    mt = _maxt(N_RAYS, rng)
+    perm = (rng.permutation(nf) if order == "random" else
+            np.concatenate([np.arange(lane, nf, 32) for lane in range(32)]))
+    assert sorted(perm) == list(range(nf))
+    args = tuple(torch.as_tensor(x) for x in (o, d, mt))
+    want = tisect.occluded_classic_plain(torch.as_tensor(rows), *args, nf)
+    got = tisect.occluded_classic_plain(torch.as_tensor(rows[perm]), *args,
+                                        nf)
+    assert torch.equal(got, want)
+    assert 0.05 < want.float().mean() < 0.95
+
+
 def test_pack_tri_mxu_matches_jax(cbox):
     rows, nf = _table("twins", cbox)
     p0, e1, e2 = rows[:nf, 0:3], rows[:nf, 3:6], rows[:nf, 6:9]

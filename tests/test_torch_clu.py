@@ -130,6 +130,67 @@ def test_intersect_clu_plain_matches_jax_kernel(spheres, mt_kind):
     assert np.all(got[2][~hit] == 0) and np.all(got[3][~hit] == 0)
 
 
+def _sequential_walk(ctab, o, d, maxt):
+    """The closest-hit kernel's update (ops/csrc/intersect_clu.cu,
+    clu_closest_kernel) written out over all lanes: each box gated in table
+    order on the lane's best as it stands there, and the strict
+    cross-multiplied compare applied to an entered cluster's inside rows one
+    by one in row order, which is what the kernel's lane-a-ray rows and its
+    tiles' in-step updates both do. The best keeps its row; the face index
+    is read at the end."""
+    walk = tisect._CluWalk(ctab, o, d, maxt, None)
+    ts_b = walk.mt.clone()
+    ad_b = torch.ones_like(ts_b)
+    us_b = torch.zeros_like(ts_b)
+    vs_b = torch.zeros_like(ts_b)
+    k_b = torch.full(ts_b.shape, -1, dtype=torch.int64)
+    for c in range(ctab.boxes.shape[0]):
+        first, rows = walk.spans[c]
+        near, far = walk.slab(ctab.boxes[c], walk.o, walk.inv)
+        enter = (near <= far) & (far > 0.0) & (near * ad_b < ts_b)
+        if not rows or not enter.any():
+            continue
+        lanes = enter.nonzero().squeeze(1)
+        (ad, us, vs, ts, inside), _ = walk.triangles(lanes, c)
+        for q in range(rows):
+            take = inside[:, q] & (
+                ts[:, q] * ad_b[lanes] < ts_b[lanes] * ad[:, q])
+            sel = lanes[take]
+            for dst, src in ((ts_b, ts), (ad_b, ad), (us_b, us),
+                             (vs_b, vs)):
+                dst[sel] = src[take, q]
+            k_b[sel] = first + q
+    prim = torch.where(k_b >= 0, ctab.rows[k_b.clamp(min=0), 16],
+                       -1.0).to(torch.int32)
+    inv = 1.0 / ad_b
+    return (torch.where(prim >= 0, ts_b * inv, float("inf")), prim,
+            us_b * inv, vs_b * inv)
+
+
+@pytest.mark.parametrize("case", ["cbox-ctab64", "cbox-ctab128",
+                                  "spheres-inf", "spheres-4.0"])
+def test_intersect_clu_plain_matches_sequential_walk(spheres, cbox, case):
+    """The plain closest hit (nearest candidate by division, ties by the
+    sequential compare) equals the sequential strict cross-multiplied
+    update in row order, to the bit: on the Cornell box's incoherent rays,
+    whose origins lie inside its boxes, where the box bottoms and the floor
+    are coplanar and tie exactly (each table), and on the spheres' rays
+    (maxt inf and finite)."""
+    name, arg = case.split("-", 1)
+    if name == "cbox":
+        tab = ms.tables(cbox)[arg]
+        o, d, mt = bi.ray_sets(cbox, 4096, 3)["incoherent"]
+    else:
+        tab = spheres[1]
+        o, d = (torch.as_tensor(x) for x in _rays(N_RAYS, seed=4))
+        mt = torch.as_tensor(_maxt(arg))
+    want = tisect.intersect_clu_plain(tab, o, d, mt)
+    got = _sequential_walk(tab, o, d, mt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert 0.05 < (want[1] >= 0).float().mean()
+
+
 @pytest.mark.parametrize("mt_kind", ["inf", "4.0"])
 def test_occluded_clu_plain_matches_jax_kernel(spheres, mt_kind):
     jct, tct = spheres

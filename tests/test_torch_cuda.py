@@ -538,6 +538,152 @@ def test_clu_kernels_match_plain(card):
                     assert (got[1] >= 0).any(), label
 
 
+def _soup_rows(subdiv):
+    """tri [F, 9] (p0, e1, e2) of the unit icosphere of `subdiv`, numpy."""
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+
+    m = make_sphere(subdiv)
+    v, f = np.asarray(m.vertices, np.float32), np.asarray(m.faces)
+    p0, p1, p2 = (v[f[:, k]] for k in range(3))
+    return np.concatenate([p0, p1 - p0, p2 - p0], 1).astype(np.float32)
+
+
+def _aimed(tri, faces, rng, off, edge=False):
+    """(o, d) numpy float32: rays along the normal of each of `faces` of
+    tri [F, 9] (p0, e1, e2) from `off` off a point of the face (inside it,
+    or the midpoint of its edge p0 -> p0 + e1 where `edge`), from either
+    side at random."""
+    p0, e1, e2 = tri[faces, 0:3], tri[faces, 3:6], tri[faces, 6:9]
+    if edge:
+        p = p0 + 0.5 * e1
+    else:
+        a, b = rng.uniform(0.2, 0.4, (2, len(faces), 1))
+        p = p0 + a * e1 + b * e2
+    nrm = np.cross(e1, e2)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    side = np.where(rng.random((len(faces), 1)) < 0.5, 1.0, -1.0)
+    return ((p + side * off * nrm).astype(np.float32),
+            (-side * nrm).astype(np.float32))
+
+
+def test_clu_closest_kernel_matches_plain_at_edges(card):
+    """B10a to the bit against its plain walk, with clusters that many
+    lanes of a warp enter (a lane a ray) and that few do (a tile a ray):
+    on the Cornell box's incoherent rays (the box bottoms and the floor
+    are coplanar and tie exactly), on rays at the last row of a trip or
+    the first of the next and at an edge such a row shares with a
+    neighbour, over each table and the same table cut to 1, 5, 13 and
+    K - 3 boxes, on all-dead and all-miss rays, and at ray counts that
+    leave the last warp part-filled (n = 1, 13)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.bvh import ClusterTable
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+
+    rng = np.random.default_rng(12)
+    for scene in (cornell_box(32, 32, device=card),
+                  mesh_scene(32, 32, subdiv=3, device=card)):
+        tri = scene.geo.tri_isect[: scene.geo.n_faces].cpu().numpy()
+        p = np.concatenate([tri[:, 0:3], tri[:, 0:3] + tri[:, 3:6]])
+        centre, size = p.mean(0), float(np.ptp(p, 0).max())
+        inc = bi.ray_sets(scene, 4096, 3)["incoherent"]
+        u = rng.normal(size=(512, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        out_o, out_d = centre + 2 * size * u, u
+        for ct in ms.tables(scene).values():
+            face = ct.rows[:, 16].cpu().numpy().astype(np.int64)
+            k = np.arange(len(face))
+            # the faces of rows that end a trip or start one
+            edge_rows = ((k % 8 == 7) | (k % 8 == 0)) & (face >= 0)
+            faces = np.repeat(face[edge_rows], 4)
+            rays = [_aimed(tri, faces, rng, 0.05 * size),
+                    _aimed(tri, faces, rng, 0.05 * size, edge=True),
+                    (out_o, out_d),
+                    (np.full((300, 3), 1e8), np.tile([0.0, 0.0, 1.0],
+                                                     (300, 1)))]
+            sets = [inc] + [
+                tuple(torch.as_tensor(x, dtype=torch.float32, device=card)
+                      for x in (o, d, np.full(len(o), np.inf)))
+                for o, d in rays]
+            n_boxes = ct.boxes.shape[0]
+            for cut in sorted({n_boxes, 1, 5, 13, max(1, n_boxes - 3)}):
+                if cut > n_boxes:
+                    continue
+                tab = ClusterTable(boxes=ct.boxes[:cut].contiguous(),
+                                   rows=ct.rows, anchor=ct.anchor)
+                for label, (o, d, mt) in enumerate(sets):
+                    want = isect.intersect_clu_plain(tab, o, d, mt)
+                    for n in (o.shape[0], 13, 1):
+                        got = isect.intersect_clu(tab, o[:n], d[:n], mt[:n])
+                        torch.cuda.synchronize()
+                        assert all(torch.equal(a, b[:n])
+                                   for a, b in zip(got, want)), \
+                            (cut, label, n)
+                    if label >= 3:  # rays away from the scene, dead rays
+                        assert (want[1] < 0).all(), label
+                if cut == n_boxes:
+                    # the aimed rays hit (their face or, at an edge, its
+                    # neighbour)
+                    hits = isect.intersect_clu(tab, *sets[1])[1]
+                    assert (hits >= 0).all()
+
+
+def test_occluded_classic_matches_plain_at_edges(card):
+    """B8b to the bit against its plain version on a table of each class
+    (the Cornell box, a lane a ray; the 5,120-face icosphere, a warp a ray,
+    resident; the 20,480-face one, chunked) and on the icosphere's first
+    64 and 65 rows: rays whose only occluder is row 0, 1, 31-33, 63-65,
+    511-513 or the last; n_tris cut by 13 (no width divides it); maxt one
+    ulp below, at and above the hit; a run of 2,048 rays that all hit row
+    0 first (whole blocks done at once); all-dead rays; and ray counts that
+    leave the last block part-filled (n = 1, 13)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+
+    rng = np.random.default_rng(11)
+    g = cornell_box(32, 32, device=card).geo
+    for tri_np in (g.tri_isect[: g.n_faces].cpu().numpy(), _soup_rows(4),
+                   _soup_rows(5)):
+        F = tri_np.shape[0]
+        off = 0.001 * float(np.ptp(tri_np[:, 0:3], 0).max())
+        faces = np.array([k for k in (0, 1, 31, 32, 33, 63, 64, 65, 511, 512,
+                                      513, F - 1) if k < F])
+        faces = np.concatenate([np.zeros(2048, np.int64),
+                                np.repeat(faces, 40)])
+        o, d = _aimed(tri_np, faces, rng, off)
+        tri = torch.as_tensor(tri_np, device=card)
+        O, D = (torch.as_tensor(x, device=card) for x in (o, d))
+        ok, t, _, _ = isect._classic_terms(tri[torch.as_tensor(faces)], O, D)
+        assert ok.all()
+        inf = torch.full_like(t, float("inf"))
+        dead = 300
+        O = torch.cat([O.repeat(4, 1), torch.full((dead, 3), 1e8,
+                                                  device=card)])
+        D = torch.cat([D.repeat(4, 1), torch.tensor(
+            [[0.0, 0.0, 1.0]], device=card).repeat(dead, 1)])
+        M = torch.cat([torch.full_like(t, 2 * off),
+                       torch.nextafter(t, torch.zeros_like(t)), t,
+                       torch.nextafter(t, inf), inf[:dead]])
+        counts = sorted({F, F - 13} | ({64, 65, 37, 1} if F >= 65 else set()))
+        for n_tris in counts:
+            want = isect.occluded_classic_plain(tri, O, D, M, n_tris)
+            for a, b in ((0, O.shape[0]), (0, 13), (0, 1),
+                         (2048, 2061), (O.shape[0] - 13, O.shape[0])):
+                got = isect.occluded_classic(tri, O[a:b], D[a:b], M[a:b],
+                                             n_tris)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want[a:b]), (F, n_tris, a, b)
+            if n_tris == F:
+                # maxt past the hit, one ulp short of it, at it, one past;
+                # on the icosphere the aimed face is the only occluder (in
+                # the Cornell box the floor and the box bottoms tie)
+                n = len(faces)
+                assert want[:n].all() and want[3 * n: 4 * n].all()
+                assert F < 65 or not want[n: 3 * n].any()
+                assert not want[-dead:].any()
+
+
 def test_q_variant_kernels_match_plain(card):
     """B11a at every unroll, with one and two accumulators, and B11b at
     every unroll equal their plain versions to the bit on the sweep's rays
