@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # one card, ~3 min with the build
 
-    python3 chip_smoke.py --turns ROOT   # B4, B7a, B7b, B5, B6, B8a,
-                                         # B8b, B10a, B10b of the package
-                                         # in ROOT
+    python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
+                                         # B8a, B8b, B10a, B10b of the
+                                         # package in ROOT
 
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -24,9 +24,12 @@ tracer on the Cornell box (B1, B2, area light).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
-                  started together), with nvcc's register and spill report
-                  and the special functions' fast paths in the SASS
-                  (`ops/mfu.py::special_fn_counts`), which weigh B4's bound;
+                  started together), with nvcc's register and spill report,
+                  the special functions' fast paths in the SASS
+                  (`ops/mfu.py::special_fn_counts`), which weigh B4's
+                  bound, and B1's and B2's instructions a (ray, row) test
+                  by class (`q_sass_counts`), whose FFMAs their bounds
+                  count;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
@@ -38,7 +41,9 @@ Phases, each printing one JSON line with its seconds:
                   between events, and keeps the event time as
                   `wrapper_ms` (`kernel_times`). B1 and B2 on the
                   grating's rays and on the Cornell box path's own first
-                  camera and shadow rays (2,097,152 lanes, 36 faces). B4
+                  camera and shadow rays (2,097,152 lanes, 36 faces),
+                  their measured bounds taking each FFMA of a test (read
+                  from the SASS; the hand count beside it) as one slot. B4
                   on four cases (its bound counted by
                   `lobe_sum_count`). B5 (camera, bounce, bounce-random,
                   dead) and B6 (shadow, shadow-random, dead) on the mesh82k
@@ -161,6 +166,7 @@ FMA_WIDE_ROWS = 1 << 16    # the FMA roof probe at 8x the JAX tool's rows
 TOOL_SUBDIV = 4            # its icosphere: 5,120 faces
 CHUNKED_SUBDIV = 5         # 20,480 faces: above B8b's resident table
 PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
+CHUNKED_COUNT_LANES = 16384  # lanes B8b's tests are counted on, 20,480 faces
 TIMED_PASSES = 3
 # wrapper times below this are timed again on the device (`kernel_times`)
 DEVICE_TIMED_BELOW_MS = 0.15
@@ -434,6 +440,10 @@ def require(cond, msg):
 Q_RAY_SETUP_OPS = 17      # anchor shift, o x d, maxt check, final divide
 Q_TEST_OPS = 55           # det, u, v, t terms, sign fold, inside, best pair
 Q_ANYHIT_TEST_OPS = 47    # the same without the best-pair update
+Q_TEST_FMAS = 14          # of them FMAs, two operations each: det 2, u 5,
+                          # v 5, t 2 (both tests; B1/B2 only, whose SASS
+                          # `count_sass` reads: the kernels below that
+                          # take Q_TEST_OPS keep n_fma=0)
 CLU2_RAY_SETUP_OPS = 29   # the q setup plus the guarded inverse direction
 SLAB_OPS = 29             # 6 sub, 6 mul, 10 min/max, gate compares and ands
 BVH_RAY_SETUP_OPS = 22    # guarded inverse direction, maxt check, miss select
@@ -536,10 +546,11 @@ def sample_ops(half, ndf):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_intersect(scene, n_rays, rng):
-    """B1 and B2 on the grating scene: n_rays camera rays (maxt inf), and
-    shadow-like rays: origins in the scene's box off every surface, uniform
-    directions, maxt uniform in [0, 6] with 10% inf and 10% zero."""
+def grating_q_rays(scene, n_rays, rng):
+    """B1's and B2's rays on the grating scene ((o, d, maxt) each): n_rays
+    camera rays (maxt inf), and shadow-like rays: origins in the scene's
+    box off every surface, uniform directions, maxt uniform in [0, 6] with
+    10% inf and 10% zero."""
     import numpy as np
     import torch
 
@@ -561,7 +572,7 @@ def check_intersect(scene, n_rays, rng):
     smt[pick < 0.1] = np.inf
     smt[(pick >= 0.1) & (pick < 0.2)] = 0.0
     shadow = tuple(torch.as_tensor(x, device=dev) for x in (so, sd, smt))
-    return check_q("grating", scene, (ray.o, ray.d, ray.maxt), shadow)
+    return (ray.o, ray.d, ray.maxt), shadow
 
 
 def path_q_rays(scene, integ, spp_pass):
@@ -587,11 +598,34 @@ def path_q_rays(scene, integ, spp_pass):
     return seen["intersect_q"], seen["occluded_q"]
 
 
-def check_q(label, scene, closest_rays, shadow_rays):
+def q_sass_counts(library):
+    """{"intersect_q", "occluded_q"}: `mfu.count_sass(..., per_test=True)`
+    of q_kernel<false / true> in the kernel library file `library`, read
+    by this checkout's `ops/mfu.py` in a process of its own (so that
+    `--turns` reads another checkout's library the same way)."""
+    code = (
+        "import json, os, subprocess, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "from mitsuba3_plt_tpu_torch.ops import build, mfu\n"
+        "tool = os.path.join(os.path.dirname(build.find_nvcc()), "
+        "'cuobjdump')\n"
+        "sass = subprocess.run([tool, '-sass', sys.argv[1]], check=True, "
+        "stdout=subprocess.PIPE, text=True).stdout\n"
+        "print(json.dumps({k: mfu.count_sass(sass, f'q_kernelILb{b}E', "
+        "per_test=True) for k, b in (('intersect_q', 0), "
+        "('occluded_q', 1))}))\n")
+    out = subprocess.run([sys.executable, "-c", code, library], check=True,
+                         stdout=subprocess.PIPE, text=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def check_q(label, scene, closest_rays, shadow_rays, q_sass):
     """B1 on closest_rays and B2 on shadow_rays ((o, d, maxt) each) of a
     brute-route scene against their plain versions, with the tolerance
     stated; rows timed by `kernel_times` (device time where the wrapper
-    takes longer than the kernel)."""
+    takes longer than the kernel). q_sass: `q_sass_counts` of the built
+    library, whose FFMAs a test the bounds count (the hand count
+    Q_TEST_FMAS printed beside them)."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -624,14 +658,17 @@ def check_q(label, scene, closest_rays, shadow_rays):
               (got[3][both] - want[3][both]).abs().max().item())
     times = kernel_times(lambda: isect.intersect_q(*args))
     plain_ms = time_ms(lambda: isect.intersect_q_plain(*args))
+    fmas = q_sass["intersect_q"]["per_test"]["ffma"]
     bnd = bound(nbytes(geo.tri_q, geo.tri_anchor, o, d, maxt, got),
-                n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS))
+                n * (Q_RAY_SETUP_OPS + geo.n_faces * Q_TEST_OPS),
+                n * geo.n_faces * fmas)
     closest = {"name": "intersect_q", "route": "cuda",
                "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1373 "
                            "(pallas_intersect_q)",
                "max_abs_err": err, **times, "plain_ms": plain_ms,
                **bnd, "library_ms": None, "rays": label,
+               "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
                "n": n, "faces": geo.n_faces, "prim_agreement": frac_prim,
                "hit_share": (want[1] >= 0).float().mean().item()}
 
@@ -650,15 +687,17 @@ def check_q(label, scene, closest_rays, shadow_rays):
                              geo.n_faces)
     times_a = kernel_times(lambda: isect.occluded_q(*sargs))
     plain_a = time_ms(lambda: isect.occluded_q_plain(*sargs))
+    fmas_a = q_sass["occluded_q"]["per_test"]["ffma"]
     bnd_a = bound(
         nbytes(geo.tri_q, geo.tri_anchor, so, sd, smt, occ),
-        n * Q_RAY_SETUP_OPS + tested * Q_ANYHIT_TEST_OPS)
+        n * Q_RAY_SETUP_OPS + tested * Q_ANYHIT_TEST_OPS, tested * fmas_a)
     anyhit = {"name": "occluded_q", "route": "cuda",
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_q.cu",
               "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:1411 "
                           "(pallas_occluded_q)",
               "max_abs_err": 1.0 - frac_occ, **times_a, "plain_ms": plain_a,
               **bnd_a, "library_ms": None, "rays": label,
+              "test_fmas": {"sass": fmas_a, "hand": Q_TEST_FMAS},
               "n": n, "faces": geo.n_faces, "occ_agreement": frac_occ,
               "occluded_share": occ_plain.float().mean().item(),
               "tests_per_ray": tested / n}
@@ -1987,18 +2026,20 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
 
 
 def turns(root):
-    """`python3 chip_smoke.py --turns ROOT`: B4, B7a, B7b, B5, B6 and the
-    tool kernels B8a, B8b, B10a, B10b of the package in ROOT (this
+    """`python3 chip_smoke.py --turns ROOT`: B1, B2, B4, B7a, B7b, B5, B6
+    and the tool kernels B8a, B8b, B10a, B10b of the package in ROOT (this
     checkout, or another commit unpacked there) timed at the paths' and
-    the tools' shapes, as one JSON line: B4 on the kernels phase's main
-    case (half 3, separable, 1,920,000 lanes); on the mesh82k packet
-    scene (1,048,576 lanes a set, unsorted and sorted by the route) B7a on
-    the camera, bounce and bounce-random sets and B7b on the shadow,
-    shadow-random and all-dead sets, and both on the regenerative
-    wavefront's 131,072 rays, sorted; B5 and B6 on the six sets of
-    `turns_clu2`; B8a, B8b, B10a and B10b on the tools' sets of
-    `turns_tools`. B7, B8 and B10 are timed by `kernel_times` (device time
-    where the wrapper takes longer than the kernel). The kernels build in
+    the tools' shapes, as one JSON line: B1 and B2 on the kernels
+    phase's sets (`turns_q`), with their SASS instructions a test
+    (`q_sass_counts`); B4 on the kernels phase's main case (half 3,
+    separable, 1,920,000 lanes); on the mesh82k packet scene (1,048,576
+    lanes a set, unsorted and sorted by the route) B7a on the camera,
+    bounce and bounce-random sets and B7b on the shadow, shadow-random and
+    all-dead sets, and both on the regenerative wavefront's 131,072 rays,
+    sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B10a and
+    B10b on the tools' sets of `turns_tools`. B1, B2, B7, B8 and B10 are
+    timed by `kernel_times` (device time where the wrapper takes longer
+    than the kernel). The kernels build in
     ROOT. Run it over two checkouts in turns (parent, change, change,
     parent) within one chip call to compare them on one card."""
     import torch
@@ -2071,16 +2112,49 @@ def turns(root):
     del scene, closest, anyhit, rcam, rshadow
     clu2_ms = turns_clu2(isect, rng)
     tool_ms = turns_tools(isect)
+    q_ms = turns_q(isect)
     emit({"turns": root, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
           "intersect_bvh_ms": bvh_ms, "occluded_bvh_ms": occ_ms,
           "closest_table": type(table).__name__,
           "anyhit_table": type(any_table).__name__, "clu2_ms": clu2_ms,
-          **tool_ms,
+          **tool_ms, "q_ms": q_ms,
+          "q_sass": {k: c["per_test"]
+                     for k, c in q_sass_counts(build.library_file()).items()},
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
-                                         "anyhit", "clu", "classic"))},
+                                         "anyhit", "clu", "classic",
+                                         "q_kernel"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
+
+
+def turns_q(isect):
+    """B1 and B2 of the package `isect` belongs to, timed by `kernel_times`
+    on the kernels phase's sets: {set: times}, the grating's camera and
+    shadow-like rays (`grating_q_rays`, 1,920,000 each) and the Cornell box
+    path's own first closest-hit and any-hit rays (`path_q_rays`,
+    2,097,152 each)."""
+    import numpy as np
+
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, grating_scene
+
+    gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
+    cscene = cornell_box(CBOX_W, CBOX_H, device="cuda")
+    sets = {"grating": (gscene, grating_q_rays(
+                gscene, MAIN_W * MAIN_H * MAIN_SPP_PASS,
+                np.random.default_rng(0))),
+            "cbox path": (cscene, path_q_rays(
+                cscene, PathIntegrator(max_depth=CBOX_DEPTH,
+                                       rr_depth=CBOX_RR), CBOX_SPP_PASS))}
+    out = {}
+    for label, (scene, (closest, shadow)) in sets.items():
+        g = scene.geo
+        out[f"B1 {label}"] = kernel_times(lambda: isect.intersect_q(
+            g.tri_q, g.tri_anchor, *closest, g.n_faces))
+        out[f"B2 {label}"] = kernel_times(lambda: isect.occluded_q(
+            g.tri_q, g.tri_anchor, *shadow, g.n_faces))
+    return out
 
 
 def turns_clu2(isect, rng):
@@ -2121,7 +2195,8 @@ def turns_tools(isect):
     tool's incoherent and depth0-depth3 sets and B10b on its shadow0-shadow3
     sets, each over ctab64 and ctab128}; B8b also on the intersection
     tool's sets of the 20,480-face icosphere, a table too large for its
-    shared memory."""
+    shared memory, with its bound (published peaks) from the tests the
+    plain version counts on CHUNKED_COUNT_LANES of each set's lanes."""
     from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
     from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
     from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
@@ -2150,8 +2225,19 @@ def turns_tools(isect):
     scene = mesh_scene(CBOX_W, CBOX_H, CHUNKED_SUBDIV, device="cuda")
     g, F = scene.geo, scene.geo.n_faces
     for set_label, (o, d, mt) in bi.ray_sets(scene, TOOL_LANES, 0).items():
-        classic_ms[f"B8b mesh20k {set_label}"] = kernel_times(
+        times = kernel_times(
             lambda: isect.occluded_classic(g.tri_isect, o, d, mt, F))
+        # its bound: the tests up to each ray's first hit, counted by the
+        # plain version on the first CHUNKED_COUNT_LANES lanes, scaled
+        n, m, counts = o.shape[0], CHUNKED_COUNT_LANES, {}
+        isect.occluded_classic_plain(g.tri_isect, o[:m], d[:m], mt[:m], F,
+                                     counts=counts)
+        tests = counts["triangle_tests"] * n / m
+        classic_ms[f"B8b mesh20k {set_label}"] = dict(
+            times, tests_per_ray=tests / n,
+            **bound(nbytes(g.tri_isect[:F], o, d, mt) + n,
+                    n * CLASSIC_RAY_SETUP_OPS
+                    + tests * CLASSIC_ANYHIT_TEST_OPS))
     return {"classic_ms": classic_ms, "clu_ms": clu_ms}
 
 
@@ -2190,8 +2276,9 @@ def main():
     registers, spills = ptxas_report(build.build_log)
     sass = mfu.library_sass()
     specials = mfu.special_fn_counts(sass)
+    q_sass = q_sass_counts(build.library_file())
     ph.emit(sources=list(build.SOURCES), registers=registers, spills=spills,
-            special_fn_fast_paths=specials)
+            special_fn_fast_paths=specials, q_sass=q_sass)
 
     ph = Phase("mesh82k-scene")
     mscene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, device="cuda")
@@ -2245,7 +2332,8 @@ def main():
     n = MAIN_W * MAIN_H * MAIN_SPP_PASS
     rng = np.random.default_rng(0)
     iscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
-    rows = check_intersect(iscene, n, rng)
+    rows = check_q("grating", iscene, *grating_q_rays(iscene, n, rng),
+                   q_sass)
     rows.append(check_sample(n, rng, "cuda"))
     rows.append(check_lobe_sum(n, rng, "cuda", specials))
     clu2_rows, ray_sets, clu2_ms = check_clu2(mscene, rng)
@@ -2258,7 +2346,7 @@ def main():
     # roofs below
     cbox_q = check_q("cbox path", cscene, *path_q_rays(
         cscene, PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
-        CBOX_SPP_PASS))
+        CBOX_SPP_PASS), q_sass)
     pick = {k: csets[k] for k in ("coherent", "incoherent")}
     brute = check_brute("cbox", cscene, pick)
     check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
@@ -2282,7 +2370,7 @@ def main():
     ph.emit(checked=[r["name"] for r in rows])
     tool_launches = isect_tool([("cbox", cscene, csets),
                                 ("mesh5k", tscene, tsets)])
-    del csets, tsets
+    del csets, tsets, pick
     mask_launches = mask_sort_tool(mask_scenes)
     sweep_launches = unroll_sweep_tool(sweep_scenes)
     macc_launches = q_multiacc_tool(macc_scenes)
@@ -2293,7 +2381,7 @@ def main():
               "launches_per_pass": CBOX_LAUNCHES[r["name"]]})
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
-    del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask
+    del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask, ctabs, cmask
 
     golden_ztest("golden", grating_scene(24, 24, coherence=1e3,
                                          device="cuda"),
@@ -2352,7 +2440,10 @@ def main():
                else mfu_launches if r["name"] in MFU_KERNELS
                else g_res["launches"])
         r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
-        kernels.append({k: r[k] for k in keys})
+        row = {k: r[k] for k in keys}
+        if "test_fmas" in r:
+            row["test_fmas"] = r["test_fmas"]
+        kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

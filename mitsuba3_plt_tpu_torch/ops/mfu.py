@@ -84,13 +84,9 @@ _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*);")
 
 
-def count_sass(sass: str, kernel: str) -> dict:
-    """Instructions a thread of `kernel` issues, from `cuobjdump -sass`
-    text: {"ffma", "fmnmx", "other", "slots"} per thread, with the step
-    loop (the kernel's one backward branch) counted as many times as its
-    FFMAs divide FMA_ITERS; "loop" and "outside" give the two parts and
-    "per_step" the instructions of one step of the four chains. NOPs and
-    the BRA to itself after EXIT, which never issue, are left out."""
+def _kernel_sass(sass: str, kernel: str) -> list:
+    """[(address, opcode, operands)] of `kernel` in `cuobjdump -sass`
+    text."""
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -101,6 +97,39 @@ def count_sass(sass: str, kernel: str) -> dict:
             body.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
     if not body:
         raise RuntimeError(f"count_sass: no SASS for {kernel}")
+    return body
+
+
+def _issued(addr, op, arg):
+    """Whether a SASS row issues: NOPs and the BRA to itself after EXIT
+    never do."""
+    return not (op == "NOP" or (op == "BRA" and arg == hex(addr)))
+
+
+# the q test's det epsilon, 1e-12 as float32, as cuobjdump prints it
+_DET_EPS_SASS = re.compile(r"\b9\.99999996\d*e-13\b")
+# the classes a q test's instructions are counted in
+Q_CLASSES = ("ffma", "fmul", "fadd", "fsetp", "lop3", "lds", "other")
+
+
+def count_sass(sass: str, kernel: str, per_test: bool = False) -> dict:
+    """Instructions a thread of `kernel` issues, from `cuobjdump -sass`
+    text: {"ffma", "fmnmx", "other", "slots"} per thread, with the step
+    loop (the kernel's one backward branch) counted as many times as its
+    FFMAs divide FMA_ITERS; "loop" and "outside" give the two parts and
+    "per_step" the instructions of one step of the four chains. NOPs and
+    the BRA to itself after EXIT, which never issue, are left out.
+
+    per_test=True reads a q kernel (`csrc/intersect_q.cu`, whose loops
+    nest): its row loop is the innermost loop (a backward branch, taken
+    or predicated, spanning no other) with the most FFMAs, and one trip of
+    it runs as many (ray, row) tests as it holds FSETPs against the det
+    epsilon 1e-12. Returns {"tests_per_trip", "loop": the trip's
+    instructions by class (Q_CLASSES), "ops": by opcode, "per_test": each
+    class and "slots" over the tests}."""
+    body = _kernel_sass(sass, kernel)
+    if per_test:
+        return _count_per_test(body, kernel)
     loops = []
     for addr, op, arg in body:
         t = re.fullmatch(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
@@ -112,10 +141,9 @@ def count_sass(sass: str, kernel: str) -> dict:
     def tally(rows):
         out = {"ffma": 0, "fmnmx": 0, "other": 0}
         for addr, op, arg in rows:
-            if op == "NOP" or (op == "BRA" and arg == hex(addr)):
-                continue
-            out["ffma" if op == "FFMA" else "fmnmx" if op == "FMNMX"
-                else "other"] += 1
+            if _issued(addr, op, arg):
+                out["ffma" if op == "FFMA" else "fmnmx" if op == "FMNMX"
+                    else "other"] += 1
         return out
 
     lo, hi = loops[0] if loops else (0, -1)
@@ -126,6 +154,38 @@ def count_sass(sass: str, kernel: str) -> dict:
     return {**issued, "slots": sum(issued.values()), "loop_trips": trips,
             "loop": inner, "outside": outer,
             "per_step": {k: v / FMA_STEPS for k, v in issued.items()}}
+
+
+def _count_per_test(body, kernel):
+    loops = []
+    for addr, op, arg in body:
+        hexes = _HEX.findall(arg) if op == "BRA" else []
+        if hexes and int(hexes[-1], 16) < addr:
+            loops.append((int(hexes[-1], 16), addr))
+    inner = [a for a in loops
+             if not any(b != a and a[0] <= b[0] and b[1] <= a[1]
+                        for b in loops)]
+    if not inner:
+        raise RuntimeError(f"count_sass: no loop in {kernel}")
+
+    def trip(loop):
+        return [r for r in body if loop[0] <= r[0] <= loop[1]
+                and _issued(*r)]
+
+    rows = trip(max(inner, key=lambda a: sum(
+        op == "FFMA" for _, op, _ in trip(a))))
+    tests = sum(op == "FSETP" and bool(_DET_EPS_SASS.search(arg))
+                for _, op, arg in rows)
+    if not tests:
+        raise RuntimeError(f"count_sass: no det epsilon in {kernel}'s loop")
+    ops, loop = {}, dict.fromkeys(Q_CLASSES, 0)
+    for _, op, _ in rows:
+        ops[op] = ops.get(op, 0) + 1
+        loop[op.lower() if op.lower() in Q_CLASSES else "other"] += 1
+    per = {k: v / tests for k, v in loop.items()}
+    per["slots"] = len(rows) / tests
+    return {"tests_per_trip": tests, "loop": loop, "ops": ops,
+            "per_test": per}
 
 
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"

@@ -837,3 +837,117 @@ def test_macc_and_mfu_tools_launch_their_kernels(card):
     assert {k: v for k, v in counts.items() if v} == {
         "fma_roof": 1, "intersect_q": 1, "occluded_q": 1,
         "intersect_clu2": 1, "grating_lobe_sum": 1}
+
+
+def _q_agree(isect, tab, anchor, o, d, mt, n_tris):
+    """B1 and B2 against their plain versions on (o, d, mt): prim and the
+    flag equal on all but 1 lane in 10,000 (a ray within float rounding of
+    an edge, of 0 or of maxt: the kernel contracts multiply-adds into FMAs,
+    the plain version does not), as chip_smoke.py's check_q holds them;
+    t, u, v where the prims agree at check_q's rtol 1e-5 (atol 1e-6 for t,
+    1e-5 for u, v) on all but 1 lane in 10,000, and within rtol 1e-3 on
+    every lane. These sets start rays anywhere in the box: a lane whose
+    origin lies near a triangle's plane loses digits of t|det| to
+    cancellation, where the FMAs move t by more than 1e-5 relative (3 of
+    547,807 lanes, the largest 7e-5, on the first design of this kernel);
+    check_q's path and grating rays start on surfaces or at the camera.
+    Returns the kernel's closest hit and flags."""
+    got = isect.intersect_q(tab, anchor, o, d, mt, n_tris)
+    want = isect.intersect_q_plain(tab, anchor, o, d, mt, n_tris)
+    occ = isect.occluded_q(tab, anchor, o, d, mt, n_tris)
+    occ_plain = isect.occluded_q_plain(tab, anchor, o, d, mt, n_tris)
+    torch.cuda.synchronize()
+    same = got[1] == want[1]
+    assert same.double().mean() >= 1 - 1e-4
+    both = same & (want[1] >= 0)
+    for a, b, atol in zip(got, want, (1e-6, 0, 1e-5, 1e-5)):
+        a, b = a[both], b[both]
+        close = torch.isclose(a, b, rtol=1e-5, atol=atol)
+        assert close.double().mean() >= 1 - 1e-4 or not both.any()
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=atol)
+    assert torch.isinf(got[0][got[1] < 0]).all()
+    assert (occ == occ_plain).double().mean() >= 1 - 1e-4
+    return got, occ
+
+
+def test_q_kernels_match_plain_at_edges(card):
+    """B1 and B2 (blocks looping over tiles of rays, the table staged with
+    zero rows up to a multiple of kStep) against their plain versions:
+    N = 1, 1,000,003 (not a multiple of any tile) and 2,097,151; n_tris 0,
+    36 (the Cornell box, resident) and 4,096 (the brute cap, staged in 8
+    chunks); maxt 0 and inf on some lanes, zero and NaN direction
+    components on others."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    scene = cornell_box(32, 32, device=card)
+    g = scene.geo
+    q = (g.tri_q, g.tri_anchor)
+    for n in (1, 1_000_003, 2_097_151):
+        o, d, mt = bi.ray_sets(scene, n, seed=n % 7)["incoherent"]
+        if n == 1:  # the box's open side lets a random ray out: aim down
+            d = torch.tensor([[0.0, -1.0, 0.0]], device=card)
+        mt = mt.clone()
+        mt[1::5] = 0.0
+        mt[2::5] = torch.rand(mt[2::5].shape, device=card) * 2
+        d = d.clone()
+        d[3::7, 0] = 0.0
+        d[4::7, 1] = 0.0
+        d[5::11, 2] = float("nan")
+        got, occ = _q_agree(isect, *q, o, d, mt, g.n_faces)
+        assert (got[1][1::5] < 0).all() and not occ[1::5].any()
+        assert (got[1][5::11] < 0).all() and not occ[5::11].any()
+        assert (got[1] >= 0).double().mean() > 0.5
+        none = isect.intersect_q(*q, o, d, mt, 0)
+        assert (none[1] == -1).all() and torch.isinf(none[0]).all()
+        assert not isect.occluded_q(*q, o, d, mt, 0).any()
+
+    # 4,096 faces of an icosphere: a table of 8 shared stages
+    mesh = make_sphere(4)
+    f = mesh.faces[:4096]
+    v = mesh.vertices.astype(np.float64)
+    rows, anchor = isect.pack_tri_q(v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
+    assert rows.shape == (4096, 16)
+    tab = torch.as_tensor(rows, device=card)
+    anc = torch.as_tensor(anchor, device=card)
+    rng = np.random.default_rng(5)
+    n = 20_000
+    o = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
+                        device=card)
+    d = torch.as_tensor(_dirs(rng, n) * np.where(
+        rng.random((n, 1)) < 0.5, 1.0, -1.0).astype(np.float32), device=card)
+    mt = torch.full((n,), float("inf"), device=card)
+    mt[::3] = 0.9
+    got, occ = _q_agree(isect, tab, anc, o, d, mt, 4096)
+    assert (got[1] >= 0).double().mean() > 0.5
+    assert (got[1] >= 3584).any() and occ.any() and not occ.all()
+
+
+def test_q_kernels_first_of_tied_rows_wins(card):
+    """The Cornell box's table with every row repeated (rows k and k + 36
+    equal): each duplicate's test is the same instructions on the same
+    values, so B1 must keep the first (the strict pair compare in row
+    order) and equal its answer on the table without the repeats to the
+    bit, and B2 flag the same rays; N = 1,000,003 incoherent rays with
+    maxt inf."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    scene = cornell_box(32, 32, device=card)
+    g = scene.geo
+    F = g.n_faces
+    twice = torch.cat([g.tri_q[:F], g.tri_q[:F]])
+    o, d, mt = bi.ray_sets(scene, 1_000_003, seed=2)["incoherent"]
+    once = isect.intersect_q(g.tri_q, g.tri_anchor, o, d, mt, F)
+    got = isect.intersect_q(twice, g.tri_anchor, o, d, mt, 2 * F)
+    torch.cuda.synchronize()
+    assert (got[1] < F).all() and (got[1] >= 0).any()
+    for a, b in zip(got, once):
+        assert torch.equal(a, b)
+    shadow = torch.where(torch.isfinite(once[0]), once[0] * 1.01, 1.0)
+    assert torch.equal(
+        isect.occluded_q(twice, g.tri_anchor, o, d, shadow, 2 * F),
+        isect.occluded_q(g.tri_q, g.tri_anchor, o, d, shadow, F))

@@ -327,3 +327,102 @@ def test_probe_counts_on_the_cpu():
     assert s["slot_share"]["published"] == pytest.approx(
         qc["slots"] / 1e-3 / 33.5e12)
     assert qc["gpairs_per_s"] == qc["pairs"] / 1e6
+
+
+def _q_sass(rows, rays):
+    """cuobjdump -sass text of a q-kernel-like closest hit: a staging loop
+    (no FFMA), then a tile loop around a row loop of `rows` rows a trip,
+    each row 4 LDS.128 and `rays` tests of FMUL, 13 FFMA, 3 FADD, 3 LOP3,
+    6 FSETP (one against the det epsilon), 2 FMUL and 5 SEL; and another
+    kernel whose loop holds more FFMAs."""
+    out = ["\tcode for sm_90a"]
+    addr = 0
+
+    def ins(text):
+        nonlocal addr
+        out.append(f"        /*{addr:04x}*/                   {text} ;"
+                   f"                 /* 0x000fe20000000f00 */")
+        addr += 16
+        return addr - 16
+
+    def test():
+        ins("FMUL R20, R4, R8")
+        for _ in range(13):
+            ins("FFMA R20, R5, R9, R20")
+        ins("LOP3.LUT R21, R20, 0x80000000, R22, 0x48, !PT")
+        ins("LOP3.LUT R23, R24, 0x80000000, R22, 0x48, !PT")
+        ins("LOP3.LUT R25, R26, 0x80000000, R22, 0x48, !PT")
+        ins("FADD R27, |R22|, -R21")
+        ins("FADD R27, R27, -R23")
+        ins("FADD R28, R28, -c[0x0][0x10]")
+        ins("FSETP.GT.AND P0, PT, |R22|, 9.9999999600419720025e-13, PT")
+        ins("FSETP.GE.AND P0, PT, R21, RZ, P0")
+        ins("FSETP.GE.AND P0, PT, R23, RZ, P0")
+        ins("FSETP.GE.AND P0, PT, R27, RZ, P0")
+        ins("FSETP.GT.AND P0, PT, R25, RZ, P0")
+        ins("FMUL R29, R25, R30")
+        ins("FMUL R31, R32, |R22|")
+        ins("FSETP.GEU.AND P0, PT, R29, R31, !P0")
+        for _ in range(5):
+            ins("SEL R33, R33, R34, P0")
+
+    for f, loop_tests in ((0, True), (1, False)):
+        out.append(f"\t\tFunction : _ZN12_GLOBAL__N_18q_kernelILb{f}EEvPKfi")
+        ins("LDC R1, c[0x0][0x28]")
+        ins("S2R R0, SR_TID.X")
+        top = ins("LDG.E R4, desc[UR4][R2.64]")
+        ins("STS [R5], R4")
+        ins("ISETP.GE.AND P0, PT, R5, 0x100, PT")
+        ins(f"@!P0 BRA {hex(top)}")
+        ins("BAR.SYNC.DEFER_BLOCKING 0x0")
+        tile = ins("LDG.E R6, desc[UR4][R2.64]")
+        row = ins("IADD3 R7, R7, 0x1, RZ")
+        for _ in range(rows):
+            for k in range(4):
+                ins(f"LDS.128 R{8 + 4 * k}, [R7+{hex(16 * k)}]")
+            for _ in range(rays if loop_tests else 1):
+                test()
+        ins("ISETP.GE.AND P1, PT, R7, R35, PT")
+        ins(f"@!P1 BRA {hex(row)}")
+        ins("STG.E desc[UR4][R2.64], R20")
+        ins("ISETP.GE.AND P2, PT, R6, R36, PT")
+        ins(f"@!P2 BRA {hex(tile)}")
+        ins("EXIT")
+        ins(f"BRA {hex(addr)}")
+        ins("NOP")
+    out.append("\t\tFunction : _ZN12_GLOBAL__N_114other_kernelEv")
+    top = ins("FFMA R1, R2, R3, R4")
+    for _ in range(200):
+        ins("FFMA R1, R2, R3, R4")
+    ins(f"@P0 BRA {hex(top)}")
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("rows,rays", [(1, 1), (4, 4), (2, 8)])
+def test_count_sass_reads_a_q_tests_instructions(rows, rays):
+    """count_sass(per_test=True) picks the row loop (the innermost loop
+    with the most FFMAs: not the staging loop, not the tile loop around
+    it, not another kernel's), counts its tests by the det epsilon's
+    compares and its instructions by class; the loop's LDS.128 and its
+    three instructions of overhead spread over the trip's tests."""
+    c = mfu.count_sass(_q_sass(rows, rays), "q_kernelILb0E", per_test=True)
+    tests = rows * rays
+    assert c["tests_per_trip"] == tests
+    assert c["loop"] == {"ffma": 13 * tests, "fmul": 3 * tests,
+                         "fadd": 3 * tests, "fsetp": 6 * tests,
+                         "lop3": 3 * tests, "lds": 4 * rows,
+                         "other": 5 * tests + 3}
+    assert c["ops"]["SEL"] == 5 * tests and c["ops"]["BRA"] == 1
+    per = c["per_test"]
+    assert per["ffma"] == 13 and per["fsetp"] == 6
+    assert per["lds"] == pytest.approx(4 / rays)
+    assert per["slots"] == pytest.approx(33 + (4 * rows + 3) / tests)
+    assert per["slots"] == pytest.approx(sum(
+        v for k, v in per.items() if k != "slots"))
+    # the any-hit kernel's loop holds one test a row
+    a = mfu.count_sass(_q_sass(rows, rays), "q_kernelILb1E", per_test=True)
+    assert a["tests_per_trip"] == rows
+    with pytest.raises(RuntimeError, match="no det epsilon"):
+        mfu.count_sass(_q_sass(rows, rays), "other_kernel", per_test=True)
+    with pytest.raises(RuntimeError, match="no SASS"):
+        mfu.count_sass(_q_sass(rows, rays), "q_kernelILb2E", per_test=True)

@@ -237,3 +237,122 @@ def test_ray_intersect_surface_interaction_matches():
     for f in ("mat_idx", "emitter_idx"):
         np.testing.assert_array_equal(getattr(tsi, f).numpy(),
                                       np.asarray(getattr(jsi, f)))
+
+
+def _q_design_rays(scene, n, seed):
+    """n incoherent rays of the scene's box (bench_isect's set), with maxt
+    inf on most lanes, 0 and finite on others, and zero, NaN and inf
+    direction components on some."""
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+
+    o, d, mt = bi.ray_sets(scene, n, seed)["incoherent"]
+    d, mt = d.clone(), mt.clone()
+    mt[1::5] = 0.0
+    mt[2::5] = torch.linspace(0.1, 3.0, mt[2::5].shape[0])
+    d[3::7, 0] = 0.0
+    d[4::7, 1:] = 0.0
+    d[5::11, 2] = float("nan")
+    d[6::13, 1] = float("inf")
+    return o, d, mt
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("preset", ["cbox", "grating"])
+def test_q_plain_ignores_zero_rows_past_n_tris(preset, any_hit):
+    """What B1/B2's row loop leans on (`csrc/intersect_q.cu`: a stage pads
+    its rows with zero rows up to a multiple of kStep and runs them): the
+    plain versions over n_tris rounded up to 8 rows, the rows past n_tris
+    zero, equal them over n_tris to the bit, on the Cornell box's 36 faces
+    and the grating's 4, inf, NaN and zero directions included."""
+    scene = (tpresets.cornell_box(16, 16, device="cpu") if preset == "cbox"
+             else tpresets.grating_scene(16, 16, device="cpu"))
+    g = scene.geo
+    F = g.n_faces
+    up = -(-F // 8) * 8
+    assert up > F
+    padded = torch.cat([g.tri_q[:F], torch.zeros(up - F, 16)])
+    o, d, mt = _q_design_rays(scene, 4096, 3)
+    fn = tisect.occluded_q_plain if any_hit else tisect.intersect_q_plain
+    want = fn(g.tri_q, g.tri_anchor, o, d, mt, F)
+    got = fn(padded, g.tri_anchor, o, d, mt, up)
+    for a, b in zip(*((got, want) if not any_hit else ((got,), (want,)))):
+        assert torch.equal(a, b)
+    if any_hit:
+        assert 0 < want.double().mean() < 1
+    else:
+        assert (want[1] >= 0).any() and (want[1] < 0).any()
+
+
+def test_q_plain_keeps_the_first_of_tied_rows():
+    """The tie rule B1 keeps (the strict pair compare in row order): the
+    Cornell box's table with every row repeated gives the first copy's
+    prim, and the same t, u, v to the bit."""
+    scene = tpresets.cornell_box(16, 16, device="cpu")
+    g = scene.geo
+    F = g.n_faces
+    twice = torch.cat([g.tri_q[:F], g.tri_q[:F]])
+    o, d, mt = _q_design_rays(scene, 2048, 4)
+    once = tisect.intersect_q_plain(g.tri_q, g.tri_anchor, o, d, mt, F)
+    got = tisect.intersect_q_plain(twice, g.tri_anchor, o, d, mt, 2 * F)
+    assert (got[1] < F).all() and (got[1] >= 0).any()
+    for a, b in zip(got, once):
+        assert torch.equal(a, b)
+
+
+def _sign_fold_kernel(dn, up, vn, tp):
+    """B1/B2's sign fold as `csrc/intersect_q.cu::q_terms` writes it, in
+    numpy: det = -dn; |det| and u, v, t times det's sign by a sign-bit
+    XOR; (ad, us, vs, ts, inside)."""
+    bits = lambda x: x.view(np.uint32)  # noqa: E731
+    neg = ~bits(dn)
+    sign = np.uint32(0x80000000)
+    ad = np.abs(dn)
+    us = (bits(up) ^ (neg & sign)).view(np.float32)
+    vs = (bits(vn) ^ (~neg & sign)).view(np.float32)
+    ts = (bits(tp) ^ (neg & sign)).view(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        inside = ((ad > np.float32(1e-12)) & (us >= 0) & (vs >= 0)
+                  & (ad - us - vs >= 0) & (ts > 0))
+    return ad, us, vs, ts, inside
+
+
+@pytest.mark.parametrize("values", ["special", "random"])
+def test_q_sign_fold_equals_the_sign_multiply(values):
+    """The kernel's sign-bit fold gives the plain version's
+    (det >= 0 ? 1 : -1) multiply: the same inside flag on every lane, and
+    the same |det|, u|det|, v|det|, t|det| to the bit on every lane inside
+    (det = -0 and NaN differ in sign only where the flag is false)."""
+    rng = np.random.default_rng(7)
+    if values == "special":
+        pool = np.array([0.0, -0.0, 1e-13, -1e-13, 1e-12, 2e-12, -2e-12,
+                         0.5, -0.5, 1.0, -1.0, 3e38, -3e38, np.inf,
+                         -np.inf, np.nan, 1e-45, -1e-45], np.float32)
+        dn, up, vn, tp = (pool[rng.integers(0, len(pool), 200_000)]
+                          for _ in range(4))
+    else:
+        dn, up, vn, tp = (rng.normal(size=200_000).astype(np.float32)
+                          for _ in range(4))
+    # the plain version's terms of a row whose dot products are dn, up, -vn
+    # and tp: d = (1, 0, 0) against n2 = (dn, 0, 0), and so on
+    one = torch.ones(dn.shape[0])
+    zero = torch.zeros(dn.shape[0])
+    tr = torch.zeros(16, dn.shape[0])
+    tr[12], tr[9], tr[6] = (torch.as_tensor(x) for x in (dn, up, vn))
+    tr[15] = -torch.as_tensor(tp)
+    o = (zero, zero, zero)
+    d = (one, zero, zero)
+    c = (zero, zero, zero)
+    want = tisect._q_terms(tr, o, d, c)
+    # the dot products as the plain version sums them on these rows (0 * inf
+    # is NaN, -0 + 0 is +0), folded the kernel's way
+    z = np.float32(0.0)
+    with np.errstate(invalid="ignore"):
+        got = _sign_fold_kernel((dn + z) + z, (z + z + z + up) + z + z,
+                                (z + z + z + vn) + z + z,
+                                ((z * dn + z) + z) - (-tp))
+    inside = want[4].numpy()
+    np.testing.assert_array_equal(got[4], inside)
+    assert inside.any() and not inside.all()
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a[inside].view(np.uint32),
+                                      b.numpy()[inside].view(np.uint32))
