@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # one card, ~3 min with the build
 
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
-                                         # B8a, B8b, B10a, B10b of the
-                                         # package in ROOT
+                                         # B8a, B8b, B10a, B10b, B11a,
+                                         # B11b, B11c of the package in
+                                         # ROOT
 
 Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -27,9 +28,9 @@ Phases, each printing one JSON line with its seconds:
                   started together), with nvcc's register and spill report,
                   the special functions' fast paths in the SASS
                   (`ops/mfu.py::special_fn_counts`), which weigh B4's
-                  bound, and B1's and B2's instructions a (ray, row) test
-                  by class (`q_sass_counts`), whose FFMAs their bounds
-                  count;
+                  bound, and the instructions a (ray, row) test by class
+                  of B1, B2 and the sweep's closest-hit instances (B11a,
+                  B11c: `q_sass_counts`), whose FFMAs their bounds count;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
@@ -71,14 +72,19 @@ Phases, each printing one JSON line with its seconds:
                   depth0) and B10b (shadow0) on the mask-sort tool's
                   icosphere sets, B11a at every unroll with one and two
                   accumulators and B11b at every unroll on the sweep's
-                  rays of both scenes, all at 1,048,576 lanes, each equal
-                  to its plain version to the bit on 131,072 lanes (all of
-                  the Cornell box's for B11); B11c at nacc 2, 4 and 8 on
+                  rays of both scenes, all at 1,048,576 lanes, held on
+                  131,072 lanes spread over the set (all of the Cornell
+                  box's for B11): B11b equal to its plain version to the
+                  bit, B11a (B1's row test; the call that is timed) near
+                  its plain version (`q_close`: prims on 1 - 1e-4 of
+                  lanes, t at rtol 1e-5 on all but 2e-3 of the hits and
+                  at rtol 1e-3 on every one) and on every lane equal to
+                  B1 over each group's rows to the bit (`q_groups`: with
+                  one accumulator, B1 itself); B11c at nacc 2, 4 and 8 on
                   the multi-accumulator tool's 2,097,152 rays of both
-                  scenes, equal to its plain version to the bit (t, prim,
-                  u, v) on 131,072 lanes of the icosphere and all of the
-                  Cornell box's; B11d at 8,192 x 128 on random inputs,
-                  within 1 ulp of its plain version;
+                  scenes, held the same way (t, prim, u, v); B11d at
+                  8,192 x 128 on random inputs, within 1 ulp of its plain
+                  version;
   isect-tool      bench_isect.run on both scenes: one row per route and ray
                   set (ms, M rays/s, agreement with brute-classic), and the
                   launches of one run on one set;
@@ -465,6 +471,17 @@ MACC_TEST_OPS = Q_TEST_OPS  # the sweep's test keeping u|det| and v|det|
 MACC_MERGE_OPS = 12       # two products, three compares, two logic ops,
                           # five selects
 
+# the sweep's closest hits (B11a, B11c) against their plain versions on the
+# sweep's rays (`q_close`): the share of the compared hits whose t, u or v
+# may leave rtol 1e-5 (B1 leaves it on up to 96 of 131,072 of these rays,
+# 7.3e-4), the rtol that holds t on every one (2.3e-4 needed at most), and
+# the absolute error u and v, which lie in [0, 1], may have on every one
+# (2.1e-4 at most; an rtol does not hold them: near an edge u or v is
+# small and its error is not, 1.5e-2 relative)
+Q_SWEEP_OUTSIDE = 2e-3
+Q_SWEEP_RTOL = 1e-3
+Q_SWEEP_UV_ATOL = 1e-3
+
 
 def bessel_ops(half):
     # 64 Miller steps (~10 each), Hankel terms, normalisation
@@ -598,11 +615,29 @@ def path_q_rays(scene, integ, spp_pass):
     return seen["intersect_q"], seen["occluded_q"]
 
 
+def sweep_sass_kernels():
+    """{key: mangled-name fragment} of the sweep's closest-hit instances
+    (`sweep_q_kernel<UNROLL, NACC, UV>` of csrc/intersect_sweep.cu): B11a
+    at every unroll with one and two accumulators, B11c at every nacc;
+    keys as `ptxas_report` names them."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    out = {}
+    for unroll, nacc, uv in (
+            [(u, k, 0) for u in isect.Q_VARIANT_UNROLLS for k in (1, 2)]
+            + [(isect.Q_MACC_UNROLL, k, 1) for k in isect.Q_MACC_NACCS]):
+        out[f"sweep_q_kernel<{unroll},{nacc},{uv}>"] = (
+            f"sweep_q_kernelILi{unroll}ELi{nacc}ELb{uv}EE")
+    return out
+
+
 def q_sass_counts(library):
-    """{"intersect_q", "occluded_q"}: `mfu.count_sass(..., per_test=True)`
-    of q_kernel<false / true> in the kernel library file `library`, read
-    by this checkout's `ops/mfu.py` in a process of its own (so that
-    `--turns` reads another checkout's library the same way)."""
+    """{"intersect_q", "occluded_q", and each key of `sweep_sass_kernels`}:
+    `mfu.count_sass(..., per_test=True)` of q_kernel<false / true> and of
+    the sweep's closest-hit instances in the kernel library file `library`,
+    read by this checkout's `ops/mfu.py` in a process of its own (so that
+    `--turns` reads another checkout's library the same way). A sweep
+    instance it cannot read (another checkout's) gives {"error": ...}."""
     code = (
         "import json, os, subprocess, sys\n"
         f"sys.path.insert(0, {HERE!r})\n"
@@ -611,12 +646,128 @@ def q_sass_counts(library):
         "'cuobjdump')\n"
         "sass = subprocess.run([tool, '-sass', sys.argv[1]], check=True, "
         "stdout=subprocess.PIPE, text=True).stdout\n"
-        "print(json.dumps({k: mfu.count_sass(sass, f'q_kernelILb{b}E', "
-        "per_test=True) for k, b in (('intersect_q', 0), "
-        "('occluded_q', 1))}))\n")
-    out = subprocess.run([sys.executable, "-c", code, library], check=True,
+        "out = {k: mfu.count_sass(sass, f'q_kernelILb{b}E', per_test=True) "
+        "for k, b in (('intersect_q', 0), ('occluded_q', 1))}\n"
+        "for k, name in json.loads(sys.argv[2]).items():\n"
+        "    try:\n"
+        "        out[k] = mfu.count_sass(sass, name, per_test=True)\n"
+        "    except RuntimeError as e:\n"
+        "        out[k] = {'error': str(e)}\n"
+        "print(json.dumps(out))\n")
+    out = subprocess.run([sys.executable, "-c", code, library,
+                          json.dumps(sweep_sass_kernels())], check=True,
                          stdout=subprocess.PIPE, text=True).stdout
     return json.loads(out.strip().splitlines()[-1])
+
+
+def sweep_fmas(q_sass, key):
+    """FFMAs a (ray, row) test of the sweep's instance `key`, from
+    `q_sass_counts`; raises where its SASS was not read."""
+    c = q_sass[key]
+    require("per_test" in c, f"{key}: SASS not read: {c.get('error')}")
+    return c["per_test"]["ffma"]
+
+
+def b1_groups(q, rays, rows, nacc):
+    """B1 (`intersect_q`) on the rays over each of the nacc groups of the
+    table's first `rows` rows (row r in group r % nacc): [(t, prim, u,
+    v)], prim indexing the group's own rows. A group of the sweep's
+    closest hit runs B1's row test over the same rows in the same order,
+    so its best hit is B1's answer there, to the bit."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    tab, anchor = q
+    return [isect.intersect_q(tab[g:rows:nacc].contiguous(), anchor, *rays,
+                              len(range(g, rows, nacc)))
+            for g in range(nacc)]
+
+
+def q_close(name, got, want, sweep=False):
+    """check_q's tolerance for a closest hit of B1's row test (q_row.cuh),
+    (t, prim) or (t, prim, u, v), against its plain version on the same
+    lanes: prim equal on at least 1 - 1e-4 of lanes (it may differ only
+    where a ray meets a shared edge or a triangle boundary within float
+    rounding: the kernel contracts multiply-adds into FMAs, the plain
+    version does not), and on every lane where the prims agree and hit, t
+    at rtol 1e-5 / atol 1e-6 and u, v at rtol 1e-5 / atol 1e-5.
+
+    With `sweep` the kernel is one of the sweep's (B11a, B11c), held to B1
+    to the bit by `q_groups` as well, on the sweep's rays from anywhere
+    inside a scene. B1's rounding, which it carries, leaves rtol 1e-5
+    there on up to ~1 lane in 1,000 (an origin near a triangle's plane,
+    where t|det| and u|det| cancel), so t, u and v may leave it on at most
+    Q_SWEEP_OUTSIDE of the lanes where the prims agree and hit; on every
+    one of them t keeps rtol Q_SWEEP_RTOL and u, v (in [0, 1]) keep
+    Q_SWEEP_UV_ATOL.
+
+    Returns {"agreement": prim agreement, "max_abs_err": of t, u, v on the
+    lanes where the prims agree and hit, "outside_tolerance": the most
+    lanes of one value outside rtol 1e-5 there, "t_rtol_needed": the least
+    rtol that holds t on every one of them at atol 1e-6, and with u, v
+    "uv_abs_err": their largest absolute error there}."""
+    import torch
+
+    torch.cuda.synchronize()
+    prim_same = got[1] == want[1]
+    frac_prim = prim_same.double().mean().item()
+    require(frac_prim >= 1 - 1e-4, f"{name} prim agreement {frac_prim}")
+    both = prim_same & (want[1] >= 0)
+    n_both = int(both.sum())
+    held = {"agreement": frac_prim, "max_abs_err": 0.0,
+            "outside_tolerance": 0, "t_rtol_needed": 0.0}
+    for k, atol in ((0, 1e-6), (2, 1e-5), (3, 1e-5)):
+        if k >= len(got):
+            continue
+        a, b = got[k][both], want[k][both]
+        diff = (a - b).abs()
+        err = diff.max().item() if a.numel() else 0.0
+        held["max_abs_err"] = max(held["max_abs_err"], err)
+        if k == 0 and a.numel():
+            held["t_rtol_needed"] = (
+                (diff - atol).clamp(min=0) / b.abs()).max().item()
+        elif k > 0:
+            held["uv_abs_err"] = max(held.get("uv_abs_err", 0.0), err)
+        far = int((~torch.isclose(a, b, rtol=1e-5, atol=atol)).sum())
+        held["outside_tolerance"] = max(held["outside_tolerance"], far)
+        limit = int(Q_SWEEP_OUTSIDE * n_both) if sweep else 0
+        require(far <= limit, f"{name}: value {k} outside rtol 1e-5 on "
+                              f"{far} of {n_both} lanes (at most {limit})")
+    if sweep:
+        require(held["t_rtol_needed"] <= Q_SWEEP_RTOL,
+                f"{name}: t needs rtol {held['t_rtol_needed']} on a lane "
+                f"(at most {Q_SWEEP_RTOL})")
+        require(held.get("uv_abs_err", 0.0) <= Q_SWEEP_UV_ATOL,
+                f"{name}: u or v off by {held.get('uv_abs_err')} on a lane "
+                f"(at most {Q_SWEEP_UV_ATOL})")
+    return held
+
+
+def q_groups(name, got, groups):
+    """A closest hit of the sweep (B11a, B11c) against B1 over each of its
+    groups' rows (`b1_groups` on the same rays), to the bit: it hits where
+    a group of B1's does, its t (and u, v) on a lane are B1's over the
+    group its prim lies in, with B1's prim there, and its t is the least
+    of the groups' within rtol 1e-5 (the merge's cross-multiplied compare;
+    an exact tie goes to the lower group). With one group that is B1
+    itself."""
+    import torch
+
+    torch.cuda.synchronize()
+    nacc, hit = len(groups), got[1] >= 0
+    each = [torch.stack([x[k] for x in groups]) for k in range(4)]
+    require(torch.equal(hit, (each[1] >= 0).any(0)),
+            f"{name}: hits differ from B1's groups'")
+    require(torch.isinf(got[0][~hit]).all(), f"{name}: t finite on a miss")
+    g = torch.where(hit, got[1] % nacc, 0).long()
+    own = [x.gather(0, g[None])[0] for x in each]  # the prim's group
+    require(torch.equal(got[1][hit].long(), (g + nacc * own[1])[hit]),
+            f"{name}: prim differs from B1's over its group")
+    for k in (0, 2, 3)[:len(got) - 1]:
+        require(torch.equal(got[k][hit], own[k][hit]),
+                f"{name}: value {k} differs from B1's over its group")
+    least = each[0].min(0).values
+    require(bool((got[0][hit] <= least[hit] * (1 + 1e-5) + 1e-6).all()),
+            f"{name}: not the nearest of the groups' hits")
 
 
 def check_q(label, scene, closest_rays, shadow_rays, q_sass):
@@ -637,25 +788,8 @@ def check_q(label, scene, closest_rays, shadow_rays, q_sass):
     args = (geo.tri_q, geo.tri_anchor, o, d, maxt, geo.n_faces)
     got = isect.intersect_q(*args)
     want = isect.intersect_q_plain(*args)
-    torch.cuda.synchronize()
-    prim_same = got[1] == want[1]
-    frac_prim = prim_same.float().mean().item()
-    both = prim_same & (want[1] >= 0)
-    # tolerance: t, u, v at rtol 1e-5 (atol 1e-6 for t, 1e-5 for u, v) on
-    # lanes that hit the same triangle; prim may differ only where a ray
-    # meets a shared edge or a triangle boundary within float rounding (the
-    # kernel contracts multiply-adds into FMAs, the plain version does not):
-    # at most 1 lane in 10,000
-    t_ok = frac_close(got[0][both], want[0][both], 1e-5, 1e-6)
-    u_ok = frac_close(got[2][both], want[2][both], 1e-5, 1e-5)
-    v_ok = frac_close(got[3][both], want[3][both], 1e-5, 1e-5)
-    require(frac_prim >= 1 - 1e-4,
-            f"intersect_q {label} prim agreement {frac_prim}")
-    require(min(t_ok, u_ok, v_ok) == 1.0,
-            f"intersect_q {label} t/u/v agreement {t_ok} {u_ok} {v_ok}")
-    err = max((got[0][both] - want[0][both]).abs().max().item(),
-              (got[2][both] - want[2][both]).abs().max().item(),
-              (got[3][both] - want[3][both]).abs().max().item())
+    held = q_close(f"intersect_q {label}", got, want)
+    frac_prim, err = held["agreement"], held["max_abs_err"]
     times = kernel_times(lambda: isect.intersect_q(*args))
     plain_ms = time_ms(lambda: isect.intersect_q_plain(*args))
     fmas = q_sass["intersect_q"]["per_test"]["ffma"]
@@ -1452,17 +1586,25 @@ def check_clu(label, tabs, sets, plain_lanes=None, tab="ctab64"):
     return out
 
 
-def check_sweep(label, scene, rays, plain_lanes=None):
+def check_sweep(label, scene, rays, q_sass, plain_lanes=None):
     """B11a at every unroll, with one and with two accumulators, and B11b
-    at every unroll against their plain versions on the sweep's rays, equal
-    to the bit on the first `plain_lanes` lanes (all where None), timed on
-    all. The closest hit runs with maxt inf. The any hit is timed and
-    bounded on the tool's maxt (0.99 of B1's t where B1 hits, else 2.0: no
-    lane is occluded, every lane tests every row) and checked on a mixed
-    one (0.99 or 1.01 of B1's t on alternate lanes, inf on every third
-    lane) so that lanes stop at a hit and the inf rule is held. A plain
-    version depends on the unroll only through the rows it runs, so it is
-    run once per row count. Returns {(kind, unroll, dual): row}."""
+    at every unroll against their plain versions on the sweep's rays, on
+    `plain_lanes` lanes spread evenly over the set (all where None). The
+    closest hit runs on all lanes, as it is timed (which tiles a block
+    takes, and whether it re-stages the table for each, depends on n): it
+    is held at the compared lanes to its plain version (`q_close`: it runs
+    B1's row test) and on every lane to B1 over each of its groups' rows
+    (`q_groups`, `b1_groups`; with one accumulator that is B1 itself, to
+    the bit); its bound counts the FFMAs a test of its instance's SASS
+    (q_sass: `q_sass_counts`). The any hit (one block a tile) equals its
+    plain version to the bit on the compared lanes. The closest hit runs
+    with maxt inf. The any hit is timed and bounded on the tool's maxt
+    (0.99 of B1's t where B1 hits, else 2.0: no lane is occluded, every
+    lane tests every row) and checked on a mixed one (0.99 or 1.01 of B1's
+    t on alternate lanes, inf on every third lane) so that lanes stop at a
+    hit and the inf rule is held. A plain version depends on the unroll
+    only through the rows it runs, so it is run once per row count.
+    Returns {(kind, unroll, dual): row}."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -1472,14 +1614,16 @@ def check_sweep(label, scene, rays, plain_lanes=None):
     q = (geo.tri_q, geo.tri_anchor)
     o, d, mt = rays
     n = o.shape[0]
-    m = n if plain_lanes is None else min(n, plain_lanes)
+    step = 1 if plain_lanes is None else max(1, n // plain_lanes)
+    po, pd, pmt = (x[::step].contiguous() for x in (o, d, mt))
+    m = po.shape[0]
     t0 = isect.intersect_q(*q, o, d, mt, F)[0]
     msh = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
     lane = torch.arange(m, device=o.device)
-    mix = torch.where(torch.isfinite(t0[:m]),
-                      t0[:m] * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
+    t0 = t0[::step]
+    mix = torch.where(torch.isfinite(t0),
+                      t0 * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
     mix = torch.where(lane % 3 == 0, float("inf"), mix)
-    del t0
     common = {"route": "cuda", "n": n, "plain_lanes": m,
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_sweep.cu",
               "rays": f"{label} sweep", "library_ms": None,
@@ -1488,37 +1632,43 @@ def check_sweep(label, scene, rays, plain_lanes=None):
     for unroll in isect.Q_VARIANT_UNROLLS:
         rows = isect.q_variant_rows(geo.tri_q.shape[0], F, unroll)
         for dual in (False, True):
-            got = isect.intersect_q_variant(*q, o[:m], d[:m], mt[:m], F,
-                                            unroll, dual)
+            def call():
+                return isect.intersect_q_variant(*q, o, d, mt, F, unroll,
+                                                 dual)
+            got = call()
             if (rows, dual) not in plain:
                 plain[rows, dual] = time_once(
                     lambda: isect.intersect_q_variant_plain(
-                        *q, o[:m], d[:m], mt[:m], F, unroll, dual))
+                        *q, po, pd, pmt, F, unroll, dual))
+                plain[rows, dual, "B1"] = b1_groups(
+                    q, (o, d, mt), rows, 2 if dual else 1)
             want, plain_ms = plain[rows, dual]
-            hit = want[1] >= 0
-            err = ((got[0][hit] - want[0][hit]).abs().max().item()
-                   if hit.any() else 0.0)
-            require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                    f"intersect_q_variant {label} unroll {unroll} dual "
-                    f"{dual}: differs, max {err}")
-            times = kernel_times(lambda: isect.intersect_q_variant(
-                *q, o, d, mt, F, unroll, dual))
+            name = (f"intersect_q_variant {label} unroll {unroll} dual "
+                    f"{dual}")
+            held = q_close(name, [x[::step] for x in got], want,
+                           sweep=True)
+            q_groups(name, got, plain[rows, dual, "B1"])
+            times = kernel_times(call)
+            fmas = sweep_fmas(q_sass, f"sweep_q_kernel<{unroll},"
+                                      f"{2 if dual else 1},0>")
             bnd = bound(
                 nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 8 * n,
                 n * (SWEEP_RAY_SETUP_OPS + rows * SWEEP_TEST_OPS
-                     + (DUAL_MERGE_OPS if dual else 0)))
+                     + (DUAL_MERGE_OPS if dual else 0)),
+                n * rows * fmas)
             out["closest", unroll, dual] = {
                 "name": "intersect_q_variant", **common,
                 "replaces": "tools/experiments/isect_unroll_sweep.py:91 "
                             "(q_variant)",
-                "unroll": unroll, "dual": dual, "rows": rows,
-                "max_abs_err": err, **times, "plain_ms": plain_ms,
-                **bnd, "agreement": 1.0,
-                "hit_share": hit.double().mean().item()}
-        occ = isect.occluded_q_variant(*q, o[:m], d[:m], mix, F, unroll)
+                "unroll": unroll, "dual": dual, "rows": rows, **held,
+                **times, "plain_ms": plain_ms, **bnd,
+                "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
+                "hit_share": (want[1] >= 0).double().mean().item()}
+            del got
+        occ = isect.occluded_q_variant(*q, po, pd, mix, F, unroll)
         if rows not in plain:
             plain[rows] = time_once(lambda: isect.occluded_q_variant_plain(
-                *q, o[:m], d[:m], mix, F, unroll))
+                *q, po, pd, mix, F, unroll))
         want, plain_ms = plain[rows]
         agree = (occ == want).double().mean().item()
         require(torch.equal(occ, want) and want.any()
@@ -1528,7 +1678,7 @@ def check_sweep(label, scene, rays, plain_lanes=None):
             *q, o, d, msh, F, unroll))
         if ("tests", rows) not in plain:
             plain["tests", rows] = km.anyhit_tests(
-                *q, o[:m], d[:m], msh[:m], rows) * n / m
+                *q, po, pd, msh[::step].contiguous(), rows) * n / m
         tests = plain["tests", rows]
         bnd = bound(
             nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, msh) + n,
@@ -1547,37 +1697,42 @@ def check_sweep(label, scene, rays, plain_lanes=None):
     return out
 
 
-def check_macc(label, scene, rays, plain_lanes=None):
-    """B11c at every nacc against its plain version on the
-    multi-accumulator tool's rays (maxt inf), equal to the bit (t, prim, u,
-    v) on the first `plain_lanes` lanes (all where None), timed on all.
+def check_macc(label, scene, rays, q_sass, plain_lanes=None):
+    """B11c at every nacc on the multi-accumulator tool's rays (maxt inf),
+    run on all lanes as it is timed: held to its plain version on
+    `plain_lanes` lanes spread evenly over the set (all where None;
+    `q_close`) and on every lane to B1 over each group's rows to the bit
+    (t, prim, u, v: `q_groups`, `b1_groups`; it runs B1's row test); its
+    bound counts the FFMAs a test of its instance's SASS (q_sass).
     Returns {nacc: row}."""
-    import torch
-
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
 
     geo, F = scene.geo, scene.geo.n_faces
     q = (geo.tri_q, geo.tri_anchor)
     o, d, mt = rays
     n = o.shape[0]
-    m = n if plain_lanes is None else min(n, plain_lanes)
+    step = 1 if plain_lanes is None else max(1, n // plain_lanes)
+    part = tuple(x[::step].contiguous() for x in (o, d, mt))
+    m = part[0].shape[0]
     rows = isect.q_variant_rows(geo.tri_q.shape[0], F, isect.Q_MACC_UNROLL)
     out = {}
     for nacc in isect.Q_MACC_NACCS:
-        got = isect.intersect_q_macc(*q, o[:m], d[:m], mt[:m], F, nacc)
+        def call():
+            return isect.intersect_q_macc(*q, o, d, mt, F, nacc)
+        got = call()
         want, plain_ms = time_once(lambda: isect.intersect_q_macc_plain(
-            *q, o[:m], d[:m], mt[:m], F, nacc))
-        hit = want[1] >= 0
-        err = max((got[k][hit] - want[k][hit]).abs().max().item()
-                  if hit.any() else 0.0 for k in (0, 2, 3))
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                f"intersect_q_macc {label} nacc {nacc}: differs, max {err}")
-        times = kernel_times(lambda: isect.intersect_q_macc(
-            *q, o, d, mt, F, nacc))
+            *q, *part, F, nacc))
+        name = f"intersect_q_macc {label} nacc {nacc}"
+        held = q_close(name, [x[::step] for x in got], want, sweep=True)
+        q_groups(name, got, b1_groups(q, (o, d, mt), rows, nacc))
+        times = kernel_times(call)
+        fmas = sweep_fmas(q_sass, f"sweep_q_kernel<{isect.Q_MACC_UNROLL},"
+                                  f"{nacc},1>")
         bnd = bound(
             nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, mt) + 16 * n,
             n * (MACC_RAY_SETUP_OPS + rows * MACC_TEST_OPS
-                 + (nacc - 1) * MACC_MERGE_OPS))
+                 + (nacc - 1) * MACC_MERGE_OPS),
+            n * rows * fmas)
         out[nacc] = {
             "name": "intersect_q_macc", "route": "cuda", "n": n,
             "plain_lanes": m,
@@ -1586,9 +1741,10 @@ def check_macc(label, scene, rays, plain_lanes=None):
                         "(intersect_macc)",
             "rays": f"{label} multiacc", "library_ms": None,
             "plain_timing": "the comparison call, once, on plain_lanes",
-            "nacc": nacc, "rows": rows, "max_abs_err": err, **times,
-            "plain_ms": plain_ms, **bnd, "agreement": 1.0,
-            "hit_share": hit.double().mean().item()}
+            "nacc": nacc, "rows": rows, **held, **times,
+            "plain_ms": plain_ms, **bnd,
+            "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
+            "hit_share": (want[1] >= 0).double().mean().item()}
         emit({"phase": "kernels", **out[nacc]})
         del got, want
     return out
@@ -2027,21 +2183,22 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
 
 def turns(root):
     """`python3 chip_smoke.py --turns ROOT`: B1, B2, B4, B7a, B7b, B5, B6
-    and the tool kernels B8a, B8b, B10a, B10b of the package in ROOT (this
-    checkout, or another commit unpacked there) timed at the paths' and
-    the tools' shapes, as one JSON line: B1 and B2 on the kernels
-    phase's sets (`turns_q`), with their SASS instructions a test
-    (`q_sass_counts`); B4 on the kernels phase's main case (half 3,
-    separable, 1,920,000 lanes); on the mesh82k packet scene (1,048,576
+    and the tool kernels B8a, B8b, B10a, B10b, B11a, B11b, B11c of the
+    package in ROOT (this checkout, or another commit unpacked there) timed
+    at the paths' and the tools' shapes, as one JSON line: B1 and B2 on the
+    kernels phase's sets (`turns_q`), with their SASS instructions a test
+    and the sweep's (B11a, B11c: `q_sass_counts`); B4 on the kernels
+    phase's main case (half 3, separable, 1,920,000 lanes); on the mesh82k
+    packet scene (1,048,576
     lanes a set, unsorted and sorted by the route) B7a on the camera,
     bounce and bounce-random sets and B7b on the shadow, shadow-random and
     all-dead sets, and both on the regenerative wavefront's 131,072 rays,
-    sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B10a and
-    B10b on the tools' sets of `turns_tools`. B1, B2, B7, B8 and B10 are
-    timed by `kernel_times` (device time where the wrapper takes longer
-    than the kernel). The kernels build in
-    ROOT. Run it over two checkouts in turns (parent, change, change,
-    parent) within one chip call to compare them on one card."""
+    sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B10a,
+    B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B7, B8, B10
+    and B11 are timed by `kernel_times` (device time where the wrapper
+    takes longer than the kernel). The kernels build in ROOT. Run it over
+    two checkouts in turns (parent, change, change, parent) within one
+    chip call to compare them on one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2119,12 +2276,12 @@ def turns(root):
           "closest_table": type(table).__name__,
           "anyhit_table": type(any_table).__name__, "clu2_ms": clu2_ms,
           **tool_ms, "q_ms": q_ms,
-          "q_sass": {k: c["per_test"]
+          "q_sass": {k: c.get("per_test", c)
                      for k, c in q_sass_counts(build.library_file()).items()},
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
                                          "anyhit", "clu", "classic",
-                                         "q_kernel"))},
+                                         "q_kernel", "sweep"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
 
 
@@ -2189,19 +2346,27 @@ def turns_clu2(isect, rng):
 
 def turns_tools(isect):
     """The tool kernels of the package `isect` belongs to, timed by
-    `kernel_times` on the Cornell box and the 5,120-face icosphere at
-    1,048,576 lanes a set: {"classic_ms": B8a and B8b on the intersection
-    tool's coherent and incoherent sets, "clu_ms": B10a on the mask-sort
-    tool's incoherent and depth0-depth3 sets and B10b on its shadow0-shadow3
-    sets, each over ctab64 and ctab128}; B8b also on the intersection
-    tool's sets of the 20,480-face icosphere, a table too large for its
-    shared memory, with its bound (published peaks) from the tests the
-    plain version counts on CHUNKED_COUNT_LANES of each set's lanes."""
+    `kernel_times` on the Cornell box and the 5,120-face icosphere: {
+    "classic_ms": B8a and B8b on the intersection tool's coherent and
+    incoherent sets, "clu_ms": B10a on the mask-sort tool's incoherent and
+    depth0-depth3 sets and B10b on its shadow0-shadow3 sets, each over
+    ctab64 and ctab128, all at 1,048,576 lanes a set, "sweep_ms": B1 and
+    B11a at unroll 8, 16 and 32 with one and two accumulators and B11b at
+    unroll 16 (the tool's maxt) on the unroll sweep's TOOL_LANES rays,
+    B11c at every nacc on MACC_LANES of them
+    (`isect_unroll_sweep.sweep_rays`)}; B8b also
+    on the intersection tool's sets of the 20,480-face icosphere, a table
+    too large for its shared memory, with its bound (published peaks) from
+    the tests the plain version counts on CHUNKED_COUNT_LANES of each
+    set's lanes."""
+    import torch
+
     from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
     from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
     from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
 
-    classic_ms, clu_ms = {}, {}
+    classic_ms, clu_ms, sweep_ms = {}, {}, {}
     for label, scene in (
             ("cbox", cornell_box(CBOX_W, CBOX_H, device="cuda")),
             ("mesh5k", mesh_scene(CBOX_W, CBOX_H, TOOL_SUBDIV,
@@ -2222,6 +2387,25 @@ def turns_tools(isect):
                        f"{set_label}")
                 clu_ms[key] = kernel_times(lambda: kernel(ct, o, d, mt))
         del sets
+        q = (g.tri_q, g.tri_anchor)
+        o, d, mt = us.sweep_rays(scene, TOOL_LANES, 0)
+        sweep_ms[f"B1 {label}"] = kernel_times(
+            lambda: isect.intersect_q(*q, o, d, mt, F))
+        for unroll in (8, 16, 32):
+            for dual in (False, True):
+                key = f"B11a {label} unroll {unroll}{' dual' * dual}"
+                sweep_ms[key] = kernel_times(
+                    lambda: isect.intersect_q_variant(*q, o, d, mt, F,
+                                                      unroll, dual))
+        t0 = isect.intersect_q(*q, o, d, mt, F)[0]
+        msh = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
+        sweep_ms[f"B11b {label} unroll 16"] = kernel_times(
+            lambda: isect.occluded_q_variant(*q, o, d, msh, F, 16))
+        o, d, mt = us.sweep_rays(scene, MACC_LANES, 0)
+        for nacc in isect.Q_MACC_NACCS:
+            sweep_ms[f"B11c {label} nacc {nacc}"] = kernel_times(
+                lambda: isect.intersect_q_macc(*q, o, d, mt, F, nacc))
+        del o, d, mt, t0, msh
     scene = mesh_scene(CBOX_W, CBOX_H, CHUNKED_SUBDIV, device="cuda")
     g, F = scene.geo, scene.geo.n_faces
     for set_label, (o, d, mt) in bi.ray_sets(scene, TOOL_LANES, 0).items():
@@ -2238,7 +2422,7 @@ def turns_tools(isect):
             **bound(nbytes(g.tri_isect[:F], o, d, mt) + n,
                     n * CLASSIC_RAY_SETUP_OPS
                     + tests * CLASSIC_ANYHIT_TEST_OPS))
-    return {"classic_ms": classic_ms, "clu_ms": clu_ms}
+    return {"classic_ms": classic_ms, "clu_ms": clu_ms, "sweep_ms": sweep_ms}
 
 
 def main():
@@ -2361,11 +2545,13 @@ def main():
                     {k: tmask[k] for k in ("incoherent", "depth0",
                                            "shadow0")}, PLAIN_LANES)
     rows += [clu["incoherent"], clu["shadow0"]]
-    check_sweep("cbox", cscene, sweep_scenes[0][2])
-    sweep = check_sweep("mesh5k", tscene, sweep_scenes[1][2], PLAIN_LANES)
+    check_sweep("cbox", cscene, sweep_scenes[0][2], q_sass)
+    sweep = check_sweep("mesh5k", tscene, sweep_scenes[1][2], q_sass,
+                        PLAIN_LANES)
     rows += [sweep["closest", 16, False], sweep["any hit", 16, False]]
-    check_macc("cbox", cscene, macc_scenes[0][2])
-    macc = check_macc("mesh5k", tscene, macc_scenes[1][2], PLAIN_LANES)
+    check_macc("cbox", cscene, macc_scenes[0][2], q_sass)
+    macc = check_macc("mesh5k", tscene, macc_scenes[1][2], q_sass,
+                      PLAIN_LANES)
     rows += [macc[8], check_fma(rng, "cuda")]
     ph.emit(checked=[r["name"] for r in rows])
     tool_launches = isect_tool([("cbox", cscene, csets),

@@ -1,8 +1,7 @@
 // The q brute force of the unroll sweep and of the multi-accumulator
 // experiment: closest hit (t, prim, and with UV u and v) and any hit over
 // the precomputed-quantities triangle table, with the row loop unrolled
-// UNROLL deep and, for the closest hit, NACC accumulator groups. One thread
-// per ray.
+// UNROLL deep and, for the closest hit, NACC accumulator groups.
 //
 // Replaces: tools/experiments/isect_unroll_sweep.py::q_variant (Pallas
 // body make_q_kernel(unroll, dual)) and its a_variant (body
@@ -26,28 +25,57 @@
 // can fail ts < maxt |det| against a group that missed). t, u and v
 // are the pairs times 1/|det|. An infinite maxt is 3.4e38 for the closest
 // hit; the any hit takes it as -1, so such a lane is never occluded (the
-// JAX tool's rule, where intersect_q.cu takes 3.4e38). Every product and
-// sum is rounded on its own in the plain version's order (no FMA
-// contraction), so the kernel equals ops/intersect.py's plain versions to
-// the bit.
+// JAX tool's rule, where intersect_q.cu takes 3.4e38).
 //
-// What bounds it on the H100: operations from ~14 rows up (53 operations a
-// row against 28 bytes of ray in and 8 or 16 out: the Cornell box's 36
-// rows and a 5,120-face mesh's ~270,000 operations a ray). Design: as
-// intersect_q.cu, the table staged into shared memory kChunk rows at a
-// time (every thread reads the same row: a broadcast), the ray and its
-// NACC best hits in registers (5 each with UV: 40 at NACC 8). On this card
-// "unroll" is `#pragma unroll` of a thread's row loop, the depth the sweep
-// measures; the groups break the chain of dependent selects that the JAX
-// tool breaks on the TPU. The any-hit thread leaves after the UNROLL-row
-// group that holds its first hit.
+// Rounding: the closest hit runs B1's own row test (q_row.cuh, with nvcc's
+// FMA contraction), so each group's best hit is intersect_q.cu's closest
+// hit over the group's rows to the bit (the same test in the same row
+// order; the rows past the scene's are zero and never hit), at NACC 1 over
+// all of them, and differs from the unfused plain version as B1's does.
+// The any hit rounds every product and sum on its own in the plain
+// version's order (namespace rn), so it equals its plain version to the
+// bit.
+//
+// What bounds it on the H100: issued instructions from ~14 rows up (a
+// closest-hit test is 53 operations, 14 of them FMAs, against 28 bytes of
+// ray in and 8 or 16 out: a 5,120-face mesh's ~270,000 operations a ray).
+// Design of the closest hit, on intersect_q.cu's launch (q_row.cuh's
+// stage and grid_for), for fewer instructions a (ray, row) test (SASS,
+// `ops/mfu.py::count_sass`: ~61-64 -> 39.6 without u, v and 40.6-41.6
+// with them): the table in shared memory as float4 rows (four LDS.128
+// broadcast reads a row), staged once a block when it fits (n_rows <=
+// kChunk), else kChunk rows at a time for every tile (256-row chunks ran
+// 0.4-0.7% slower); blocks loop over tiles of kBlock rays, the grid at
+// most kWaves waves of resident blocks; the sign
+// fold a sign-bit XOR, the flags predicates joined by &, each group's
+// update a select on a predicate; a trip's row indices its base plus a
+// constant. A thread runs one ray: two share a row's loads (37.5-40.4
+// instructions a test) but ran 1-5% slower on the 5,120-face icosphere
+// and 2-8% on the Cornell box (PERF.md, B11a/B11c findings). "unroll" is
+// the `#pragma unroll` depth of a thread's row loop, the depth the sweep
+// measures, and n_rows a multiple of it (no tail); the NACC groups (5
+// registers each with UV) break the chain of dependent selects that the
+// JAX tool breaks on the TPU. The any-hit thread leaves after the
+// UNROLL-row group that holds its first hit.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "q_row.cuh"  // B1's row test, stage, grid_for, kBlock, kChunk
+
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kChunk = 256;  // triangle rows per shared-memory stage (16 KB)
+constexpr int kAnyChunk = 256;  // rows an any-hit stage (16 KB)
+
+// blocks an SM the registers must allow: 4 (64 registers a thread)
+// without u, v; with u, v, whose groups keep 5 registers each, 3 (80) up
+// to NACC 4 and 2 (128) at NACC 8 (at 64, NACC 2, 4 and 8 spilled 20, 96
+// and 136 bytes; at 80, NACC 8 spilled 184 and ran 4% slower)
+constexpr int min_blocks(int nacc, bool uv) {
+  return !uv ? 4 : nacc <= 4 ? 3 : 2;
+}
+
+// the any hit's row test: every product and sum rounded on its own
+namespace rn {
 
 struct QRay {
   float ox, oy, oz, dx, dy, dz, cx, cy, cz;
@@ -110,77 +138,86 @@ __device__ __forceinline__ bool q_test(const float* tr, const QRay& r,
          sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
 }
 
+}  // namespace rn
+
 struct Best {
   float ts, ad, us, vs;
   int prim;
 };
 
+// b takes row `row` where the ray hits it nearer than b's pair (the strict
+// cross-multiplied compare: the first of two tied rows wins), by selects
 template <bool UV>
-__device__ __forceinline__ void take(Best& b, const float* tr, const QRay& r,
-                                     int row) {
-  float ad, ts, us, vs;
-  if (q_test(tr, r, ad, ts, us, vs) && mul(ts, b.ad) < mul(b.ts, ad)) {
-    b.ts = ts;
-    b.ad = ad;
-    if (UV) {
-      b.us = us;
-      b.vs = vs;
-    }
-    b.prim = row;
+__device__ __forceinline__ void take(Best& b, const QTerms& q, int row) {
+  const bool win = q_inside(q) & (q.ts * b.ad < b.ts * q.ad);
+  b.ts = win ? q.ts : b.ts;
+  b.ad = win ? q.ad : b.ad;
+  if (UV) {
+    b.us = win ? q.us : b.us;
+    b.vs = win ? q.vs : b.vs;
   }
+  b.prim = win ? row : b.prim;
 }
 
 template <int UNROLL, int NACC, bool UV>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, min_blocks(NACC, UV))
     sweep_q_kernel(const float* __restrict__ tri_q, int n_rows,
                    const float* __restrict__ anchor,
                    const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ maxt, int n,
                    float* __restrict__ t_out, int* __restrict__ prim_out,
                    float* __restrict__ u_out, float* __restrict__ v_out) {
-  // row base + j + u lies in group u % NACC: base and j are multiples of
-  // UNROLL, which NACC divides
+  // row row0 + j lies in group j % NACC: row0 is a multiple of UNROLL,
+  // which NACC divides
   static_assert(kChunk % UNROLL == 0 && UNROLL % NACC == 0, "unroll");
-  __shared__ float s_tri[kChunk * 16];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  QRay r = {};
-  float tmax = 3.4e38f;
-  if (live) {
-    r = load_ray(o, d, anchor, i);
-    const float mt = maxt[i];
-    tmax = isfinite(mt) ? mt : 3.4e38f;
+  __shared__ float4 s_tri[kChunk * 4];
+  const bool resident = n_rows <= kChunk;
+  if (resident) {
+    stage<1>(s_tri, tri_q, 0, n_rows);  // rows a multiple of UNROLL: no pad
+    __syncthreads();
   }
-  Best acc[NACC];
+  const int n_tiles = (n + kBlock - 1) / kBlock;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int i = tile * kBlock + threadIdx.x;
+    // a lane past n runs a zero ray (d = 0: never hits)
+    const QRay r = i < n ? load_ray(o, d, maxt, anchor, i) : QRay{};
+    Best acc[NACC];
 #pragma unroll
-  for (int g = 0; g < NACC; ++g) acc[g] = {tmax, 1.f, 0.f, 0.f, -1};
-  for (int base = 0; base < n_rows; base += kChunk) {
-    const int cnt = min(kChunk, n_rows - base);  // a multiple of UNROLL
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt * 16; k += kBlock)
-      s_tri[k] = tri_q[base * 16 + k];
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < cnt; j += UNROLL) {
+    for (int g = 0; g < NACC; ++g) acc[g] = {r.tmax, 1.f, 0.f, 0.f, -1};
+    for (int base = 0; base < n_rows; base += kChunk) {
+      const int cnt = min(kChunk, n_rows - base);  // a multiple of UNROLL
+      if (!resident) {
+        __syncthreads();
+        stage<1>(s_tri, tri_q, base, cnt);
+        __syncthreads();
+      }
+#pragma unroll 1
+      for (int s = 0; s < cnt; s += UNROLL) {
+        const float4* rows = s_tri + 4 * s;
+        const int row0 = base + s;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        take<UV>(acc[u % NACC], s_tri + 16 * (j + u), r, base + j + u);
+        for (int j = 0; j < UNROLL; ++j) {
+          const float4* row = rows + 4 * j;
+          take<UV>(acc[j % NACC], q_terms(row[0], row[1], row[2], row[3], r),
+                   row0 + j);
+        }
+      }
     }
-  }
-  if (!live) return;
-  Best a = acc[0];
+    if (i >= n) continue;
+    Best best = acc[0];
 #pragma unroll
-  for (int g = 1; g < NACC; ++g) {
-    const Best& b = acc[g];
-    if (b.prim >= 0 && (a.prim < 0 || mul(b.ts, a.ad) < mul(a.ts, b.ad)))
-      a = b;
-  }
-  const float inv = __frcp_rn(a.ad);
-  prim_out[i] = a.prim;
-  t_out[i] = a.prim >= 0 ? mul(a.ts, inv) : INFINITY;
-  if (UV) {
-    u_out[i] = mul(a.us, inv);
-    v_out[i] = mul(a.vs, inv);
+    for (int g = 1; g < NACC; ++g) {
+      const Best& b = acc[g];
+      if (b.prim >= 0 && (best.prim < 0 || b.ts * best.ad < best.ts * b.ad))
+        best = b;
+    }
+    const float inv = 1.f / best.ad;
+    prim_out[i] = best.prim;
+    t_out[i] = best.prim >= 0 ? best.ts * inv : INFINITY;
+    if (UV) {
+      u_out[i] = best.us * inv;
+      v_out[i] = best.vs * inv;
+    }
   }
 }
 
@@ -191,20 +228,20 @@ __global__ void __launch_bounds__(kBlock)
                    const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ maxt, int n,
                    bool* __restrict__ occ_out) {
-  static_assert(kChunk % UNROLL == 0, "unroll");
-  __shared__ float s_tri[kChunk * 16];
+  static_assert(kAnyChunk % UNROLL == 0, "unroll");
+  __shared__ float s_tri[kAnyChunk * 16];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n;
-  QRay r = {};
+  rn::QRay r = {};
   float tmax = -1.f;
   if (live) {
-    r = load_ray(o, d, anchor, i);
+    r = rn::load_ray(o, d, anchor, i);
     const float mt = maxt[i];
     tmax = isfinite(mt) ? mt : -1.f;
   }
   bool occ = false;
-  for (int base = 0; base < n_rows; base += kChunk) {
-    const int cnt = min(kChunk, n_rows - base);
+  for (int base = 0; base < n_rows; base += kAnyChunk) {
+    const int cnt = min(kAnyChunk, n_rows - base);
     __syncthreads();
     for (int k = threadIdx.x; k < cnt * 16; k += kBlock)
       s_tri[k] = tri_q[base * 16 + k];
@@ -214,8 +251,8 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         float ad, ts, us, vs;
-        occ = occ || (q_test(s_tri + 16 * (j + u), r, ad, ts, us, vs) &&
-                      ts < mul(tmax, ad));
+        occ = occ || (rn::q_test(s_tri + 16 * (j + u), r, ad, ts, us, vs) &&
+                      ts < rn::mul(tmax, ad));
       }
     }
   }
@@ -223,26 +260,27 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 template <int UNROLL, int NACC, bool UV>
-void launch_closest(int grid, cudaStream_t s, const float* tri_q, int n_rows,
+void launch_closest(cudaStream_t s, const float* tri_q, int n_rows,
                     const float* anchor, const float* o, const float* d,
                     const float* maxt, int n, float* t, int* prim, float* u,
                     float* v) {
-  sweep_q_kernel<UNROLL, NACC, UV><<<grid, kBlock, 0, s>>>(
-      tri_q, n_rows, anchor, o, d, maxt, n, t, prim, u, v);
+  sweep_q_kernel<UNROLL, NACC, UV>
+      <<<grid_for<sweep_q_kernel<UNROLL, NACC, UV>>(n), kBlock, 0, s>>>(
+          tri_q, n_rows, anchor, o, d, maxt, n, t, prim, u, v);
 }
 
 // the sweep's closest hit: one accumulator, or two (dual), without u, v
 template <int UNROLL>
-void launch_variant(bool dual, int grid, cudaStream_t s, const float* tri_q,
+void launch_variant(bool dual, cudaStream_t s, const float* tri_q,
                     int n_rows, const float* anchor, const float* o,
                     const float* d, const float* maxt, int n, float* t,
                     int* prim) {
   if (dual)
-    launch_closest<UNROLL, 2, false>(grid, s, tri_q, n_rows, anchor, o, d,
-                                     maxt, n, t, prim, nullptr, nullptr);
+    launch_closest<UNROLL, 2, false>(s, tri_q, n_rows, anchor, o, d, maxt, n,
+                                     t, prim, nullptr, nullptr);
   else
-    launch_closest<UNROLL, 1, false>(grid, s, tri_q, n_rows, anchor, o, d,
-                                     maxt, n, t, prim, nullptr, nullptr);
+    launch_closest<UNROLL, 1, false>(s, tri_q, n_rows, anchor, o, d, maxt, n,
+                                     t, prim, nullptr, nullptr);
 }
 
 }  // namespace
@@ -255,24 +293,23 @@ extern "C" int plt_intersect_q_variant(const float* tri_q, int n_rows,
                                        int dual, void* stream) {
   if (n_rows % unroll) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (unroll) {
       case 2:
-        launch_variant<2>(dual, grid, s, tri_q, n_rows, anchor, o, d, maxt,
-                          n, t, prim);
+        launch_variant<2>(dual, s, tri_q, n_rows, anchor, o, d, maxt, n,
+                          t, prim);
         break;
       case 8:
-        launch_variant<8>(dual, grid, s, tri_q, n_rows, anchor, o, d, maxt,
-                          n, t, prim);
+        launch_variant<8>(dual, s, tri_q, n_rows, anchor, o, d, maxt, n,
+                          t, prim);
         break;
       case 16:
-        launch_variant<16>(dual, grid, s, tri_q, n_rows, anchor, o, d, maxt,
-                           n, t, prim);
+        launch_variant<16>(dual, s, tri_q, n_rows, anchor, o, d, maxt, n,
+                           t, prim);
         break;
       case 32:
-        launch_variant<32>(dual, grid, s, tri_q, n_rows, anchor, o, d, maxt,
-                           n, t, prim);
+        launch_variant<32>(dual, s, tri_q, n_rows, anchor, o, d, maxt, n,
+                           t, prim);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -290,20 +327,19 @@ extern "C" int plt_intersect_q_macc(const float* tri_q, int n_rows,
                                     int nacc, void* stream) {
   if (n_rows % 16) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (nacc) {
       case 2:
-        launch_closest<16, 2, true>(grid, s, tri_q, n_rows, anchor, o, d,
-                                    maxt, n, t, prim, u, v);
+        launch_closest<16, 2, true>(s, tri_q, n_rows, anchor, o, d, maxt,
+                                    n, t, prim, u, v);
         break;
       case 4:
-        launch_closest<16, 4, true>(grid, s, tri_q, n_rows, anchor, o, d,
-                                    maxt, n, t, prim, u, v);
+        launch_closest<16, 4, true>(s, tri_q, n_rows, anchor, o, d, maxt,
+                                    n, t, prim, u, v);
         break;
       case 8:
-        launch_closest<16, 8, true>(grid, s, tri_q, n_rows, anchor, o, d,
-                                    maxt, n, t, prim, u, v);
+        launch_closest<16, 8, true>(s, tri_q, n_rows, anchor, o, d, maxt,
+                                    n, t, prim, u, v);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -120,11 +120,13 @@ def count_sass(sass: str, kernel: str, per_test: bool = False) -> dict:
     "per_step" the instructions of one step of the four chains. NOPs and
     the BRA to itself after EXIT, which never issue, are left out.
 
-    per_test=True reads a q kernel (`csrc/intersect_q.cu`, whose loops
-    nest): its row loop is the innermost loop (a backward branch, taken
-    or predicated, spanning no other) with the most FFMAs, and one trip of
-    it runs as many (ray, row) tests as it holds FSETPs against the det
-    epsilon 1e-12. Returns {"tests_per_trip", "loop": the trip's
+    per_test=True reads a q kernel (`csrc/intersect_q.cu`, the sweep's
+    `csrc/intersect_sweep.cu`; their loops nest): its row loop is the
+    innermost loop (a backward branch, taken or predicated, spanning no
+    other) with the most FSETPs against the det epsilon 1e-12, and one
+    trip of it runs as many (ray, row) tests as it holds such FSETPs (a
+    kernel built without FMA contraction has no FFMA to tell its row loop
+    by). Returns {"tests_per_trip", "loop": the trip's
     instructions by class (Q_CLASSES), "ops": by opcode, "per_test": each
     class and "slots" over the tests}."""
     body = _kernel_sass(sass, kernel)
@@ -172,10 +174,12 @@ def _count_per_test(body, kernel):
         return [r for r in body if loop[0] <= r[0] <= loop[1]
                 and _issued(*r)]
 
-    rows = trip(max(inner, key=lambda a: sum(
-        op == "FFMA" for _, op, _ in trip(a))))
-    tests = sum(op == "FSETP" and bool(_DET_EPS_SASS.search(arg))
-                for _, op, arg in rows)
+    def det_tests(rows):
+        return sum(op == "FSETP" and bool(_DET_EPS_SASS.search(arg))
+                   for _, op, arg in rows)
+
+    rows = max((trip(a) for a in inner), key=det_tests)
+    tests = det_tests(rows)
     if not tests:
         raise RuntimeError(f"count_sass: no det epsilon in {kernel}'s loop")
     ops, loop = {}, dict.fromkeys(Q_CLASSES, 0)

@@ -7,13 +7,39 @@ no JAX), run them with
 
 (`--noconftest`: the suite's conftest configures JAX). This file imports no
 JAX."""
+import functools
+import importlib.util
 import itertools
+import os
 
 import numpy as np
 import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+
+
+@functools.cache
+def _smoke():
+    """chip_smoke.py as a module: its `q_close`, `q_groups` and `b1_groups`
+    hold the sweep's closest hits here as in its kernels phase."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sweep_held(name, got, want, q, rays, rows, nacc, step=1):
+    """A closest hit of the sweep (B11a, B11c: B1's row test) on `rays`,
+    held as chip_smoke.py holds it: at every step-th lane near its plain
+    version `want` on those lanes (`q_close`), and on every lane equal to
+    B1 over each of its nacc groups of the table's first `rows` rows to
+    the bit (`q_groups`; q: the table and anchor)."""
+    smoke = _smoke()
+    smoke.q_close(name, [x[::step] for x in got], want, sweep=True)
+    smoke.q_groups(name, got, smoke.b1_groups(q, rays, rows, nacc))
 
 
 @pytest.fixture
@@ -685,10 +711,14 @@ def test_occluded_classic_matches_plain_at_edges(card):
 
 
 def test_q_variant_kernels_match_plain(card):
-    """B11a at every unroll, with one and two accumulators, and B11b at
-    every unroll equal their plain versions to the bit on the sweep's rays
-    (maxt inf; for the any hit 0.99 or 1.01 of B1's t on alternate lanes,
-    inf on every third)."""
+    """B11a at every unroll, with one and two accumulators, near its plain
+    version and equal to B1 over each group's rows to the bit
+    (`_sweep_held`: B11a runs B1's row test, FMAs and all), so with one
+    accumulator equal to B1 to the bit in t and prim (the same test in the
+    same row order; the rows past the scene's are zero and never hit);
+    B11b at every unroll equal to its plain version to the bit. On the
+    sweep's rays (maxt inf; for the any hit 0.99 or 1.01 of B1's t on
+    alternate lanes, inf on every third)."""
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
     from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
 
@@ -696,7 +726,7 @@ def test_q_variant_kernels_match_plain(card):
         g = scene.geo
         q = (g.tri_q, g.tri_anchor)
         o, d, mt = us.sweep_rays(scene, 8192, seed=4)
-        t0 = isect.intersect_q(*q, o, d, mt, g.n_faces)[0]
+        t0, p0 = isect.intersect_q(*q, o, d, mt, g.n_faces)[:2]
         lane = torch.arange(t0.shape[0], device=card)
         msh = torch.where(torch.isfinite(t0),
                           t0 * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
@@ -710,10 +740,12 @@ def test_q_variant_kernels_match_plain(card):
                 if (rows, dual) not in plain:
                     plain[rows, dual] = isect.intersect_q_variant_plain(
                         *q, o, d, mt, g.n_faces, unroll, dual)
-                want = plain[rows, dual]
-                torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
-                    (unroll, dual)
+                _sweep_held(f"unroll {unroll} dual {dual}", got,
+                            plain[rows, dual], q, (o, d, mt), rows,
+                            2 if dual else 1)
+                if not dual:
+                    assert torch.equal(got[0], t0), unroll
+                    assert torch.equal(got[1], p0), unroll
             occ = isect.occluded_q_variant(*q, o, d, msh, g.n_faces, unroll)
             if rows not in plain:
                 plain[rows] = isect.occluded_q_variant_plain(
@@ -761,10 +793,11 @@ def test_tools_launch_their_kernels(card):
 
 
 def test_q_macc_kernel_matches_plain(card):
-    """B11c at nacc 2, 4 and 8 equals its plain version to the bit (t,
-    prim, u, v) on the sweep's rays of both tool scenes, with maxt inf and
-    on every fifth lane 0.5; at nacc 2 it answers as B11a's two
-    accumulators do."""
+    """B11c at nacc 2, 4 and 8 near its plain version and equal to B1 over
+    each group's rows to the bit (t, prim, u, v: `_sweep_held`, it runs
+    B1's row test) on the sweep's rays of both tool scenes, with maxt inf
+    and on every fifth lane 0.5; at nacc 2 it answers as B11a's two
+    accumulators do, to the bit."""
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
     from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
 
@@ -773,18 +806,63 @@ def test_q_macc_kernel_matches_plain(card):
         q = (g.tri_q, g.tri_anchor)
         o, d, mt = us.sweep_rays(scene, 8192, seed=6)
         mt[::5] = 0.5
+        rows = isect.q_variant_rows(g.tri_q.shape[0], g.n_faces,
+                                    isect.Q_MACC_UNROLL)
         for nacc in isect.Q_MACC_NACCS:
             got = isect.intersect_q_macc(*q, o, d, mt, g.n_faces, nacc)
-            want = isect.intersect_q_macc_plain(*q, o, d, mt, g.n_faces,
-                                                nacc)
-            torch.cuda.synchronize()
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), nacc
+            _sweep_held(f"nacc {nacc}", got,
+                        isect.intersect_q_macc_plain(*q, o, d, mt,
+                                                     g.n_faces, nacc),
+                        q, (o, d, mt), rows, nacc)
             assert (got[1] >= 0).any() and (got[1] < 0).any()
             if nacc == 2:
                 dual = isect.intersect_q_variant(*q, o, d, mt, g.n_faces,
                                                  16, True)
                 assert torch.equal(dual[0], got[0])
                 assert torch.equal(dual[1], got[1])
+
+
+def test_sweep_kernels_match_plain_at_size(card):
+    """B11a (every unroll, one and two accumulators) and B11c (every nacc)
+    on 1,048,579 sweep rays of the 5,120-face icosphere: more tiles than
+    the grid's 4 waves of resident blocks hold (at most 528 blocks a wave
+    at 4 an SM on 132 SMs), so blocks take several tiles and re-stage the
+    table in 512-row chunks for each. Held on every lane to B1 over each
+    group's rows to the bit and on every 64th lane near the plain version
+    (`_sweep_held`), with maxt inf and 0.5 on every fifth lane; B11c at
+    nacc 2 equal to B11a's two accumulators to the bit."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
+
+    scene = _tool_scenes(card)[1]
+    g = scene.geo
+    q = (g.tri_q, g.tri_anchor)
+    n, step = 1_048_579, 64
+    o, d, mt = us.sweep_rays(scene, n, seed=8)
+    mt[::5] = 0.5
+    assert n > 4 * 528 * 256 and g.n_faces > 512
+    part = tuple(x[::step].contiguous() for x in (o, d, mt))
+    for unroll in isect.Q_VARIANT_UNROLLS:
+        rows = isect.q_variant_rows(g.tri_q.shape[0], g.n_faces, unroll)
+        for dual in (False, True):
+            got = isect.intersect_q_variant(*q, o, d, mt, g.n_faces, unroll,
+                                            dual)
+            want = isect.intersect_q_variant_plain(*q, *part, g.n_faces,
+                                                   unroll, dual)
+            _sweep_held(f"unroll {unroll} dual {dual}", got, want, q,
+                        (o, d, mt), rows, 2 if dual else 1, step)
+            assert (got[1] >= 0).any() and (got[1] < 0).any()
+    dual = isect.intersect_q_variant(*q, o, d, mt, g.n_faces, 16, True)
+    rows = isect.q_variant_rows(g.tri_q.shape[0], g.n_faces,
+                                isect.Q_MACC_UNROLL)
+    for nacc in isect.Q_MACC_NACCS:
+        got = isect.intersect_q_macc(*q, o, d, mt, g.n_faces, nacc)
+        want = isect.intersect_q_macc_plain(*q, *part, g.n_faces, nacc)
+        _sweep_held(f"nacc {nacc}", got, want, q, (o, d, mt), rows, nacc,
+                    step)
+        if nacc == 2:
+            assert torch.equal(dual[0], got[0])
+            assert torch.equal(dual[1], got[1])
 
 
 def test_fma_roof_kernel_matches_plain(card):

@@ -42,19 +42,35 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_kernel_sources_and_data_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "csrc")
-    assert sorted(os.listdir(csrc)) == [
-        "fma_roof.cu", "grating.cu", "intersect_bvh.cu",
-        "intersect_classic.cu", "intersect_clu.cu", "intersect_clu2.cu",
-        "intersect_mxu.cu", "intersect_q.cu", "intersect_sweep.cu"]
+    files = sorted(os.listdir(csrc))
     from mitsuba3_plt_tpu_torch.ops import build
 
-    assert sorted(build.SOURCES) == sorted(os.listdir(csrc))
+    # every .cu file is built, and the one header is the q row test
+    assert sorted(build.SOURCES) == [f for f in files if f.endswith(".cu")]
+    assert [f for f in files if not f.endswith(".cu")] == ["q_row.cuh"]
     assert {"plt_intersect_bvh", "plt_occluded_bvh", "plt_intersect_classic",
             "plt_occluded_classic", "plt_intersect_mxu", "plt_intersect_clu",
             "plt_occluded_clu", "plt_intersect_q_variant",
             "plt_occluded_q_variant", "plt_intersect_q_macc",
             "plt_fma_roof"} <= set(build.SIGNATURES)
     assert os.path.exists(os.path.join(PORT, "core", "data_cie1931.npz"))
+
+
+def test_q_row_test_is_shared_by_b1_and_the_sweep():
+    """intersect_q.cu (B1, B2) and intersect_sweep.cu (B11a, B11c) run the
+    one row test of q_row.cuh and its launch (the table's stage, the
+    grid), which neither defines itself."""
+    csrc = os.path.join(PORT, "ops", "csrc")
+    header = open(os.path.join(csrc, "q_row.cuh")).read()
+    for name in ("q_terms(", "void stage(", "int grid_for("):
+        assert name in header, name
+    for name in ("intersect_q.cu", "intersect_sweep.cu"):
+        src = open(os.path.join(csrc, name)).read()
+        assert '#include "q_row.cuh"' in src, name
+        assert "QTerms q_terms(" not in src, name
+        assert "bool q_inside(" not in src, name
+        assert "void stage(" not in src, name
+        assert "int grid_for(" not in src, name
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

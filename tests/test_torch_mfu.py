@@ -426,3 +426,93 @@ def test_count_sass_reads_a_q_tests_instructions(rows, rays):
         mfu.count_sass(_q_sass(rows, rays), "other_kernel", per_test=True)
     with pytest.raises(RuntimeError, match="no SASS"):
         mfu.count_sass(_q_sass(rows, rays), "q_kernelILb2E", per_test=True)
+
+
+def _sweep_sass(ffma):
+    """cuobjdump -sass text of a sweep-like closest hit: a staging loop, a
+    loop of 240 FFMAs and no det epsilon (more than the row loop's: a loop
+    the rule of the most FFMAs would take), then a tile loop around a row loop fully unrolled to 16 tests
+    a trip, each row 4 LDS.128 and one test: det, u, v and t in FMUL and
+    13 FFMA (`ffma`) or 14 FMUL and 13 FADD (every product and sum
+    rounded on its own), 3 LOP3, 3 FADD, 6 FSETP (one against the det
+    epsilon), 2 FMUL and 3 SEL."""
+    out = ["\tcode for sm_90a",
+           "\t\tFunction : _ZN12_GLOBAL__N_114sweep_q_kernelILi16ELi1ELb0EEv"
+           "PKfiS2_S2_S2_S2_iPfPiS3_S3_"]
+    addr = 0
+
+    def ins(text):
+        nonlocal addr
+        out.append(f"        /*{addr:04x}*/                   {text} ;"
+                   f"                 /* 0x000fe20000000f00 */")
+        addr += 16
+        return addr - 16
+
+    top = ins("LDG.E R4, desc[UR4][R2.64]")
+    ins("STS [R5], R4")
+    ins("ISETP.GE.AND P0, PT, R5, 0x200, PT")
+    ins(f"@!P0 BRA {hex(top)}")
+    top = ins("FFMA R9, R9, R10, R11")
+    for _ in range(239):
+        ins("FFMA R9, R9, R10, R11")
+    ins(f"@P3 BRA {hex(top)}")
+    tile = ins("LDG.E R6, desc[UR4][R2.64]")
+    row = ins("IADD3 R7, R7, 0x400, RZ")
+    for _ in range(16):
+        for k in range(4):
+            ins(f"LDS.128 R{8 + 4 * k}, [R7+{hex(16 * k)}]")
+        ins("FMUL R20, R4, R8")
+        for _ in range(13):
+            if ffma:
+                ins("FFMA R20, R5, R9, R20")
+            else:
+                ins("FMUL R21, R5, R9")
+                ins("FADD R20, R20, R21")
+        ins("LOP3.LUT R21, R20, 0x80000000, R22, 0x48, !PT")
+        ins("LOP3.LUT R23, R24, 0x80000000, R22, 0x48, !PT")
+        ins("LOP3.LUT R25, R26, 0x80000000, R22, 0x48, !PT")
+        ins("FADD R27, |R22|, -R21")
+        ins("FADD R27, R27, -R23")
+        ins("FADD R28, R28, -c[0x0][0x10]")
+        ins("FSETP.GT.AND P0, PT, |R22|, 9.9999999600419720025e-13, PT")
+        ins("FSETP.GE.AND P0, PT, R21, RZ, P0")
+        ins("FSETP.GE.AND P0, PT, R23, RZ, P0")
+        ins("FSETP.GE.AND P0, PT, R27, RZ, P0")
+        ins("FSETP.GT.AND P0, PT, R25, RZ, P0")
+        ins("FMUL R29, R25, R30")
+        ins("FMUL R31, R32, |R22|")
+        ins("FSETP.GEU.AND P0, PT, R29, R31, !P0")
+        for _ in range(3):
+            ins("SEL R33, R33, R34, P0")
+    ins("ISETP.GE.AND P1, PT, R7, R35, PT")
+    ins(f"@!P1 BRA {hex(row)}")
+    ins("STG.E desc[UR4][R2.64], R20")
+    ins("ISETP.GE.AND P2, PT, R6, R36, PT")
+    ins(f"@!P2 BRA {hex(tile)}")
+    ins("EXIT")
+    ins(f"BRA {hex(addr)}")
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("ffma", [True, False])
+def test_count_sass_reads_a_sweep_trip(ffma):
+    """count_sass(per_test=True) takes the sweep's row loop, the innermost
+    loop with the most det-epsilon compares, over a loop with more FFMAs
+    and none, with or without FFMAs in the test (the sweep built without
+    FMA contraction had none); a fully unrolled trip is 16 tests, and its
+    4 LDS.128 a row and 3 instructions of loop overhead spread over
+    them."""
+    c = mfu.count_sass(_sweep_sass(ffma), "sweep_q_kernelILi16ELi1ELb0E",
+                       per_test=True)
+    assert c["tests_per_trip"] == 16
+    per = c["per_test"]
+    want = ({"ffma": 13, "fmul": 3, "fadd": 3} if ffma
+            else {"ffma": 0, "fmul": 16, "fadd": 16})
+    assert {k: per[k] for k in want} == want
+    assert per["fsetp"] == 6 and per["lop3"] == 3 and per["lds"] == 4
+    assert c["ops"]["SEL"] == 48 and c["ops"]["BRA"] == 1
+    assert per["other"] == pytest.approx(3 + 3 / 16)
+    assert per["slots"] == pytest.approx(
+        (35 if ffma else 48) + 3 / 16)
+    assert per["slots"] == pytest.approx(sum(
+        v for k, v in per.items() if k != "slots"))
