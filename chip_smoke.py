@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # one card, ~3 min with the build
 
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
-                                         # B8a, B8b, B10a, B10b, B11a,
+                                         # B8a, B8b, B9, B10a, B10b, B11a,
                                          # B11b, B11c of the package in
                                          # ROOT
 
@@ -28,9 +28,10 @@ Phases, each printing one JSON line with its seconds:
                   started together), with nvcc's register and spill report,
                   the special functions' fast paths in the SASS
                   (`ops/mfu.py::special_fn_counts`), which weigh B4's
-                  bound, and the instructions a (ray, row) test by class
-                  of B1, B2 and the sweep's closest-hit instances (B11a,
-                  B11c: `q_sass_counts`), whose FFMAs their bounds count;
+                  bound, the instructions a (ray, row) test by class
+                  of B1, B2 and the sweep's instances (B11a, B11b, B11c:
+                  `q_sass_counts`), whose FFMAs their bounds count, and
+                  B9's HMMA and other instructions a step of its row loop;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
@@ -68,14 +69,19 @@ Phases, each printing one JSON line with its seconds:
                   sets of the Cornell box and of the 5,120-face icosphere at
                   1,048,576 lanes, held to their plain versions on all the
                   box's lanes and on the icosphere's first 131,072 (B8 to
-                  the bit, B9 within its tolerance). B10a (incoherent,
+                  the bit, B9 within its tolerance), and B9 on every lane
+                  to its filter-off instance to the bit (every pair through
+                  the FP32 test; no hit dropped by the tensor-core
+                  filter), its bound the tensor-core one. B10a (incoherent,
                   depth0) and B10b (shadow0) on the mask-sort tool's
                   icosphere sets, B11a at every unroll with one and two
                   accumulators and B11b at every unroll on the sweep's
                   rays of both scenes, all at 1,048,576 lanes, held on
                   131,072 lanes spread over the set (all of the Cornell
-                  box's for B11): B11b equal to its plain version to the
-                  bit, B11a (B1's row test; the call that is timed) near
+                  box's for B11): B11b (B2's row test) equal on every lane
+                  to B2 with an infinite maxt as -1, to the bit, and to its
+                  plain version on 1 - 1e-4 of lanes, B11a (B1's row
+                  test; the call that is timed) near
                   its plain version (`q_close`: prims on 1 - 1e-4 of
                   lanes, t at rtol 1e-5 on all but 2e-3 of the hits and
                   at rtol 1e-3 on every one) and on every lane equal to
@@ -155,8 +161,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
+# them, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_W, MAIN_H, MAIN_SPP_PASS = 800, 600, 4
@@ -349,6 +357,19 @@ def bound(n_bytes, n_ops, n_fma=0):
             "bound_bytes": n_bytes, "bound_slots": n_ops - n_fma}
 
 
+def tc_bound(n_bytes, n_tc_flop, n_ops, n_fma=0):
+    """`bound` of a kernel whose product runs on the tensor cores (B9): the
+    larger of its bytes / 3.35 TB/s, its tensor-core FLOP / 495 TFLOP/s
+    (dense TF32) and its other operations (an FMA two) / 67 TFLOP/s; its
+    measured bound takes the bytes and those other operations' issue slots
+    (the probes measure no tensor-core roof)."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(n_tc_flop / PEAK_TF32_FLOPS, n_ops / PEAK_FP32_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_slots": n_ops - n_fma}
+
+
 def contracted_bound(n_bytes, n_ops):
     """`bound` of a kernel that nvcc builds with FMA contraction (grating.cu:
     B3's sample_kernel), whose operation count does not tell the FMAs
@@ -407,6 +428,7 @@ def ptxas_report(log: str) -> tuple:
             entry = m.group(1)
             k = re.search(r"(clu2_kernel|clu_kernel|sweep_q_kernel|"
                           r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
+                          r"mxu_kernel|"
                           r"sample_kernel|classic_kernel|fn_probe_kernel|"
                           r"anyhit_resident_kernel)"
                           r"I((?:L[ib]\d+E)+)E", entry)
@@ -462,6 +484,16 @@ MXU_RAY_SETUP_OPS = 15    # 9 products of phi, maxt check, miss selects
 MXU_TEST_OPS = 158        # 4 x 16 FMAs (2 each), sign fold, guarded 1/|det|,
                           # t, hit, best update with u and v
 MXU_TEST_FMAS = 64        # the FMAs among them
+MXU_TC_FLOP = 3 * 2 * 32  # a pair's product on the tensor cores (B9):
+                          # 3xTF32 of u' and v', 16 multiply-adds each
+MXU_TC_OTHER_OPS = 25     # a pair's other operations, on the CUDA cores
+                          # (B9's filter): det's 3 FMAs, |det|, the sign
+                          # fold (3), 3 slack FMAs, us + vs, 4 compares, 4
+                          # ors; a candidate then takes MXU_TEST_OPS
+MXU_TC_OTHER_FMAS = 6     # the FMAs among them
+MXU_HMMA_PAIRS = 64 / 6   # pairs an HMMA of B9's step: 6 (two k-steps of
+                          # one n8 tile of u' and v', 3xTF32) a 16-ray x
+                          # 4-triangle tile
 CLU_RAY_SETUP_OPS = CLU2_RAY_SETUP_OPS  # the same ray terms
 SWEEP_RAY_SETUP_OPS = 15  # anchor shift, o x d, maxt check, final divide
 SWEEP_TEST_OPS = 53       # the q test with a best pair of (t|det|, |det|)
@@ -616,10 +648,11 @@ def path_q_rays(scene, integ, spp_pass):
 
 
 def sweep_sass_kernels():
-    """{key: mangled-name fragment} of the sweep's closest-hit instances
-    (`sweep_q_kernel<UNROLL, NACC, UV>` of csrc/intersect_sweep.cu): B11a
-    at every unroll with one and two accumulators, B11c at every nacc;
-    keys as `ptxas_report` names them."""
+    """{key: mangled-name fragment} of the sweep's instances
+    (csrc/intersect_sweep.cu): B11a (`sweep_q_kernel<UNROLL, NACC, UV>`) at
+    every unroll with one and two accumulators, B11c at every nacc, B11b
+    (`sweep_a_kernel<UNROLL>`) at every unroll; keys as `ptxas_report`
+    names them."""
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
 
     out = {}
@@ -628,16 +661,20 @@ def sweep_sass_kernels():
             + [(isect.Q_MACC_UNROLL, k, 1) for k in isect.Q_MACC_NACCS]):
         out[f"sweep_q_kernel<{unroll},{nacc},{uv}>"] = (
             f"sweep_q_kernelILi{unroll}ELi{nacc}ELb{uv}EE")
+    for unroll in isect.Q_VARIANT_UNROLLS:
+        out[f"sweep_a_kernel<{unroll}>"] = f"sweep_a_kernelILi{unroll}EE"
     return out
 
 
 def q_sass_counts(library):
-    """{"intersect_q", "occluded_q", and each key of `sweep_sass_kernels`}:
-    `mfu.count_sass(..., per_test=True)` of q_kernel<false / true> and of
-    the sweep's closest-hit instances in the kernel library file `library`,
-    read by this checkout's `ops/mfu.py` in a process of its own (so that
-    `--turns` reads another checkout's library the same way). A sweep
-    instance it cannot read (another checkout's) gives {"error": ...}."""
+    """{"intersect_q", "occluded_q", each key of `sweep_sass_kernels`, and
+    "intersect_mxu"}: `mfu.count_sass(..., per_test=True)` of
+    q_kernel<false / true> and of the sweep's instances, and
+    `mfu.loop_trip` of B9's row loop (`mxu_kernel<true>`: its HMMA and
+    other instructions a step), in the kernel library file `library`, read
+    by this checkout's `ops/mfu.py` in a process of its own (so that
+    `--turns` reads another checkout's library the same way). An instance
+    it cannot read (another checkout's) gives {"error": ...}."""
     code = (
         "import json, os, subprocess, sys\n"
         f"sys.path.insert(0, {HERE!r})\n"
@@ -653,11 +690,55 @@ def q_sass_counts(library):
         "        out[k] = mfu.count_sass(sass, name, per_test=True)\n"
         "    except RuntimeError as e:\n"
         "        out[k] = {'error': str(e)}\n"
+        "try:\n"
+        "    out['intersect_mxu'] = mfu.loop_trip(sass, 'mxu_kernelILb1EE')\n"
+        "except RuntimeError as e:\n"
+        "    out['intersect_mxu'] = {'error': str(e)}\n"
         "print(json.dumps(out))\n")
     out = subprocess.run([sys.executable, "-c", code, library,
                           json.dumps(sweep_sass_kernels())], check=True,
                          stdout=subprocess.PIPE, text=True).stdout
     return json.loads(out.strip().splitlines()[-1])
+
+
+def mxu_step(q_sass):
+    """B9's row loop from `q_sass_counts`: {"hmma", "slots": the
+    instructions of a trip that takes no candidate, "pairs": the (ray,
+    triangle) pairs a trip's HMMAs cover, "per_pair": its slots a pair
+    counted as a thread's, the unit of the FMA roof, "trip": by opcode};
+    raises where its SASS was not read."""
+    c = q_sass["intersect_mxu"]
+    require("trip" in c, f"intersect_mxu: SASS not read: {c.get('error')}")
+    hmma = c["trip"].get("HMMA", 0)
+    pairs = hmma * MXU_HMMA_PAIRS
+    return {"hmma": hmma, "slots": c["slots"], "pairs": pairs,
+            "per_pair": c["slots"] * 32 / pairs, "trip": c["trip"]}
+
+
+def mxu_unfiltered(w, o, d, maxt, n_tris):
+    """B9's filter-off instance (csrc/intersect_mxu.cu, mxu_kernel<false>):
+    every (ray, triangle) pair through the FP32 test, which the tensor-core
+    kernel must equal to the bit. Returns ((t, prim, u, v), {"candidates":
+    the pairs the filter keeps, "dropped": the hits it would have dropped,
+    which must be none}). Only the checks call it: `intersect_mxu` never
+    does."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import build
+
+    n, dev = o.shape[0], o.device
+    out = (torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev))
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    build.check(build.load_library().plt_intersect_mxu_unfiltered(
+        w.data_ptr(), w.shape[0] // 4, n_tris, o.data_ptr(), d.data_ptr(),
+        maxt.data_ptr(), n, *(x.data_ptr() for x in out), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "intersect_mxu_unfiltered")
+    candidates, dropped = counts.tolist()
+    return out, {"candidates": candidates, "dropped": dropped}
 
 
 def sweep_fmas(q_sass, key):
@@ -1397,14 +1478,20 @@ def anyhit_table(scene, isect):
     return scene.wbvh if first == "wbvh" else scene.pbvh
 
 
-def check_brute(label, scene, sets, plain_lanes=None):
+def check_brute(label, scene, sets, q_sass, plain_lanes=None):
     """B8a, B8b and B9 against their plain versions on the tool's ray sets
     {set: (o, d, maxt)} of one scene: each kernel runs on all lanes, as it
     is timed (B8b's grid, span and ray replacement depend on n), and its
     first `plain_lanes` lanes (all where None) are held to the plain
     version on those lanes. B8 must equal its plain version to the bit;
     B9's hit masks and prims must agree on >= 99.99% of lanes and t within
-    rtol 1e-4 where both hit. Returns {set: [B8a row, B8b row, B9 row]}."""
+    rtol 1e-4 where both hit, and on every lane B9 must equal its
+    filter-off instance to the bit (`mxu_unfiltered`: the same FP32 test of
+    every pair), whose count of hits the filter would have dropped must be
+    0. B9's bound is the tensor-core one (`tc_bound`: u', v' in 3xTF32, the
+    filter, the FP32 test of the candidates this run counts), the CUDA-core
+    one beside it; q_sass: `q_sass_counts`, for B9's step. Returns {set:
+    [B8a row, B8b row, B9 row]}."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -1473,7 +1560,8 @@ def check_brute(label, scene, sets, plain_lanes=None):
                   "tests_per_ray": tests / n}
 
         # B9: the MXU form, within its tolerance
-        got_m = tuple(x[:m] for x in isect.intersect_mxu(w, o, d, mt, F))
+        full_m = isect.intersect_mxu(w, o, d, mt, F)
+        got_m = tuple(x[:m] for x in full_m)
         want_m, plain_m = time_once(lambda: isect.intersect_mxu_plain(
             w, *part, F))
         mhit, whit = got_m[1] >= 0, want_m[1] >= 0
@@ -1488,14 +1576,29 @@ def check_brute(label, scene, sets, plain_lanes=None):
         same = (got_m[1] == want_m[1]) & mhit
         err_m = max((got_m[k][same] - want_m[k][same]).abs().max().item()
                     if same.any() else 0.0 for k in (0, 2, 3))
+        # and to the bit against the filter-off instance, on every lane
+        ref_m, cnt = mxu_unfiltered(w, o, d, mt, F)
+        require(all(torch.equal(a, b) for a, b in zip(full_m, ref_m))
+                and cnt["dropped"] == 0,
+                f"intersect_mxu {label} {set_label}: differs from its "
+                f"filter-off instance ({cnt['dropped']} hits dropped)")
+        del full_m, ref_m
         times_m = kernel_times(lambda: isect.intersect_mxu(w, o, d, mt, F))
         # the work of the mesh's F triangles: the zero rows that pad each
         # group to T_pad are the TPU's tile, and the kernel skips them
         t_pad = w.shape[0] // 4
         w_f = w.view(4, t_pad, 16)[:, :F].reshape(4 * F, 16)
-        bnd_m = bound(nbytes(w_f, o, d, mt) + 16 * n,
-                      n * (MXU_RAY_SETUP_OPS + F * MXU_TEST_OPS),
-                      n * F * MXU_TEST_FMAS)
+        bnd_cc = bound(nbytes(w_f, o, d, mt) + 16 * n,
+                       n * (MXU_RAY_SETUP_OPS + F * MXU_TEST_OPS),
+                       n * F * MXU_TEST_FMAS)
+        # the tensor-core form: u', v' of every pair in 3xTF32, the filter
+        # on the CUDA cores, the FP32 test of this run's candidates
+        cand = cnt["candidates"]
+        bnd_m = tc_bound(nbytes(w_f, o, d, mt) + 16 * n,
+                         n * F * MXU_TC_FLOP,
+                         n * (MXU_RAY_SETUP_OPS + F * MXU_TC_OTHER_OPS)
+                         + cand * MXU_TEST_OPS,
+                         n * F * MXU_TC_OTHER_FMAS + cand * MXU_TEST_FMAS)
         k = n if plain_lanes is None else min(n, isect.MXU_CHUNK)
         phi = isect.mxu_features(o[:k], d[:k])
         mm_ms = time_ms(lambda: torch.matmul(phi, w_f.T), reps=3, calls=3)
@@ -1505,7 +1608,9 @@ def check_brute(label, scene, sets, plain_lanes=None):
                "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:346 "
                            "(pallas_intersect_mxu)",
                "max_abs_err": err_m, **times_m, "plain_ms": plain_m,
-               **bnd_m, "t_pad": t_pad, "n_tris": F,
+               **bnd_m, "bound_cuda_cores_ms": bnd_cc["bound_ms"],
+               "candidates_per_ray": cand / n,
+               "step_sass": mxu_step(q_sass), "t_pad": t_pad, "n_tris": F,
                "hit_agreement": hit_agree, "prim_agreement": prim_agree,
                "matmul_ms": mm_ms, "matmul_lanes": k,
                "vs_classic": bi.agreement(got, got_m)}
@@ -1589,22 +1694,24 @@ def check_clu(label, tabs, sets, plain_lanes=None, tab="ctab64"):
 def check_sweep(label, scene, rays, q_sass, plain_lanes=None):
     """B11a at every unroll, with one and with two accumulators, and B11b
     at every unroll against their plain versions on the sweep's rays, on
-    `plain_lanes` lanes spread evenly over the set (all where None). The
-    closest hit runs on all lanes, as it is timed (which tiles a block
-    takes, and whether it re-stages the table for each, depends on n): it
-    is held at the compared lanes to its plain version (`q_close`: it runs
-    B1's row test) and on every lane to B1 over each of its groups' rows
-    (`q_groups`, `b1_groups`; with one accumulator that is B1 itself, to
-    the bit); its bound counts the FFMAs a test of its instance's SASS
-    (q_sass: `q_sass_counts`). The any hit (one block a tile) equals its
-    plain version to the bit on the compared lanes. The closest hit runs
-    with maxt inf. The any hit is timed and bounded on the tool's maxt
-    (0.99 of B1's t where B1 hits, else 2.0: no lane is occluded, every
-    lane tests every row) and checked on a mixed one (0.99 or 1.01 of B1's
-    t on alternate lanes, inf on every third lane) so that lanes stop at a
-    hit and the inf rule is held. A plain version depends on the unroll
-    only through the rows it runs, so it is run once per row count.
-    Returns {(kind, unroll, dual): row}."""
+    `plain_lanes` lanes spread evenly over the set (all where None). Both
+    run on all lanes, as they are timed (which tiles a block takes, and
+    whether it re-stages the table for each, depends on n), and run B1's
+    and B2's row test. The closest hit is held at the compared lanes to its
+    plain version (`q_close`) and on every lane to B1 over each of its
+    groups' rows (`q_groups`, `b1_groups`; with one accumulator that is B1
+    itself, to the bit). The any hit is held on every lane to B2 over the
+    same rows with an infinite maxt taken as -1, to the bit, and at the
+    compared lanes to its plain version as `check_q` holds B2 (1 - 1e-4 of
+    lanes). Each bound counts the FFMAs a test of its instance's SASS
+    (q_sass: `q_sass_counts`). The closest hit runs with maxt inf. The any
+    hit is timed and bounded on the tool's maxt (0.99 of B1's t where B1
+    hits, else 2.0: no lane is occluded, every lane tests every row), held
+    to B2 there too, and checked on a mixed one (0.99 or 1.01 of B1's t on
+    alternate lanes, inf on every third lane) so that lanes stop at a hit
+    and the inf rule is held on the kernel's own output. A plain version
+    depends on the unroll only through the rows it runs, so it is run once
+    per row count. Returns {(kind, unroll, dual): row}."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -1619,11 +1726,12 @@ def check_sweep(label, scene, rays, q_sass, plain_lanes=None):
     m = po.shape[0]
     t0 = isect.intersect_q(*q, o, d, mt, F)[0]
     msh = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
-    lane = torch.arange(m, device=o.device)
-    t0 = t0[::step]
+    lane = torch.arange(n, device=o.device)
     mix = torch.where(torch.isfinite(t0),
                       t0 * torch.where(lane % 2 == 0, 0.99, 1.01), 2.0)
     mix = torch.where(lane % 3 == 0, float("inf"), mix)
+    pmix = mix[::step].contiguous()
+    del t0, lane
     common = {"route": "cuda", "n": n, "plain_lanes": m,
               "source": "mitsuba3_plt_tpu_torch/ops/csrc/intersect_sweep.cu",
               "rays": f"{label} sweep", "library_ms": None,
@@ -1665,24 +1773,38 @@ def check_sweep(label, scene, rays, q_sass, plain_lanes=None):
                 "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
                 "hit_share": (want[1] >= 0).double().mean().item()}
             del got
-        occ = isect.occluded_q_variant(*q, po, pd, mix, F, unroll)
+        name = f"occluded_q_variant {label} unroll {unroll}"
+        occ = isect.occluded_q_variant(*q, o, d, mix, F, unroll)
         if rows not in plain:
             plain[rows] = time_once(lambda: isect.occluded_q_variant_plain(
-                *q, po, pd, mix, F, unroll))
+                *q, po, pd, pmix, F, unroll))
+            # B2 over the same rows, an infinite maxt taken as -1
+            plain["B2", rows] = [isect.occluded_q(
+                *q, o, d, torch.where(torch.isfinite(x), x, -1.0), rows)
+                for x in (mix, msh)]
         want, plain_ms = plain[rows]
-        agree = (occ == want).double().mean().item()
-        require(torch.equal(occ, want) and want.any()
-                and not want[::3].any(),
-                f"occluded_q_variant {label} unroll {unroll}: {agree}")
+        agree = (occ[::step] == want).double().mean().item()
+        # tolerance: B2's (`check_q`): only where t lies within rounding of
+        # 0, maxt or a triangle boundary, at most 1 lane in 10,000
+        require(agree >= 1 - 1e-4, f"{name}: plain agreement {agree}")
+        require(torch.equal(occ, plain["B2", rows][0])
+                and torch.equal(isect.occluded_q_variant(
+                    *q, o, d, msh, F, unroll), plain["B2", rows][1]),
+                f"{name}: differs from B2's with maxt inf as -1")
+        require(bool(occ.any()) and not occ[::3].any(),
+                f"{name}: no lane occluded, or an infinite maxt occluded")
+        del occ
         times = kernel_times(lambda: isect.occluded_q_variant(
             *q, o, d, msh, F, unroll))
         if ("tests", rows) not in plain:
             plain["tests", rows] = km.anyhit_tests(
                 *q, po, pd, msh[::step].contiguous(), rows) * n / m
         tests = plain["tests", rows]
+        fmas = sweep_fmas(q_sass, f"sweep_a_kernel<{unroll}>")
         bnd = bound(
             nbytes(geo.tri_q[:rows], geo.tri_anchor, o, d, msh) + n,
-            n * SWEEP_RAY_SETUP_OPS + tests * Q_ANYHIT_TEST_OPS)
+            n * SWEEP_RAY_SETUP_OPS + tests * Q_ANYHIT_TEST_OPS,
+            tests * fmas)
         out["any hit", unroll, False] = {
             "name": "occluded_q_variant", **common,
             "replaces": "tools/experiments/isect_unroll_sweep.py:203 "
@@ -1690,6 +1812,7 @@ def check_sweep(label, scene, rays, q_sass, plain_lanes=None):
             "unroll": unroll, "dual": False, "rows": rows,
             "max_abs_err": 1.0 - agree, **times, "plain_ms": plain_ms,
             **bnd, "agreement": agree,
+            "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
             "checked_occluded_share": want.double().mean().item(),
             "tests_per_ray": tests / n}
     for r in out.values():
@@ -2183,19 +2306,19 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
 
 def turns(root):
     """`python3 chip_smoke.py --turns ROOT`: B1, B2, B4, B7a, B7b, B5, B6
-    and the tool kernels B8a, B8b, B10a, B10b, B11a, B11b, B11c of the
+    and the tool kernels B8a, B8b, B9, B10a, B10b, B11a, B11b, B11c of the
     package in ROOT (this checkout, or another commit unpacked there) timed
     at the paths' and the tools' shapes, as one JSON line: B1 and B2 on the
     kernels phase's sets (`turns_q`), with their SASS instructions a test
-    and the sweep's (B11a, B11c: `q_sass_counts`); B4 on the kernels
-    phase's main case (half 3, separable, 1,920,000 lanes); on the mesh82k
-    packet scene (1,048,576
-    lanes a set, unsorted and sorted by the route) B7a on the camera,
+    and the sweep's (B11a, B11b, B11c) and B9's step (`q_sass_counts`); B4
+    on the kernels phase's main case (half 3, separable, 1,920,000 lanes);
+    on the mesh82k packet scene (1,048,576 lanes a set, unsorted and sorted
+    by the route) B7a on the camera,
     bounce and bounce-random sets and B7b on the shadow, shadow-random and
     all-dead sets, and both on the regenerative wavefront's 131,072 rays,
-    sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B10a,
-    B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B7, B8, B10
-    and B11 are timed by `kernel_times` (device time where the wrapper
+    sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B9, B10a,
+    B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B7, B8, B9,
+    B10 and B11 are timed by `kernel_times` (device time where the wrapper
     takes longer than the kernel). The kernels build in ROOT. Run it over
     two checkouts in turns (parent, change, change, parent) within one
     chip call to compare them on one card."""
@@ -2281,7 +2404,7 @@ def turns(root):
           "registers": {k: v for k, v in registers.items()
                         if k.startswith(("lobe_sum", "bvh", "wide",
                                          "anyhit", "clu", "classic",
-                                         "q_kernel", "sweep"))},
+                                         "q_kernel", "sweep", "mxu"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
 
 
@@ -2347,12 +2470,13 @@ def turns_clu2(isect, rng):
 def turns_tools(isect):
     """The tool kernels of the package `isect` belongs to, timed by
     `kernel_times` on the Cornell box and the 5,120-face icosphere: {
-    "classic_ms": B8a and B8b on the intersection tool's coherent and
+    "classic_ms": B8a, B8b and B9 on the intersection tool's coherent and
     incoherent sets, "clu_ms": B10a on the mask-sort tool's incoherent and
     depth0-depth3 sets and B10b on its shadow0-shadow3 sets, each over
     ctab64 and ctab128, all at 1,048,576 lanes a set, "sweep_ms": B1 and
     B11a at unroll 8, 16 and 32 with one and two accumulators and B11b at
-    unroll 16 (the tool's maxt) on the unroll sweep's TOOL_LANES rays,
+    unroll 8, 16 and 32 (the tool's maxt) on the unroll sweep's TOOL_LANES
+    rays,
     B11c at every nacc on MACC_LANES of them
     (`isect_unroll_sweep.sweep_rays`)}; B8b also
     on the intersection tool's sets of the 20,480-face icosphere, a table
@@ -2372,12 +2496,17 @@ def turns_tools(isect):
             ("mesh5k", mesh_scene(CBOX_W, CBOX_H, TOOL_SUBDIV,
                                   device="cuda"))):
         g, F = scene.geo, scene.geo.n_faces
+        p = g.tri_isect[:F].cpu().numpy()
+        w = torch.as_tensor(isect.regroup_tri_mxu(isect.pack_tri_mxu(
+            p[:, 0:3], p[:, 3:6], p[:, 6:9])), device="cuda")
         for set_label, (o, d, mt) in bi.ray_sets(scene, TOOL_LANES,
                                                  0).items():
             classic_ms[f"B8a {label} {set_label}"] = kernel_times(
                 lambda: isect.intersect_classic(g.tri_isect, o, d, mt, F))
             classic_ms[f"B8b {label} {set_label}"] = kernel_times(
                 lambda: isect.occluded_classic(g.tri_isect, o, d, mt, F))
+            classic_ms[f"B9 {label} {set_label}"] = kernel_times(
+                lambda: isect.intersect_mxu(w, o, d, mt, F))
         sets = ms.ray_sets(scene, TOOL_LANES // (CBOX_W * CBOX_H), 0)
         for tab_label, ct in ms.tables(scene).items():
             for set_label, (o, d, mt) in sets.items():
@@ -2399,8 +2528,9 @@ def turns_tools(isect):
                                                       unroll, dual))
         t0 = isect.intersect_q(*q, o, d, mt, F)[0]
         msh = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
-        sweep_ms[f"B11b {label} unroll 16"] = kernel_times(
-            lambda: isect.occluded_q_variant(*q, o, d, msh, F, 16))
+        for unroll in (8, 16, 32):
+            sweep_ms[f"B11b {label} unroll {unroll}"] = kernel_times(
+                lambda: isect.occluded_q_variant(*q, o, d, msh, F, unroll))
         o, d, mt = us.sweep_rays(scene, MACC_LANES, 0)
         for nacc in isect.Q_MACC_NACCS:
             sweep_ms[f"B11c {label} nacc {nacc}"] = kernel_times(
@@ -2532,8 +2662,8 @@ def main():
         cscene, PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
         CBOX_SPP_PASS), q_sass)
     pick = {k: csets[k] for k in ("coherent", "incoherent")}
-    brute = check_brute("cbox", cscene, pick)
-    check_brute("mesh5k", tscene, tsets, PLAIN_LANES)
+    brute = check_brute("cbox", cscene, pick, q_sass)
+    check_brute("mesh5k", tscene, tsets, q_sass, PLAIN_LANES)
     rows += brute["incoherent"]
     # the Cornell box at full size on both tables: its incoherent rays
     # start inside the boxes, whose bottoms tie the floor exactly
@@ -2627,8 +2757,9 @@ def main():
                else g_res["launches"])
         r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
         row = {k: r[k] for k in keys}
-        if "test_fmas" in r:
-            row["test_fmas"] = r["test_fmas"]
+        row.update({k: r[k] for k in ("test_fmas", "bound_cuda_cores_ms",
+                                      "candidates_per_ray", "step_sass")
+                    if k in r})
         kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)

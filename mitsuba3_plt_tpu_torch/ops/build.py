@@ -39,6 +39,7 @@ SIGNATURES = {
     "plt_intersect_classic": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5,
     "plt_occluded_classic": [_P, _I] + [_P] * 3 + [_I, _P, _P],
     "plt_intersect_mxu": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 5,
+    "plt_intersect_mxu_unfiltered": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 6,
     "plt_intersect_clu": [_P, _I] + [_P] * 5 + [_I] + [_P] * 5,
     "plt_occluded_clu": [_P, _I] + [_P] * 5 + [_I, _P, _P],
     "plt_intersect_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _P, _I, _I,

@@ -40,7 +40,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "q_row.cuh"  // the row test, stage, grid_for
+#include "q_row.cuh"  // the row test, stage, and launch.cuh's grid_for
 
 namespace {
 
@@ -117,10 +117,10 @@ extern "C" int plt_intersect_q(const float* tri_q, int n_tris,
                                float* t, int* prim, float* u, float* v,
                                void* stream) {
   if (n > 0) {
-    q_kernel<false><<<grid_for<q_kernel<false>>(n), kBlock, 0,
-                      (cudaStream_t)stream>>>(tri_q, n_tris, anchor, o, d,
-                                              maxt, n, t, prim, u, v,
-                                              nullptr);
+    q_kernel<false>
+        <<<grid_for<q_kernel<false>, kBlock, kWaves>(n), kBlock, 0,
+           (cudaStream_t)stream>>>(tri_q, n_tris, anchor, o, d, maxt, n, t,
+                                   prim, u, v, nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -130,10 +130,10 @@ extern "C" int plt_occluded_q(const float* tri_q, int n_tris,
                               const float* d, const float* maxt, int n,
                               bool* occ, void* stream) {
   if (n > 0) {
-    q_kernel<true><<<grid_for<q_kernel<true>>(n), kBlock, 0,
-                     (cudaStream_t)stream>>>(tri_q, n_tris, anchor, o, d,
-                                             maxt, n, nullptr, nullptr,
-                                             nullptr, nullptr, occ);
+    q_kernel<true>
+        <<<grid_for<q_kernel<true>, kBlock, kWaves>(n), kBlock, 0,
+           (cudaStream_t)stream>>>(tri_q, n_tris, anchor, o, d, maxt, n,
+                                   nullptr, nullptr, nullptr, nullptr, occ);
   }
   return (int)cudaGetLastError();
 }

@@ -27,44 +27,46 @@
 // hit; the any hit takes it as -1, so such a lane is never occluded (the
 // JAX tool's rule, where intersect_q.cu takes 3.4e38).
 //
-// Rounding: the closest hit runs B1's own row test (q_row.cuh, with nvcc's
-// FMA contraction), so each group's best hit is intersect_q.cu's closest
-// hit over the group's rows to the bit (the same test in the same row
-// order; the rows past the scene's are zero and never hit), at NACC 1 over
-// all of them, and differs from the unfused plain version as B1's does.
-// The any hit rounds every product and sum on its own in the plain
-// version's order (namespace rn), so it equals its plain version to the
-// bit.
+// Rounding: both run B1's and B2's own row test (q_row.cuh, with nvcc's
+// FMA contraction). So each closest-hit group's best hit is
+// intersect_q.cu's closest hit over the group's rows to the bit (the same
+// test in the same row order; the rows past the scene's are zero and
+// never hit), at NACC 1 over all of them, and the any hit is
+// intersect_q.cu's any hit with an infinite maxt taken as -1, to the bit:
+// occluded_q_variant(o, d, maxt) == occluded_q(o, d, where(isfinite(maxt),
+// maxt, -1)) over the same rows. Both differ from the unfused plain
+// versions as B1 and B2 do.
 //
 // What bounds it on the H100: issued instructions from ~14 rows up (a
-// closest-hit test is 53 operations, 14 of them FMAs, against 28 bytes of
-// ray in and 8 or 16 out: a 5,120-face mesh's ~270,000 operations a ray).
-// Design of the closest hit, on intersect_q.cu's launch (q_row.cuh's
-// stage and grid_for), for fewer instructions a (ray, row) test (SASS,
-// `ops/mfu.py::count_sass`: ~61-64 -> 39.6 without u, v and 40.6-41.6
-// with them): the table in shared memory as float4 rows (four LDS.128
+// closest-hit test is 53 operations and an any-hit test 47, 14 of them
+// FMAs, against 28 bytes of ray in and 8, 16 or 1 out: a 5,120-face
+// mesh's ~240,000-270,000 operations a ray). Design, on intersect_q.cu's
+// launch (q_row.cuh's stage, launch.cuh's grid_for), for fewer
+// instructions a (ray, row) test (SASS, `ops/mfu.py::count_sass`: the
+// closest hit ~61-64 -> 39.6 without u, v and 40.6-41.6 with them; the
+// any hit had ~61, from its times): the table in shared memory as float4 rows (four LDS.128
 // broadcast reads a row), staged once a block when it fits (n_rows <=
 // kChunk), else kChunk rows at a time for every tile (256-row chunks ran
 // 0.4-0.7% slower); blocks loop over tiles of kBlock rays, the grid at
-// most kWaves waves of resident blocks; the sign
-// fold a sign-bit XOR, the flags predicates joined by &, each group's
-// update a select on a predicate; a trip's row indices its base plus a
-// constant. A thread runs one ray: two share a row's loads (37.5-40.4
-// instructions a test) but ran 1-5% slower on the 5,120-face icosphere
-// and 2-8% on the Cornell box (PERF.md, B11a/B11c findings). "unroll" is
-// the `#pragma unroll` depth of a thread's row loop, the depth the sweep
-// measures, and n_rows a multiple of it (no tail); the NACC groups (5
-// registers each with UV) break the chain of dependent selects that the
-// JAX tool breaks on the TPU. The any-hit thread leaves after the
-// UNROLL-row group that holds its first hit.
+// most kWaves waves of resident blocks; the sign fold a sign-bit XOR, the
+// flags predicates joined by &, each group's update a select on a
+// predicate; a trip's row indices its base plus a constant. A thread runs
+// one ray: two share a row's loads (37.5-40.4 instructions a test) but ran
+// 1-5% slower on the 5,120-face icosphere and 2-8% on the Cornell box
+// (PERF.md, B11a/B11c findings). "unroll" is the `#pragma unroll` depth of
+// a thread's row loop, the depth the sweep measures, and n_rows a multiple
+// of it (no tail); the NACC groups (5 registers each with UV) break the
+// chain of dependent selects that the JAX tool breaks on the TPU. The
+// any-hit thread leaves the row loop after the UNROLL-row trip that holds
+// its first hit, as B2's does after its 4-row trip; a lane whose maxt is
+// not above 0 (an infinite one included) is never occluded and skips the
+// rows.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "q_row.cuh"  // B1's row test, stage, grid_for, kBlock, kChunk
 
 namespace {
-
-constexpr int kAnyChunk = 256;  // rows an any-hit stage (16 KB)
 
 // blocks an SM the registers must allow: 4 (64 registers a thread)
 // without u, v; with u, v, whose groups keep 5 registers each, 3 (80) up
@@ -73,72 +75,6 @@ constexpr int kAnyChunk = 256;  // rows an any-hit stage (16 KB)
 constexpr int min_blocks(int nacc, bool uv) {
   return !uv ? 4 : nacc <= 4 ? 3 : 2;
 }
-
-// the any hit's row test: every product and sum rounded on its own
-namespace rn {
-
-struct QRay {
-  float ox, oy, oz, dx, dy, dz, cx, cy, cz;
-};
-
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-// ((ax bx + ay by) + az bz)
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(mul(ax, bx), mul(ay, by)), mul(az, bz));
-}
-// acc + ax bx + ay by + az bz, left to right
-__device__ __forceinline__ float add(float acc, float ax, float ay, float az,
-                                     float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(acc, mul(ax, bx)), mul(ay, by)),
-                   mul(az, bz));
-}
-
-__device__ __forceinline__ QRay load_ray(const float* __restrict__ o,
-                                         const float* __restrict__ d,
-                                         const float* __restrict__ anchor,
-                                         int i) {
-  QRay r;
-  r.ox = o[3 * i + 0] - anchor[0];
-  r.oy = o[3 * i + 1] - anchor[1];
-  r.oz = o[3 * i + 2] - anchor[2];
-  r.dx = d[3 * i + 0];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  r.cx = sub(mul(r.oy, r.dz), mul(r.oz, r.dy));
-  r.cy = sub(mul(r.oz, r.dx), mul(r.ox, r.dz));
-  r.cz = sub(mul(r.ox, r.dy), mul(r.oy, r.dx));
-  return r;
-}
-
-// (|det|, t|det|, u|det|, v|det|) of row tr and whether the ray hits it
-// in front of its origin
-__device__ __forceinline__ bool q_test(const float* tr, const QRay& r,
-                                       float& ad, float& ts, float& us,
-                                       float& vs) {
-  const float det = -dot3(r.dx, r.dy, r.dz, tr[12], tr[13], tr[14]);
-  const float up = add(dot3(r.cx, r.cy, r.cz, tr[3], tr[4], tr[5]),
-                       r.dx, r.dy, r.dz, tr[9], tr[10], tr[11]);
-  const float vp = -add(dot3(r.cx, r.cy, r.cz, tr[0], tr[1], tr[2]),
-                        r.dx, r.dy, r.dz, tr[6], tr[7], tr[8]);
-  const float tp = sub(dot3(r.ox, r.oy, r.oz, tr[12], tr[13], tr[14]),
-                       tr[15]);
-  const float sg = det >= 0.f ? 1.f : -1.f;
-  ad = det * sg;
-  ts = tp * sg;
-  us = up * sg;
-  vs = vp * sg;
-  // written out so that a NaN term fails, as jnp.minimum(...) >= 0
-  return ad > 1e-12f && us >= 0.f && vs >= 0.f &&
-         sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
-}
-
-}  // namespace rn
 
 struct Best {
   float ts, ad, us, vs;
@@ -222,41 +158,49 @@ __global__ void __launch_bounds__(kBlock, min_blocks(NACC, UV))
 }
 
 template <int UNROLL>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 4)
     sweep_a_kernel(const float* __restrict__ tri_q, int n_rows,
                    const float* __restrict__ anchor,
                    const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ maxt, int n,
                    bool* __restrict__ occ_out) {
-  static_assert(kAnyChunk % UNROLL == 0, "unroll");
-  __shared__ float s_tri[kAnyChunk * 16];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  rn::QRay r = {};
-  float tmax = -1.f;
-  if (live) {
-    r = rn::load_ray(o, d, anchor, i);
-    const float mt = maxt[i];
-    tmax = isfinite(mt) ? mt : -1.f;
+  static_assert(kChunk % UNROLL == 0, "unroll");
+  __shared__ float4 s_tri[kChunk * 4];
+  const bool resident = n_rows <= kChunk;
+  if (resident) {
+    stage<1>(s_tri, tri_q, 0, n_rows);  // rows a multiple of UNROLL: no pad
+    __syncthreads();
   }
-  bool occ = false;
-  for (int base = 0; base < n_rows; base += kAnyChunk) {
-    const int cnt = min(kAnyChunk, n_rows - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt * 16; k += kBlock)
-      s_tri[k] = tri_q[base * 16 + k];
-    __syncthreads();
-    if (!live || occ) continue;
-    for (int j = 0; j < cnt && !occ; j += UNROLL) {
+  const int n_tiles = (n + kBlock - 1) / kBlock;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int i = tile * kBlock + threadIdx.x;
+    QRay r = i < n ? load_ray(o, d, maxt, anchor, i) : QRay{};
+    // the tool's rule: an infinite maxt is -1, never occluded
+    if (i < n && !isfinite(maxt[i])) r.tmax = -1.f;
+    // a lane past n, or whose maxt is not above 0, is never occluded: it
+    // starts done and skips the rows (an int: a hit sets it by one move)
+    int occ = !(r.tmax > 0.f);
+    for (int base = 0; base < n_rows; base += kChunk) {
+      const int cnt = min(kChunk, n_rows - base);  // a multiple of UNROLL
+      if (!resident) {
+        __syncthreads();
+        stage<1>(s_tri, tri_q, base, cnt);
+        __syncthreads();
+      }
+#pragma unroll 1
+      for (int s = 0; s < cnt; s += UNROLL) {
+        if (occ) break;
+        const float4* rows = s_tri + 4 * s;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        float ad, ts, us, vs;
-        occ = occ || (rn::q_test(s_tri + 16 * (j + u), r, ad, ts, us, vs) &&
-                      ts < rn::mul(tmax, ad));
+        for (int j = 0; j < UNROLL; ++j) {
+          const float4* row = rows + 4 * j;
+          const QTerms q = q_terms(row[0], row[1], row[2], row[3], r);
+          if (q_inside(q) & (q.ts < r.tmax * q.ad)) occ = 1;
+        }
       }
     }
+    if (i < n) occ_out[i] = occ != 0 && r.tmax > 0.f;
   }
-  if (live) occ_out[i] = occ;
 }
 
 template <int UNROLL, int NACC, bool UV>
@@ -265,8 +209,9 @@ void launch_closest(cudaStream_t s, const float* tri_q, int n_rows,
                     const float* maxt, int n, float* t, int* prim, float* u,
                     float* v) {
   sweep_q_kernel<UNROLL, NACC, UV>
-      <<<grid_for<sweep_q_kernel<UNROLL, NACC, UV>>(n), kBlock, 0, s>>>(
-          tri_q, n_rows, anchor, o, d, maxt, n, t, prim, u, v);
+      <<<grid_for<sweep_q_kernel<UNROLL, NACC, UV>, kBlock, kWaves>(n),
+         kBlock, 0, s>>>(tri_q, n_rows, anchor, o, d, maxt, n, t, prim, u,
+                         v);
 }
 
 // the sweep's closest hit: one accumulator, or two (dual), without u, v
@@ -281,6 +226,15 @@ void launch_variant(bool dual, cudaStream_t s, const float* tri_q,
   else
     launch_closest<UNROLL, 1, false>(s, tri_q, n_rows, anchor, o, d, maxt, n,
                                      t, prim, nullptr, nullptr);
+}
+
+template <int UNROLL>
+void launch_any(cudaStream_t s, const float* tri_q, int n_rows,
+                const float* anchor, const float* o, const float* d,
+                const float* maxt, int n, bool* occ) {
+  sweep_a_kernel<UNROLL>
+      <<<grid_for<sweep_a_kernel<UNROLL>, kBlock, kWaves>(n), kBlock, 0,
+         s>>>(tri_q, n_rows, anchor, o, d, maxt, n, occ);
 }
 
 }  // namespace
@@ -355,24 +309,19 @@ extern "C" int plt_occluded_q_variant(const float* tri_q, int n_rows,
                                       void* stream) {
   if (n_rows % unroll) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (unroll) {
       case 2:
-        sweep_a_kernel<2><<<grid, kBlock, 0, s>>>(tri_q, n_rows, anchor, o,
-                                                  d, maxt, n, occ);
+        launch_any<2>(s, tri_q, n_rows, anchor, o, d, maxt, n, occ);
         break;
       case 8:
-        sweep_a_kernel<8><<<grid, kBlock, 0, s>>>(tri_q, n_rows, anchor, o,
-                                                  d, maxt, n, occ);
+        launch_any<8>(s, tri_q, n_rows, anchor, o, d, maxt, n, occ);
         break;
       case 16:
-        sweep_a_kernel<16><<<grid, kBlock, 0, s>>>(tri_q, n_rows, anchor, o,
-                                                   d, maxt, n, occ);
+        launch_any<16>(s, tri_q, n_rows, anchor, o, d, maxt, n, occ);
         break;
       case 32:
-        sweep_a_kernel<32><<<grid, kBlock, 0, s>>>(tri_q, n_rows, anchor, o,
-                                                   d, maxt, n, occ);
+        launch_any<32>(s, tri_q, n_rows, anchor, o, d, maxt, n, occ);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -1,10 +1,11 @@
 // The (ray, row) test over the precomputed-quantities ("q") triangle table
 // and the launch around it, shared by intersect_q.cu (B1, B2) and
-// intersect_sweep.cu's closest hit (B11a, B11c), so that the sweep
-// measures the arithmetic the renderer runs: the same rounding, FMA
-// contraction included, in every kernel that includes it. The launch:
+// intersect_sweep.cu (B11a, B11b, B11c), so that the sweep measures the
+// arithmetic the renderer runs: the same rounding, FMA contraction
+// included, in every kernel that includes it. The launch:
 // blocks of kBlock threads, one ray a thread, loop over tiles of kBlock
-// rays in a grid of at most kWaves waves of resident blocks (grid_for);
+// rays in a grid of at most kWaves waves of resident blocks
+// (launch.cuh's grid_for);
 // the table sits in shared memory as float4 rows, staged once a block
 // when it fits in kChunk rows, else kChunk rows at a time for every tile
 // (stage).
@@ -22,6 +23,8 @@
 #include <math.h>
 
 #include <algorithm>
+
+#include "launch.cuh"  // grid_for
 
 namespace {
 
@@ -98,26 +101,6 @@ __device__ __forceinline__ void stage(float4* s_tri,
   const int padded = (cnt + STEP - 1) / STEP * STEP;
   for (int k = threadIdx.x; k < padded * 16; k += kBlock)
     s[k] = k < cnt * 16 ? tri_q[base * 16 + k] : 0.f;
-}
-
-// Blocks a launch of kKernel runs for n rays: every tile, or at most
-// kWaves grids of the blocks the card holds at once (per kernel and
-// device, read once).
-template <auto kKernel>
-int grid_for(int n) {
-  static int resident[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& cap = resident[dev & 63];
-  if (cap == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kBlock,
-                                                  0);
-    cap = std::max(1, sms * per_sm);
-  }
-  const int tiles = (n + kBlock - 1) / kBlock;
-  return std::min(tiles, kWaves * cap);
 }
 
 }  // namespace

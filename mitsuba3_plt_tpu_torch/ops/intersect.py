@@ -656,12 +656,16 @@ def intersect_mxu(tri_mxu, o, d, maxt, n_tris=None):
 
     o, d [N, 3], maxt [N] float32. Returns (t [N], prim [N] int32 (-1 on a
     miss), u [N], v [N]); t is inf and u = v = 0 on a miss. CPU tensors run
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel (the product on the
+    tensor cores, then the FP32 test of the pairs that could hit; the table
+    must start on 16 bytes)."""
     global INTERSECT_MXU_LAUNCHES
     dev, n, n_tris = _check_mxu("intersect_mxu", tri_mxu, o, d, maxt,
                                 n_tris)
     if dev.type == "cpu":
         return intersect_mxu_plain(tri_mxu, o, d, maxt, n_tris)
+    if tri_mxu.data_ptr() % 16:
+        raise ValueError("intersect_mxu: tri_mxu must start on 16 bytes")
     from .build import check, load_library
 
     lib = load_library()

@@ -80,13 +80,14 @@ def fma_roof(x, a):
     return out
 
 
-_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*);")
+_HEX = re.compile(r"0x([0-9a-f]+)")
 
 
 def _kernel_sass(sass: str, kernel: str) -> list:
-    """[(address, opcode, operands)] of `kernel` in `cuobjdump -sass`
-    text."""
+    """[(address, opcode, operands, predicated)] of `kernel` in `cuobjdump
+    -sass` text (predicated: under a predicate other than PT)."""
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -94,16 +95,34 @@ def _kernel_sass(sass: str, kernel: str) -> list:
             continue
         m = _SASS_LINE.search(line) if inside else None
         if m:
-            body.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+            pred = (m.group(2) or "").strip()
+            body.append((int(m.group(1), 16), m.group(3), m.group(4).strip(),
+                         pred not in ("", "@PT")))
     if not body:
-        raise RuntimeError(f"count_sass: no SASS for {kernel}")
+        raise RuntimeError(f"no SASS for {kernel}")
     return body
 
 
-def _issued(addr, op, arg):
+def _issued(addr, op, arg, _pred=False):
     """Whether a SASS row issues: NOPs and the BRA to itself after EXIT
     never do."""
     return not (op == "NOP" or (op == "BRA" and arg == hex(addr)))
+
+
+def _loops(body):
+    """[(head, backward branch)] addresses of every branch of `body` (rows
+    of `_kernel_sass`) whose target lies before it, taken or predicated."""
+    out = []
+    for addr, op, arg, _ in body:
+        hexes = _HEX.findall(arg) if op == "BRA" else []
+        if hexes and int(hexes[-1], 16) < addr:
+            out.append((int(hexes[-1], 16), addr))
+    return out
+
+
+def _loop_rows(body, loop):
+    """The rows of `body` from the loop's head to its branch that issue."""
+    return [r for r in body if loop[0] <= r[0] <= loop[1] and _issued(*r)]
 
 
 # the q test's det epsilon, 1e-12 as float32, as cuobjdump prints it
@@ -133,7 +152,7 @@ def count_sass(sass: str, kernel: str, per_test: bool = False) -> dict:
     if per_test:
         return _count_per_test(body, kernel)
     loops = []
-    for addr, op, arg in body:
+    for addr, op, arg, _ in body:
         t = re.fullmatch(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
         if t and int(t.group(1), 16) < addr:
             loops.append((int(t.group(1), 16), addr))
@@ -142,7 +161,7 @@ def count_sass(sass: str, kernel: str, per_test: bool = False) -> dict:
 
     def tally(rows):
         out = {"ffma": 0, "fmnmx": 0, "other": 0}
-        for addr, op, arg in rows:
+        for addr, op, arg, _ in rows:
             if _issued(addr, op, arg):
                 out["ffma" if op == "FFMA" else "fmnmx" if op == "FMNMX"
                     else "other"] += 1
@@ -159,31 +178,23 @@ def count_sass(sass: str, kernel: str, per_test: bool = False) -> dict:
 
 
 def _count_per_test(body, kernel):
-    loops = []
-    for addr, op, arg in body:
-        hexes = _HEX.findall(arg) if op == "BRA" else []
-        if hexes and int(hexes[-1], 16) < addr:
-            loops.append((int(hexes[-1], 16), addr))
+    loops = _loops(body)
     inner = [a for a in loops
              if not any(b != a and a[0] <= b[0] and b[1] <= a[1]
                         for b in loops)]
     if not inner:
         raise RuntimeError(f"count_sass: no loop in {kernel}")
 
-    def trip(loop):
-        return [r for r in body if loop[0] <= r[0] <= loop[1]
-                and _issued(*r)]
-
     def det_tests(rows):
         return sum(op == "FSETP" and bool(_DET_EPS_SASS.search(arg))
-                   for _, op, arg in rows)
+                   for _, op, arg, _ in rows)
 
-    rows = max((trip(a) for a in inner), key=det_tests)
+    rows = max((_loop_rows(body, a) for a in inner), key=det_tests)
     tests = det_tests(rows)
     if not tests:
         raise RuntimeError(f"count_sass: no det epsilon in {kernel}'s loop")
     ops, loop = {}, dict.fromkeys(Q_CLASSES, 0)
-    for _, op, _ in rows:
+    for _, op, _, _ in rows:
         ops[op] = ops.get(op, 0) + 1
         loop[op.lower() if op.lower() in Q_CLASSES else "other"] += 1
     per = {k: v / tests for k, v in loop.items()}
@@ -192,9 +203,61 @@ def _count_per_test(body, kernel):
             "per_test": per}
 
 
-_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
-                        r"([A-Z][A-Z0-9_]*)(\.\S+)?\s*([^;]*);")
-_HEX = re.compile(r"0x([0-9a-f]+)")
+# the tensor cores' matrix instruction, by which `loop_trip` finds a loop
+TC_OP = "HMMA"
+
+
+def loop_trip(sass: str, kernel: str) -> dict:
+    """The loop of `kernel` (a backward branch and its target) with the most
+    TC_OP instructions, the smallest such, from `cuobjdump -sass` text:
+    {"trip": the instructions by opcode on the fewest-instruction way from
+    the loop's head to its backward branch (a predicated forward branch may
+    go either way, an unconditional one must be taken, one that leaves the
+    loop and the backward branches of loops inside it never are: a trip
+    that takes no rare branch), "slots": their sum, "span": every
+    instruction of the loop's addresses by opcode}. NOPs and the BRA to
+    itself after EXIT are not counted."""
+    rows = _kernel_sass(sass, kernel)
+    loops = _loops(rows)
+    if not loops:
+        raise RuntimeError(f"loop_trip: no loop in {kernel}")
+    lo, hi = max(loops, key=lambda a: (
+        sum(r[1] == TC_OP for r in _loop_rows(rows, a)), a[0] - a[1]))
+    body = _loop_rows(rows, (lo, hi))
+    if not any(r[1] == TC_OP for r in body):
+        raise RuntimeError(f"loop_trip: no {TC_OP} in {kernel}'s loops")
+    at = {r[0]: k for k, r in enumerate(body)}
+    inf = float("inf")
+    # the fewest instructions from row k to the backward branch, and the
+    # row each takes next (None: the end)
+    cost, step = [inf] * (len(body) + 1), [None] * len(body)
+    for k in range(len(body) - 1, -1, -1):
+        addr, op, args, cond = body[k]
+        if addr == hi:
+            cost[k] = 1
+            continue
+        nxt = [(cost[k + 1], k + 1)]
+        if op == "BRA":
+            hexes = _HEX.findall(args)
+            target = at.get(int(hexes[-1], 16)) if hexes else None
+            taken = (cost[target], target) if target is not None \
+                and body[target][0] > addr else (inf, None)
+            branchy = cond or args != (hexes and "0x" + hexes[-1])
+            nxt = [taken] + (nxt if branchy else [])
+        elif op in ("EXIT", "RET"):
+            nxt = nxt if cond else [(inf, None)]
+        best = min(nxt, key=lambda c: c[0])
+        cost[k], step[k] = 1 + best[0], best[1]
+    if cost[0] == inf:
+        raise RuntimeError(f"loop_trip: no way round {kernel}'s loop")
+    trip, k = {}, 0
+    while k is not None and k < len(body):
+        trip[body[k][1]] = trip.get(body[k][1], 0) + 1
+        k = None if body[k][0] == hi else step[k]
+    every = {}
+    for _, op, _, _ in body:
+        every[op] = every.get(op, 0) + 1
+    return {"trip": trip, "slots": sum(trip.values()), "span": every}
 
 
 def fast_path(sass: str, kernel: str) -> dict:
@@ -206,20 +269,8 @@ def fast_path(sass: str, kernel: str) -> dict:
     through (the thread goes on). NOPs and the BRA to itself after EXIT
     are not counted. For a kernel whose only branches are a library
     function's tests for its slow path, that is its fast path."""
-    rows = []
-    inside = False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-            continue
-        m = _SASS_INSN.search(line) if inside else None
-        if m:
-            pred = (m.group(2) or "").strip()
-            rows.append((int(m.group(1), 16), pred not in ("", "@PT"),
-                         m.group(3), m.group(5).strip()))
-    if not rows:
-        raise RuntimeError(f"fast_path: no SASS for {kernel}")
-    at = {addr: k for k, (addr, _, _, _) in enumerate(rows)}
+    rows = _kernel_sass(sass, kernel)
+    at = {r[0]: k for k, r in enumerate(rows)}
     inf = (float("inf"), 0)
     # the fewest (slots, ffma) from row k to EXIT and to RET
     to_exit, to_ret = [inf] * (len(rows) + 1), [inf] * (len(rows) + 1)
@@ -228,7 +279,7 @@ def fast_path(sass: str, kernel: str) -> dict:
         return (w[0] + c[0], w[1] + c[1])
 
     for k in range(len(rows) - 1, -1, -1):
-        addr, cond, op, args = rows[k]
+        addr, op, args, cond = rows[k]
         hexes = _HEX.findall(args)
         target = at.get(int(hexes[-1], 16)) if hexes else None
         w = (0, 0) if op == "NOP" or (op == "BRA" and args == hex(addr)) \

@@ -499,6 +499,122 @@ def test_mxu_kernel_matches_plain(card):
             assert torch.isinf(got[0][~hit]).all()
 
 
+def _sphere_rays(tri, rng, n):
+    """(o, d) numpy float32 that graze the icosphere of tri [F, 9] (p0, e1,
+    e2): tangent to its circumscribed sphere at one of its vertices, some
+    pushed in toward the centre by 1e-7 to 1e-3 of the radius, and aimed
+    at its vertices (shared by five or six faces) from outside."""
+    v = np.concatenate([tri[:, 0:3], tri[:, 0:3] + tri[:, 3:6],
+                        tri[:, 0:3] + tri[:, 6:9]]).astype(np.float64)
+    c = v.mean(0)
+    radius = float(np.linalg.norm(v - c, axis=-1).mean())
+    p = v[rng.integers(0, len(v), n)]
+    nrm = (p - c) / np.linalg.norm(p - c, axis=-1, keepdims=True)
+    t = np.cross(nrm, rng.normal(size=(n, 3)))
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    inward = np.where(rng.random((n, 1)) < 0.5, 0.0,
+                      10.0 ** rng.uniform(-7, -3, (n, 1))) * radius
+    graze_o = p - inward * nrm - 2 * radius * t
+    aim_o = p + 2 * radius * nrm + 0.01 * radius * rng.normal(size=(n, 3))
+    aim_d = p - aim_o
+    aim_d /= np.linalg.norm(aim_d, axis=-1, keepdims=True)
+    return (np.concatenate([graze_o, aim_o]).astype(np.float32),
+            np.concatenate([t, aim_d]).astype(np.float32))
+
+
+def _mxu_sets(card):
+    """[(F, w, sets)]: B9's table (`pack_tri_mxu`, regrouped) of each scene
+    of `_brute_sets` and its ray sets {label: (o, d, maxt)}: the bench
+    tool's, and rays where a slack too tight would drop a hit: aimed at
+    the midpoints of the icosphere's shared edges and at the Cornell box's
+    ("aimed 0"), grazing the icosphere's silhouette and aimed at its
+    vertices ("aimed 1"), each with maxt inf, just past and just short of
+    the hit ("maxt 0 / 1 / 2")."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    rng = np.random.default_rng(13)
+    out = []
+    for scene, sets in _brute_sets(card):
+        F = scene.geo.n_faces
+        tri = scene.geo.tri_isect[:F].cpu().numpy()
+        w = torch.as_tensor(isect.regroup_tri_mxu(isect.pack_tri_mxu(
+            tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])), device=card)
+        size = float(np.ptp(tri[:, 0:3], 0).max())
+        faces = rng.integers(0, F, 2048)
+        extra = [_aimed(tri, faces, rng, 0.05 * size, edge=True)]
+        if F > 36:
+            extra.append(_sphere_rays(tri, rng, 2048))
+        for k, (o, d) in enumerate(extra):
+            o, d = (torch.as_tensor(x, device=card) for x in (o, d))
+            inf = torch.full((o.shape[0],), float("inf"), device=card)
+            t = isect.intersect_mxu(w, o, d, inf, F)[0]
+            for j, mt in enumerate((inf, torch.where(
+                    torch.isfinite(t), torch.nextafter(t, inf), 1.0),
+                    torch.where(torch.isfinite(t), t, 1.0))):
+                sets[f"aimed {k} maxt {j}"] = (o, d, mt)
+        out.append((F, w, sets))
+    return out
+
+
+def test_mxu_kernel_equals_its_filter_off_instance(card):
+    """B9 (3xTF32 on the tensor cores finds the pairs that could hit, FP32
+    decides) equals its filter-off instance (every pair through the FP32
+    test; `chip_smoke.mxu_unfiltered`) to the bit, and the filter drops no
+    hit: on the sets of `_mxu_sets` (the bench tool's, and rays at shared
+    edges, grazing the icosphere's silhouette and aimed at its vertices,
+    with maxt at the hit), over the mesh's faces and over the whole padded
+    table, at ray counts that leave the last tile part-filled."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    smoke = _smoke()
+    for F, w, sets in _mxu_sets(card):
+        for (label, (o, d, mt)), nt in itertools.product(sets.items(),
+                                                          (F, None)):
+            for m in (o.shape[0], 13):
+                args = (w, o[:m], d[:m], mt[:m], F if nt else w.shape[0] // 4)
+                got = isect.intersect_mxu(*args)
+                want, counts = smoke.mxu_unfiltered(*args)
+                torch.cuda.synchronize()
+                assert counts["dropped"] == 0, (label, nt, m)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (label, nt, m)
+            if label == "aimed 0 maxt 0":  # the edges' rays hit
+                hit = isect.intersect_mxu(w, o, d, mt, F)[1] >= 0
+                assert hit.float().mean() > 0.25, label
+
+
+def test_mxu_kernel_equals_the_first_ports_fp32_test(card):
+    """B9 on 2,048 lanes spread over each set of `_mxu_sets` equals, to the
+    bit (t, prim, u, v), a plain numpy emulation of the first port's FP32
+    test that shares no code with the kernel
+    (`tests/test_torch_mxu_split.py::fp32_closest`: each quantity a chain
+    of 16 fmaf rounded once each, the guarded division, the smallest t
+    with the lowest triangle on ties, u = us inv, v = vs inv): so the
+    ring, the drain, the (t, prim) key and the u, v taken again from the
+    winner, which the filter-off instance shares, are held too. The
+    aimed sets hit shared edges, where two triangles tie."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_mxu_split.py")
+    spec = importlib.util.spec_from_file_location("mxu_split", path)
+    split = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(split)
+    for F, w, sets in _mxu_sets(card):
+        W = w.view(4, -1, 16)[:, :F].cpu().numpy()
+        for label, (o, d, mt) in sets.items():
+            step = max(1, o.shape[0] // 2048)
+            got = [x[::step].cpu().numpy()
+                   for x in isect.intersect_mxu(w, o, d, mt, F)]
+            want = split.fp32_closest(W, *(x[::step].cpu().numpy()
+                                           for x in (o, d, mt)))
+            # maxt at the hit ("maxt 2") leaves none
+            assert (want[1] >= 0).any() != label.endswith("maxt 2"), label
+            for a, b in zip(got, want):
+                assert np.array_equal(a.view(np.int32), b.view(np.int32)), \
+                    (label, int((a != b).sum()))
+
+
 def test_cbox_render_matches_cpu_render(card):
     """cornell_box(32, 32), path depth 4 / rr 9, 4 seeds x 16 spp on the
     card and on the CPU: the same samples, so the images agree within the
@@ -716,9 +832,12 @@ def test_q_variant_kernels_match_plain(card):
     (`_sweep_held`: B11a runs B1's row test, FMAs and all), so with one
     accumulator equal to B1 to the bit in t and prim (the same test in the
     same row order; the rows past the scene's are zero and never hit);
-    B11b at every unroll equal to its plain version to the bit. On the
+    B11b at every unroll equal to B2 over the same rows with an infinite
+    maxt taken as -1, to the bit (B11b runs B2's row test), and to its
+    plain version on 1 - 1e-4 of lanes (B2's tolerance, `check_q`). On the
     sweep's rays (maxt inf; for the any hit 0.99 or 1.01 of B1's t on
-    alternate lanes, inf on every third)."""
+    alternate lanes, inf on every third, and the tool's maxt, 0.99 of B1's
+    t, which occludes no lane)."""
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
     from mitsuba3_plt_tpu_torch.tools import isect_unroll_sweep as us
 
@@ -750,8 +869,15 @@ def test_q_variant_kernels_match_plain(card):
             if rows not in plain:
                 plain[rows] = isect.occluded_q_variant_plain(
                     *q, o, d, msh, g.n_faces, unroll)
-            assert torch.equal(occ, plain[rows]), unroll
+            b2 = isect.occluded_q(*q, o, d, torch.where(
+                torch.isfinite(msh), msh, -1.0), rows)
+            assert torch.equal(occ, b2), unroll
+            assert (occ == plain[rows]).float().mean() >= 1 - 1e-4, unroll
             assert occ.any() and not occ[::3].any()
+            tool = torch.where(torch.isfinite(t0), t0 * 0.99, 2.0)
+            assert torch.equal(
+                isect.occluded_q_variant(*q, o, d, tool, g.n_faces, unroll),
+                isect.occluded_q(*q, o, d, tool, rows)), unroll
 
 
 def test_tools_launch_their_kernels(card):

@@ -45,9 +45,11 @@ def test_kernel_sources_and_data_are_in_the_package():
     files = sorted(os.listdir(csrc))
     from mitsuba3_plt_tpu_torch.ops import build
 
-    # every .cu file is built, and the one header is the q row test
+    # every .cu file is built, and the headers are the launch's grid and
+    # the q row test
     assert sorted(build.SOURCES) == [f for f in files if f.endswith(".cu")]
-    assert [f for f in files if not f.endswith(".cu")] == ["q_row.cuh"]
+    assert [f for f in files if not f.endswith(".cu")] == ["launch.cuh",
+                                                          "q_row.cuh"]
     assert {"plt_intersect_bvh", "plt_occluded_bvh", "plt_intersect_classic",
             "plt_occluded_classic", "plt_intersect_mxu", "plt_intersect_clu",
             "plt_occluded_clu", "plt_intersect_q_variant",
@@ -57,13 +59,17 @@ def test_kernel_sources_and_data_are_in_the_package():
 
 
 def test_q_row_test_is_shared_by_b1_and_the_sweep():
-    """intersect_q.cu (B1, B2) and intersect_sweep.cu (B11a, B11c) run the
-    one row test of q_row.cuh and its launch (the table's stage, the
-    grid), which neither defines itself."""
+    """intersect_q.cu (B1, B2) and intersect_sweep.cu (B11a, B11b, B11c)
+    run the one row test of q_row.cuh and its launch (the table's stage,
+    and the grid of launch.cuh, which intersect_mxu.cu's B9 takes too),
+    which none of them defines itself."""
     csrc = os.path.join(PORT, "ops", "csrc")
     header = open(os.path.join(csrc, "q_row.cuh")).read()
-    for name in ("q_terms(", "void stage(", "int grid_for("):
+    for name in ("q_terms(", "void stage(", '#include "launch.cuh"'):
         assert name in header, name
+    assert "int grid_for(" in open(os.path.join(csrc, "launch.cuh")).read()
+    mxu = open(os.path.join(csrc, "intersect_mxu.cu")).read()
+    assert '#include "launch.cuh"' in mxu and "int grid_for(" not in mxu
     for name in ("intersect_q.cu", "intersect_sweep.cu"):
         src = open(os.path.join(csrc, name)).read()
         assert '#include "q_row.cuh"' in src, name

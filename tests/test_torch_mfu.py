@@ -516,3 +516,73 @@ def test_count_sass_reads_a_sweep_trip(ffma):
         (35 if ffma else 48) + 3 / 16)
     assert per["slots"] == pytest.approx(sum(
         v for k, v in per.items() if k != "slots"))
+
+
+def _mxu_sass():
+    """`cuobjdump -sass` text shaped like B9's kernel: a staging loop, then
+    a tile loop around the row loop: 5 LDS.128, 24 HMMA, the filter and a
+    predicated branch around a candidate's FP32 test (LDG.128 and FFMA), a
+    BSSY / BSYNC pair, then the loop's own compare and backward branch."""
+    out = ["\t\tFunction : _ZN12_GLOBAL__N_110mxu_kernelILb1EEEvPKfiiS2_S2_"
+           "S2_iPfPiS3_S3_Py"]
+    addr = 0
+
+    def ins(text):
+        nonlocal addr
+        out.append(f"        /*{addr:04x}*/                   {text} ;"
+                   f"                 /* 0x000fe20000000f00 */")
+        addr += 16
+        return addr - 16
+
+    top = ins("LDG.E.128 R4, desc[UR4][R2.64]")
+    ins("STS.128 [R5], R4")
+    ins("ISETP.GE.AND P0, PT, R5, 0x200, PT")
+    ins(f"@!P0 BRA {hex(top)}")
+    tile = ins("LDG.E R6, desc[UR4][R2.64]")
+    row = ins("LDS.128 R8, [R7]")
+    for k in range(4):
+        ins(f"LDS.128 R{12 + 4 * k}, [R7+{hex(512 * (k + 1))}]")
+    for _ in range(24):
+        ins("HMMA.1688.F32.TF32 R40, R20, R30, R40")
+    for _ in range(4):
+        ins("LOP3.LUT R41, R42, 0x80000000, R40, 0x78, !PT")
+        ins("FFMA R43, R9, R44, R41")
+        ins("FSETP.GEU.AND P0, PT, R43, RZ, PT")
+        ins("FADD R45, R41, R42")
+        ins("FSETP.GT.OR P0, PT, R45, R46, P0")
+        ins("BSSY B0, 0x9990")
+        skip = addr + 16 * 11  # the BSYNC
+        ins(f"@P0 BRA {hex(skip)}")
+        for _ in range(4):
+            ins("LDG.E.128.CONSTANT R48, desc[UR4][R2.64]")
+        for _ in range(6):
+            ins("FFMA R52, R48, R53, R52")
+        ins("BSYNC B0")
+    ins("IADD3 R7, R7, 0x10, RZ")
+    ins("ISETP.GE.AND P1, PT, R7, R6, PT")
+    ins(f"@!P1 BRA {hex(row)}")
+    ins("STG.E desc[UR4][R2.64], R20")
+    ins("ISETP.GE.AND P2, PT, R6, R36, PT")
+    ins(f"@!P2 BRA {hex(tile)}")
+    ins("EXIT")
+    ins(f"BRA {hex(addr)}")
+    ins("NOP")
+    return "\n".join(out)
+
+
+def test_loop_trip_reads_a_step_without_candidates():
+    """loop_trip takes the innermost loop with the most HMMA (not the
+    staging loop before it; with none it raises), and a trip that skips
+    every candidate's test:
+    5 LDS.128, 24 HMMA, 4 x (LOP3, FFMA, 2 FSETP, FADD, BSSY, BRA, BSYNC:
+    the branch taken to the BSYNC) and 3 of loop; the span also counts the
+    candidate bodies' LDG and FFMA."""
+    c = mfu.loop_trip(_mxu_sass(), "mxu_kernelILb1EE")
+    assert c["trip"] == {"LDS": 5, "HMMA": 24, "LOP3": 4, "FFMA": 4,
+                         "FSETP": 8, "FADD": 4, "BSSY": 4, "BRA": 5,
+                         "BSYNC": 4, "IADD3": 1, "ISETP": 1}
+    assert c["slots"] == 64
+    assert c["span"]["FFMA"] == 4 + 24 and c["span"]["LDG"] == 16
+    with pytest.raises(RuntimeError, match="no HMMA"):
+        mfu.loop_trip(_mxu_sass().replace("HMMA", "DMMA"),
+                      "mxu_kernelILb1EE")
