@@ -30,8 +30,10 @@ Phases, each printing one JSON line with its seconds:
                   (`ops/mfu.py::special_fn_counts`), which weigh B4's
                   bound, the instructions a (ray, row) test by class
                   of B1, B2 and the sweep's instances (B11a, B11b, B11c:
-                  `q_sass_counts`), whose FFMAs their bounds count, and
-                  B9's HMMA and other instructions a step of its row loop;
+                  `q_sass_counts`), whose FFMAs their bounds count, B9's
+                  HMMA and other instructions a step of its row loop, and
+                  B8a's a (ray, row) test, of the filter on a trip without
+                  candidates and of the exact test on every pair;
   cbox-scene      cornell_box(512, 512): 36 faces, the brute route, the
                   area light's tables;
   kernels         each kernel against its plain PyTorch version on the
@@ -69,10 +71,14 @@ Phases, each printing one JSON line with its seconds:
                   sets of the Cornell box and of the 5,120-face icosphere at
                   1,048,576 lanes, held to their plain versions on all the
                   box's lanes and on the icosphere's first 131,072 (B8 to
-                  the bit, B9 within its tolerance), and B9 on every lane
-                  to its filter-off instance to the bit (every pair through
-                  the FP32 test; no hit dropped by the tensor-core
-                  filter), its bound the tensor-core one. B10a (incoherent,
+                  the bit, B9 within its tolerance; B8a on every 8th
+                  lane, spread over the set), and B8a and B9 on every
+                  lane to their filter-off instances to the bit (every
+                  pair through the exact or the FP32 test; no hit dropped
+                  by either filter), B8a's bound the smaller of its
+                  filter on every pair with the exact test on the
+                  candidates counted and the whole test on every pair,
+                  B9's the tensor-core one. B10a (incoherent,
                   depth0) and B10b (shadow0) on the mask-sort tool's
                   icosphere sets, B11a at every unroll with one and two
                   accumulators and B11b at every unroll on the sweep's
@@ -479,6 +485,11 @@ BVH_TEST_OPS = 64         # d x e2, det, guarded 1/det, u, tv x e1, v, t, hit, b
 BVH_ANYHIT_TEST_OPS = 61  # the same without the best-hit update
 CLASSIC_RAY_SETUP_OPS = 4  # maxt check, miss select
 CLASSIC_TEST_OPS = BVH_TEST_OPS  # the same triangle test and best update
+CLASSIC_FILTER_OPS = 59   # a pair's filter (B8a): det and the numerators
+                          # of u, v, t (41), the sign fold (3), |det| times
+                          # 2^-148, 1 + 2^-20 and the best's bound (3),
+                          # us + vs, 6 compares, 5 ands; a candidate then
+                          # takes CLASSIC_TEST_OPS
 CLASSIC_ANYHIT_TEST_OPS = BVH_ANYHIT_TEST_OPS
 MXU_RAY_SETUP_OPS = 15    # 9 products of phi, maxt check, miss selects
 MXU_TEST_OPS = 158        # 4 x 16 FMAs (2 each), sign fold, guarded 1/|det|,
@@ -667,14 +678,18 @@ def sweep_sass_kernels():
 
 
 def q_sass_counts(library):
-    """{"intersect_q", "occluded_q", each key of `sweep_sass_kernels`, and
-    "intersect_mxu"}: `mfu.count_sass(..., per_test=True)` of
-    q_kernel<false / true> and of the sweep's instances, and
-    `mfu.loop_trip` of B9's row loop (`mxu_kernel<true>`: its HMMA and
-    other instructions a step), in the kernel library file `library`, read
-    by this checkout's `ops/mfu.py` in a process of its own (so that
-    `--turns` reads another checkout's library the same way). An instance
-    it cannot read (another checkout's) gives {"error": ...}."""
+    """{"intersect_q", "occluded_q", each key of `sweep_sass_kernels`,
+    "intersect_mxu", "intersect_classic" and "intersect_classic_dense"}:
+    `mfu.count_sass(..., per_test=True)` of q_kernel<false / true> and of
+    the sweep's instances, `mfu.loop_trip` of B9's row loop
+    (`mxu_kernel<true>`: its HMMA and other instructions a step) and of
+    B8a's, per test (`classic_kernel<false, false>`, the filter: a trip
+    that takes no candidate; `<false, true>`, every pair exact: a trip
+    without the division's slow path; `classic_step` tests a trip), in
+    the kernel library file `library`, read by this checkout's
+    `ops/mfu.py` in a process of its own (so that `--turns` reads another
+    checkout's library the same way). An instance it cannot read
+    (another checkout's) gives {"error": ...}."""
     code = (
         "import json, os, subprocess, sys\n"
         f"sys.path.insert(0, {HERE!r})\n"
@@ -694,11 +709,34 @@ def q_sass_counts(library):
         "    out['intersect_mxu'] = mfu.loop_trip(sass, 'mxu_kernelILb1EE')\n"
         "except RuntimeError as e:\n"
         "    out['intersect_mxu'] = {'error': str(e)}\n"
+        "for k, dense in (('intersect_classic', 0),\n"
+        "                 ('intersect_classic_dense', 1)):\n"
+        "    try:\n"
+        "        out[k] = mfu.loop_trip(\n"
+        "            sass, f'classic_kernelILb0ELb{dense}EE', per_test=True,\n"
+        "            tests=int(sys.argv[3]))\n"
+        "    except (RuntimeError, ValueError) as e:\n"
+        "        out[k] = {'error': str(e)}\n"
         "print(json.dumps(out))\n")
     out = subprocess.run([sys.executable, "-c", code, library,
-                          json.dumps(sweep_sass_kernels())], check=True,
+                          json.dumps(sweep_sass_kernels()),
+                          str(classic_step(library))], check=True,
                          stdout=subprocess.PIPE, text=True).stdout
     return json.loads(out.strip().splitlines()[-1])
+
+
+def classic_step(library):
+    """kStep, the rows a trip of B8a's row loop tests, from the source
+    `intersect_classic.cu` of the checkout that built `library` (its
+    `_build` beside `ops`); 0 where that source has none (a checkout from
+    before the filter)."""
+    import re
+
+    cu = os.path.join(os.path.dirname(os.path.dirname(library)), "ops",
+                      "csrc", "intersect_classic.cu")
+    with open(cu) as f:
+        m = re.search(r"constexpr int kStep = (\d+)", f.read())
+    return int(m.group(1)) if m else 0
 
 
 def mxu_step(q_sass):
@@ -739,6 +777,48 @@ def mxu_unfiltered(w, o, d, maxt, n_tris):
         "intersect_mxu_unfiltered")
     candidates, dropped = counts.tolist()
     return out, {"candidates": candidates, "dropped": dropped}
+
+
+def classic_audit(tri, o, d, maxt, n_tris):
+    """B8a's audit instance (csrc/intersect_classic.cu,
+    classic_kernel<true>): every (ray, row) pair through the exact test,
+    which the filtered kernel must equal to the bit. Returns ((t, prim, u,
+    v), {"candidates": the pairs the filter keeps, "dropped": the hits it
+    would have dropped, which must be none}). Only the checks call it:
+    `intersect_classic` never does."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import build
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    n, dev = o.shape[0], o.device
+    out = (torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev))
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    build.check(build.load_library().plt_intersect_classic_audit(
+        tri.data_ptr(), isect._closest_rows(tri, n_tris), o.data_ptr(),
+        d.data_ptr(), maxt.data_ptr(), n, *(x.data_ptr() for x in out),
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "intersect_classic_audit")
+    candidates, dropped = counts.tolist()
+    return out, {"candidates": candidates, "dropped": dropped}
+
+
+def classic_test(q_sass):
+    """B8a's row loops from `q_sass_counts`: {"filter": the instructions of
+    a (ray, row) test, by opcode and "slots", of the filter's instance (a
+    trip that takes no candidate), "every_pair": of the instance that runs
+    the exact test on every pair (tables of at most kDenseRows rows)};
+    raises where their SASS was not read."""
+    out = {}
+    for what, key in (("filter", "intersect_classic"),
+                      ("every_pair", "intersect_classic_dense")):
+        c = q_sass[key]
+        require("per_test" in c, f"{key}: SASS not read: {c.get('error')}")
+        out[what] = c["per_test"]
+    return out
 
 
 def sweep_fmas(q_sass, key):
@@ -1483,8 +1563,17 @@ def check_brute(label, scene, sets, q_sass, plain_lanes=None):
     {set: (o, d, maxt)} of one scene: each kernel runs on all lanes, as it
     is timed (B8b's grid, span and ray replacement depend on n), and its
     first `plain_lanes` lanes (all where None) are held to the plain
-    version on those lanes. B8 must equal its plain version to the bit;
-    B9's hit masks and prims must agree on >= 99.99% of lanes and t within
+    version on those lanes; B8a is held on every step-th lane instead,
+    the same count spread over the whole set (the lanes of every tile a
+    block loops over). B8 must equal its plain version to the bit,
+    and B8a on every lane its audit instance (`classic_audit`: every pair
+    through the exact test), whose count of hits the filter would have
+    dropped must be 0; B8a's bound is the smaller of its filter on every
+    pair with the exact test on the candidates the audit counts
+    (`bound_filter_ms`) and the whole test on every pair
+    (`bound_full_test_ms`): the least work that computes the function,
+    whichever path the kernel takes. B9's hit masks and prims must agree
+    on >= 99.99% of lanes and t within
     rtol 1e-4 where both hit, and on every lane B9 must equal its
     filter-off instance to the bit (`mxu_unfiltered`: the same FP32 test of
     every pair), whose count of hits the filter would have dropped must be
@@ -1511,27 +1600,51 @@ def check_brute(label, scene, sets, q_sass, plain_lanes=None):
                   "rays": f"{label} {set_label}", "library_ms": None,
                   "plain_timing": "the comparison call, once, on plain_lanes"}
 
-        # B8a: closest hit, equal to the bit
-        got = tuple(x[:m] for x in isect.intersect_classic(
-            geo.tri_isect, o, d, mt, F))
+        # B8a: closest hit, equal to the bit on every step-th lane; on
+        # every lane equal to its audit instance (every pair through the
+        # exact test), which counts the candidates and the hits the filter
+        # would drop (none allowed)
+        step = max(1, n // m)
+        spread = tuple(x[::step][:m].contiguous() for x in (o, d, mt))
+        full = isect.intersect_classic(geo.tri_isect, o, d, mt, F)
+        got = tuple(x[::step][:m] for x in full)
+        head = tuple(x[:m] for x in full)  # beside B9's first m lanes
         want, plain_ms = time_once(lambda: isect.intersect_classic_plain(
-            geo.tri_isect, *part, F))
+            geo.tri_isect, *spread, F))
         hit = want[1] >= 0
         err = max((got[k][hit] - want[k][hit]).abs().max().item()
                   if hit.any() else 0.0 for k in (0, 2, 3))
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"intersect_classic {label} {set_label}: differs, max {err}")
+        ref, cnt_c = classic_audit(geo.tri_isect, o, d, mt, F)
+        require(all(torch.equal(a, b) for a, b in zip(full, ref))
+                and cnt_c["dropped"] == 0,
+                f"intersect_classic {label} {set_label}: differs from its "
+                f"audit instance ({cnt_c['dropped']} hits dropped)")
+        del full, ref
         times = kernel_times(lambda: isect.intersect_classic(
             geo.tri_isect, o, d, mt, F))
-        bnd = bound(nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n,
-                    n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
+        # the least work that computes the function: the filter on every
+        # pair and the exact test on this run's candidates, or the whole
+        # test on every pair where that is less; both ride along
+        tri_bytes = nbytes(geo.tri_isect[:nt], o, d, mt) + 16 * n
+        bnd_filter = bound(tri_bytes, n * (CLASSIC_RAY_SETUP_OPS
+                                           + nt * CLASSIC_FILTER_OPS)
+                           + cnt_c["candidates"] * CLASSIC_TEST_OPS)
+        bnd_full = bound(tri_bytes,
+                         n * (CLASSIC_RAY_SETUP_OPS + nt * CLASSIC_TEST_OPS))
+        bnd = min(bnd_filter, bnd_full, key=lambda b: b["bound_ms"])
         closest = {"name": "intersect_classic", **common,
                    "source": "mitsuba3_plt_tpu_torch/ops/csrc/"
                              "intersect_classic.cu",
                    "replaces": "mitsuba3_plt_tpu/ops/intersect_pallas.py:95 "
                                "(pallas_intersect)",
                    "max_abs_err": err, **times, "plain_ms": plain_ms,
-                   **bnd, "agreement": 1.0,
+                   **bnd, "bound_full_test_ms": bnd_full["bound_ms"],
+                   "bound_filter_ms": bnd_filter["bound_ms"],
+                   "candidates_per_ray": cnt_c["candidates"] / n,
+                   "test_sass": classic_test(q_sass),
+                   "agreement": 1.0,
                    "hit_share": hit.float().mean().item()}
 
         # B8b: any hit, equal to the bit; the tests a thread makes (up to
@@ -1613,11 +1726,11 @@ def check_brute(label, scene, sets, q_sass, plain_lanes=None):
                "step_sass": mxu_step(q_sass), "t_pad": t_pad, "n_tris": F,
                "hit_agreement": hit_agree, "prim_agreement": prim_agree,
                "matmul_ms": mm_ms, "matmul_lanes": k,
-               "vs_classic": bi.agreement(got, got_m)}
+               "vs_classic": bi.agreement(head, got_m)}
         out[set_label] = [closest, anyhit, mxu]
         for r in out[set_label]:
             emit({"phase": "kernels", **r})
-        del got, want, got_m, want_m
+        del got, want, head, got_m, want_m
     return out
 
 
@@ -2758,7 +2871,10 @@ def main():
         r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
         row = {k: r[k] for k in keys}
         row.update({k: r[k] for k in ("test_fmas", "bound_cuda_cores_ms",
-                                      "candidates_per_ray", "step_sass")
+                                      "bound_full_test_ms",
+                                      "bound_filter_ms",
+                                      "candidates_per_ray", "step_sass",
+                                      "test_sass")
                     if k in r})
         kernels.append(row)
     emit({"kernels": kernels})

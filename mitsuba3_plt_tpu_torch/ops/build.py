@@ -37,6 +37,7 @@ SIGNATURES = {
     "plt_intersect_bvh": [_P] * 5 + [_I, _I] + [_P] * 5,
     "plt_occluded_bvh": [_P] * 5 + [_I, _I, _P, _P],
     "plt_intersect_classic": [_P, _I] + [_P] * 3 + [_I] + [_P] * 5,
+    "plt_intersect_classic_audit": [_P, _I] + [_P] * 3 + [_I] + [_P] * 6,
     "plt_occluded_classic": [_P, _I] + [_P] * 3 + [_I, _P, _P],
     "plt_intersect_mxu": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 5,
     "plt_intersect_mxu_unfiltered": [_P, _I, _I] + [_P] * 3 + [_I] + [_P] * 6,

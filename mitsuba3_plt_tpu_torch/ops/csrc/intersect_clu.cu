@@ -1,7 +1,6 @@
 // Closest-hit and any-hit over the flat treelet tables (ClusterTable) of
-// mid-size scenes, one thread per ray walking the boxes; the closest hit
-// runs a cluster that few lanes of a warp enter with a tile of lanes per
-// ray.
+// mid-size scenes, one thread per ray walking the boxes; each runs a
+// cluster that few lanes of a warp enter with a tile of lanes per ray.
 //
 // Replaces: mitsuba3_plt_tpu/ops/intersect_pallas.py::pallas_intersect_clu
 // (Pallas body _clu_kernel) and ::pallas_occluded_clu (body
@@ -62,9 +61,23 @@
 // the whole warp for a lone entrant cut its row steps 4x and moved
 // nothing.
 //
-// Any hit (clu_anyhit_kernel), one thread a ray: a warp runs a cluster's
-// rows when any of its lanes enters (__any_sync), and leaves a cluster, and
-// the walk, when no lane that entered is left unoccluded.
+// Any hit (clu_anyhit_kernel). The first port ran a cluster's rows for the
+// whole warp, one lane a ray, when any of its lanes entered, so a warp paid
+// for the union of 32 walks: 2.26x its measured bound on the icosphere's
+// shadow rays (PERF.md). Design, the closest hit's per-cluster choice: each
+// lane walks its own ray's boxes (slab test and gate); per entered cluster
+// the warp counts its entrants (the gate keeps occluded rays out). Above
+// kTileRays every lane runs the cluster's rows for its own ray (broadcast
+// loads) and the warp leaves the cluster after a trip where no entrant is
+// left unoccluded. At or below, the entrants go kRaysPerRound a round, one
+// to each tile of kTile lanes: the tile takes its entrant's ray terms by
+// shuffles, tests the cluster's rows one a lane, a trip a step, and stops
+// at its first step with a hit (the tile's bits of the step's ballot,
+// folded into one bit a tile, the same on every lane); each entrant's lane
+// reads its tile's bit. The answer is an OR over the cluster's rows, so any
+// split of them among lanes gives the plain walk's bits. All loops and
+// votes are warp-uniform, with per-tile masks. The walk ends when no live
+// lane is left unoccluded.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -78,9 +91,16 @@ constexpr int kUnroll = 8;  // rows per trip (scene/bvh.py CLU_UNROLL)
 constexpr int kTile = 8;
 constexpr int kRaysPerRound = 32 / kTile;
 constexpr int kTileRays = 8;
+// the any hit: blocks an SM its registers must allow (40 a thread; 16
+// blocks, 32 registers, spilled 148 bytes and ran 7-29% slower, 12 ran
+// 5-10% faster than the 48 nvcc takes unbounded: PERF.md section 6)
+constexpr int kAnyMinBlocks = 12;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kSign = 0x80000000u;
 constexpr unsigned kTileMask = (1u << kTile) - 1u;
+constexpr unsigned kTileLow = 0x01010101u;  // the lowest bit of each tile
 static_assert(kUnroll % kTile == 0, "a trip is whole steps of a tile");
+static_assert(kTile == 8, "tile_bits folds 8 bits a tile");
 
 struct CluRay {
   float ox, oy, oz, dx, dy, dz, cx, cy, cz, ix, iy, iz, tmax;
@@ -169,12 +189,26 @@ __device__ __forceinline__ bool row_test(const float* __restrict__ rows,
          sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
 }
 
+// x with its sign bit flipped where `sign` has its own set
+__device__ __forceinline__ float flip(float x, unsigned sign) {
+  return __uint_as_float(__float_as_uint(x) ^ sign);
+}
+
 // The union over the warp's tiles of a ballot's per-tile bits, in the low
 // kTile bits (the same on every lane).
 __device__ __forceinline__ unsigned tile_union(unsigned ballot) {
 #pragma unroll
   for (int s = kTile; s < 32; s <<= 1) ballot |= ballot >> s;
   return ballot & kTileMask;
+}
+
+// Each tile's bits of a ballot folded into the tile's lowest bit (the same
+// on every lane).
+__device__ __forceinline__ unsigned tile_bits(unsigned ballot) {
+  ballot |= ballot >> 4;
+  ballot |= ballot >> 2;
+  ballot |= ballot >> 1;
+  return ballot & kTileLow;
 }
 
 // The closest hit: one thread a ray walks the boxes; an entered cluster's
@@ -300,13 +334,17 @@ __global__ void __launch_bounds__(kBlock)
   v_out[i] = vs_b * inv;
 }
 
-// The any hit: one thread a ray (see the note at the top). Its row test
-// is `row_test` written out, every rounded operation the same and in the
-// same order; keep the two in step. Built on the helper it ran 5-6% slower
-// on each of the Cornell box's shadow sets: nvcc then carried `occ` across
-// the row loop as a byte (PRMT and SEL) where it keeps it in a predicate
-// here (PERF.md section 6).
-__global__ void __launch_bounds__(kBlock)
+// The any hit: one thread a ray walks the boxes; an entered cluster's rows
+// run a lane a ray when many lanes of the warp entered it, else a tile a
+// ray over a few entrants at a time (see the note at the top). The lane
+// mode's row test is `row_test` written out, every rounded operation the
+// same and in the same order but det's sign, folded in by its sign bit
+// (the same occlusion bits; 3% faster on the icosphere's shadow0 set than
+// the product by +-1); keep the two in step. Built on the helper it ran
+// 5-6% slower on each of the Cornell box's shadow sets: nvcc then
+// carried `occ` across the row loop as a byte (PRMT and SEL) where it keeps
+// it in a predicate here (PERF.md section 6).
+__global__ void __launch_bounds__(kBlock, kAnyMinBlocks)
     clu_anyhit_kernel(const float* __restrict__ boxes, int n_boxes,
                       const float* __restrict__ rows,
                       const float* __restrict__ anchor,
@@ -316,46 +354,98 @@ __global__ void __launch_bounds__(kBlock)
                       bool* __restrict__ occ_out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n;
+  const int wl = threadIdx.x & 31;
+  const int lane = wl & (kTile - 1), tile = wl / kTile;
   CluRay r = {};
   r.ix = r.iy = r.iz = 1e12f;
   if (live) r = load_ray(o, d, maxt, anchor, i);
 
   bool occ = false;
+  if (!__any_sync(kFull, live)) return;
   // every lane of a warp runs every iteration below: the loop bounds are
-  // read by all lanes from the same table row, and the votes are uniform
+  // read by all lanes from the same table row, and the votes are uniform;
+  // `occ` changes only where a cluster's rows run, so the walk's end is
+  // voted there; flags are joined by & and | (no short circuit: they stay
+  // predicates)
   for (int c = 0; c < n_boxes; ++c) {
-    if (!__any_sync(kFull, live && !occ)) break;
     const float4* bp = reinterpret_cast<const float4*>(boxes + 16 * c);
     const float4 ba = __ldg(bp), bb = __ldg(bp + 1);
     float near, far;
     slab(ba, bb, r, near, far);
     const bool enter =
         live && near <= far && far > 0.f && (near < r.tmax && !occ);
-    if (!__any_sync(kFull, enter)) continue;
-    const int k_end = (int)bb.z + kUnroll * (int)bb.w;
-    for (int k = (int)bb.z; k < k_end; ++k) {
-      const float4* tq = reinterpret_cast<const float4*>(rows + 32 * k);
-      // q0 = e1 e2.x, q1 = e2.yz m1.xy, q2 = m1.z m2, q3 = n2 k
-      const float4 q0 = __ldg(tq), q1 = __ldg(tq + 1);
-      const float4 q2 = __ldg(tq + 2), q3 = __ldg(tq + 3);
-      const float det = -dot3(r.dx, r.dy, r.dz, q3.x, q3.y, q3.z);
-      const float up = add(dot3(r.cx, r.cy, r.cz, q0.w, q1.x, q1.y),
-                           r.dx, r.dy, r.dz, q2.y, q2.z, q2.w);
-      const float vp = -add(dot3(r.cx, r.cy, r.cz, q0.x, q0.y, q0.z),
-                            r.dx, r.dy, r.dz, q1.z, q1.w, q2.x);
-      const float tp = sub(dot3(r.ox, r.oy, r.oz, q3.x, q3.y, q3.z), q3.w);
-      const float sg = det >= 0.f ? 1.f : -1.f;
-      const float ad = det * sg, us = up * sg, vs = vp * sg, ts = tp * sg;
-      // written out so that a NaN term fails, as jnp.minimum(...) >= 0
-      const bool inside = ad > 1e-12f && us >= 0.f && vs >= 0.f &&
-                          sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
-      occ = occ || (enter && inside && ts < mul(r.tmax, ad));
-      // the lane is done at its first hit, the warp when every lane that
-      // entered is
-      if ((k & (kUnroll - 1)) == kUnroll - 1 &&
-          !__any_sync(kFull, enter && !occ))
-        break;
+    const unsigned entered = __ballot_sync(kFull, enter);
+    if (!entered) continue;
+    const int first = (int)bb.z, k_end = first + kUnroll * (int)bb.w;
+    if (__popc(entered) > kTileRays) {
+      // a lane a ray: every row for every lane (broadcast loads), taken by
+      // the lanes that entered
+      for (int k = first; k < k_end; ++k) {
+        const float4* tq = reinterpret_cast<const float4*>(rows + 32 * k);
+        // q0 = e1 e2.x, q1 = e2.yz m1.xy, q2 = m1.z m2, q3 = n2 k
+        const float4 q0 = __ldg(tq), q1 = __ldg(tq + 1);
+        const float4 q2 = __ldg(tq + 2), q3 = __ldg(tq + 3);
+        const float det = -dot3(r.dx, r.dy, r.dz, q3.x, q3.y, q3.z);
+        const float up = add(dot3(r.cx, r.cy, r.cz, q0.w, q1.x, q1.y),
+                             r.dx, r.dy, r.dz, q2.y, q2.z, q2.w);
+        const float vp = -add(dot3(r.cx, r.cy, r.cz, q0.x, q0.y, q0.z),
+                              r.dx, r.dy, r.dz, q1.z, q1.w, q2.x);
+        const float tp = sub(dot3(r.ox, r.oy, r.oz, q3.x, q3.y, q3.z), q3.w);
+        // det's sign folded in by its sign bit: the plain version's
+        // product by +-1 for every det the test can take (at det = +-0 or
+        // NaN, ad fails it either way)
+        const unsigned sg = __float_as_uint(det) & kSign;
+        const float ad = fabsf(det), us = flip(up, sg), vs = flip(vp, sg),
+                    ts = flip(tp, sg);
+        // written out so that a NaN term fails, as jnp.minimum(...) >= 0
+        const bool inside = ad > 1e-12f && us >= 0.f && vs >= 0.f &&
+                            sub(sub(ad, us), vs) >= 0.f && ts > 0.f;
+        occ |= enter & inside & (ts < mul(r.tmax, ad));
+        // the lane is done at its first hit, the warp when every lane that
+        // entered is
+        if ((k & (kUnroll - 1)) == kUnroll - 1 &&
+            !__any_sync(kFull, enter && !occ))
+          break;
+      }
+      if (!__any_sync(kFull, live && !occ)) break;
+      continue;
     }
+    // a tile a ray: the entrants in lane order, one a tile a round
+    for (unsigned rest = entered; rest;) {
+      // this tile's entrant: the tile-th set bit of rest, if any
+      unsigned mine = rest;
+      for (int s = 0; s < tile; ++s) mine &= mine - 1;
+      const bool busy = mine != 0;
+      const int src = busy ? __ffs(mine) - 1 : wl;
+      CluRay q = {};
+      q.ox = __shfl_sync(kFull, r.ox, src);
+      q.oy = __shfl_sync(kFull, r.oy, src);
+      q.oz = __shfl_sync(kFull, r.oz, src);
+      q.dx = __shfl_sync(kFull, r.dx, src);
+      q.dy = __shfl_sync(kFull, r.dy, src);
+      q.dz = __shfl_sync(kFull, r.dz, src);
+      q.cx = __shfl_sync(kFull, r.cx, src);
+      q.cy = __shfl_sync(kFull, r.cy, src);
+      q.cz = __shfl_sync(kFull, r.cz, src);
+      q.tmax = __shfl_sync(kFull, r.tmax, src);
+      // the busy tiles and those whose entrant is occluded, a bit a tile
+      const unsigned busy_tiles = tile_bits(__ballot_sync(kFull, busy));
+      unsigned hit_tiles = 0;
+      for (int k0 = first; k0 < k_end && hit_tiles != busy_tiles;
+           k0 += kTile) {
+        float ad, us, vs, ts;
+        const bool inside = row_test(rows, k0 + lane, q, ad, us, vs, ts);
+        hit_tiles |= tile_bits(__ballot_sync(
+            kFull, busy && inside && ts < mul(q.tmax, ad)));
+      }
+      // each entrant's lane takes its tile's bit (an entrant was not
+      // occluded)
+      const int rank = __popc(rest & ((1u << wl) - 1u));
+      occ |= ((rest >> wl) & 1u) & (rank < kRaysPerRound) &
+             (hit_tiles >> (kTile * (rank & (kRaysPerRound - 1))));
+      for (int s = 0; s < kRaysPerRound; ++s) rest &= rest - 1;
+    }
+    if (!__any_sync(kFull, live && !occ)) break;
   }
   if (!live) return;
   occ_out[i] = occ;

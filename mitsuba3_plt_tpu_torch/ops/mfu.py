@@ -207,7 +207,8 @@ def _count_per_test(body, kernel):
 TC_OP = "HMMA"
 
 
-def loop_trip(sass: str, kernel: str) -> dict:
+def loop_trip(sass: str, kernel: str, per_test: bool = False,
+              tests: int | None = None) -> dict:
     """The loop of `kernel` (a backward branch and its target) with the most
     TC_OP instructions, the smallest such, from `cuobjdump -sass` text:
     {"trip": the instructions by opcode on the fewest-instruction way from
@@ -216,16 +217,35 @@ def loop_trip(sass: str, kernel: str) -> dict:
     loop and the backward branches of loops inside it never are: a trip
     that takes no rare branch), "slots": their sum, "span": every
     instruction of the loop's addresses by opcode}. NOPs and the BRA to
-    itself after EXIT are not counted."""
+    itself after EXIT are not counted.
+
+    per_test=True reads a row loop whose rare branch holds a candidate's
+    test (B8a's `classic_kernel`): the loop with the most FSETPs against
+    the det epsilon 1e-12, the smallest such, whose trip runs `tests`
+    (ray, row) tests (the source's rows a trip: required, since nvcc may
+    compare one det twice); adds "tests_per_trip" and "per_test": the
+    trip's opcodes and "slots" over its tests."""
+    if per_test and not tests:
+        raise ValueError("loop_trip: per_test needs the tests a trip runs")
     rows = _kernel_sass(sass, kernel)
     loops = _loops(rows)
     if not loops:
         raise RuntimeError(f"loop_trip: no loop in {kernel}")
+    if per_test:
+        what = "det epsilon"
+
+        def mark(r):
+            return r[1] == "FSETP" and bool(_DET_EPS_SASS.search(r[2]))
+    else:
+        what = TC_OP
+
+        def mark(r):
+            return r[1] == TC_OP
     lo, hi = max(loops, key=lambda a: (
-        sum(r[1] == TC_OP for r in _loop_rows(rows, a)), a[0] - a[1]))
+        sum(map(mark, _loop_rows(rows, a))), a[0] - a[1]))
     body = _loop_rows(rows, (lo, hi))
-    if not any(r[1] == TC_OP for r in body):
-        raise RuntimeError(f"loop_trip: no {TC_OP} in {kernel}'s loops")
+    if not any(map(mark, body)):
+        raise RuntimeError(f"loop_trip: no {what} in {kernel}'s loops")
     at = {r[0]: k for k, r in enumerate(body)}
     inf = float("inf")
     # the fewest instructions from row k to the backward branch, and the
@@ -250,14 +270,21 @@ def loop_trip(sass: str, kernel: str) -> dict:
         cost[k], step[k] = 1 + best[0], best[1]
     if cost[0] == inf:
         raise RuntimeError(f"loop_trip: no way round {kernel}'s loop")
-    trip, k = {}, 0
+    path, k = [], 0
     while k is not None and k < len(body):
-        trip[body[k][1]] = trip.get(body[k][1], 0) + 1
+        path.append(body[k])
         k = None if body[k][0] == hi else step[k]
-    every = {}
-    for _, op, _, _ in body:
-        every[op] = every.get(op, 0) + 1
-    return {"trip": trip, "slots": sum(trip.values()), "span": every}
+    trip, every = {}, {}
+    for r in path:
+        trip[r[1]] = trip.get(r[1], 0) + 1
+    for r in body:
+        every[r[1]] = every.get(r[1], 0) + 1
+    out = {"trip": trip, "slots": len(path), "span": every}
+    if per_test:
+        out["tests_per_trip"] = tests
+        out["per_test"] = {**{op: v / tests for op, v in trip.items()},
+                           "slots": len(path) / tests}
+    return out
 
 
 def fast_path(sass: str, kernel: str) -> dict:

@@ -216,6 +216,70 @@ def test_occluded_clu_plain_matches_jax_kernel(spheres, mt_kind):
     assert 0 < counts["triangle_tests"] < N_RAYS * tct.rows.shape[0]
 
 
+def _tile_split_walk(ctab, o, d, maxt, warp=32, tile=8, tile_rays=8):
+    """The any-hit kernel's walk (ops/csrc/intersect_clu.cu,
+    clu_anyhit_kernel) written out over warps of `warp` consecutive lanes:
+    each box gated in table order per lane (slab test, near < maxt, not yet
+    occluded); a cluster that more than `tile_rays` lanes of a warp enter
+    runs its rows a lane a ray, in row order; else each entrant's tile
+    tests the rows a step of `tile` at a time (one a lane) and stops at its
+    first step with a hit. Returns (occ, {"lane", "tile": the (warp,
+    cluster) pairs run each way})."""
+    walk = tisect._CluWalk(ctab, o, d, maxt, None)
+    n = walk.mt.shape[0]
+    occ = torch.zeros(n, dtype=torch.bool)
+    modes = {"lane": 0, "tile": 0}
+    for c in range(ctab.boxes.shape[0]):
+        rows = walk.spans[c][1]
+        near, far = walk.slab(ctab.boxes[c], walk.o, walk.inv)
+        enter = (near <= far) & (far > 0.0) & (near < walk.mt) & ~occ
+        if not rows or not enter.any():
+            continue
+        lanes = enter.nonzero().squeeze(1)
+        (ad, _, _, ts, inside), _ = walk.triangles(lanes, c)
+        hit = inside & (ts < walk.mt[lanes, None] * ad)
+        warps = lanes // warp
+        entrants = torch.bincount(warps)[warps]
+        tiled = entrants <= tile_rays
+        for key, sel in (("tile", tiled), ("lane", ~tiled)):
+            modes[key] += int(torch.unique(warps[sel]).numel())
+        steps = hit.reshape(len(lanes), rows // tile, tile).any(2)
+        # the step at which each tile stops: its first with a hit
+        stop = torch.where(steps.any(1), steps.to(torch.int8).argmax(1),
+                           rows // tile)
+        occ[lanes] = torch.where(tiled, stop < rows // tile, hit.any(1))
+    return occ, modes
+
+
+@pytest.mark.parametrize("case", ["cbox-ctab64", "cbox-ctab128",
+                                  "spheres-inf", "spheres-4.0"])
+def test_occluded_clu_plain_matches_a_tile_split_walk(spheres, cbox, case):
+    """The any hit is an OR over a cluster's rows, which its kernel relies
+    on when a cluster that few lanes of a warp enter runs a tile of lanes a
+    ray (`_tile_split_walk`): the plain walk gives the same answer, on the
+    Cornell box's shadow rays (its one cluster; lanes killed by roulette
+    leave some warps few entrants) and incoherent rays with maxt 1, and on
+    the spheres' rays (maxt inf and finite); both modes occur."""
+    name, arg = case.split("-", 1)
+    if name == "cbox":
+        tab = ms.tables(cbox)[arg]
+        sets = ms.ray_sets(cbox, 1, seed=6)
+        o, d, mt = (torch.cat(x) for x in zip(sets["shadow0"],
+                                               sets["shadow2"]))
+        inc = bi.ray_sets(cbox, 2048, 6)["incoherent"]
+        o, d = torch.cat([o, inc[0]]), torch.cat([d, inc[1]])
+        mt = torch.cat([mt, torch.ones(2048)])
+    else:
+        tab = spheres[1]
+        o, d = (torch.as_tensor(x) for x in _rays(N_RAYS, seed=8))
+        mt = torch.as_tensor(_maxt(arg))
+    want = tisect.occluded_clu_plain(tab, o, d, mt)
+    got, modes = _tile_split_walk(tab, o, d, mt)
+    assert torch.equal(got, want)
+    assert 0.02 < want.float().mean() < 0.98
+    assert modes["tile"] > 0 and modes["lane"] > 0, modes
+
+
 def test_clu_gate_is_conservative(spheres):
     """The per-lane box gate drops no hit: the plain walk equals the brute
     force over the same q rows (in cluster order) on every lane."""

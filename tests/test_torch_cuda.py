@@ -20,15 +20,22 @@ pytestmark = pytest.mark.cuda
 
 
 @functools.cache
-def _smoke():
-    """chip_smoke.py as a module: its `q_close`, `q_groups` and `b1_groups`
-    hold the sweep's closest hits here as in its kernels phase."""
+def _module(path):
+    """The Python file at `path` (from the repository's root) as a
+    module."""
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        os.path.abspath(__file__))), path)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _smoke():
+    """chip_smoke.py as a module: its `q_close`, `q_groups` and `b1_groups`
+    hold the sweep's closest hits here as in its kernels phase."""
+    return _module("chip_smoke.py")
 
 
 def _sweep_held(name, got, want, q, rays, rows, nacc, step=1):
@@ -824,6 +831,149 @@ def test_occluded_classic_matches_plain_at_edges(card):
                 assert want[:n].all() and want[3 * n: 4 * n].all()
                 assert F < 65 or not want[n: 3 * n].any()
                 assert not want[-dead:].any()
+
+
+def _classic_filter():
+    """tests/test_torch_classic_filter.py as a module: its `cases`, the
+    rays the CPU emulation of B8a's filter runs on."""
+    return _module("tests/test_torch_classic_filter.py")
+
+
+def test_classic_kernel_matches_plain_at_edges(card):
+    """B8a (the filter on every pair, the exact test on its candidates; on
+    tables of at most kDenseRows rows the exact test on every pair)
+    equals its plain version to the bit (t, prim, u, v, -0 included) on the
+    rays of the CPU filter test (`test_torch_classic_filter.cases`: the
+    Cornell box's and a 1,280-face icosphere's bench rays, rays at their
+    faces' vertices and edges with maxt at, above and below the hit, and
+    the constructed rows: det at +-1e-12 and one ulp around it, u = -0
+    under a huge det, ties, NaN and zero directions, maxt <= 0 and tiny,
+    zero rows), at 1 and 13 lanes and all of them (one tile part-filled),
+    each table as it is and padded with zero rows past kDenseRows (the
+    filter's path; the Cornell box's and the constructed 64 rows take the
+    exact test on every pair), and repeated to twice the lanes the largest
+    grid covers in one pass (kWaves grids of 8 blocks an SM, the most the
+    card holds: every block loops over two tiles or more) against its
+    audit instance (the filter, then every pair through the exact test),
+    which counts no hit the filter dropped, and against the plain version
+    on every lane."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    smoke = _smoke()
+    c = _classic_filter().constants()
+    dense = c["kDenseRows"]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    lanes = 2 * c["kWaves"] * sms * (2048 // c["kBlock"]) * c["kBlock"]
+    for name, (tri, sets) in _classic_filter().cases().items():
+        tri = tri.to(card)
+        o, d, mt = (torch.cat(x).to(card) for x in zip(*sets.values()))
+        want = isect.intersect_classic_plain(tri, o, d, mt)
+        # the table as it is and, where small, padded with zero rows past
+        # kDenseRows: the kernel's two paths
+        pad = tri.new_zeros((max(0, dense + 64 - tri.shape[0]), 9))
+        for table in {tri.shape[0]: tri, -1: torch.cat([tri, pad])}.values():
+            for n in (1, 13, o.shape[0]):
+                got = isect.intersect_classic(table, o[:n], d[:n], mt[:n])
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a.view(torch.int32),
+                                       b[:n].view(torch.int32)), \
+                        (name, table.shape[0], n)
+        reps = -(-lanes // o.shape[0])
+        big = tuple(x.repeat(reps, *([1] * (x.dim() - 1)))
+                    for x in (o, d, mt))
+        got = isect.intersect_classic(tri, *big)
+        ref, counts = smoke.classic_audit(tri, *big, tri.shape[0])
+        torch.cuda.synchronize()
+        assert counts["dropped"] == 0, name
+        assert counts["candidates"] >= int((ref[1] >= 0).sum()), name
+        for a, b, w in zip(got, ref, want):
+            assert torch.equal(a, b), name
+            # the plain version's answer on every repeat, the last tiles
+            # of each block's loop included
+            assert torch.equal(a.view(reps, -1), w.expand(reps, -1)), name
+
+
+def _entrants(ctab, o, d, mt):
+    """(warp, cluster) pairs by how many lanes of the warp (32 consecutive)
+    pass the cluster's slab test with near < maxt, the any hit's gate
+    before any ray is occluded (at least its entrants): (pairs with 1 to 8,
+    the any hit's tile mode, pairs with more)."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+
+    walk = isect._CluWalk(ctab, o, d, mt, None)
+    few = many = 0
+    for c in range(ctab.boxes.shape[0]):
+        if not walk.spans[c][1]:
+            continue
+        near, far = walk.slab(ctab.boxes[c], walk.o, walk.inv)
+        enter = (near <= far) & (far > 0.0) & (near < walk.mt)
+        per = torch.bincount(enter.nonzero().squeeze(1) // 32)
+        few += int(((per > 0) & (per <= 8)).sum())
+        many += int((per > 8).sum())
+    return few, many
+
+
+def test_clu_anyhit_kernel_matches_plain_in_both_modes(card):
+    """B10b to the bit against its plain walk over both tables of the
+    Cornell box and of the 5,120-face icosphere: on the mask-sort tool's
+    shadow rays and incoherent rays with maxt 1, three lanes in four dead
+    (away from the scene), whose warps enter every cluster with at most 8
+    lanes (a tile a ray), and on coherent rays from one origin in the
+    order of a grid of their directions, whose warps enter most with more
+    (a lane a ray), with maxt inf, 0.99 and 1.01 of the hit, one ulp short
+    of it and at it; over the tables cut to 1, 5 and K - 3 boxes; at 1, 13
+    and all lanes."""
+    from mitsuba3_plt_tpu_torch.ops import intersect as isect
+    from mitsuba3_plt_tpu_torch.scene.bvh import ClusterTable
+    from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
+    from mitsuba3_plt_tpu_torch.tools import isect_mask_sort as ms
+
+    for scene in _tool_scenes(card):
+        shadow = ms.ray_sets(scene, 2, seed=9)
+        inc = bi.ray_sets(scene, 4096, 9)["incoherent"]
+        coh = bi.ray_sets(scene, 4096, 9)["coherent"]
+        # in lane order of a 16 x 16 grid of their directions (d = (a, b,
+        # 1) normalised): a warp's rays are neighbours
+        a, b = (coh[1][:, k] / coh[1][:, 2] for k in (0, 1))
+        key = ((b + 0.35) * 16 / 0.7).long() * 16 + ((a + 0.35) * 16 / 0.7
+                                                       ).long()
+        coh = tuple(x[torch.argsort(key, stable=True)] for x in coh)
+        # three lanes in four dead (o = 1e8, d = +z, maxt -1: they enter
+        # no box), so a warp enters any cluster with at most 8 lanes
+        o, d, mt = (torch.cat(x) for x in zip(
+            shadow["shadow0"], shadow["shadow1"],
+            (inc[0], inc[1], torch.ones_like(inc[2]))))
+        live = (torch.arange(mt.shape[0], device=card) % 4 == 0)[:, None]
+        few = (torch.where(live, o, 1e8),
+               torch.where(live, d, d.new_tensor([0.0, 0.0, 1.0])),
+               torch.where(live[:, 0], mt, -1.0))
+        t = isect.intersect_classic(scene.geo.tri_isect, *coh,
+                                    scene.geo.n_faces)[0]
+        fin = torch.isfinite(t)
+        o, d = (x.repeat(6, 1) for x in coh[:2])
+        many = (o, d, torch.cat([
+            coh[2], torch.where(fin, 0.99 * t, 1.0),
+            torch.where(fin, 1.01 * t, 1.0),
+            torch.where(fin, torch.nextafter(t, torch.zeros_like(t)), 1.0),
+            torch.where(fin, t, 1.0), torch.full_like(t, -1.0)]))
+        for ct in ms.tables(scene).values():
+            n_boxes = ct.boxes.shape[0]
+            tile_pairs, lane_pairs = _entrants(ct, *few)
+            assert tile_pairs and not lane_pairs, (tile_pairs, lane_pairs)
+            tile_pairs, lane_pairs = _entrants(ct, *many)
+            assert lane_pairs > tile_pairs, (tile_pairs, lane_pairs)
+            for cut in sorted({n_boxes, 1, 5, max(1, n_boxes - 3)}):
+                tab = ClusterTable(boxes=ct.boxes[:cut].contiguous(),
+                                   rows=ct.rows, anchor=ct.anchor)
+                for label, (o, d, mt) in (("few", few), ("many", many)):
+                    want = isect.occluded_clu_plain(tab, o, d, mt)
+                    for n in (o.shape[0], 13, 1):
+                        got = isect.occluded_clu(tab, o[:n], d[:n], mt[:n])
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, want[:n]), (cut, label, n)
+                    if cut == n_boxes:
+                        assert 0.02 < want.float().mean() < 0.98, label
 
 
 def test_q_variant_kernels_match_plain(card):

@@ -586,3 +586,104 @@ def test_loop_trip_reads_a_step_without_candidates():
     with pytest.raises(RuntimeError, match="no HMMA"):
         mfu.loop_trip(_mxu_sass().replace("HMMA", "DMMA"),
                       "mxu_kernelILb1EE")
+
+
+def _classic_sass():
+    """`cuobjdump -sass` text shaped like B8a's filter kernel: a staging
+    loop, then a tile loop around the row loop: per row 3 LDS.128, 27 FMUL,
+    18 FADD, 3 LOP3 and 6 FSETP (one against the det epsilon); a vote and a
+    predicated branch past the candidates' block, which holds its own loop
+    (the exact test: another LDS.128, MUFU.RCP, an FSETP against the
+    epsilon's neighbour) and a second backward branch; then the row loop's
+    own compare and backward branch."""
+    out = ["\t\tFunction : _ZN12_GLOBAL__N_114classic_kernelILb0ELb0EEEvPKfi"
+           "S2_S2_S2_iPfPiS3_S3_Py"]
+    addr = 0
+
+    def ins(text):
+        nonlocal addr
+        out.append(f"        /*{addr:04x}*/                   {text} ;"
+                   f"                 /* 0x000fe20000000f00 */")
+        addr += 16
+        return addr - 16
+
+    top = ins("LDG.E.CONSTANT R4, desc[UR4][R2.64]")
+    ins("STS [R5], R4")
+    ins("ISETP.GE.AND P0, PT, R5, 0x200, PT")
+    ins(f"@!P0 BRA {hex(top)}")
+    tile = ins("LDG.E.CONSTANT R6, desc[UR4][R2.64]")
+    row = ins("LDS.128 R8, [R7]")
+    for k in range(4):
+        for _ in range(3 if k else 2):
+            ins("LDS.128 R12, [R7+0x10]")
+        for _ in range(27):
+            ins("FMUL R20, R21, R22")
+        for _ in range(18):
+            ins("FADD R23, R24, -R25")
+        for _ in range(3):
+            ins("LOP3.LUT R26, R27, 0x80000000, R28, 0x78, !PT")
+        ins("FSETP.GT.AND P0, PT, |R28|, 9.9999999600419720025e-13, P0")
+        for _ in range(5):
+            ins("FSETP.GE.AND P0, PT, R26, -R29, P0")
+    ins("PLOP3.LUT P4, PT, P1, P0, P2, 0xfe, 0x0")
+    ins("VOTE.ANY P4, P4")
+    tail = addr + 16 * 9
+    ins(f"@!P4 BRA {hex(tail)}")
+    cand = ins("LDS.128 R8, [R30]")
+    ins("MUFU.RCP R31, R32")
+    ins("FFMA R33, R32, R31, -1")
+    ins("FMUL R34, R35, R31")
+    ins("FSETP.GT.AND P5, PT, |R32|, 9.9999997e-13, PT")
+    ins("LOP3.LUT R36, R36, R37, RZ, 0xc0, !PT")
+    ins("VOTE.ANY P6, P6")
+    ins(f"@P6 BRA {hex(cand)}")
+    assert addr == tail
+    ins("IADD3 R7, R7, 0xc0, RZ")
+    ins("ISETP.GE.AND P1, PT, R7, R6, PT")
+    ins(f"@!P1 BRA {hex(row)}")
+    ins("STG.E desc[UR4][R2.64], R20")
+    ins("ISETP.GE.AND P2, PT, R6, R36, PT")
+    ins(f"@!P2 BRA {hex(tile)}")
+    ins("EXIT")
+    ins(f"BRA {hex(addr)}")
+    ins("NOP")
+    return "\n".join(out)
+
+
+def test_loop_trip_reads_a_filter_trip_per_test():
+    """loop_trip(..., per_test=True) takes the loop with the most FSETPs
+    against the det epsilon (the row loop, not the candidates' loop inside
+    it nor the staging loop), and a trip that skips the candidates' block:
+    4 tests of 3 LDS.128, 27 FMUL, 18 FADD, 3 LOP3 and 6 FSETP, then
+    PLOP3, VOTE, the branch and 3 of loop over the 4; with no epsilon it
+    raises."""
+    c = mfu.loop_trip(_classic_sass(), "classic_kernelILb0ELb0EE",
+                      per_test=True, tests=4)
+    assert c["tests_per_trip"] == 4
+    assert c["trip"] == {"LDS": 12, "FMUL": 108, "FADD": 72, "LOP3": 12,
+                         "FSETP": 24, "PLOP3": 1, "VOTE": 1, "BRA": 2,
+                         "IADD3": 1, "ISETP": 1}
+    assert c["per_test"]["slots"] == pytest.approx((4 * 57 + 6) / 4)
+    assert c["span"]["MUFU"] == 1 and c["span"]["FSETP"] == 25
+    with pytest.raises(RuntimeError, match="no det epsilon"):
+        mfu.loop_trip(_classic_sass().replace("9.9999999600419720025e-13",
+                                              "0.5"),
+                      "classic_kernelILb0ELb0EE", per_test=True, tests=4)
+
+
+def test_loop_trip_takes_the_tests_a_trip_runs():
+    """The tests a trip runs come from the caller, and per_test raises
+    without them: where nvcc compares a det with the epsilon twice (B8a's
+    every-pair instance, after the reciprocal's slow-path branch), the
+    slots a test still follow the tests given."""
+    sass = _classic_sass().replace(
+        "FSETP.GE.AND P0, PT, R26, -R29, P0",
+        "FSETP.GT.AND P0, PT, |R28|, 9.9999999600419720025e-13, P0", 4)
+    for tests in (None, 0):
+        with pytest.raises(ValueError, match="tests a trip"):
+            mfu.loop_trip(sass, "classic_kernelILb0ELb0EE", per_test=True,
+                          tests=tests)
+    c = mfu.loop_trip(sass, "classic_kernelILb0ELb0EE", per_test=True,
+                      tests=4)
+    assert c["tests_per_trip"] == 4
+    assert c["per_test"]["slots"] == pytest.approx((4 * 57 + 6) / 4)
