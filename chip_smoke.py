@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~3 min with the build
+    python3 chip_smoke.py            # one card, ~4-5 min with the build
 
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
                                          # B8a, B8b, B9, B10a, B10b, B11a,
                                          # B11b, B11c of the package in
                                          # ROOT
 
-Nine paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
+Thirteen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
 packet-BVH route (B7a, B7b), the intersection bench tool
@@ -20,8 +20,10 @@ flat cluster kernels B10a, B10b beside B1, B2) and the unroll sweep
 multi-accumulator q closest hit (`tools/isect_q_multiacc.py`: B11c beside
 B1) on the same two scenes, the per-kernel MFU tool
 (`tools/kernel_mfu.py`: the FMA roof probe B11d, an HBM probe, B1, B2, B5
-and B4 against the card's measured and published roofs), and the path
-tracer on the Cornell box (B1, B2, area light).
+and B4 against the card's measured and published roofs), the path
+tracer on the Cornell box (B1, B2, area light) with its diffuse, dielectric
+and conductor boxes, the PLT integrator on its grating box (B1-B4 at
+half = 2), and the white furnace (B1, B2, the constant environment).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
@@ -49,7 +51,14 @@ Phases, each printing one JSON line with its seconds:
                   their measured bounds taking each FFMA of a test (read
                   from the SASS; the hand count beside it) as one slot. B4
                   on four cases (its bound counted by
-                  `lobe_sum_count`). B5 (camera, bounce, bounce-random,
+                  `lobe_sum_count`). B1 and B2 also on the dielectric
+                  box path's second closest-hit and any-hit calls (the
+                  first rays that leave the surfaces, refracted ones
+                  inside the glass among them), and B3 and B4 on the
+                  grating box path's own first sample and NEE eval inputs
+                  (half = 2, height 0.25 um, coherence 1), each at the
+                  tolerances stated (`hold_sample`, `hold_lobe_sum`). B5
+                  (camera, bounce, bounce-random,
                   dead) and B6 (shadow, shadow-random, dead) on the mesh82k
                   scene at 1,048,576 lanes, equal to their plain walk (root
                   box, groups of supers, then the DFS walk) to the bit and
@@ -125,6 +134,13 @@ Phases, each printing one JSON line with its seconds:
   golden-mesh20k-packet  the same on the packet route;
   golden-cbox     cornell_box(32, 32), path depth 4 / rr 9, 4 seeds x 16 spp,
                   z-test against tests/golden/cbox_path.npz;
+  golden-cbox-conductor, -roughconductor, -dielectric, -grating-plt
+                  cornell_box(32, 32, box_material=...), path (PLT for the
+                  grating) depth 4 / rr 9, 4 seeds x 16 spp, z-tests
+                  against the JAX package's renders in tests/golden_torch/;
+  furnace         furnace_scene(64, 64, albedo=0.6), path depth 6 / rr 20,
+                  96 spp: the sphere's centre within 3% of the albedo, the
+                  corner within 0.02 of the environment's 1.0;
   main            grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per
                   pass: one warm-up pass, three timed passes; the image must
                   be finite and non-zero, its four kernels launch 7 times per
@@ -149,7 +165,14 @@ Phases, each printing one JSON line with its seconds:
   main-cbox       cornell_box(512, 512), path depth 7 / rr 50, 8 spp per
                   pass (2,097,152 lanes), as `main`: B1 and B2 launch 7
                   times per pass, no other kernel;
-  split-cbox      to chiprun_out/chip_smoke_profile_cbox.json.
+  split-cbox      to chiprun_out/chip_smoke_profile_cbox.json;
+  main-cbox-dielectric, main-cbox-conductor  cornell_box(512, 512,
+                  box_material=...), as `main-cbox`: B1 and B2 7 times a
+                  pass, no other kernel;
+  split-cbox-dielectric  to chiprun_out/chip_smoke_profile_cbox_dielectric
+                  .json;
+  main-cbox-grating-plt  the grating box, PLT depth 7 / rr 50, 8 spp per
+                  pass: B1-B4 7 times a pass.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
 and B9 from one tool run on one ray set, B10 and B11 from one run of
 their tools; each bound against the published peaks and against the
@@ -210,6 +233,24 @@ REGEN_CLU2_LAUNCHES = {**NO_LAUNCHES, "intersect_clu2": ITER,
                        "occluded_clu2": ITER}
 CBOX_LAUNCHES = {**NO_LAUNCHES, "intersect_q": CBOX_DEPTH,
                  "occluded_q": CBOX_DEPTH}
+CBOX_PLT_LAUNCHES = {**CBOX_LAUNCHES, "grating_sample": CBOX_DEPTH,
+                     "grating_lobe_sum": CBOX_DEPTH}
+# the Cornell box's other boxes at the cbox cell's size: (phase,
+# box_material, integrator, launches a pass)
+CBOX_BOXES = (("main-cbox-dielectric", "dielectric", "path", CBOX_LAUNCHES),
+              ("main-cbox-conductor", "conductor", "path", CBOX_LAUNCHES),
+              ("main-cbox-grating-plt", "grating", "plt", CBOX_PLT_LAUNCHES))
+# the port's golden references of those boxes (tests/golden_torch/, made by
+# tests/test_torch_golden_specular.py): (phase, box_material, integrator,
+# file), 32 x 32, depth 4 / rr 9, 4 seeds x 16 spp
+GOLDEN_BOXES = (
+    ("golden-cbox-conductor", "conductor", "path", "cbox_conductor_path.npz"),
+    ("golden-cbox-roughconductor", "roughconductor", "path",
+     "cbox_roughconductor_path.npz"),
+    ("golden-cbox-dielectric", "dielectric", "path",
+     "cbox_dielectric_path.npz"),
+    ("golden-cbox-grating-plt", "grating", "plt", "cbox_grating_plt.npz"))
+FURNACE_W, FURNACE_H, FURNACE_SPP, FURNACE_ALBEDO = 64, 64, 96, 0.6
 REGEN = {"regen": True, "pixel_order": "morton"}
 # kernels whose launches in the kernels line come from a tool's run
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
@@ -524,6 +565,15 @@ MACC_MERGE_OPS = 12       # two products, three compares, two logic ops,
 Q_SWEEP_OUTSIDE = 2e-3
 Q_SWEEP_RTOL = 1e-3
 Q_SWEEP_UV_ATOL = 1e-3
+# B1 on a path's bounce rays against its plain version (`q_close(...,
+# bounce=True)`), whose origins sit RayEpsilon off a surface, refracted
+# ones just inside the glass: the share of the compared hits whose t, u or
+# v may leave rtol 1e-5 (5 of 1,580,536 on the dielectric box's second
+# calls, 3.2e-6), the rtol that holds t on every one (3.2e-5 needed) and
+# the absolute error u and v may have on every one (6.5e-5 at most)
+Q_BOUNCE_OUTSIDE = 1e-5
+Q_BOUNCE_RTOL = 1e-4
+Q_BOUNCE_UV_ATOL = 1e-4
 
 
 def bessel_ops(half):
@@ -635,27 +685,61 @@ def grating_q_rays(scene, n_rays, rng):
     return (ray.o, ray.d, ray.maxt), shadow
 
 
-def path_q_rays(scene, integ, spp_pass):
-    """The rays of a render pass's first closest-hit and first any-hit call
-    on the brute route ((o, d, maxt) each): one pass at spp_pass with
-    `intersect_q` and `occluded_q` recording their first arguments."""
+def recorded_calls(module, names, run, calls=(0,)):
+    """{name: {i: (args, kwargs)}}: the arguments, tensors cloned, of the
+    calls numbered `calls` (0 the first) that run() makes to each function
+    `names` of `module`; the functions are restored after."""
+    import torch
+
+    seen, kept = {name: {} for name in names}, {}
+    for name in names:
+        fn = kept[name] = getattr(module, name)
+
+        def record(*args, _fn=fn, _name=name, _count=[0], **kw):
+            if _count[0] in calls:
+                seen[_name][_count[0]] = (
+                    tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args), dict(kw))
+            _count[0] += 1
+            return _fn(*args, **kw)
+        setattr(module, name, record)
+    try:
+        run()
+    finally:
+        for name, fn in kept.items():
+            setattr(module, name, fn)
+    return seen
+
+
+def path_q_rays(scene, integ, spp_pass, call=0):
+    """The rays of a render pass's closest-hit and any-hit call numbered
+    `call` (0: the camera rays and their shadow rays; 1: the first rays
+    that leave the scene's surfaces) on the brute route ((o, d, maxt)
+    each): one pass at spp_pass with `intersect_q` and `occluded_q`
+    recording their arguments."""
     from mitsuba3_plt_tpu_torch.integrators.common import render
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
 
-    seen, kept = {}, {}
-    for name in ("intersect_q", "occluded_q"):
-        fn = kept[name] = getattr(isect, name)
+    seen = recorded_calls(
+        isect, ("intersect_q", "occluded_q"),
+        lambda: render(scene, integ, seed=0, spp=spp_pass,
+                       spp_per_pass=spp_pass), (call,))
+    return tuple(seen[name][call][0][2:5]
+                 for name in ("intersect_q", "occluded_q"))
 
-        def record(*args, _fn=fn, _name=name, **kw):
-            seen.setdefault(_name, tuple(a.clone() for a in args[2:5]))
-            return _fn(*args, **kw)
-        setattr(isect, name, record)
-    try:
-        render(scene, integ, seed=0, spp=spp_pass, spp_per_pass=spp_pass)
-    finally:
-        for name, fn in kept.items():
-            setattr(isect, name, fn)
-    return seen["intersect_q"], seen["occluded_q"]
+
+def grating_box_inputs(scene, integ, spp_pass):
+    """{name: (args, kwargs)} of the first `grating_sample` and
+    `grating_lobe_sum` calls of a PLT render pass at spp_pass (the camera
+    bounce's sample and NEE eval)."""
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    seen = recorded_calls(
+        gops, ("grating_sample", "grating_lobe_sum"),
+        lambda: render(scene, integ, seed=0, spp=spp_pass,
+                       spp_per_pass=spp_pass))
+    return {name: calls[0] for name, calls in seen.items()}
 
 
 def sweep_sass_kernels():
@@ -843,7 +927,7 @@ def b1_groups(q, rays, rows, nacc):
             for g in range(nacc)]
 
 
-def q_close(name, got, want, sweep=False):
+def q_close(name, got, want, sweep=False, bounce=False):
     """check_q's tolerance for a closest hit of B1's row test (q_row.cuh),
     (t, prim) or (t, prim, u, v), against its plain version on the same
     lanes: prim equal on at least 1 - 1e-4 of lanes (it may differ only
@@ -852,14 +936,16 @@ def q_close(name, got, want, sweep=False):
     version does not), and on every lane where the prims agree and hit, t
     at rtol 1e-5 / atol 1e-6 and u, v at rtol 1e-5 / atol 1e-5.
 
-    With `sweep` the kernel is one of the sweep's (B11a, B11c), held to B1
-    to the bit by `q_groups` as well, on the sweep's rays from anywhere
-    inside a scene. B1's rounding, which it carries, leaves rtol 1e-5
-    there on up to ~1 lane in 1,000 (an origin near a triangle's plane,
-    where t|det| and u|det| cancel), so t, u and v may leave it on at most
-    Q_SWEEP_OUTSIDE of the lanes where the prims agree and hit; on every
-    one of them t keeps rtol Q_SWEEP_RTOL and u, v (in [0, 1]) keep
-    Q_SWEEP_UV_ATOL.
+    With `sweep` the rays start anywhere inside a scene: the sweep's
+    (B11a, B11c, held to B1 to the bit by `q_groups` as well). B1's
+    rounding leaves rtol 1e-5 there on up to ~1 lane in 1,000 (an origin
+    near a triangle's plane, where t|det| and u|det| cancel), so t, u and
+    v may leave it on at most Q_SWEEP_OUTSIDE of the lanes where the prims
+    agree and hit; on every one of them t keeps rtol Q_SWEEP_RTOL and u, v
+    (in [0, 1]) keep Q_SWEEP_UV_ATOL. With `bounce` they are a path's
+    bounce rays, whose origins sit RayEpsilon off a surface (B1 itself):
+    the same, held at Q_BOUNCE_OUTSIDE, Q_BOUNCE_RTOL and
+    Q_BOUNCE_UV_ATOL.
 
     Returns {"agreement": prim agreement, "max_abs_err": of t, u, v on the
     lanes where the prims agree and hit, "outside_tolerance": the most
@@ -876,6 +962,10 @@ def q_close(name, got, want, sweep=False):
     n_both = int(both.sum())
     held = {"agreement": frac_prim, "max_abs_err": 0.0,
             "outside_tolerance": 0, "t_rtol_needed": 0.0}
+    share, t_rtol, uv_atol = (
+        (Q_SWEEP_OUTSIDE, Q_SWEEP_RTOL, Q_SWEEP_UV_ATOL) if sweep else
+        (Q_BOUNCE_OUTSIDE, Q_BOUNCE_RTOL, Q_BOUNCE_UV_ATOL) if bounce else
+        (0.0, None, None))
     for k, atol in ((0, 1e-6), (2, 1e-5), (3, 1e-5)):
         if k >= len(got):
             continue
@@ -890,16 +980,16 @@ def q_close(name, got, want, sweep=False):
             held["uv_abs_err"] = max(held.get("uv_abs_err", 0.0), err)
         far = int((~torch.isclose(a, b, rtol=1e-5, atol=atol)).sum())
         held["outside_tolerance"] = max(held["outside_tolerance"], far)
-        limit = int(Q_SWEEP_OUTSIDE * n_both) if sweep else 0
+        limit = int(share * n_both)
         require(far <= limit, f"{name}: value {k} outside rtol 1e-5 on "
                               f"{far} of {n_both} lanes (at most {limit})")
-    if sweep:
-        require(held["t_rtol_needed"] <= Q_SWEEP_RTOL,
+    if t_rtol is not None:
+        require(held["t_rtol_needed"] <= t_rtol,
                 f"{name}: t needs rtol {held['t_rtol_needed']} on a lane "
-                f"(at most {Q_SWEEP_RTOL})")
-        require(held.get("uv_abs_err", 0.0) <= Q_SWEEP_UV_ATOL,
+                f"(at most {t_rtol})")
+        require(held.get("uv_abs_err", 0.0) <= uv_atol,
                 f"{name}: u or v off by {held.get('uv_abs_err')} on a lane "
-                f"(at most {Q_SWEEP_UV_ATOL})")
+                f"(at most {uv_atol})")
     return held
 
 
@@ -931,13 +1021,16 @@ def q_groups(name, got, groups):
             f"{name}: not the nearest of the groups' hits")
 
 
-def check_q(label, scene, closest_rays, shadow_rays, q_sass):
+def check_q(label, scene, closest_rays, shadow_rays, q_sass,
+            bounce=False):
     """B1 on closest_rays and B2 on shadow_rays ((o, d, maxt) each) of a
     brute-route scene against their plain versions, with the tolerance
-    stated; rows timed by `kernel_times` (device time where the wrapper
-    takes longer than the kernel). q_sass: `q_sass_counts` of the built
-    library, whose FFMAs a test the bounds count (the hand count
-    Q_TEST_FMAS printed beside them)."""
+    stated (`q_close`; with `bounce`, for rays that start on the scene's
+    surfaces, its tolerance for a path's bounce rays); rows timed by
+    `kernel_times` (device time where the wrapper takes longer than the
+    kernel). q_sass: `q_sass_counts` of the built library, whose FFMAs a
+    test the bounds count (the hand count Q_TEST_FMAS printed beside
+    them)."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
@@ -949,7 +1042,7 @@ def check_q(label, scene, closest_rays, shadow_rays, q_sass):
     args = (geo.tri_q, geo.tri_anchor, o, d, maxt, geo.n_faces)
     got = isect.intersect_q(*args)
     want = isect.intersect_q_plain(*args)
-    held = q_close(f"intersect_q {label}", got, want)
+    held = q_close(f"intersect_q {label}", got, want, bounce=bounce)
     frac_prim, err = held["agreement"], held["max_abs_err"]
     times = kernel_times(lambda: isect.intersect_q(*args))
     plain_ms = time_ms(lambda: isect.intersect_q_plain(*args))
@@ -965,6 +1058,8 @@ def check_q(label, scene, closest_rays, shadow_rays, q_sass):
                **bnd, "library_ms": None, "rays": label,
                "test_fmas": {"sass": fmas, "hand": Q_TEST_FMAS},
                "n": n, "faces": geo.n_faces, "prim_agreement": frac_prim,
+               **{k: held[k] for k in ("outside_tolerance", "t_rtol_needed",
+                                       "uv_abs_err") if k in held},
                "hit_share": (want[1] >= 0).float().mean().item()}
 
     so, sd, smt = shadow_rays
@@ -1029,9 +1124,50 @@ def lobe_sum_inputs(rng, n, gtype, ip_y, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in ins.items()}
 
 
-def check_lobe_sum(n, rng, dev, specials):
+def hold_lobe_sum(label, got, want):
+    """B4's output against its plain version's: the share of lanes within
+    rtol 2e-3, atol 2e-5 (the CPU tests'), which must be at least 1 - 1e-5
+    (a lane may fall outside only where a cone or grating-equation gate
+    flips at float rounding: the kernel's Bessel table and FMAs), and
+    finite."""
     import torch
 
+    frac = frac_close(got, want, 2e-3, 2e-5)
+    require(bool(torch.isfinite(got).all()),
+            f"grating_lobe_sum {label}: non-finite output")
+    require(frac >= 1 - 1e-5, f"grating_lobe_sum {label} agreement {frac}")
+    return frac
+
+
+def lobe_sum_row(ins, kw, got, want, frac, specials):
+    """The kernels line's row of B4 on inputs `ins` (the kernel's keyword
+    arguments) and kw (half, separable, n_channels): timed, its bound
+    counted by `lobe_sum_count`."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    count = lobe_sum_count(ins, kw["half"], kw["separable"], specials)
+    times = kernel_times(lambda: gops.grating_lobe_sum(**ins, **kw))
+    plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(
+        **ins, half=kw["half"], separable=kw["separable"]))
+    bnd = bound(nbytes(ins, got, gops.bessel_table(got.device)),
+                count["ops"], count["fma"])
+    return {"name": "grating_lobe_sum", "route": "cuda",
+            "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
+            "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
+                        "(grating_lobe_sum)",
+            "max_abs_err": (got - want).abs().max().item(), **times,
+            "plain_ms": plain_ms, **bnd, "library_ms": None,
+            "n": got.shape[0], "agreement": frac,
+            "case": [kw["half"], kw["separable"]],
+            "count": {**count, "how": (
+                "operations and FMAs: a hand count of "
+                "lobe_sum_kernel's source (chip_smoke.py LOBE_*) "
+                "over the lobes, branches and profiles these lanes "
+                "need; special functions: calls x their fast-path "
+                "instructions in the SASS of fn_probe_kernel")}}
+
+
+def check_lobe_sum(n, rng, dev, specials):
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
     # (half, separable, gtype, ip_y): the main path's case first, then the
@@ -1044,39 +1180,14 @@ def check_lobe_sum(n, rng, dev, specials):
         kw = dict(half=half, separable=sep)
         got = gops.grating_lobe_sum(**ins, **kw, n_channels=3)
         want = gops.grating_lobe_sum_plain(**ins, **kw)
-        # tolerance: rtol 2e-3, atol 2e-5 (the CPU tests'); a lane may fall
-        # outside only where a cone or grating-equation gate flips at float
-        # rounding (the kernel's Bessel table and FMAs): at most 1 lane in
-        # 100,000
-        frac = frac_close(got, want, 2e-3, 2e-5)
-        require(bool(torch.isfinite(got).all()),
-                f"grating_lobe_sum {half, sep, gtype}: non-finite output")
-        require(frac >= 1 - 1e-5,
-                f"grating_lobe_sum {half, sep, gtype} agreement {frac}")
+        frac = hold_lobe_sum(str((half, sep, gtype)), got, want)
         count = lobe_sum_count(ins, half, sep, specials)
         emit({"phase": "kernels", "name": "grating_lobe_sum",
               "case": [half, sep, gtype, ip_y], "n": nn, "agreement": frac,
               "asym_share": count["asym_share"]})
         if row is None:
-            err = (got - want).abs().max().item()
-            times = kernel_times(lambda: gops.grating_lobe_sum(
-                **ins, **kw, n_channels=3))
-            plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(**ins, **kw))
-            bnd = bound(nbytes(ins, got, gops.bessel_table(dev)),
-                        count["ops"], count["fma"])
-            row = {"name": "grating_lobe_sum", "route": "cuda",
-                   "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
-                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
-                               "(grating_lobe_sum)",
-                   "max_abs_err": err, **times, "plain_ms": plain_ms,
-                   **bnd, "library_ms": None,
-                   "n": nn, "agreement": frac,
-                   "count": {**count, "how": (
-                       "operations and FMAs: a hand count of "
-                       "lobe_sum_kernel's source (chip_smoke.py LOBE_*) "
-                       "over the lobes, branches and profiles these lanes "
-                       "need; special functions: calls x their fast-path "
-                       "instructions in the SASS of fn_probe_kernel")}}
+            row = lobe_sum_row(ins, dict(kw, n_channels=3), got, want, frac,
+                               specials)
     return row
 
 
@@ -1101,9 +1212,52 @@ def sample_inputs(rng, n, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in ins.items()}
 
 
-def check_sample(n, rng, dev):
+def hold_sample(label, got, want):
+    """B3's outputs against its plain version's, at the CPU tests'
+    tolerance: lobe and ok equal, wo and mvec at rtol 1e-4 / atol 1e-5,
+    pdf (clipped at 1e6) and G1 * intensity at rtol 2e-3 / atol 1e-6, on
+    lanes where both agree on the lobe and are live; a lane may differ
+    where u lies within float rounding of a lobe-CDF step or a live/dead
+    gate sits at its threshold: at most 1 lane in 10,000. Returns (the
+    worst share, the live lanes)."""
     import torch
 
+    same = (got["lobe"] == want["lobe"]).all(-1) & (got["ok"] == want["ok"])
+    frac_same = same.float().mean().item()
+    live = same & want["ok"]
+    fr_wo = frac_close(got["wo"][live], want["wo"][live], 1e-4, 1e-5)
+    fr_m = frac_close(got["mvec"], want["mvec"], 1e-4, 1e-5)
+    fr_pdf = frac_close(torch.clamp_max(got["pdf"][live], 1e6),
+                        torch.clamp_max(want["pdf"][live], 1e6), 2e-3, 1e-6)
+    fr_w = frac_close(got["w_g1_int"][live], want["w_g1_int"][live],
+                      2e-3, 1e-6)
+    worst = min(frac_same, fr_wo, fr_m, fr_pdf, fr_w)
+    require(worst >= 1 - 1e-4,
+            f"grating_sample {label} agreement lobe/ok {frac_same} "
+            f"wo {fr_wo} mvec {fr_m} pdf {fr_pdf} w {fr_w}")
+    return worst, live
+
+
+def sample_row(ins, kw, got, want, worst, live):
+    """The kernels line's row of B3 on inputs `ins` and kw (half, ndf)."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    n = got["wo"].shape[0]
+    times = kernel_times(lambda: gops.grating_sample(**ins, **kw))
+    plain_ms = time_ms(lambda: gops.grating_sample_plain(**ins, **kw))
+    bnd = contracted_bound(nbytes(ins, got),
+                           n * sample_ops(kw["half"], kw["ndf"]))
+    return {"name": "grating_sample", "route": "cuda",
+            "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
+            "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593 "
+                        "(grating_sample)",
+            "max_abs_err": (got["wo"][live] - want["wo"][live]).abs().max()
+            .item(), **times, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "n": n, "agreement": worst,
+            "case": [kw["half"], kw["ndf"]]}
+
+
+def check_sample(n, rng, dev):
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
     row = None
@@ -1111,41 +1265,43 @@ def check_sample(n, rng, dev):
         ins = sample_inputs(rng, n, dev)
         got = gops.grating_sample(**ins, half=3, ndf=ndf)
         want = gops.grating_sample_plain(**ins, half=3, ndf=ndf)
-        # tolerance (the CPU tests'): lobe and ok equal, wo and mvec at
-        # rtol 1e-4 / atol 1e-5, pdf (clipped at 1e6) and G1 * intensity at
-        # rtol 2e-3 / atol 1e-6, on lanes where both agree on the lobe and
-        # are live; a lane may differ where u lies within float rounding of
-        # a lobe-CDF step or a live/dead gate sits at its threshold: at
-        # most 1 lane in 10,000
-        same = (got["lobe"] == want["lobe"]).all(-1) & (got["ok"] == want["ok"])
-        frac_same = same.float().mean().item()
-        live = same & want["ok"]
-        fr_wo = frac_close(got["wo"][live], want["wo"][live], 1e-4, 1e-5)
-        fr_m = frac_close(got["mvec"], want["mvec"], 1e-4, 1e-5)
-        fr_pdf = frac_close(torch.clamp_max(got["pdf"][live], 1e6),
-                            torch.clamp_max(want["pdf"][live], 1e6),
-                            2e-3, 1e-6)
-        fr_w = frac_close(got["w_g1_int"][live], want["w_g1_int"][live],
-                          2e-3, 1e-6)
-        worst = min(frac_same, fr_wo, fr_m, fr_pdf, fr_w)
-        require(worst >= 1 - 1e-4,
-                f"grating_sample ndf={ndf} agreement lobe/ok {frac_same} "
-                f"wo {fr_wo} mvec {fr_m} pdf {fr_pdf} w {fr_w}")
+        worst, live = hold_sample(f"ndf={ndf}", got, want)
         if row is None:
-            err = (got["wo"][live] - want["wo"][live]).abs().max().item()
-            times = kernel_times(lambda: gops.grating_sample(**ins, half=3,
-                                                             ndf=ndf))
-            plain_ms = time_ms(lambda: gops.grating_sample_plain(
-                **ins, half=3, ndf=ndf))
-            bnd = contracted_bound(nbytes(ins, got), n * sample_ops(3, ndf))
-            row = {"name": "grating_sample", "route": "cuda",
-                   "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
-                   "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:593 "
-                               "(grating_sample)",
-                   "max_abs_err": err, **times, "plain_ms": plain_ms,
-                   **bnd, "library_ms": None,
-                   "n": n, "agreement": worst}
+            row = sample_row(ins, dict(half=3, ndf=ndf), got, want, worst,
+                             live)
     return row
+
+
+# the positional arguments of B3's and B4's wrappers, by name
+SAMPLE_ARGS = ("wi", "u2", "lobe_u2", "wl_um", "alpha", "grating_dir",
+               "inv_period", "q", "lobes", "gtype", "multiplier")
+LOBE_SUM_ARGS = ("wi", "wo", "wl_nm", "grating_dir", "inv_period", "q",
+                 "lobes", "gtype", "multiplier", "coherence", "a_cone")
+
+
+def check_grating_box(inputs, specials):
+    """B3 and B4 on the grating box path's own inputs (`grating_box_inputs`:
+    the first calls of a PLT pass on cornell_box(512, 512,
+    box_material="grating"), half = 2, height 0.25 um, coherence 1.0 on
+    the box's lanes) against their plain versions at the tolerances of
+    `hold_sample` and `hold_lobe_sum`. Returns a row each."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    args, kw = inputs["grating_sample"]
+    ins = dict(zip(SAMPLE_ARGS, args))
+    got = gops.grating_sample(**ins, **kw)
+    want = gops.grating_sample_plain(**ins, **kw)
+    worst, live = hold_sample("grating box", got, want)
+    sample = sample_row(ins, kw, got, want, worst, live)
+
+    args, kw = inputs["grating_lobe_sum"]
+    ins = dict(zip(LOBE_SUM_ARGS, args))
+    got = gops.grating_lobe_sum(**ins, **kw)
+    want = gops.grating_lobe_sum_plain(**ins, half=kw["half"],
+                                       separable=kw["separable"])
+    frac = hold_lobe_sum("grating box", got, want)
+    lobe = lobe_sum_row(ins, kw, got, want, frac, specials)
+    return [dict(r, rays="cbox grating path") for r in (sample, lobe)]
 
 
 def hemisphere_rays(scene, p, ng, live, rng):
@@ -2256,15 +2412,18 @@ def isect_tool(scenes):
 # golden images, main paths and their device-time split
 # ---------------------------------------------------------------------------
 
-def golden_ztest(name, scene, integ, golden, spp_per_seed):
-    """Render 4 seeds and z-test their mean against a golden image."""
+def golden_ztest(name, scene, integ, golden, spp_per_seed,
+                 golden_dir=("tests", "golden")):
+    """Render 4 seeds and z-test their mean against a golden image (under
+    tests/golden/, or the port's own references under tests/golden_torch/,
+    which the JAX package rendered on the CPU)."""
     import numpy as np
     import torch
 
     from mitsuba3_plt_tpu_torch.integrators.common import render
 
     ph = Phase(name)
-    ref = np.load(os.path.join(HERE, "tests", "golden", golden))
+    ref = np.load(os.path.join(HERE, *golden_dir, golden))
     imgs = np.stack([render(scene, integ, seed=s,
                             spp=spp_per_seed).cpu().numpy()
                      for s in range(4)])
@@ -2279,6 +2438,32 @@ def golden_ztest(name, scene, integ, golden, spp_per_seed):
             thresh=thresh, mean=float(mean.mean()),
             ref_mean=float(ref["mean"].mean()))
     require(n_fail == 0, f"{name} z-test: {n_fail} pixels fail")
+
+
+def furnace(scene, integ, spp, albedo):
+    """The white furnace (JAX tests/test_furnace.py's check at 64 x 64): the
+    convex diffuse sphere's centre pixels within 3% of the albedo, the
+    corner, which sees the environment of radiance 1, within 0.02 of 1."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+
+    ph = Phase("furnace")
+    W, H = scene.sensor.resolution
+    ops.reset_launch_counts()
+    img = render(scene, integ, seed=0, spp=spp).cpu()
+    launches = ops.launch_counts()
+    # the centre third of the frame lies inside the sphere's disc
+    centre = img[H // 3:H - H // 3, W // 3:W - W // 3].mean().item()
+    corner = img[:H // 8, :W // 8].mean().item()
+    ph.emit(width=W, height=H, spp=spp, faces=scene.geo.n_faces,
+            albedo=albedo, centre=centre,
+            centre_rel_err=abs(centre - albedo) / albedo, corner=corner,
+            launches={k: v for k, v in launches.items() if v})
+    require(abs(centre - albedo) / albedo < 0.03,
+            f"furnace: centre {centre} against albedo {albedo}")
+    require(abs(corner - 1.0) < 0.02, f"furnace: corner {corner}")
+    require(launches["intersect_q"] > 0 and launches["occluded_q"] > 0,
+            "furnace: the brute kernels did not run")
 
 
 def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
@@ -2430,9 +2615,9 @@ def turns(root):
     bounce and bounce-random sets and B7b on the shadow, shadow-random and
     all-dead sets, and both on the regenerative wavefront's 131,072 rays,
     sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B9, B10a,
-    B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B7, B8, B9,
-    B10 and B11 are timed by `kernel_times` (device time where the wrapper
-    takes longer than the kernel). The kernels build in ROOT. Run it over
+    B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B5, B6, B7,
+    B8, B9, B10 and B11 are timed by `kernel_times` (device time where the
+    wrapper takes longer than the kernel). The kernels build in ROOT. Run it over
     two checkouts in turns (parent, change, change, parent) within one
     chip call to compare them on one card."""
     import torch
@@ -2551,10 +2736,11 @@ def turns_q(isect):
 
 
 def turns_clu2(isect, rng):
-    """B5 and B6 of the package `isect` belongs to, timed on the mesh82k
-    clu2 scene's sets of the kernels phase at 1,048,576 lanes: {set: ms},
-    B5 on the camera, bounce, bounce-random and dead rays, B6 on the
-    shadow, shadow-random and dead rays."""
+    """B5 and B6 of the package `isect` belongs to, timed by `kernel_times`
+    on the mesh82k clu2 scene's sets of the kernels phase at 1,048,576
+    lanes: {set: times}, B5 on the camera, bounce, bounce-random and dead
+    rays, B6 on the shadow, shadow-random and dead rays (the dead sets, a
+    few hundredths of a ms, by device time: a CUDA graph)."""
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
     from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
     from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
@@ -2573,10 +2759,10 @@ def turns_clu2(isect, rng):
     closest["dead"], dead_shadow = dead_rays(n, "cuda")
     anyhit = {"shadow": shadow, "shadow-random": shadow_random,
               "dead": dead_shadow}
-    out = {f"B5 {label}": time_ms(lambda: isect.intersect_clu2(ct, *r))
+    out = {f"B5 {label}": kernel_times(lambda: isect.intersect_clu2(ct, *r))
            for label, r in closest.items()}
-    out.update({f"B6 {label}": time_ms(lambda: isect.occluded_clu2(ct, *r))
-                for label, r in anyhit.items()})
+    out.update({f"B6 {label}": kernel_times(
+        lambda: isect.occluded_clu2(ct, *r)) for label, r in anyhit.items()})
     return out
 
 
@@ -2684,6 +2870,7 @@ def main():
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.ops import build, mfu
     from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
+                                                      furnace_scene,
                                                       grating_scene,
                                                       mesh_scene)
     from mitsuba3_plt_tpu_torch.tools import bench_isect as bi
@@ -2771,9 +2958,22 @@ def main():
     # B1 and B2 at the Cornell box path's shape: its own first camera and
     # shadow rays (2,097,152 lanes, 36 faces); printed with the measured
     # roofs below
+    cinteg = PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
     cbox_q = check_q("cbox path", cscene, *path_q_rays(
-        cscene, PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
-        CBOX_SPP_PASS), q_sass)
+        cscene, cinteg, CBOX_SPP_PASS), q_sass)
+    # B1 and B2 on the dielectric box path's second closest-hit and any-hit
+    # calls: the first rays that leave the surfaces, refracted ones from
+    # origins just inside the glass among them; B3 and B4 on the grating
+    # box path's own first calls (half = 2)
+    boxes = {box: cornell_box(CBOX_W, CBOX_H, box_material=box,
+                              device="cuda") for _, box, _, _ in CBOX_BOXES}
+    cbox_q += check_q("cbox-dielectric path bounce 1", boxes["dielectric"],
+                      *path_q_rays(boxes["dielectric"], cinteg,
+                                   CBOX_SPP_PASS, call=1), q_sass,
+                      bounce=True)
+    pinteg = PLTIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
+    grating_box = check_grating_box(grating_box_inputs(
+        boxes["grating"], pinteg, CBOX_SPP_PASS), specials)
     pick = {k: csets[k] for k in ("coherent", "incoherent")}
     brute = check_brute("cbox", cscene, pick, q_sass)
     check_brute("mesh5k", tscene, tsets, q_sass, PLAIN_LANES)
@@ -2805,9 +3005,9 @@ def main():
     macc_launches = q_multiacc_tool(macc_scenes)
     mfu_launches, roofs = kernel_mfu_tool(macc_scenes, "cuda", sass,
                                           specials)
-    for r in cbox_q:
+    for r in cbox_q + grating_box:
         emit({"phase": "kernels", **r, **measured_bound(r, roofs),
-              "launches_per_pass": CBOX_LAUNCHES[r["name"]]})
+              "launches_per_pass": CBOX_PLT_LAUNCHES[r["name"]]})
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
     del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask, ctabs, cmask
@@ -2824,6 +3024,16 @@ def main():
                  8)
     golden_ztest("golden-cbox", cornell_box(32, 32, device="cuda"),
                  PathIntegrator(max_depth=4, rr_depth=9), "cbox_path.npz", 16)
+    for name, box, method, golden in GOLDEN_BOXES:
+        integ = (PathIntegrator if method == "path" else PLTIntegrator)(
+            max_depth=4, rr_depth=9)
+        golden_ztest(name, cornell_box(32, 32, box_material=box,
+                                       device="cuda"),
+                     integ, golden, 16, ("tests", "golden_torch"))
+    furnace(furnace_scene(FURNACE_W, FURNACE_H, albedo=FURNACE_ALBEDO,
+                          device="cuda"),
+            PathIntegrator(max_depth=6, rr_depth=20), FURNACE_SPP,
+            FURNACE_ALBEDO)
 
     gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
@@ -2849,11 +3059,18 @@ def main():
                          REGEN_CLU2_LAUNCHES, **REGEN)
     same_image("main-mesh82k-regen", r_img, mscene, minteg, MESH_SPP_PASS)
 
-    cinteg = PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
     c_res, _ = main_path("main-cbox", cscene, cinteg, CBOX_SPP_PASS,
                          CBOX_LAUNCHES)
     split("split-cbox", cscene, cinteg, sum(c_res["pass_s"]) / TIMED_PASSES,
           CBOX_SPP_PASS, "chip_smoke_profile_cbox.json")
+    for name, box, method, per_pass in CBOX_BOXES:
+        integ = cinteg if method == "path" else pinteg
+        b_res, _ = main_path(name, boxes[box], integ, CBOX_SPP_PASS,
+                             per_pass)
+        if box == "dielectric":
+            split("split-cbox-dielectric", boxes[box], integ,
+                  sum(b_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
+                  "chip_smoke_profile_cbox_dielectric.json")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "ms_by", "plain_ms", "bound_ms", "bound_by",
@@ -2879,7 +3096,8 @@ def main():
         kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 

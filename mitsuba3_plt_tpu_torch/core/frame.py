@@ -47,3 +47,17 @@ def cos_theta(v):
 def reflect_n(wi, n):
     """Reflect wi (pointing away from the surface) around normal n."""
     return 2.0 * dot(wi, n)[..., None] * n - wi
+
+
+def reflect(wi):
+    """Mirror wi (pointing away from the surface) around the local +z."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def refract(wi, cos_theta_t, eta_ti):
+    """Local-frame refraction of wi; cos_theta_t is signed (the far side's
+    hemisphere) and eta_ti = 1 / eta_it, as `fresnel_dielectric` returns
+    them."""
+    scale = -eta_ti
+    return torch.stack([scale * wi[..., 0], scale * wi[..., 1], cos_theta_t],
+                       dim=-1)

@@ -10,9 +10,11 @@ than samples, each lane restarting on its next sample when its path ends,
 until no lane is live. A dead lane carries the canonical far-away ray
 (o = 1e8, d = +z), which misses every box.
 
-Emitters: area lights (hit and sampled) and point lights. Not ported: the
-environment-emitter branch (a scene with a constant emitter is refused),
-the spectral and polarized variants.
+Emitters: area lights (hit and sampled), point lights and the constant
+environment (sampled by NEE, and seen by escaped rays with MIS against
+`escape_pdf`). BSDFs: diffuse, rough conductor and the delta conductor and
+dielectric (NEE masks their lanes off: their flags hold no Smooth lobe).
+Not ported: hide_emitters, the spectral and polarized variants.
 """
 from __future__ import annotations
 
@@ -55,9 +57,6 @@ class PathIntegrator:
     def _check_ported(self, scene):
         if self.hide_emitters:
             raise NotImplementedError("hide_emitters is not ported")
-        if em_mod.EMITTER_CONSTANT in scene.emitters.present_types:
-            raise NotImplementedError(
-                "environment emitters are not ported for the path tracer")
 
     @staticmethod
     def _fresh_carry(ray: Ray, C: int) -> dict:
@@ -175,6 +174,15 @@ class PathIntegrator:
             L = L + beta * e_val * torch.where(hit_emitter, mis_bsdf,
                                                0.0)[..., None]
 
+            # escaped rays see the environment, MIS against its NEE pdf
+            if scene.env_emitter >= 0:
+                escaped = carry["active"] & ~si.valid
+                env_pdf = torch.where(carry["prev_delta"], 0.0,
+                                      em_mod.escape_pdf(em, ray_d))
+                mis_env = mis_weight(carry["prev_pdf"], env_pdf)
+                L = L + beta * em_mod.env_value(em, ray_d) * torch.where(
+                    escaped, mis_env, 0.0)[..., None]
+
         active_next = hit & (b + 1 < self.max_depth)
 
         # next-event estimation: a shadow ray on every bounce
@@ -204,9 +212,11 @@ class PathIntegrator:
                 mis_em / torch.clamp_min(ds.pdf, 1e-20))[..., None]
             L = L + torch.where(vis[..., None], contrib, 0.0)
 
-        # BSDF sampling
+        # BSDF sampling; u1 (the lobe choice) only where a type reads it
+        u1 = (sampler.next_1d(bounce_dim(b, 0)) if bsdfs.reads_u1(mats)
+              else None)
         u2 = sampler.next_2d(bounce_dim(b, 1))
-        bs, weight, ok = bsdfs.sample(mats, midx, si, u2, C)
+        bs, weight, ok = bsdfs.sample(mats, midx, si, u1, u2, C)
         beta_next = beta * weight
         eta_next = carry["eta"] * bs.eta
         wo_world = si.to_world(bs.wo)

@@ -22,6 +22,7 @@ from ..core import frame as fr
 from ..core import math as m
 from ..core import spectrum as spec
 from ..core.rng import DIM_WAVELENGTH, Sampler, bounce_dim
+from ..librender import bsdfs
 from ..librender.bsdf import BSDFFlags
 from ..librender.records import DirectionSample, Ray
 from ..plt import wbsdf as wb
@@ -65,9 +66,12 @@ class PLTIntegrator:
             is_emitter = hit & (si.emitter_idx >= 0)
             midx = torch.clamp_min(si.mat_idx, 0)
 
+            u1 = (sampler.next_1d(bounce_dim(b, 0))
+                  if bsdfs.reads_u1(mats) else None)
             u2 = sampler.next_2d(bounce_dim(b, 1))
             lobe_u2 = sampler.next_2d(bounce_dim(b, 3))
-            sd, weight, ok = wb.wbsdf_sample(mats, midx, si, u2, lobe_u2, wl)
+            sd, weight, ok = wb.wbsdf_sample(mats, midx, si, u1, u2, lobe_u2,
+                                             wl)
             bs = sd.bs
 
             active_next = hit & (b + 1 < self.max_depth) & ok & (bs.pdf > 0)

@@ -20,6 +20,7 @@ class BSDFFlags:
     GlossyTransmission = 0x00010
     DeltaReflection = 0x00020
     DeltaTransmission = 0x00040
+    NonSymmetric = 0x04000
     FrontSide = 0x08000
     BackSide = 0x10000
 
@@ -31,7 +32,9 @@ class BSDFFlags:
 
 # type tags: the JAX package's values, so its tables carry over unchanged
 BSDF_DIFFUSE = 1
+BSDF_CONDUCTOR = 2
 BSDF_ROUGH_CONDUCTOR = 3
+BSDF_DIELECTRIC = 4
 BSDF_ROUGH_GRATING = 9
 
 # microfacet NDF tags
@@ -46,12 +49,15 @@ _ROUGH_TYPES = (BSDF_ROUGH_CONDUCTOR, 6, 8, 13, BSDF_ROUGH_GRATING)
 # per-lane fields of the table, with their dtypes
 FIELDS = {
     "mtype": torch.int64, "flags": torch.int64, "twosided": torch.bool,
-    "base_color": torch.float32, "eta_re": torch.float32,
+    "base_color": torch.float32, "transmittance": torch.float32,
+    "eta_re": torch.float32,
     "eta_im": torch.float32, "alpha": torch.float32,
     "grt_inv_period": torch.float32, "grt_height": torch.float32,
     "grt_lobes": torch.int32, "grt_type": torch.int32,
     "grt_multiplier": torch.float32, "grt_coherence": torch.float32,
 }
+# fields that only one type reads, with that type
+_FIELD_READER = {"transmittance": BSDF_DIELECTRIC}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +68,8 @@ class MaterialTable:
     flags: torch.Tensor           # [M] BSDFFlags
     twosided: torch.Tensor        # [M] bool
     base_color: torch.Tensor      # [M, 3]
-    eta_re: torch.Tensor          # [M, 3] conductor eta
+    transmittance: torch.Tensor   # [M, 3] specular transmittance
+    eta_re: torch.Tensor          # [M, 3] conductor eta; dielectric: [:, 0]
     eta_im: torch.Tensor          # [M, 3] conductor k
     alpha: torch.Tensor           # [M, 2] roughness (u, v)
     grt_inv_period: torch.Tensor  # [M, 2] 1/um
@@ -79,8 +86,10 @@ class MaterialTable:
     mf_static: int = BECKMANN
 
     def gather(self, midx) -> Dict[str, torch.Tensor]:
-        """Per-lane parameters for material indices midx [N]."""
-        return {name: getattr(self, name)[midx] for name in FIELDS}
+        """Per-lane parameters for material indices midx [N]; a field that
+        only one type reads is gathered only where that type is present."""
+        return {name: getattr(self, name)[midx] for name in FIELDS
+                if _FIELD_READER.get(name, 0) in (0, *self.present_types)}
 
 
 def finalize_grating_meta(mtype, mf_type, grt_lobes, grt_inv_period,

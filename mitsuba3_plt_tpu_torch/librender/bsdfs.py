@@ -1,10 +1,12 @@
-"""Classic BSDFs (diffuse, rough conductor) and their masked dispatch.
+"""Classic BSDFs (diffuse, smooth and rough conductor, smooth dielectric)
+and their masked dispatch.
 
 Each implementation works on per-lane parameter dicts in the local shading
 frame (z up, wi and wo pointing away from the surface). `sample` returns
-(BSDFSample, weight, ok) with weight = f cos / pdf. Values are unpolarized
-[N, C]; colours are constant RGB (textured materials are refused when the
-scene is built)."""
+(BSDFSample, weight, ok) with weight = f cos / pdf; a delta lobe's eval
+and pdf are zero. Values are unpolarized [N, C] in radiance transport;
+colours are constant RGB (textured materials are refused when the scene
+is built)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,8 +18,8 @@ from ..core import math as m
 from ..core import warp
 from . import fresnel as fres
 from . import microfacet as mf
-from .bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR, BSDFFlags,
-                   MaterialTable)
+from .bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
+                   BSDF_ROUGH_CONDUCTOR, BSDFFlags, MaterialTable)
 from .records import BSDFSample
 
 
@@ -46,7 +48,7 @@ def _sample_record(wo, pdf, flags):
 
 class Diffuse:
     @staticmethod
-    def sample(p, si, u2, ndf):
+    def sample(p, si, u1, u2, ndf):
         active = fr.cos_theta(si.wi) > 0
         wo = warp.square_to_cosine_hemisphere(u2)
         pdf = warp.square_to_cosine_hemisphere_pdf(wo)
@@ -78,7 +80,7 @@ class RoughConductor:
         return p["base_color"] * F
 
     @staticmethod
-    def sample(p, si, u2, ndf):
+    def sample(p, si, u1, u2, ndf):
         cos_i = fr.cos_theta(si.wi)
         au, av = p["alpha"][..., 0], p["alpha"][..., 1]
         mvec, mpdf = mf.sample_vndf(
@@ -119,10 +121,71 @@ class RoughConductor:
         return torch.where(active, pdf, 0.0)
 
 
+class _Delta:
+    """A delta lobe: nothing to evaluate, zero density."""
+
+    @staticmethod
+    def eval(p, si, wo, ndf):
+        return zeros_value(si.wi.shape[0], p["base_color"].shape[-1],
+                           si.wi.device)
+
+    @staticmethod
+    def pdf(p, si, wo, ndf):
+        return torch.zeros(si.wi.shape[0], device=si.wi.device)
+
+
+class Conductor(_Delta):
+    @staticmethod
+    def sample(p, si, u1, u2, ndf):
+        """Mirror reflection weighted by the specular reflectance times the
+        conductor Fresnel at the incident angle."""
+        cos_i = fr.cos_theta(si.wi)
+        ok = cos_i > 0
+        F = fres.fresnel_conductor(cos_i[..., None], p["eta_re"], p["eta_im"])
+        return (_sample_record(fr.reflect(si.wi), torch.ones_like(cos_i),
+                               BSDFFlags.DeltaReflection),
+                where_value(ok, p["base_color"] * F, 0.0), ok)
+
+
+class Dielectric(_Delta):
+    @staticmethod
+    def sample(p, si, u1, u2, ndf):
+        """Reflection where u1 <= F, else refraction (F = 1 under total
+        internal reflection). The lobe's probability cancels F, so the
+        weight is the reflectance or the transmittance, the latter times
+        eta_ti^2 (radiance transport); a lane below the surface (cos_i <
+        0) is inside the material and refracts out."""
+        eta = p["eta_re"][..., 0]
+        F, cos_t, eta_it, eta_ti = fres.fresnel_dielectric(
+            fr.cos_theta(si.wi), eta)
+        sel_reflect = u1 <= F
+        wo = torch.where(sel_reflect[..., None], fr.reflect(si.wi),
+                         fr.refract(si.wi, cos_t, eta_ti))
+        bs = BSDFSample(
+            wo=wo, pdf=torch.where(sel_reflect, F, 1.0 - F),
+            sampled_type=torch.where(
+                sel_reflect, BSDFFlags.DeltaReflection,
+                BSDFFlags.DeltaTransmission).to(torch.int64),
+            eta=torch.where(sel_reflect, 1.0, eta_it))
+        value = torch.where(sel_reflect[..., None], p["base_color"],
+                            p["transmittance"] * (eta_ti * eta_ti)[..., None])
+        return bs, value, torch.ones_like(sel_reflect)
+
+
 # Types with a classic implementation. A roughgrating row has none here, as
 # in the JAX package: its classic sample/eval/pdf are zero, and the wave
 # path (plt/wbsdf.py) overrides its lanes.
-IMPLS = {BSDF_DIFFUSE: Diffuse, BSDF_ROUGH_CONDUCTOR: RoughConductor}
+IMPLS = {BSDF_DIFFUSE: Diffuse, BSDF_CONDUCTOR: Conductor,
+         BSDF_ROUGH_CONDUCTOR: RoughConductor, BSDF_DIELECTRIC: Dielectric}
+
+# types whose sample reads the 1D sample u1 (the lobe choice)
+U1_TYPES = (BSDF_DIELECTRIC,)
+
+
+def reads_u1(mat: MaterialTable) -> bool:
+    """Whether `sample` on this table reads u1: a caller may pass None
+    otherwise (and skip drawing it)."""
+    return any(t in mat.present_types for t in U1_TYPES)
 
 
 def flip_z(v):
@@ -136,9 +199,10 @@ def effective_si(p, si):
     return dataclasses.replace(si, wi=wi), flip
 
 
-def sample(mat: MaterialTable, midx, si, u2, n_channels):
+def sample(mat: MaterialTable, midx, si, u1, u2, n_channels):
     """Dispatching classic sample over the present types:
-    (BSDFSample, weight [N, C], ok [N])."""
+    (BSDFSample, weight [N, C], ok [N]). u1 [N] (None where the table has
+    no type in U1_TYPES) picks a lobe, u2 [N, 2] a direction."""
     n, dev = si.wi.shape[0], si.wi.device
     p = mat.gather(midx)
     si_eff, flip = effective_si(p, si)
@@ -150,7 +214,7 @@ def sample(mat: MaterialTable, midx, si, u2, n_channels):
         if impl is None:
             continue
         mask = p["mtype"] == t
-        bs_t, val_t, ok_t = impl.sample(p, si_eff, u2, mat.mf_static)
+        bs_t, val_t, ok_t = impl.sample(p, si_eff, u1, u2, mat.mf_static)
         bs = bs_t.where(mask, bs)
         val = where_value(mask, val_t, val)
         ok = torch.where(mask, ok_t, ok)

@@ -2,8 +2,11 @@
 wbsdf_sample / wbsdf_eval / wbsdf_pdf / wbsdf_weight over the material
 table.
 
-  * default (and diffuse): the classic sample/eval/pdf of `librender.bsdfs`;
-  * diffuse replay weight: the albedo;
+  * default (diffuse, conductors, dielectric): the classic sample/eval/pdf
+    of `librender.bsdfs`;
+  * replay weight: the albedo of a diffuse lane; the specular Fresnel value
+    of a conductor lane; of a dielectric lane the reflectance or, where the
+    recorded wo lies across the surface, the transmittance times eta_ti^2;
   * roughgrating: microfacet normal plus diffraction-lobe sampling
     (`ops.grating.grating_sample`), the lobe sum with angular-coherence
     falloff in eval (`ops.grating.grating_lobe_sum`), and the far-field
@@ -21,8 +24,9 @@ from ..core import frame as fr
 from ..core import math as m
 from ..core import spectrum as spec
 from ..librender import bsdfs
-from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_GRATING, BSDFFlags,
-                              MaterialTable)
+from ..librender import fresnel as fres
+from ..librender.bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
+                              BSDF_ROUGH_GRATING, BSDFFlags, MaterialTable)
 from ..librender.records import BSDFSample
 from ..ops import grating as grating_ops
 from . import grating as gr
@@ -121,12 +125,14 @@ def _gathered(mat, midx, si, wo=None):
     return p, si_eff, wo_eff, flip
 
 
-def wbsdf_sample(mat: MaterialTable, midx, si, u2, lobe_u2, sampling_wl):
-    """Classic sample for every lane, grating lanes overridden by the wave
-    path. Returns (PLTSamplePhaseData, weight [N, C], ok [N])."""
+def wbsdf_sample(mat: MaterialTable, midx, si, u1, u2, lobe_u2,
+                 sampling_wl):
+    """Classic sample for every lane (u1 as `bsdfs.sample` takes it),
+    grating lanes overridden by the wave path. Returns (PLTSamplePhaseData,
+    weight [N, C], ok [N])."""
     n, dev = si.wi.shape[0], si.wi.device
     C = sampling_wl.shape[-1]
-    bs, val, ok = bsdfs.sample(mat, midx, si, u2, C)
+    bs, val, ok = bsdfs.sample(mat, midx, si, u1, u2, C)
     sd = PLTSamplePhaseData(
         bs=bs, lobe=torch.zeros((n, 2), dtype=torch.int32, device=dev),
         sampling_wavelengths=sampling_wl,
@@ -173,17 +179,36 @@ def wbsdf_pdf(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData):
     return pd
 
 
+# types whose replay weight overrides eval / pdf
+_WEIGHT_TYPES = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_DIELECTRIC)
+
+
 def wbsdf_weight(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData):
-    """Replay weight [N, C]: classic eval / pdf by default, the albedo for
-    diffuse lanes (cos_i > 0)."""
+    """Replay weight [N, C]: classic eval / pdf by default; the albedo for
+    diffuse lanes (cos_i > 0); the conductor's sample weight (reflectance
+    times Fresnel, cos_i > 0); for dielectric lanes the reflectance where
+    wo lies on wi's side, else the transmittance times eta_ti^2."""
     C = sd.sampling_wavelengths.shape[-1]
     e_val = bsdfs.eval_(mat, midx, si, wo, C)
     pd = bsdfs.pdf(mat, midx, si, wo)
     w = e_val * torch.where(pd > 0, 1.0 / torch.clamp_min(pd, 1e-20),
                             0.0)[..., None]
-    if BSDF_DIFFUSE in mat.present_types:
-        p, si_eff, _, _ = _gathered(mat, midx, si)
-        albedo = bsdfs.where_value(fr.cos_theta(si_eff.wi) > 0,
-                                   p["base_color"], 0.0)
+    present = mat.present_types
+    if not any(t in present for t in _WEIGHT_TYPES):
+        return w
+    p, si_eff, _, flip = _gathered(mat, midx, si)
+    cos_i = fr.cos_theta(si_eff.wi)
+    if BSDF_DIFFUSE in present:
+        albedo = bsdfs.where_value(cos_i > 0, p["base_color"], 0.0)
         w = bsdfs.where_value(p["mtype"] == BSDF_DIFFUSE, albedo, w)
+    if BSDF_CONDUCTOR in present:
+        _, w_c, _ = bsdfs.Conductor.sample(p, si_eff, None, None, 0)
+        w = bsdfs.where_value(p["mtype"] == BSDF_CONDUCTOR, w_c, w)
+    if BSDF_DIELECTRIC in present:
+        wo_eff = torch.where(flip[..., None], bsdfs.flip_z(wo), wo)
+        is_reflect = cos_i * fr.cos_theta(wo_eff) > 0
+        _, _, _, eta_ti = fres.fresnel_dielectric(cos_i, p["eta_re"][..., 0])
+        w_d = torch.where(is_reflect[..., None], p["base_color"],
+                          p["transmittance"] * (eta_ti * eta_ti)[..., None])
+        w = bsdfs.where_value(p["mtype"] == BSDF_DIELECTRIC, w_d, w)
     return w

@@ -17,14 +17,16 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR,
-                              BSDF_ROUGH_GRATING, FIELDS, MaterialTable)
+from ..librender.bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
+                              BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING, FIELDS,
+                              MaterialTable)
 from ..librender.sensor import Sensor
 from . import emitters as em
 from .bvh import ClusterTable2, PacketBVH
 from .scene import BRUTE_FORCE_MAX_FACES, Geometry, Scene
 
-SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING)
+SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR,
+                   BSDF_DIELECTRIC, BSDF_ROUGH_GRATING)
 SENSOR_PERSPECTIVE = 0
 
 # geometry, material and scene features of the JAX package that this slice

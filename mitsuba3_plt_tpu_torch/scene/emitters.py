@@ -3,7 +3,8 @@ and distant emitters (directional and constant): an emitter is picked
 uniformly, then a direction on it; densities are in solid angle, and the
 delta emitters (point, directional) carry pdf 1. An area light samples one
 of its triangles by the area CDF of its `tri_cdf` row, then a point on it
-uniformly (`Geometry.tri_isect` rows)."""
+uniformly (`Geometry.tri_isect` rows). Escaped rays see the constant
+emitter (`env_value`, `escape_pdf`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -162,3 +163,27 @@ def emitter_value(em: EmitterTable, e_idx, d, dist, active):
             point[..., None],
             val / torch.clamp_min(dist * dist, 1e-12)[..., None], val)
     return torch.where((active & (e_idx >= 0))[..., None], val, 0.0)
+
+
+def env_value(em: EmitterTable, d):
+    """RGB radiance [N, 3] that an escaped ray of direction d [N, 3] sees:
+    the constant emitters' radiance summed (one is assumed)."""
+    rad = torch.where((em.etype == EMITTER_CONSTANT)[:, None], em.radiance,
+                      0.0).sum(0)
+    return rad.expand(d.shape[0], 3)
+
+
+def escape_pdf(em: EmitterTable, d):
+    """NEE density [N] of the environment producing direction d: the MIS
+    counterpart of an escaped ray (the constant emitter's uniform sphere
+    over the emitter count)."""
+    p = torch.zeros(d.shape[:-1], device=d.device)
+    if EMITTER_CONSTANT in em.present_types:
+        p = p + m.InvFourPi
+    return p / max(em.count, 1)
+
+
+def env_emitter_index(em: EmitterTable) -> int:
+    """Index of the first constant emitter, -1 if there is none (host)."""
+    idx = torch.nonzero(em.etype.cpu() == EMITTER_CONSTANT).flatten()
+    return int(idx[0]) if len(idx) else -1

@@ -7,18 +7,22 @@ path-tracer scene of the JAX package's bench (`bench.py::bench_mesh_heavy`,
 81,920 faces at subdiv 6) and of its mesh20k golden image (subdiv 5).
 `cornell_box` is the canonical Cornell box (36 faces, an area light under
 the ceiling): the second scene of the JAX bench (`bench.py::bench_cbox`)
-and of its cbox_path golden image.
+and of its cbox_path golden image, its two boxes diffuse, conductor,
+rough conductor, dielectric or a diffraction grating. `furnace_scene` is
+the white furnace: an icosphere inside a constant environment.
 Each builds, with numpy alone, the same arrays the JAX package produces
-(`scene/presets.py::grating_scene` and `cornell_box`; `load_dict` of the
-mesh scene's dict) and hands them to `bridge.scene_from_arrays`.
+(`scene/presets.py::grating_scene`, `cornell_box` and `furnace_scene`;
+`load_dict` of the mesh scene's dict) and hands them to
+`bridge.scene_from_arrays`.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..core import transform as tf
-from ..librender.bsdf import (BSDF_DIFFUSE, BSDF_ROUGH_GRATING, BSDFFlags,
-                              finalize_grating_meta)
+from ..librender.bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
+                              BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING,
+                              BSDFFlags, finalize_grating_meta)
 from ..ops.intersect import pack_tri_q
 from . import emitters as em
 from .bridge import scene_from_arrays
@@ -26,8 +30,15 @@ from .bvh import build_bvh, pack_clusters2_arrays, pack_packet_bvh_arrays
 from .scene import BRUTE_FORCE_MAX_FACES
 from .shape import make_cube, make_rectangle, make_sphere
 
+# the JAX loader's flags of each type (`scene/loader.py::FLAG_MAP`): the
+# path tracer's NEE runs only on lanes whose flags hold a Smooth lobe
 _FLAGS = {
     BSDF_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide,
+    BSDF_CONDUCTOR: BSDFFlags.DeltaReflection | BSDFFlags.FrontSide,
+    BSDF_ROUGH_CONDUCTOR: BSDFFlags.GlossyReflection | BSDFFlags.FrontSide,
+    BSDF_DIELECTRIC: (BSDFFlags.DeltaReflection | BSDFFlags.DeltaTransmission
+                      | BSDFFlags.FrontSide | BSDFFlags.BackSide
+                      | BSDFFlags.NonSymmetric),
     BSDF_ROUGH_GRATING: BSDFFlags.GlossyReflection | BSDFFlags.FrontSide,
 }
 
@@ -74,6 +85,7 @@ def _materials(bsdfs):
         "flags": np.array([_FLAGS[b[0]] for b in bsdfs], np.uint32),
         "twosided": np.zeros(M, bool),
         "base_color": np.full((M, 3), 0.5, np.float32),
+        "transmittance": np.ones((M, 3), np.float32),
         "eta_re": np.zeros((M, 3), np.float32),
         "eta_im": np.ones((M, 3), np.float32),
         "alpha": np.full((M, 2), 0.1, np.float32),
@@ -282,18 +294,39 @@ def mesh_scene_with_bvh(width: int = 512, height: int = 512,
     return scene_from_arrays(arrays, static, device=device), bvh
 
 
-def cornell_box_arrays(width: int = 256, height: int = 256):
+# the two boxes' material of each `box_material`, the JAX preset's rows
+_GOLD_ETA = {"eta_re": (0.2, 0.92, 1.1), "eta_im": (3.9, 2.45, 2.14)}
+BOX_MATERIALS = {
+    "diffuse": (BSDF_DIFFUSE, {"base_color": (0.885809, 0.698859, 0.666422)}),
+    "conductor": (BSDF_CONDUCTOR, _GOLD_ETA),
+    "roughconductor": (BSDF_ROUGH_CONDUCTOR, {**_GOLD_ETA,
+                                              "alpha": (0.1, 0.1)}),
+    "dielectric": (BSDF_DIELECTRIC, {"eta_re": (1.5046,) * 3}),
+    "grating": (BSDF_ROUGH_GRATING, {
+        **_GOLD_ETA, "alpha": (0.05, 0.05), "grt_inv_period": (0.5, 0.0),
+        "grt_height": 0.25, "grt_lobes": 5, "grt_type": 0,
+        "grt_multiplier": 1.0, "grt_coherence": 1.0}),
+}
+
+
+def cornell_box_arrays(width: int = 256, height: int = 256, *,
+                       light_scale: float = 1.0,
+                       box_material: str = "diffuse"):
     """The (arrays, static) pair of `cornell_box`, numpy only: white walls,
-    red left and green right walls, two white diffuse boxes, a 0.46 x 0.38
-    area light just below the ceiling, a 39.3077-degree camera at
+    red left and green right walls, two boxes of `box_material` (a key of
+    BOX_MATERIALS), a 0.46 x 0.38 area light just below the ceiling whose
+    radiance is scaled by light_scale, a 39.3077-degree camera at
     (0, 0, 3.9)."""
+    if box_material not in BOX_MATERIALS:
+        raise ValueError(f"box_material must be one of "
+                         f"{sorted(BOX_MATERIALS)}, got {box_material!r}")
     white = (0.885809, 0.698859, 0.666422)
     green = (0.105421, 0.37798, 0.076425)
     red = (0.570068, 0.0430135, 0.0443706)
-    light_rad = (18.387, 13.9873, 6.75357)
+    light_rad = tuple(light_scale * c for c in (18.387, 13.9873, 6.75357))
     W, G, R, BOX = 0, 1, 2, 3
-    bsdfs = [(BSDF_DIFFUSE, {"base_color": c})
-             for c in (white, green, red, white)]
+    bsdfs = [(BSDF_DIFFUSE, {"base_color": c}) for c in (white, green, red)]
+    bsdfs.append(BOX_MATERIALS[box_material])
     T, Rt, S = tf.translate, tf.rotate, tf.scale
 
     def f32(*ms):  # the product in float64, as the JAX preset composes
@@ -326,9 +359,64 @@ def cornell_box_arrays(width: int = 256, height: int = 256):
             {**mat_static, **em_static, **sens_static})
 
 
-def cornell_box(width: int = 256, height: int = 256, *, device="cuda"):
-    """The Cornell box on `device` (the JAX package's `cornell_box` at its
-    defaults: the scene of its cbox bench and cbox_path golden). Its
-    conductor and dielectric box materials are not ported."""
-    arrays, static = cornell_box_arrays(width, height)
+def cornell_box(width: int = 256, height: int = 256, *,
+                light_scale: float = 1.0, box_material: str = "diffuse",
+                device="cuda"):
+    """The Cornell box on `device` (the JAX package's `cornell_box`; at its
+    defaults the scene of its cbox bench and cbox_path golden, with
+    box_material="dielectric" that of its cbox_stokes golden).
+    box_material: "diffuse", "conductor", "roughconductor", "dielectric" or
+    "grating" (the PLT showcase); an unknown name raises ValueError."""
+    arrays, static = cornell_box_arrays(width, height,
+                                        light_scale=light_scale,
+                                        box_material=box_material)
+    return scene_from_arrays(arrays, static, device=device)
+
+
+# the sphere's material of each furnace `material` (albedo aside)
+FURNACE_MATERIALS = {
+    "conductor": (BSDF_CONDUCTOR, {"eta_re": (0.2,) * 3,
+                                   "eta_im": (3.9,) * 3}),
+    "roughconductor": (BSDF_ROUGH_CONDUCTOR, {
+        "eta_re": (0.2,) * 3, "eta_im": (3.9,) * 3, "alpha": (0.3, 0.3)}),
+}
+
+
+def furnace_scene_arrays(width: int = 64, height: int = 64,
+                         albedo: float = 0.75, radiance: float = 1.0,
+                         material: str = "diffuse"):
+    """The (arrays, static) pair of `furnace_scene`, numpy only: the
+    1,280-face unit icosphere (smooth normals) of `material` ("diffuse" of
+    reflectance albedo, "conductor", "roughconductor") inside a constant
+    environment of `radiance`, seen by a 45-degree camera at (0, 0, 4)."""
+    if material == "diffuse":
+        bsdf = (BSDF_DIFFUSE, {"base_color": (albedo,) * 3})
+    elif material in FURNACE_MATERIALS:
+        bsdf = FURNACE_MATERIALS[material]
+    else:
+        raise ValueError(f"material must be 'diffuse', 'conductor' or "
+                         f"'roughconductor', got {material!r}")
+    mesh = make_sphere(3)
+    # the icosphere's normals as they are: the JAX preset hands the mesh to
+    # its scene assembly directly, which does not renormalise them
+    uv = np.zeros((len(mesh.vertices), 2), np.float32)
+    geo, radius = _geometry([(mesh.vertices, mesh.faces, mesh.normals, uv)],
+                            [0], [-1])
+    mats, mat_static = _materials([bsdf])
+    ems, em_static = _emitters([{"type": "constant",
+                                 "radiance": (radiance,) * 3}], radius, geo)
+    sens, sens_static = _sensor(tf.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
+                                45.0, width, height)
+    return ({**geo, **mats, **ems, **sens},
+            {**mat_static, **em_static, **sens_static})
+
+
+def furnace_scene(width: int = 64, height: int = 64, albedo: float = 0.75,
+                  radiance: float = 1.0, material: str = "diffuse", *,
+                  device="cuda"):
+    """The white furnace on `device` (the JAX package's `furnace_scene`): a
+    convex diffuse sphere of reflectance albedo under a constant
+    environment of radiance E shows exactly albedo * E."""
+    arrays, static = furnace_scene_arrays(width, height, albedo, radiance,
+                                          material)
     return scene_from_arrays(arrays, static, device=device)

@@ -19,7 +19,7 @@ from ..librender.records import Ray, SurfaceInteraction
 from ..librender.sensor import Sensor
 from ..ops import intersect as isect
 from .bvh import ClusterTable2, PacketBVH, WideBVH, pack_wide_bvh
-from .emitters import EmitterTable
+from .emitters import EmitterTable, env_emitter_index
 
 BRUTE_FORCE_MAX_FACES = 4096
 
@@ -50,11 +50,16 @@ class Scene:
     sensor: Sensor
     ctab2: Optional[ClusterTable2] = None  # treelet tables of big meshes
     pbvh: Optional[PacketBVH] = None  # packet tables of big meshes
+    # index of the environment (constant) emitter, -1 if none, read on
+    # the host; set from the emitters when the scene is built
+    env_emitter: int = dataclasses.field(init=False, compare=False)
     # the table of the packet route's walks, built from pbvh
     wbvh: Optional[WideBVH] = dataclasses.field(init=False, repr=False,
                                                 compare=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "env_emitter",
+                           env_emitter_index(self.emitters))
         object.__setattr__(self, "wbvh", None if self.pbvh is None
                            else pack_wide_bvh(self.pbvh))
 

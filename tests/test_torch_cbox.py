@@ -188,17 +188,28 @@ def test_cbox_render_matches_golden_ztest():
 
 
 def test_cornell_box_refuses_what_is_not_ported():
-    # the conductor and dielectric boxes are not ported: the preset has no
-    # option for them, and the JAX package's come through the bridge refused
-    with pytest.raises(TypeError, match="box_material"):
-        tpresets.cornell_box(8, 8, box_material="conductor", device="cpu")
+    # every box material of the JAX preset is ported, an unknown name
+    # raises (the JAX preset would take its diffuse default), and tables the
+    # port has no BSDF for (plastic, rough dielectric) come through the
+    # bridge refused
+    import dataclasses
+
+    with pytest.raises(ValueError, match="box_material"):
+        tpresets.cornell_box(8, 8, box_material="plastic", device="cpu")
     for material in ("conductor", "dielectric"):
         jscene, _ = jpresets.cornell_box(8, 8, box_material=material)
+        scene_from_arrays(*jax_scene_arrays(jscene), device="cpu")
+        jm = dataclasses.replace(
+            jscene.materials, mtype=jscene.materials.mtype.at[3].set(7),
+            present_types=(1, 7))
         with pytest.raises(NotImplementedError, match="not all ported"):
-            scene_from_arrays(*jax_scene_arrays(jscene), device="cpu")
+            scene_from_arrays(*jax_scene_arrays(
+                dataclasses.replace(jscene, materials=jm)), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tpresets.cornell_box(8, 8)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tpresets.cornell_box(8, 8, box_material="dielectric")
     # the port's box is the JAX default's: diffuse boxes, light at scale 1
     a = tpresets.cornell_box_arrays(8, 8)[0]
     b = jax_scene_arrays(jpresets.cornell_box(8, 8)[0])[0]

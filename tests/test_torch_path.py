@@ -70,14 +70,21 @@ def test_path_render_matches_golden_ztest():
 
 
 def test_path_refuses_what_is_not_ported():
-    """Environment emitters (the grating scene's constant emitter) and
-    hide_emitters raise instead of rendering something else."""
-    scene = tpresets.grating_scene(4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="environment"):
-        render(scene, PathIntegrator(max_depth=2), spp=1)
+    """hide_emitters raises instead of rendering something else; a scene
+    with a constant emitter (the grating scene's), refused until the
+    environment branch was ported, now renders, and the escaped rays of
+    the furnace see its radiance."""
     mesh = tpresets.mesh_scene(4, 4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="hide_emitters"):
         render(mesh, PathIntegrator(hide_emitters=True), spp=1)
+    furnace = tpresets.furnace_scene(4, 4, radiance=2.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="hide_emitters"):
+        render(furnace, PathIntegrator(hide_emitters=True), spp=1)
+    scene = tpresets.grating_scene(4, 4, device="cpu")
+    img = render(scene, PathIntegrator(max_depth=2), spp=1)
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+    corner = render(furnace, PathIntegrator(max_depth=2), spp=1)[0, 0]
+    np.testing.assert_array_equal(corner.numpy(), [2.0, 2.0, 2.0])
 
 
 def test_path_render_on_small_mesh_takes_the_brute_route():

@@ -92,7 +92,7 @@ def test_wbsdf_sample_matches_jax(lanes):
         JRGB, jnp.asarray(L["wl"]))
     tsd, tw, tok = twb.wbsdf_sample(
         L["tscene"].materials, torch.as_tensor(L["midx"]).long(), L["tsi"],
-        torch.as_tensor(L["u2"]), torch.as_tensor(L["lobe_u2"]),
+        None, torch.as_tensor(L["u2"]), torch.as_tensor(L["lobe_u2"]),
         torch.as_tensor(L["wl"]))
     jok, tok = np.asarray(jok), tok.numpy()
     jlobe, tlobe = np.asarray(jsd.lobe), tsd.lobe.numpy()
@@ -217,7 +217,7 @@ def test_roughconductor_classic_bsdf_matches_jax(lanes, ndf):
     jmi, tmi = jnp.asarray(L["midx"]), torch.as_tensor(L["midx"]).long()
     jbs, jval, jok = jbsdfs.sample(jm, jmi, L["jsi"], jnp.zeros(N),
                                    jnp.asarray(L["u2"]), ctx, JRGB)
-    tbs, tval, tok = tbsdfs.sample(tm, tmi, L["tsi"],
+    tbs, tval, tok = tbsdfs.sample(tm, tmi, L["tsi"], None,
                                    torch.as_tensor(L["u2"]), 3)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     ok = np.asarray(jok)

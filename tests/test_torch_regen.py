@@ -176,9 +176,20 @@ def test_packet_route_render_matches_golden_ztest():
 
 
 def test_sample_regen_refuses_what_is_not_ported():
-    grating = tpresets.grating_scene(4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="environment"):
-        PathIntegrator(max_depth=2).sample_regen(grating, 0, 4, 4, 1, RGB, 2)
+    # a constant emitter (the grating scene's, refused until the
+    # environment branch was ported) and the glass box (u1 drawn at each
+    # lane's own depth) take the regenerative wavefront: every sample
+    # equals the fixed-depth pass's
+    for scene in (tpresets.grating_scene(8, 8, device="cpu"),
+                  tpresets.cornell_box(8, 8, box_material="dielectric",
+                                       device="cpu")):
+        integ = PathIntegrator(max_depth=4, rr_depth=2)
+        s = Sampler.create(3, 8 * 8 * 2, device="cpu")
+        ray, _ = tcommon.sample_rays(scene, s, 8, 8, 2)
+        want, _ = integ.sample(scene, s, ray)
+        got = integ.sample_regen(scene, 3, 8, 8, 2, RGB, 48)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+        assert (want > 0).any(-1).float().mean() > 0.05
     mesh = tpresets.mesh_scene(4, 4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="hide_emitters"):
         PathIntegrator(hide_emitters=True).sample_regen(mesh, 0, 4, 4, 1,

@@ -80,10 +80,16 @@ def test_preset_arrays_equal_bridged_jax_scene(kw):
 
 
 def test_bridge_refuses_unported_scenes():
-    # conductors: the Cornell box's conductor boxes are not ported
-    jscene, _ = jpresets.cornell_box(8, 8, box_material="conductor")
+    # a rough dielectric: the Cornell box's box row retagged
+    import dataclasses
+
+    jscene, _ = jpresets.cornell_box(8, 8, box_material="dielectric")
+    jm = dataclasses.replace(jscene.materials,
+                             mtype=jscene.materials.mtype.at[3].set(6),
+                             present_types=(1, 6))
     with pytest.raises(NotImplementedError):
-        scene_from_arrays(*jax_scene_arrays(jscene), device="cpu")
+        scene_from_arrays(*jax_scene_arrays(
+            dataclasses.replace(jscene, materials=jm)), device="cpu")
     arrays, static = tpresets.grating_scene_arrays(4, 4)
     with pytest.raises(NotImplementedError):
         scene_from_arrays({**arrays, "geo.sph_center": np.zeros((1, 3))},
