@@ -8,7 +8,7 @@
                                          # B11b, B11c of the package in
                                          # ROOT
 
-Thirteen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
+Fifteen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
 packet-BVH route (B7a, B7b), the intersection bench tool
@@ -23,7 +23,10 @@ B1) on the same two scenes, the per-kernel MFU tool
 and B4 against the card's measured and published roofs), the path
 tracer on the Cornell box (B1, B2, area light) with its diffuse, dielectric
 and conductor boxes, the PLT integrator on its grating box (B1-B4 at
-half = 2), and the white furnace (B1, B2, the constant environment).
+half = 2), the white furnace (B1, B2, the constant environment), and
+polarized transport: PLT on the grating scene under the RGB-polarized
+config (B1-B4) and the Stokes wrapper of the Mueller path tracer on the
+glass box (B1, B2).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
@@ -141,6 +144,16 @@ Phases, each printing one JSON line with its seconds:
   furnace         furnace_scene(64, 64, albedo=0.6), path depth 6 / rr 20,
                   96 spp: the sphere's centre within 3% of the albedo, the
                   corner within 0.02 of the environment's 1.0;
+  golden-cbox-stokes  cornell_box(24, 24, box_material="dielectric"),
+                  StokesIntegrator() (path depth 6 / rr 5, forward basis),
+                  15 channels, 4 seeds x 12 spp, z-test against the JAX
+                  package's tests/golden/cbox_stokes.npz;
+  dop-golden-cbox-stokes  its mean image's degree of linear polarization:
+                  above 0.1 somewhere, at most 1 + 1e-3 where S0 > 1e-3;
+  collapse        cornell_box(128, 128) (all diffuse), depth 7 / rr 50, 8
+                  spp: the Stokes image's S0 equal to the path tracer's to
+                  the bit, S1-S3 exactly 0, force_full within rtol 2e-5 /
+                  atol 1e-6;
   main            grating_scene(800, 600), PLT depth 7 / rr 50, 4 spp per
                   pass: one warm-up pass, three timed passes; the image must
                   be finite and non-zero, its four kernels launch 7 times per
@@ -172,7 +185,18 @@ Phases, each printing one JSON line with its seconds:
   split-cbox-dielectric  to chiprun_out/chip_smoke_profile_cbox_dielectric
                   .json;
   main-cbox-grating-plt  the grating box, PLT depth 7 / rr 50, 8 spp per
-                  pass: B1-B4 7 times a pass.
+                  pass: B1-B4 7 times a pass;
+  main-grating-polarized  grating_scene(800, 600), PLT depth 7 / rr 50
+                  under RGB_POLARIZED (film S0), 2 spp a pass (960,000
+                  lanes), a warm-up pass and 8 timed: B1-B4 7 times a pass;
+  split-grating-polarized  to chiprun_out/chip_smoke_profile_grating_
+                  polarized.json;
+  main-cbox-stokes  cornell_box(512, 512, box_material="dielectric"),
+                  StokesIntegrator(PolarizedPathIntegrator(7, 50),
+                  forward_basis=False), 15 channels, 2 spp a pass (524,288
+                  lanes), as main-grating-polarized: B1, B2 7 times a pass;
+  dop-main-cbox-stokes  its image's degree of polarization, as above;
+  split-cbox-stokes  to chiprun_out/chip_smoke_profile_cbox_stokes.json.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
 and B9 from one tool run on one ray set, B10 and B11 from one run of
 their tools; each bound against the published peaks and against the
@@ -251,6 +275,13 @@ GOLDEN_BOXES = (
      "cbox_dielectric_path.npz"),
     ("golden-cbox-grating-plt", "grating", "plt", "cbox_grating_plt.npz"))
 FURNACE_W, FURNACE_H, FURNACE_SPP, FURNACE_ALBEDO = 64, 64, 96, 0.6
+# the polarized paths (bench.py's polarized rows): 16 spp, 2 a pass, the
+# passes timed after a warm-up pass
+POL_SPP_PASS, POL_PASSES = 2, 8
+POL_GRATING_LAUNCHES = GRATING_LAUNCHES
+POL_CBOX_LAUNCHES = CBOX_LAUNCHES
+# the collapse check: the diffuse box, depth 7 / rr 50, 8 spp
+COLLAPSE_W, COLLAPSE_H, COLLAPSE_SPP = 128, 128, 8
 REGEN = {"regen": True, "pixel_order": "morton"}
 # kernels whose launches in the kernels line come from a tool's run
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
@@ -2413,10 +2444,10 @@ def isect_tool(scenes):
 # ---------------------------------------------------------------------------
 
 def golden_ztest(name, scene, integ, golden, spp_per_seed,
-                 golden_dir=("tests", "golden")):
+                 golden_dir=("tests", "golden"), **render_kw):
     """Render 4 seeds and z-test their mean against a golden image (under
     tests/golden/, or the port's own references under tests/golden_torch/,
-    which the JAX package rendered on the CPU)."""
+    which the JAX package rendered on the CPU). Returns the mean image."""
     import numpy as np
     import torch
 
@@ -2424,8 +2455,8 @@ def golden_ztest(name, scene, integ, golden, spp_per_seed,
 
     ph = Phase(name)
     ref = np.load(os.path.join(HERE, *golden_dir, golden))
-    imgs = np.stack([render(scene, integ, seed=s,
-                            spp=spp_per_seed).cpu().numpy()
+    imgs = np.stack([render(scene, integ, seed=s, spp=spp_per_seed,
+                            **render_kw).cpu().numpy()
                      for s in range(4)])
     mean, var = imgs.mean(0), imgs.var(0, ddof=1)
     sigma = np.sqrt((var + ref["var"]) / 4 + 1e-8)
@@ -2438,6 +2469,69 @@ def golden_ztest(name, scene, integ, golden, spp_per_seed,
             thresh=thresh, mean=float(mean.mean()),
             ref_mean=float(ref["mean"].mean()))
     require(n_fail == 0, f"{name} z-test: {n_fail} pixels fail")
+    return mean
+
+
+def degree_of_polarization(name, img):
+    """The degree of linear polarization of a 15-channel Stokes image: it
+    must reach 0.1 somewhere (the glass box polarizes) and stay at most
+    1 + 1e-3 wherever S0 > 1e-3 (JAX tests/test_stokes.py's bounds)."""
+    import numpy as np
+
+    img = np.asarray(img)
+    s0 = img[..., 3:6]
+    dop = np.sqrt(img[..., 6:9] ** 2 + img[..., 9:12] ** 2) / np.maximum(
+        s0, 1e-6)
+    lit = s0 > 1e-3
+    Phase(name).emit(max_dop=float(dop.max()),
+                     max_dop_lit=float(dop[lit].max()),
+                     lit_share=float(lit.mean()),
+                     max_abs_s3=float(np.abs(img[..., 12:15]).max()))
+    require(dop.max() > 0.1, f"{name}: degree of polarization below 0.1")
+    require(dop[lit].max() <= 1.0 + 1e-3,
+            f"{name}: degree of polarization above 1")
+
+
+def collapse(scene, depth, rr):
+    """On the diffuse box the Stokes image is the scalar path tracer's: S0
+    and the RGB channels equal PathIntegrator's image to the bit, S1-S3
+    exactly 0; the full Mueller transport (force_full) agrees at rtol 2e-5
+    / atol 1e-6 (JAX tests/test_stokes.py's collapse test)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.stokes import (
+        PolarizedPathIntegrator, StokesIntegrator, depolarizer_collapse_ok)
+
+    ph = Phase("collapse")
+    require(depolarizer_collapse_ok(scene), "the diffuse box must collapse")
+    kw = dict(seed=0, spp=COLLAPSE_SPP)
+    ops.reset_launch_counts()
+    stokes = render(scene, StokesIntegrator(PolarizedPathIntegrator(
+        depth, rr)), **kw)
+    launches = ops.launch_counts()
+    scalar = render(scene, PathIntegrator(depth, rr), seed=0,
+                    spp=COLLAPSE_SPP)
+    full = render(scene, StokesIntegrator(PolarizedPathIntegrator(
+        depth, rr, force_full=True)), **kw)
+    torch.cuda.synchronize()
+    equal = (torch.equal(stokes[..., 3:6], scalar)
+             and torch.equal(stokes[..., :3], scalar))
+    zero = bool((stokes[..., 6:] == 0).all())
+    close = torch.isclose(full, stokes, rtol=2e-5, atol=1e-6)
+    ph.emit(width=scene.sensor.resolution[0], spp=COLLAPSE_SPP,
+            s0_equal=equal, s123_zero=zero,
+            full_close_share=close.float().mean().item(),
+            full_max_abs_diff=(full - stokes).abs().max().item(),
+            full_max_abs_s123=full[..., 6:].abs().max().item(),
+            image_mean=scalar.mean().item(),
+            launches={k: v for k, v in launches.items() if v})
+    require(equal and zero, "collapse: S0 differs from the scalar image")
+    require(bool(close.all()), "collapse: force_full differs")
+    require(launches["intersect_q"] == depth and launches["occluded_q"]
+            == depth, "collapse: the brute kernels did not run")
 
 
 def furnace(scene, integ, spp, albedo):
@@ -2466,8 +2560,9 @@ def furnace(scene, integ, spp, albedo):
             "furnace: the brute kernels did not run")
 
 
-def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
-    """One warm-up pass, then TIMED_PASSES timed passes; per_pass gives the
+def main_path(name, scene, integ, spp_pass, per_pass, passes=TIMED_PASSES,
+              **render_kw):
+    """One warm-up pass, then `passes` timed passes; per_pass gives the
     launches each kernel must make in a pass (ITER: one per iteration of
     the regenerative loop, which must run at least max_depth times a pass).
     Returns (the printed fields, the image)."""
@@ -2484,7 +2579,7 @@ def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    spp = spp_pass * TIMED_PASSES
+    spp = spp_pass * passes
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     img = render(scene, integ, seed=1, spp=spp, spp_per_pass=spp_pass,
@@ -2498,7 +2593,8 @@ def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
     res = {"width": W, "height": H, "max_depth": integ.max_depth,
            "rr_depth": integ.rr_depth, "spp": spp, "spp_per_pass": spp_pass,
            "lanes_per_pass": stats["lanes_per_pass"],
-           "iterations_per_pass": stats["regen_iterations"], **render_kw,
+           "iterations_per_pass": stats["regen_iterations"],
+           **{k: getattr(v, "name", v) for k, v in render_kw.items()},
            "warmup_pass_s": warm["pass_s"][0], "pass_s": stats["pass_s"],
            "wall_s": wall, "camera_samples_per_s": W * H * spp / wall,
            "ms_per_spp": wall * 1e3 / spp, "peak_mem_bytes": peak,
@@ -2507,12 +2603,12 @@ def main_path(name, scene, integ, spp_pass, per_pass, **render_kw):
     require(finite and mean > 0, f"{name} image not finite and non-zero")
     iters = stats["regen_iterations"]
     if ITER in per_pass.values():
-        require(len(iters) == TIMED_PASSES
+        require(len(iters) == passes
                 and min(iters) >= integ.max_depth,
                 f"{name}: regenerative iterations per pass {iters}")
     for kname, count in launches.items():
         want = (sum(iters) if per_pass[kname] == ITER
-                else per_pass[kname] * TIMED_PASSES)
+                else per_pass[kname] * passes)
         require(count == want,
                 f"{name}: {kname} launched {count} times, expected {want}")
     return res, img
@@ -2866,8 +2962,11 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from mitsuba3_plt_tpu_torch.config import RGB_POLARIZED
     from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.stokes import (
+        PolarizedPathIntegrator, StokesIntegrator)
     from mitsuba3_plt_tpu_torch.ops import build, mfu
     from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
                                                       furnace_scene,
@@ -3034,6 +3133,16 @@ def main():
                           device="cuda"),
             PathIntegrator(max_depth=6, rr_depth=20), FURNACE_SPP,
             FURNACE_ALBEDO)
+    # polarized transport: the JAX package's own golden of the glass box
+    # (StokesIntegrator() with its defaults, 15 channels), its degree of
+    # polarization, and the diffuse box's collapse to the scalar path
+    stokes_mean = golden_ztest(
+        "golden-cbox-stokes", cornell_box(24, 24, box_material="dielectric",
+                                          device="cuda"),
+        StokesIntegrator(), "cbox_stokes.npz", 12)
+    degree_of_polarization("dop-golden-cbox-stokes", stokes_mean)
+    collapse(cornell_box(COLLAPSE_W, COLLAPSE_H, device="cuda"), CBOX_DEPTH,
+             CBOX_RR)
 
     gscene = grating_scene(MAIN_W, MAIN_H, device="cuda")
     ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
@@ -3071,6 +3180,27 @@ def main():
             split("split-cbox-dielectric", boxes[box], integ,
                   sum(b_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
                   "chip_smoke_profile_cbox_dielectric.json")
+
+    # the polarized paths (bench.py's rgb_polarized rows): polarized PLT on
+    # the grating scene, film S0 (B1-B4), and the stokes wrapper of the
+    # Mueller path tracer on the glass box, 15 channels (B1, B2)
+    del boxes
+    pol_res, _ = main_path("main-grating-polarized", gscene, ginteg,
+                           POL_SPP_PASS, POL_GRATING_LAUNCHES, POL_PASSES,
+                           cfg=RGB_POLARIZED)
+    split("split-grating-polarized", gscene, ginteg,
+          sum(pol_res["pass_s"]) / POL_PASSES, POL_SPP_PASS,
+          "chip_smoke_profile_grating_polarized.json", cfg=RGB_POLARIZED)
+    sscene = cornell_box(CBOX_W, CBOX_H, box_material="dielectric",
+                         device="cuda")
+    sinteg = StokesIntegrator(PolarizedPathIntegrator(CBOX_DEPTH, CBOX_RR),
+                              forward_basis=False)
+    st_res, st_img = main_path("main-cbox-stokes", sscene, sinteg,
+                               POL_SPP_PASS, POL_CBOX_LAUNCHES, POL_PASSES)
+    degree_of_polarization("dop-main-cbox-stokes", st_img.cpu())
+    split("split-cbox-stokes", sscene, sinteg,
+          sum(st_res["pass_s"]) / POL_PASSES, POL_SPP_PASS,
+          "chip_smoke_profile_cbox_stokes.json")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "ms_by", "plain_ms", "bound_ms", "bound_by",

@@ -10,5 +10,5 @@ when the inputs lie on the CPU.
 Entry points take `device=` and default to "cuda": with no card and no
 explicit `device="cpu"` they raise instead of falling back.
 """
-from .config import RenderConfig, RGB  # noqa: F401
+from .config import RGB, RGB_POLARIZED, RenderConfig, VARIANTS  # noqa: F401
 from .core.device import resolve_device  # noqa: F401

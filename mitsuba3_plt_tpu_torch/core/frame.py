@@ -10,6 +10,13 @@ def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def cross(a, b):
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
 def squared_norm(a):
     return torch.sum(a * a, dim=-1)
 

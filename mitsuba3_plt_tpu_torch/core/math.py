@@ -46,6 +46,15 @@ def sign(x):
     return torch.where(x >= 0, 1.0, -1.0)
 
 
+def unit_angle(u, v):
+    """Angle between two unit vectors [..., 3] by the half-angle form
+    2*asin(|u -/+ v|/2), accurate near 0 and near pi."""
+    dot_uv = torch.sum(u * v, dim=-1)
+    w = torch.where(dot_uv[..., None] < 0, u + v, u - v)
+    theta = 2.0 * safe_asin(0.5 * torch.sqrt(torch.sum(w * w, dim=-1)))
+    return torch.where(dot_uv < 0, Pi - theta, theta)
+
+
 def unit_angle_dot(dot_uv):
     """Angle between two unit vectors from their dot product, by the
     half-angle form 2*asin(|u-v|/2) (|u-v|^2 = 2 - 2 u.v)."""

@@ -101,18 +101,21 @@ def default_spp_per_pass(width, height, spp):
 def render(scene, integrator, seed: int = 0, spp: int = 16,
            cfg: RenderConfig = RGB, spp_per_pass: int | None = None,
            stats: dict | None = None, regen: bool = False,
-           pixel_order: str = "scanline"):
-    """Render `spp` samples per pixel in passes; returns [H, W, 3] on the
-    scene's device. `stats`, when given, receives per-pass wall times
-    (each pass ends in a device synchronisation).
+           pixel_order: str = "scanline", n_out_channels: int | None = None):
+    """Render `spp` samples per pixel in passes; returns [H, W, C] on the
+    scene's device, C = n_out_channels, by default the integrator's own
+    (15 or 16 for `StokesIntegrator`) or else the config's 3. `stats`,
+    when given, receives per-pass wall times (each pass ends in a device
+    synchronisation).
 
     `regen=True` takes the integrator's regenerative wavefront
     (`sample_regen`) where it has one and a pass holds at least 65,536
     samples, on ceil(samples / 8) lanes: a lane whose path ends restarts on
     its next sample instead of idling to the last bounce. Per-sample values
-    are those of the fixed-depth pass. `pixel_order="morton"` renders the
-    slots in Morton order and unscrambles the film at the end (the layout
-    the JAX package's mesh bench feeds `sample_regen`)."""
+    are those of the fixed-depth pass; a polarized config ignores it.
+    `pixel_order="morton"` renders the slots in Morton order and
+    unscrambles the film at the end (the layout the JAX package's mesh
+    bench feeds `sample_regen`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     width, height = scene.sensor.resolution
@@ -121,9 +124,11 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
     n_pass = (spp + spp_per_pass - 1) // spp_per_pass
     n = width * height * spp_per_pass
     use_regen = (regen and hasattr(integrator, "sample_regen")
-                 and n >= 1 << 16)
+                 and not cfg.polarized and n >= 1 << 16)
     regen_lanes = -(-n // 8)
-    block = ImageBlock.create(width, height, cfg.n_channels, scene.device)
+    n_out_channels = n_out_channels or getattr(integrator, "n_out_channels",
+                                               cfg.n_channels)
+    block = ImageBlock.create(width, height, n_out_channels, scene.device)
     base = Sampler.create(seed, n, device=scene.device)
     pass_s, regen_iterations = [], []
     for p in range(n_pass):

@@ -14,7 +14,9 @@ Emitters: area lights (hit and sampled), point lights and the constant
 environment (sampled by NEE, and seen by escaped rays with MIS against
 `escape_pdf`). BSDFs: diffuse, rough conductor and the delta conductor and
 dielectric (NEE masks their lanes off: their flags hold no Smooth lobe).
-Not ported: hide_emitters, the spectral and polarized variants.
+Under a polarized config `sample` runs the Mueller transport of
+`stokes.PolarizedPathIntegrator` and returns S0; `sample_regen` has no
+polarized form. Not ported: hide_emitters, the spectral variants.
 """
 from __future__ import annotations
 
@@ -42,9 +44,17 @@ class PathIntegrator:
 
     def sample(self, scene, sampler: Sampler, ray: Ray,
                cfg: RenderConfig = RGB):
-        """Radiance [N, C] of the camera rays, and the valid mask."""
+        """Radiance [N, C] of the camera rays (S0 under a polarized
+        config), and the valid mask."""
         self._check_ported(scene)
         n, dev = ray.o.shape[0], ray.o.device
+        if cfg.polarized:
+            from .stokes import PolarizedPathIntegrator
+
+            S = PolarizedPathIntegrator(
+                max_depth=self.max_depth, rr_depth=self.rr_depth
+            ).sample_stokes(scene, sampler, ray, cfg)
+            return S[:, 0], torch.ones((n,), dtype=torch.bool, device=dev)
         carry = self._fresh_carry(ray, cfg.n_channels)
         far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
         for b in range(self.max_depth):
@@ -89,6 +99,8 @@ class PathIntegrator:
         iteration; `stats["iterations"]` receives their count. Returns
         values [width * height * spp_pass, C] in sample-id order."""
         self._check_ported(scene)
+        if cfg.polarized:
+            raise NotImplementedError("sample_regen is unpolarized only")
         dev = scene.device
         total = width * height * spp_pass
         N = int(n_lanes)

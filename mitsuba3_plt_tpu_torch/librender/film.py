@@ -29,12 +29,16 @@ class ImageBlock:
     def put_ordered(self, values, active, spp: int):
         """Accumulate values [N, C] of pixel-ordered lanes into the buffer
         (in place); non-finite or inactive lanes count neither value nor
-        weight."""
+        weight. A pixel's samples are added in sample order, by one
+        running sum along the sample axis (a scan over a middle axis adds
+        each column in order on the CPU and the card alike), so a
+        channel's sum does not depend on how many channels there are; a
+        reduction's order may."""
         active = active & torch.all(torch.isfinite(values), dim=-1)
         vals = torch.where(active[..., None], values, 0.0)
         payload = torch.cat([vals, active.to(torch.float32)[..., None]], -1)
         self.data += payload.reshape(self.width * self.height, spp,
-                                     -1).sum(dim=1)
+                                     -1).cumsum(dim=1)[:, -1]
         return self
 
     def develop(self):

@@ -1,7 +1,10 @@
-"""Unpolarized Fresnel terms: the dielectric's reflectance and refraction
-terms, and the conductor's reflectance for a complex index
-eta = eta_re + i * eta_im (the polarized Fresnel terms follow with the
-polarized slice)."""
+"""Fresnel terms: the dielectric's reflectance and refraction terms, the
+conductor's reflectance for a complex index eta = eta_re + i * eta_im, and
+the polarized amplitudes of both.
+
+Complex numbers are (re, im) pairs of real tensors, not torch's complex
+dtype, so that every formula and its rounding follow the JAX package's
+step for step (its `librender/fresnel.py`)."""
 from __future__ import annotations
 
 import torch
@@ -53,3 +56,126 @@ def fresnel_dielectric(cos_theta_i, eta):
     cos_theta_t = torch.where(tir, 0.0,
                               m.mulsign_neg(cos_theta_t_abs, cos_theta_i))
     return F, cos_theta_t, eta_it, eta_ti
+
+
+# --- complex helpers on (re, im) pairs ---------------------------------------
+
+def c_add(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def c_sub(a, b):
+    return (a[0] - b[0], a[1] - b[1])
+
+
+def c_mul(a, b):
+    return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
+
+
+def c_div(a, b):
+    d = torch.clamp_min(b[0] * b[0] + b[1] * b[1], 1e-30)
+    return ((a[0] * b[0] + a[1] * b[1]) / d, (a[1] * b[0] - a[0] * b[1]) / d)
+
+
+def c_rcp(a):
+    d = torch.clamp_min(a[0] * a[0] + a[1] * a[1], 1e-30)
+    return (a[0] / d, -a[1] / d)
+
+
+def c_sqrt(a):
+    """Principal square root."""
+    r = torch.sqrt(a[0] * a[0] + a[1] * a[1])
+    re = torch.sqrt(torch.clamp_min(0.5 * (r + a[0]), 0.0))
+    im_mag = torch.sqrt(torch.clamp_min(0.5 * (r - a[0]), 0.0))
+    return (re, torch.where(a[1] >= 0, im_mag, -im_mag))
+
+
+def c_abs2(a):
+    return a[0] * a[0] + a[1] * a[1]
+
+
+def c_conj(a):
+    return (a[0], -a[1])
+
+
+def c_scale(a, s):
+    return (a[0] * s, a[1] * s)
+
+
+def sincos_arg_diff(a, b):
+    """(sin, cos) of arg(a) - arg(b), from a * conj(b) without trig; (0, 1)
+    where that product vanishes."""
+    p = c_mul(a, c_conj(b))
+    n = torch.sqrt(torch.clamp_min(c_abs2(p), 1e-30))
+    valid = c_abs2(p) > 1e-30
+    return (torch.where(valid, p[1] / n, 0.0),
+            torch.where(valid, p[0] / n, 1.0))
+
+
+# --- polarized Fresnel (complex amplitudes) ----------------------------------
+
+def _zero_where(bad, a):
+    return (torch.where(bad, 0.0, a[0]), torch.where(bad, 0.0, a[1]))
+
+
+def fresnel_polarized_dielectric(cos_theta_i, eta):
+    """Polarized Fresnel of a real relative index eta (Verdet's sign of
+    a_p): (a_s, a_p, cos_theta_t, eta_it, eta_ti), a_s and a_p complex
+    pairs whose imaginary part carries the phase under total internal
+    reflection, where cos_theta_t is 0."""
+    outside = cos_theta_i >= 0.0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+
+    cos_theta_t_sqr = 1.0 - eta_ti * eta_ti * (1.0 - cos_theta_i * cos_theta_i)
+    cos_theta_i_abs = torch.abs(cos_theta_i)
+    ctt = c_sqrt((cos_theta_t_sqr, torch.zeros_like(cos_theta_t_sqr)))
+    # the sign of the TIR phase (Clarke, "Stellar Polarimetry", A.2)
+    ctt = (m.mulsign(ctt[0], cos_theta_t_sqr),
+           m.mulsign(ctt[1], cos_theta_t_sqr))
+
+    eit = (eta_it, torch.zeros_like(eta_it))
+    cia = (cos_theta_i_abs, torch.zeros_like(cos_theta_i_abs))
+    a_s = c_div(c_sub(cia, c_mul(eit, ctt)), c_add(cia, c_mul(eit, ctt)))
+    a_p = c_div(c_sub(c_scale(eit, cos_theta_i_abs), ctt),
+                c_add(c_scale(eit, cos_theta_i_abs), ctt))
+
+    bad = (eta == 1.0) | (eta == 0.0)
+    a_s, a_p = _zero_where(bad, a_s), _zero_where(bad, a_p)
+    cos_theta_t = torch.where(cos_theta_t_sqr >= 0.0,
+                              m.mulsign_neg(ctt[0], cos_theta_i), 0.0)
+    return a_s, a_p, cos_theta_t, eta_it, eta_ti
+
+
+def fresnel_polarized_conductor(cos_theta_i, eta_re, eta_im):
+    """Polarized Fresnel of a complex index: (a_s, a_p, cos_theta_t,
+    eta_it, eta_ti), eta_it and eta_ti complex pairs. The index is taken
+    with a non-positive imaginary part, the convention of the polarized
+    equations."""
+    outside = cos_theta_i >= 0.0
+    eta = (eta_re, torch.where(eta_im > 0.0, -eta_im, eta_im))
+    rcp_eta = c_rcp(eta)
+    eta_it = (torch.where(outside, eta[0], rcp_eta[0]),
+              torch.where(outside, eta[1], rcp_eta[1]))
+    eta_ti = (torch.where(outside, rcp_eta[0], eta[0]),
+              torch.where(outside, rcp_eta[1], eta[1]))
+
+    st2 = 1.0 - cos_theta_i * cos_theta_i
+    ctt_sqr = c_sub((torch.ones_like(st2), torch.zeros_like(st2)),
+                    c_scale(c_mul(eta_ti, eta_ti), st2))
+    cos_theta_i_abs = torch.abs(cos_theta_i)
+    ctt = c_sqrt(ctt_sqr)
+    ctt = (ctt[0], torch.where(ctt[1] > 0, -ctt[1], ctt[1]))
+
+    cia = (cos_theta_i_abs, torch.zeros_like(cos_theta_i_abs))
+    a_s = c_div(c_sub(cia, c_mul(eta_it, ctt)), c_add(cia, c_mul(eta_it, ctt)))
+    a_p = c_div(c_sub(c_scale(eta_it, cos_theta_i_abs), ctt),
+                c_add(c_scale(eta_it, cos_theta_i_abs), ctt))
+
+    sqn = c_abs2(eta)
+    bad = ((sqn == 1.0) & (eta[1] == 0.0)) | (sqn == 0.0)
+    a_s, a_p = _zero_where(bad, a_s), _zero_where(bad, a_p)
+    cos_theta_t = torch.where(ctt_sqr[0] >= 0.0,
+                              m.mulsign_neg(ctt[0], cos_theta_i), 0.0)
+    return a_s, a_p, cos_theta_t, eta_it, eta_ti

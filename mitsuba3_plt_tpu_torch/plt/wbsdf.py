@@ -13,6 +13,14 @@ table.
     alpha as pdf. Its replay weight is the classic eval/pdf ratio, which is
     zero because a roughgrating row has no classic implementation (the JAX
     package behaves the same way).
+
+With `pol` (a polarized config) values are Mueller matrices [4, 4, N, C]
+in the local implicit bases: the grating's lobe sum stays a scalar per
+wavelength and only the conductor Fresnel around it becomes a Mueller
+matrix; the replay weight is a diffuse lane's depolarized albedo, a
+conductor's sample weight, and a dielectric's Mueller reflection or
+transmission (replayed from wo's side) divided by its lobe's probability
+F or 1 - F.
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ class RoughGratingW:
     """Wave path of the roughgrating material."""
 
     @staticmethod
-    def wbsdf_sample(p, si, u2, lobe_u2, sampling_wl, half, ndf):
+    def wbsdf_sample(p, si, u2, lobe_u2, sampling_wl, half, ndf, pol=False):
         """Microfacet normal, then a diffraction lobe around it;
         weight = F * G1 * lobe intensity. Returns (sd, weight, ok)."""
         n, dev = si.wi.shape[0], si.wi.device
@@ -74,7 +82,8 @@ class RoughGratingW:
             g.gtype & gr.TYPE_MASK, g.multiplier, half=half, ndf=ndf,
         )
         ok = active & out["ok"]
-        Fv = bsdfs.RoughConductor.fresnel_value(p, si, out["mvec"])
+        Fv = bsdfs.RoughConductor.fresnel_value(
+            p, si, out["reflection_dir"], out["mvec"], pol)
         weight = bsdfs.where_value(
             ok, bsdfs.mul_value(Fv, out["w_g1_int"][..., None]), 0.0)
         bs = BSDFSample(
@@ -88,7 +97,8 @@ class RoughGratingW:
                 weight, ok)
 
     @staticmethod
-    def wbsdf_eval(p, si, wo, wl_nm, half, separable, rgb_colour=None):
+    def wbsdf_eval(p, si, wo, wl_nm, half, separable, rgb_colour=None,
+                   pol=False):
         """Lobe sum with angular-coherence falloff, then RGB colour of each
         sampled wavelength, conductor Fresnel at the half vector, masking."""
         active = (fr.cos_theta(si.wi) > 0) & (fr.cos_theta(wo) > 0)
@@ -104,8 +114,8 @@ class RoughGratingW:
                   if rgb_colour is None else rgb_colour)  # [N, C, 3]
         result = sum(per_wl[:, k:k + 1] * torch.clamp_min(colour[:, k, :], 0.0)
                      for k in range(per_wl.shape[-1]))
-        Fv = bsdfs.RoughConductor.fresnel_value(p, si,
-                                                fr.normalize(si.wi + wo))
+        Fv = bsdfs.RoughConductor.fresnel_value(
+            p, si, wo, fr.normalize(si.wi + wo), pol)
         return bsdfs.where_value(active, bsdfs.mul_value(Fv, result), 0.0)
 
     @staticmethod
@@ -126,13 +136,13 @@ def _gathered(mat, midx, si, wo=None):
 
 
 def wbsdf_sample(mat: MaterialTable, midx, si, u1, u2, lobe_u2,
-                 sampling_wl):
+                 sampling_wl, pol=False):
     """Classic sample for every lane (u1 as `bsdfs.sample` takes it),
     grating lanes overridden by the wave path. Returns (PLTSamplePhaseData,
-    weight [N, C], ok [N])."""
+    weight [N, C] or with `pol` [4, 4, N, C], ok [N])."""
     n, dev = si.wi.shape[0], si.wi.device
     C = sampling_wl.shape[-1]
-    bs, val, ok = bsdfs.sample(mat, midx, si, u1, u2, C)
+    bs, val, ok = bsdfs.sample(mat, midx, si, u1, u2, C, pol)
     sd = PLTSamplePhaseData(
         bs=bs, lobe=torch.zeros((n, 2), dtype=torch.int32, device=dev),
         sampling_wavelengths=sampling_wl,
@@ -141,7 +151,8 @@ def wbsdf_sample(mat: MaterialTable, midx, si, u1, u2, lobe_u2,
         p, si_eff, _, flip = _gathered(mat, midx, si)
         mask = p["mtype"] == BSDF_ROUGH_GRATING
         sd_g, val_g, ok_g = RoughGratingW.wbsdf_sample(
-            p, si_eff, u2, lobe_u2, sampling_wl, _half(mat), mat.mf_static)
+            p, si_eff, u2, lobe_u2, sampling_wl, _half(mat), mat.mf_static,
+            pol)
         wo_g = torch.where(flip[..., None], bsdfs.flip_z(sd_g.bs.wo),
                            sd_g.bs.wo)
         bs_g = dataclasses.replace(sd_g.bs, wo=wo_g)
@@ -155,16 +166,17 @@ def wbsdf_sample(mat: MaterialTable, midx, si, u1, u2, lobe_u2,
 
 
 def wbsdf_eval(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData,
-               rgb_colour=None):
-    """Wave eval [N, C]: the grating lobe sum, the classic eval otherwise."""
+               rgb_colour=None, pol=False):
+    """Wave eval [N, C] (with `pol` [4, 4, N, C]): the grating lobe sum,
+    the classic eval otherwise."""
     wl = sd.sampling_wavelengths
-    val = bsdfs.eval_(mat, midx, si, wo, wl.shape[-1])
+    val = bsdfs.eval_(mat, midx, si, wo, wl.shape[-1], pol)
     if BSDF_ROUGH_GRATING in mat.present_types:
         p, si_eff, wo_eff, _ = _gathered(mat, midx, si, wo)
         mask = p["mtype"] == BSDF_ROUGH_GRATING
         val_g = RoughGratingW.wbsdf_eval(
             p, si_eff, wo_eff, wl, _half(mat), bool(mat.grt_static[1]),
-            rgb_colour)
+            rgb_colour, pol)
         val = bsdfs.where_value(mask, val_g, val)
     return val
 
@@ -183,32 +195,46 @@ def wbsdf_pdf(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData):
 _WEIGHT_TYPES = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_DIELECTRIC)
 
 
-def wbsdf_weight(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData):
-    """Replay weight [N, C]: classic eval / pdf by default; the albedo for
-    diffuse lanes (cos_i > 0); the conductor's sample weight (reflectance
-    times Fresnel, cos_i > 0); for dielectric lanes the reflectance where
-    wo lies on wi's side, else the transmittance times eta_ti^2."""
+def wbsdf_weight(mat: MaterialTable, midx, si, wo, sd: PLTSamplePhaseData,
+                 pol=False):
+    """Replay weight [N, C] (with `pol` [4, 4, N, C]): classic eval / pdf
+    by default; the albedo for diffuse lanes (cos_i > 0); the conductor's
+    sample weight (reflectance times Fresnel, cos_i > 0); for dielectric
+    lanes the reflectance where wo lies on wi's side, else the
+    transmittance times eta_ti^2, and with `pol` that colour times the
+    Mueller of the lobe divided by the lobe's probability F or 1 - F."""
     C = sd.sampling_wavelengths.shape[-1]
-    e_val = bsdfs.eval_(mat, midx, si, wo, C)
+    e_val = bsdfs.eval_(mat, midx, si, wo, C, pol)
     pd = bsdfs.pdf(mat, midx, si, wo)
-    w = e_val * torch.where(pd > 0, 1.0 / torch.clamp_min(pd, 1e-20),
-                            0.0)[..., None]
+    w = bsdfs.mul_value(e_val, torch.where(
+        pd > 0, 1.0 / torch.clamp_min(pd, 1e-20), 0.0)[..., None])
     present = mat.present_types
     if not any(t in present for t in _WEIGHT_TYPES):
         return w
     p, si_eff, _, flip = _gathered(mat, midx, si)
     cos_i = fr.cos_theta(si_eff.wi)
     if BSDF_DIFFUSE in present:
-        albedo = bsdfs.where_value(cos_i > 0, p["base_color"], 0.0)
+        albedo = bsdfs.where_value(
+            cos_i > 0, bsdfs.depolarized(p["base_color"], pol), 0.0)
         w = bsdfs.where_value(p["mtype"] == BSDF_DIFFUSE, albedo, w)
     if BSDF_CONDUCTOR in present:
-        _, w_c, _ = bsdfs.Conductor.sample(p, si_eff, None, None, 0)
+        _, w_c, _ = bsdfs.Conductor.sample(p, si_eff, None, None, 0, pol)
         w = bsdfs.where_value(p["mtype"] == BSDF_CONDUCTOR, w_c, w)
     if BSDF_DIELECTRIC in present:
         wo_eff = torch.where(flip[..., None], bsdfs.flip_z(wo), wo)
         is_reflect = cos_i * fr.cos_theta(wo_eff) > 0
-        _, _, _, eta_ti = fres.fresnel_dielectric(cos_i, p["eta_re"][..., 0])
-        w_d = torch.where(is_reflect[..., None], p["base_color"],
-                          p["transmittance"] * (eta_ti * eta_ti)[..., None])
+        eta = p["eta_re"][..., 0]
+        F, _, _, eta_ti = fres.fresnel_dielectric(cos_i, eta)
+        if pol:
+            colour = torch.where(is_reflect[..., None], p["base_color"],
+                                 p["transmittance"]) * torch.where(
+                is_reflect, 1.0, eta_ti * eta_ti)[..., None]
+            w_d = bsdfs.mul_value(bsdfs.dielectric_mueller(
+                eta, wo_eff, si_eff.wi, is_reflect,
+                torch.where(is_reflect, F, 1.0 - F)), colour)
+        else:
+            w_d = torch.where(
+                is_reflect[..., None], p["base_color"],
+                p["transmittance"] * (eta_ti * eta_ti)[..., None])
         w = bsdfs.where_value(p["mtype"] == BSDF_DIELECTRIC, w_d, w)
     return w

@@ -50,6 +50,21 @@ def _jax_radiance(jscene, integ, W, H, spp, seed=0):
 def _port_radiance(tscene, integ, W, H, spp, monkeypatch, seed=0):
     """The port's per-lane radiance, with every closest-hit call's rays and
     answers and every dielectric sample's u1 and F recorded."""
+    n = W * H * spp
+
+    def run():
+        ts = Sampler.create(seed, n, device="cpu").fork(0)
+        tray, _ = sample_rays(tscene, ts, W, H, spp)
+        return integ.sample(tscene, ts, tray)
+
+    (got, valid), hits, lobes = recorded(run, monkeypatch)
+    assert valid.all() and got.shape == (n, 3)
+    return got.numpy(), hits, lobes
+
+
+def recorded(run, monkeypatch):
+    """(run(), hits, lobes): every closest-hit call's rays and answers and
+    every dielectric sample's u1 and F while run() runs."""
     hits, lobes = [], []
     isect = Scene.ray_intersect
 
@@ -61,21 +76,19 @@ def _port_radiance(tscene, integ, W, H, spp, monkeypatch, seed=0):
 
     sample = tbsdfs.Dielectric.sample
 
-    def dielectric_sample(p, si, u1, u2, ndf):
+    def dielectric_sample(p, si, u1, u2, ndf, *pol):
         F = tfres.fresnel_dielectric(si.wi[..., 2], p["eta_re"][..., 0])[0]
         lobes.append((p["mtype"] == tbsdfs.BSDF_DIELECTRIC, u1, F))
-        return sample(p, si, u1, u2, ndf)
+        return sample(p, si, u1, u2, ndf, *pol)
 
     monkeypatch.setattr(Scene, "ray_intersect", ray_intersect)
     monkeypatch.setattr(tbsdfs.Dielectric, "sample",
                         staticmethod(dielectric_sample))
-    n = W * H * spp
-    ts = Sampler.create(seed, n, device="cpu").fork(0)
-    tray, _ = sample_rays(tscene, ts, W, H, spp)
-    got, valid = integ.sample(tscene, ts, tray)
-    monkeypatch.undo()
-    assert valid.all() and got.shape == (n, 3)
-    return got.numpy(), hits, lobes
+    try:
+        out = run()
+    finally:
+        monkeypatch.undo()
+    return out, hits, lobes
 
 
 def _explain(jscene, lanes, hits, lobes):
