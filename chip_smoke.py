@@ -8,7 +8,7 @@
                                          # B11b, B11c of the package in
                                          # ROOT
 
-Fifteen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
+Seventeen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
 regenerative path tracer in Morton order on the same scene over the
 packet-BVH route (B7a, B7b), the intersection bench tool
@@ -26,7 +26,10 @@ and conductor boxes, the PLT integrator on its grating box (B1-B4 at
 half = 2), the white furnace (B1, B2, the constant environment), and
 polarized transport: PLT on the grating scene under the RGB-polarized
 config (B1-B4) and the Stokes wrapper of the Mueller path tracer on the
-glass box (B1, B2).
+glass box (B1, B2); and gradients: render_loss_grad through PLT on the
+grating scene (B1-B4 forward, recomputed under the checkpoint, and B4b,
+the lobe sum's backward) and through the path tracer and PRB on the
+Cornell box (B1, B2), with Adam steps.
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
@@ -60,7 +63,13 @@ Phases, each printing one JSON line with its seconds:
                   inside the glass among them), and B3 and B4 on the
                   grating box path's own first sample and NEE eval inputs
                   (half = 2, height 0.25 um, coherence 1), each at the
-                  tolerances stated (`hold_sample`, `hold_lobe_sum`). B5
+                  tolerances stated (`hold_sample`, `hold_lobe_sum`).
+                  B4b (the lobe sum's backward) against autograd of B4's
+                  plain version with a seeded cotangent on B4's four
+                  cases and on the grating box's inputs, per input at
+                  rtol 2e-3 plus 2e-5 of its largest gradient
+                  (`hold_lobe_sum_bwd`), its bound counted by
+                  `lobe_sum_bwd_count`. B5
                   (camera, bounce, bounce-random,
                   dead) and B6 (shadow, shadow-random, dead) on the mesh82k
                   scene at 1,048,576 lanes, equal to their plain walk (root
@@ -196,12 +205,31 @@ Phases, each printing one JSON line with its seconds:
                   forward_basis=False), 15 channels, 2 spp a pass (524,288
                   lanes), as main-grating-polarized: B1, B2 7 times a pass;
   dop-main-cbox-stokes  its image's degree of polarization, as above;
-  split-cbox-stokes  to chiprun_out/chip_smoke_profile_cbox_stokes.json.
+  split-cbox-stokes  to chiprun_out/chip_smoke_profile_cbox_stokes.json;
+  grad-grating-800x600-plt  render_loss_grad of the mean image on the
+                  grating scene's four grating parameters, PLT depth 7 /
+                  rr 50, 4 spp (four checkpointed passes of 480,000
+                  lanes): a warm-up and two timed evaluations (ms each,
+                  peak memory), finite non-zero gradients, B1-B4 twice a
+                  bounce and pass and B4b once, the height's and
+                  inv_period's signs against central differences;
+  split-grad-grating  device time of one such evaluation by kernel
+                  (torch.profiler), to chiprun_out/chip_smoke_profile_grad_
+                  grating.json;
+  grad-cbox-512x512  cornell_box(512, 512), depth 7 / rr 50, 4 spp (two
+                  passes): PRB's primal against the path tracer's
+                  differentiable render (rtol 2e-4), PRB's base_color
+                  gradient against the path tracer's (within 0.1 of the
+                  largest), each timed with its peak memory, then five
+                  Adam steps of PRB toward a target with the white wall's
+                  albedo halved (ms a step, peak memory, a falling loss);
+  split-grad-cbox-prb  one PRB gradient evaluation by kernel, to
+                  chiprun_out/chip_smoke_profile_grad_cbox_prb.json.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
 and B9 from one tool run on one ray set, B10 and B11 from one run of
-their tools; each bound against the published peaks and against the
-roofs the kernel-mfu phase measured), the nvidia-smi line, and the final
-status line. Every failure raises and exits non-zero.
+their tools, B4b from grad-grating's timed evaluations; each bound
+against the published peaks and against the roofs the kernel-mfu phase
+measured), the nvidia-smi line, and the final status line. Every failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -246,7 +274,8 @@ NO_LAUNCHES = dict.fromkeys(
      "intersect_clu2", "occluded_clu2", "intersect_bvh", "occluded_bvh",
      "intersect_classic", "occluded_classic", "intersect_mxu",
      "intersect_clu", "occluded_clu", "intersect_q_variant",
-     "occluded_q_variant", "intersect_q_macc", "fma_roof"), 0)
+     "occluded_q_variant", "intersect_q_macc", "fma_roof",
+     "grating_lobe_sum_bwd"), 0)
 GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
                     "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
                     "grating_lobe_sum": MAIN_DEPTH}
@@ -282,6 +311,18 @@ POL_GRATING_LAUNCHES = GRATING_LAUNCHES
 POL_CBOX_LAUNCHES = CBOX_LAUNCHES
 # the collapse check: the diffuse box, depth 7 / rr 50, 8 spp
 COLLAPSE_W, COLLAPSE_H, COLLAPSE_SPP = 128, 128, 8
+# the gradient paths: render_loss_grad of a mean loss on the grating
+# scene's four grating parameters (PLT depth 7, 4 spp: four passes of
+# 480,000 lanes), timed over GRAD_EVALS evaluations after a warm-up; the
+# Cornell box's path and PRB gradients (depth 7, 2 spp a pass) and
+# ADAM_STEPS steps recovering a halved wall albedo
+GRAD_SPP, GRAD_EVALS = 4, 2
+GRAD_KEYS = ("materials.grt_inv_period", "materials.grt_height",
+             "materials.grt_multiplier", "materials.grt_coherence")
+# the finite-difference steps of tests/test_ad.py
+GRAD_FD = (("materials.grt_height", (1,), 1e-4),
+           ("materials.grt_inv_period", (1, 0), 1e-3))
+GRAD_CBOX_SPP, ADAM_STEPS = 4, 5
 REGEN = {"regen": True, "pixel_order": "morton"}
 # kernels whose launches in the kernels line come from a tool's run
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
@@ -506,6 +547,7 @@ def ptxas_report(log: str) -> tuple:
             entry = m.group(1)
             k = re.search(r"(clu2_kernel|clu_kernel|sweep_q_kernel|"
                           r"sweep_a_kernel|q_kernel|lobe_sum_kernel|"
+                          r"lobe_sum_bwd_kernel|"
                           r"mxu_kernel|"
                           r"sample_kernel|classic_kernel|fn_probe_kernel|"
                           r"anyhit_resident_kernel)"
@@ -672,9 +714,95 @@ def lobe_sum_count(ins, half, separable, specials):
     fn_fma = sum(k * specials[f]["ffma"] for f, k in calls.items())
     return {"ops": 2 * fma + ops + fn_ops, "fma": fma + fn_fma,
             "calls": calls, "live_lobes_per_lane": n_live / n,
-            "asym_share": n_asym / (n * C),
+            "asym_share": n_asym / (n * C), "n_table": n_table,
+            "n_asym": n_asym,
             "slots_per_lane": (fma + ops + fn_ops - fn_fma) / n,
             "special_slots_per_lane": (fn_ops - fn_fma) / n}
+
+
+# B4b: a hand count of csrc/grating.cu::lobe_sum_bwd_kernel beyond the
+# forward chain it repeats (`lobe_sum_count`, with the Gaussian's expf on
+# the lobes the gates select and sin(a / 2) as sincosf). Each add,
+# multiply, compare, select and negation counts as one operation, an
+# fmaf as two; nvcc contracts the adjoints' products and sums, so their
+# issue slots are taken as half their operations (a floor, as
+# `contracted_bound`'s).
+LOBE_BWD_LANE = 35        # |wi_z|'s sign, the adjoints of sin_ix, sin_iy
+LOBE_BWD_CHANNEL = 55     # d out / d acc, the exponent's, kwn's and a's
+                          # adjoints, the store; + 8 half: base -> a
+LOBE_BWD_LOBE = 123       # a selected lobe: lobe_int, ang_coh, unit_angle,
+                          # cd, rz, qq, mm, den, aa, bb, the lattice
+LOBE_BWD_TABLE = (3, 2)   # an order: the cubic's derivative (ops, FMAs)
+LOBE_BWD_ASYM = 15        # an order: the Hankel form's derivative
+
+
+def weigh_calls(calls, specials):
+    """(operations, FMAs) of special-function calls, each weighed by its
+    fast path in the SASS (`ops/mfu.py::special_fn_counts`)."""
+    ops = sum(k * (2 * specials[f]["ffma"] + specials[f]["other"])
+              for f, k in calls.items())
+    return ops, sum(k * specials[f]["ffma"] for f, k in calls.items())
+
+
+def lobe_sum_selected(ins, half, separable):
+    """The (lane, channel, lobe)s that pass the lobe sum's gates (lobe_ok,
+    in_cone, live) on these inputs: the lobes whose adjoints B4b takes
+    (the plain version's gates)."""
+    from mitsuba3_plt_tpu_torch.core import math as m
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    col = lambda x: x[:, None]  # noqa: E731
+    wi, wo = ins["wi"], ins["wo"]
+    sin_ix, sin_iy = gops._sin_incidence(col(wi[:, 0]), col(wi[:, 1]),
+                                         col(wi[:, 2]))
+    wl_um = ins["wl_nm"] * 1e-3
+    cg, sg = col(ins["grating_dir"][:, 0]), col(ins["grating_dir"][:, 1])
+    ip_x, ip_y = col(ins["inv_period"][:, 0]), col(ins["inv_period"][:, 1])
+    half_lobes = (col(ins["lobes"].float()) * 0.5).floor()
+    total = 0
+    for lx in range(-half, half + 1):
+        for ly in [0] if separable else range(-half, half + 1):
+            aa, bb, mm, qq, ok = gops._diffract(wl_um, cg, sg, float(lx),
+                                                float(ly), ip_x, ip_y,
+                                                sin_ix, sin_iy)
+            cd = (aa * m.safe_sqrt(qq) * col(wo[:, 0])
+                  + bb * m.safe_sqrt(mm) * col(wo[:, 1])
+                  + m.safe_sqrt(1.0 - aa * aa * qq - bb * bb * mm)
+                  * col(wo[:, 2]))
+            sel = (ok & (m.unit_angle_dot(cd).abs() < col(ins["a_cone"]))
+                   & (half_lobes >= float(max(abs(lx), abs(ly)))))
+            total += int(sel.sum())
+    return total
+
+
+def lobe_sum_bwd_count(ins, half, separable, specials):
+    """B4b's work on these inputs, as `lobe_sum_count`'s: the forward chain
+    it repeats, then the adjoints (LOBE_BWD_*) of the lobes the gates
+    select, of each (lane, channel) and lane, and of the Bessel values
+    each branch gives."""
+    fwd = lobe_sum_count(ins, half, separable, specials)
+    n, C = ins["wl_nm"].shape
+    h1 = half + 1
+    n_sel = lobe_sum_selected(ins, half, separable)
+    fwd_fn_ops, fwd_fn_fma = weigh_calls(fwd["calls"], specials)
+    n_table = fwd["n_table"]
+    n_asym = fwd["n_asym"]
+    calls = dict(fwd["calls"])
+    calls["exp"] = n_sel
+    calls["sincos"] += calls.pop("sin")
+    calls["div"] += 6 * n_sel + 3 * n * C + 8 * n + n_asym
+    calls["sqrt"] += 2 * n_sel
+    adj = (n_sel * LOBE_BWD_LOBE + n * C * (LOBE_BWD_CHANNEL + 8 * half)
+           + n * LOBE_BWD_LANE + n_table * h1 * LOBE_BWD_TABLE[0]
+           + n_asym * h1 * LOBE_BWD_ASYM)
+    adj_fma = n_table * h1 * LOBE_BWD_TABLE[1]
+    fn_ops, fn_fma = weigh_calls(calls, specials)
+    ops = fwd["ops"] - fwd_fn_ops + 2 * adj_fma + adj + fn_ops
+    fma = fwd["fma"] - fwd_fn_fma + adj_fma + fn_fma + adj // 2
+    return {"ops": ops, "fma": fma, "calls": calls,
+            "selected_lobes_per_lane": n_sel / n,
+            "live_lobes_per_lane": fwd["live_lobes_per_lane"],
+            "slots_per_lane": (ops - fma) / n}
 
 
 def sample_ops(half, ndf):
@@ -1333,6 +1461,286 @@ def check_grating_box(inputs, specials):
     frac = hold_lobe_sum("grating box", got, want)
     lobe = lobe_sum_row(ins, kw, got, want, frac, specials)
     return [dict(r, rays="cbox grating path") for r in (sample, lobe)]
+
+
+def hold_lobe_sum_bwd(label, got, want):
+    """B4b's gradients against autograd of the plain version: for each
+    input, the share of lanes whose every component lies within rtol 2e-3
+    of the plain gradient plus 2e-5 of that input's largest (the forward's
+    rtol 2e-3 / atol 2e-5, the atol scaled by each input's largest: B4b
+    differentiates the Bessel table, the plain version the float32 sweep;
+    a host build of the kernel's source is within 5e-5 of the largest),
+    which must be at least 1 - 1e-5 (a lane may fall outside where a gate
+    flips at float rounding, as for B4), and finite. Returns (the worst
+    share, the largest error, the largest error over its input's
+    largest)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    worst, err_max, rel = 1.0, 0.0, 0.0
+    for name, a, b in zip(gops.LOBE_SUM_INPUTS, got, want):
+        if b is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs()
+        ok = err <= 2e-3 * b.abs() + 2e-5 * scale
+        # in float64: a float32 mean of a million ones can come out below 1
+        frac = (ok.all(-1) if ok.dim() > 1 else ok).double().mean().item()
+        require(bool(torch.isfinite(a).all()),
+                f"grating_lobe_sum_bwd {label} {name}: non-finite")
+        require(frac >= 1 - 1e-5,
+                f"grating_lobe_sum_bwd {label} {name} agreement {frac}")
+        worst = min(worst, frac)
+        err_max = max(err_max, err.max().item())
+        rel = max(rel, err.max().item() / max(scale, 1e-30))
+    return worst, err_max, rel
+
+
+def lobe_sum_bwd_row(args, cot, kw, got, want, specials):
+    """The kernels line's row of B4b on inputs `args` (LOBE_SUM_ARGS order)
+    with the cotangent `cot` and kw (half, separable): held
+    (`hold_lobe_sum_bwd`), timed, its bound counted by
+    `lobe_sum_bwd_count` (bytes: the inputs, the cotangent, the
+    gradients and the table)."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    frac, err, rel = hold_lobe_sum_bwd(str(kw), got, want)
+    count = lobe_sum_bwd_count(dict(zip(LOBE_SUM_ARGS, args)), kw["half"],
+                               kw["separable"], specials)
+    times = kernel_times(lambda: gops.grating_lobe_sum_bwd(args, cot, **kw))
+    plain_ms = time_ms(lambda: gops.grating_lobe_sum_bwd_plain(
+        args, cot, **kw), reps=3, calls=2, warmup=1)
+    grads = [x for x in got if x is not None]
+    bnd = bound(nbytes(list(args), cot, grads,
+                       gops.bessel_table(cot.device)),
+                count["ops"], count["fma"])
+    return {"name": "grating_lobe_sum_bwd", "route": "cuda",
+            "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
+            "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:743 "
+                        "(_make_lobe_sum_vjp: the custom_vjp's backward, "
+                        "jax.vjp of _lobe_sum_xla :660)",
+            "max_abs_err": err, "max_err_of_largest": rel, **times,
+            "plain_ms": plain_ms, **bnd, "library_ms": None,
+            "n": cot.shape[0], "agreement": frac,
+            "case": [kw["half"], kw["separable"]],
+            "count": {**count, "how": (
+                "the forward chain as lobe_sum_count, then a hand count "
+                "of lobe_sum_bwd_kernel's adjoints (chip_smoke.py "
+                "LOBE_BWD_*) over the lobes the gates select; special "
+                "functions: calls x their fast-path instructions in the "
+                "SASS of fn_probe_kernel; the adjoints' slots half their "
+                "operations (contracted)")}}
+
+
+def check_lobe_sum_bwd(n, rng, dev, specials, box_inputs):
+    """B4b against autograd of the plain version on the four cases of
+    `check_lobe_sum` (the main path's case at n lanes, the others at n /
+    16) and on the grating box path's own first lobe-sum inputs (half 2,
+    separable), each with a seeded normal cotangent. Returns the row of
+    the main case and the grating box's."""
+    import numpy as np
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    cases = [(3, True, 0, 0.0, n), (3, False, 0, 1.5, n // 16),
+             (4, True, 1, 0.0, n // 16), (2, True, 2, 0.0, n // 16)]
+    rows = []
+    for half, sep, gtype, ip_y, nn in cases:
+        ins = lobe_sum_inputs(rng, nn, gtype, ip_y, dev)
+        args = [ins[k] for k in LOBE_SUM_ARGS]
+        cot = torch.as_tensor(rng.normal(size=(nn, 3)).astype(np.float32),
+                              device=dev)
+        kw = dict(half=half, separable=sep)
+        got = gops.grating_lobe_sum_bwd(args, cot, **kw)
+        want = gops.grating_lobe_sum_bwd_plain(args, cot, **kw)
+        frac, err, rel = hold_lobe_sum_bwd(str((half, sep, gtype)), got,
+                                           want)
+        emit({"phase": "kernels", "name": "grating_lobe_sum_bwd",
+              "case": [half, sep, gtype, ip_y], "n": nn, "agreement": frac,
+              "max_abs_err": err, "max_err_of_largest": rel})
+        if not rows:
+            rows.append(lobe_sum_bwd_row(args, cot, kw, got, want,
+                                         specials))
+        del got, want
+    args, kw = box_inputs["grating_lobe_sum"]
+    args = list(args)
+    cot = torch.as_tensor(rng.normal(size=(args[0].shape[0], 3)).astype(
+        np.float32), device=dev)
+    kw = dict(half=kw["half"], separable=kw["separable"])
+    got = gops.grating_lobe_sum_bwd(args, cot, **kw)
+    want = gops.grating_lobe_sum_bwd_plain(args, cot, **kw)
+    rows.append(dict(lobe_sum_bwd_row(args, cot, kw, got, want, specials),
+                     rays="cbox grating path"))
+    return rows
+
+
+def grad_grating(scene, integ):
+    """grad-grating-800x600-plt: render_loss_grad of the mean image on the
+    four grating parameters (GRAD_SPP spp, one checkpointed pass of
+    480,000 lanes each spp), one warm-up and GRAD_EVALS timed
+    evaluations, each ending in a device sync. The gradients must be
+    finite and non-zero on the grating's row, each forward kernel
+    launches twice a bounce and pass (the checkpoint's recomputation)
+    and B4b once for each B4 launch that needed a gradient, and the
+    height's and inv_period's gradients must share the sign of a central
+    difference of the render (tests/test_ad.py's steps). Returns the
+    timed evaluations' launches."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad, ops
+    from mitsuba3_plt_tpu_torch.ad.render import default_spp_per_pass
+
+    ph = Phase("grad-grating-800x600-plt")
+    W, H = scene.sensor.resolution
+    keys = list(GRAD_KEYS)
+
+    def evaluate():
+        return ad.render_loss_grad(scene, integ.sample, torch.mean, keys,
+                                   seed=0, spp=GRAD_SPP)
+
+    t0 = time.perf_counter()
+    evaluate()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    eval_ms = []
+    for _ in range(GRAD_EVALS):
+        t0 = time.perf_counter()
+        loss, grads = evaluate()
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: v.cpu() for k, v in grads.items()}
+    params = ad.traverse(scene)
+    fd = {}
+    with torch.no_grad():
+        for key, idx, eps in GRAD_FD:
+            f = []
+            for sgn in (1.0, -1.0):
+                p = params[key].clone()
+                p[idx] += sgn * eps
+                f.append(ad.render_differentiable(
+                    params.update({key: p}), integ.sample, seed=0,
+                    spp=GRAD_SPP).double().mean().item())
+            fd[key] = {"fd": (f[0] - f[1]) / (2 * eps), "eps": eps,
+                       "grad": grads[key][idx].item()}
+    spp_pass = default_spp_per_pass(W, H, GRAD_SPP)
+    per_eval = integ.max_depth * (GRAD_SPP // spp_pass)
+    ph.emit(width=W, height=H, max_depth=integ.max_depth, spp=GRAD_SPP,
+            spp_per_pass=spp_pass, lanes_per_pass=W * H * spp_pass,
+            keys=keys, loss=loss.item(), warmup_ms=warm_ms,
+            ms_per_gradient=eval_ms, peak_mem_bytes=peak,
+            launches={k: v for k, v in launches.items() if v},
+            grads={k: v[1].tolist() for k, v in grads.items()},
+            finite_difference=fd)
+    for k, v in grads.items():
+        require(bool(torch.isfinite(v).all()) and bool(v[1].abs().max() > 0),
+                f"grad-grating: {k} gradient not finite and non-zero")
+    fwd = 2 * per_eval * GRAD_EVALS
+    want = {**NO_LAUNCHES, "intersect_q": fwd, "occluded_q": fwd,
+            "grating_sample": fwd, "grating_lobe_sum": fwd,
+            "grating_lobe_sum_bwd": per_eval * GRAD_EVALS}
+    require(launches == want,
+            f"grad-grating: launches {launches}, expected {want}")
+    for key, r in fd.items():
+        require(r["fd"] * r["grad"] > 0,
+                f"grad-grating: {key} gradient {r['grad']} against the "
+                f"finite difference {r['fd']}")
+    profile_run("split-grad-grating", evaluate,
+                sum(eval_ms) / len(eval_ms) / 1e3,
+                "chip_smoke_profile_grad_grating.json")
+    return launches
+
+
+def grad_cbox(scene):
+    """grad-cbox-512x512: on the Cornell box, depth 7 / rr 50, 2 spp a
+    pass: PRB's primal against the path tracer's differentiable render
+    (rtol 2e-4 / atol 2e-4, tests/test_prb.py's), PRB's base_color
+    gradient against autograd through the path tracer (within 0.1 of
+    the largest entry, tests/test_prb.py's bound), each timed with its
+    peak memory, then ADAM_STEPS Adam steps of PRB gradients from the
+    scene toward a target with the white wall's albedo halved: the loss
+    must fall."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad, ops
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.prb import PRBIntegrator
+
+    ph = Phase("grad-cbox-512x512")
+    path = PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
+    prb = PRBIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
+    key = "materials.base_color"
+    kw = dict(seed=0, spp=GRAD_CBOX_SPP)
+    with torch.no_grad():
+        img_p = ad.render_differentiable(scene, path.sample, **kw)
+        img_r = ad.render_differentiable(scene, prb.sample, **kw)
+    close = torch.isclose(img_r, img_p, rtol=2e-4, atol=2e-4)
+    res, grads = {}, {}
+    ops.reset_launch_counts()
+    for name, integ in (("path", path), ("prb", prb)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, g = ad.render_loss_grad(scene, integ.sample, torch.mean, [key],
+                                   **kw)
+        torch.cuda.synchronize()
+        grads[name] = g[key].cpu()
+        res[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    launches = ops.launch_counts()
+    a, b = grads["path"], grads["prb"]
+    denom = max(a.abs().max().item(), b.abs().max().item())
+    gap = (a - b).abs().max().item()
+
+    params = ad.traverse(scene)
+    target_albedo = params[key].clone()
+    target_albedo[0] *= 0.5
+    with torch.no_grad():
+        target = ad.render_differentiable(
+            params.update({key: target_albedo}), prb.sample, **kw)
+    opt = ad.Adam(lr=0.1)
+    p = {key: params[key]}
+    state = opt.init(p)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(ADAM_STEPS):
+        t0 = time.perf_counter()
+        loss, g = ad.render_loss_grad(
+            params.update(p), prb.sample,
+            lambda img: torch.mean((img - target) ** 2), [key], **kw)
+        p, state = opt.step(p, g, state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    W, H = scene.sensor.resolution
+    ph.emit(width=W, height=H, max_depth=CBOX_DEPTH, spp=GRAD_CBOX_SPP,
+            primal_close_share=close.float().mean().item(),
+            primal_max_abs_diff=(img_r - img_p).abs().max().item(),
+            image_mean=img_p.mean().item(), gradient=res,
+            launches={k: v for k, v in launches.items() if v},
+            grad_max=denom, grad_gap=gap,
+            grad_base_color_prb=b.tolist(), adam_losses=losses,
+            adam_step_ms=step_ms,
+            adam_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    require(bool(close.all()), "grad-cbox: PRB's primal differs from the "
+            "path tracer's")
+    require(bool(torch.isfinite(b).all()) and denom > 0,
+            "grad-cbox: gradients not finite and non-zero")
+    require(gap < 0.1 * denom, f"grad-cbox: PRB's gradient {b.tolist()} "
+            f"against the remat gradient {a.tolist()}")
+    require(losses[-1] < losses[0], f"grad-cbox: Adam's loss {losses}")
+    require(launches["intersect_q"] > 0 and launches["occluded_q"] > 0
+            and sum(launches.values()) == launches["intersect_q"]
+            + launches["occluded_q"],
+            f"grad-cbox: launches {launches}")
+    profile_run("split-grad-cbox-prb", lambda: ad.render_loss_grad(
+        scene, prb.sample, torch.mean, [key], **kw), res["prb"]["ms"] / 1e3,
+        "chip_smoke_profile_grad_cbox_prb.json")
 
 
 def hemisphere_rays(scene, p, ng, live, rng):
@@ -2641,16 +3049,23 @@ def same_image(name, img, scene, integ, spp_pass):
 
 def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     """Device time of one main-path pass by kernel name (torch.profiler)."""
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+
+    profile_run(name, lambda: render(scene, integ, seed=2, spp=spp_pass,
+                                     spp_per_pass=spp_pass, **render_kw),
+                pass_s, out_file)
+
+
+def profile_run(name, run, pass_s, out_file):
+    """Device time of one run() by kernel name (torch.profiler), against
+    the wall time pass_s of an unprofiled run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from mitsuba3_plt_tpu_torch.integrators.common import render
 
     ph = Phase(name)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render(scene, integ, seed=2, spp=spp_pass, spp_per_pass=spp_pass,
-               **render_kw)
+        run()
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -2671,7 +3086,7 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
     # clu2_kernel first: "q_kernel" must not take its rows
     ours = {"clu2_kernel": 0.0, "wide_anyhit_kernel": 0.0,
             "wide_kernel": 0.0, "q_kernel": 0.0, "lobe_sum_kernel": 0.0,
-            "sample_kernel": 0.0}
+            "lobe_sum_bwd_kernel": 0.0, "sample_kernel": 0.0}
     n_kernels = 0
     per_launch = {}
     for r in rows:
@@ -2679,7 +3094,8 @@ def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
             if key in r["name"]:
                 ours[key] += r["device_ms"]
                 # B1/B2, B5/B6, B7a/B7b a launch (one row per instance)
-                if key not in ("lobe_sum_kernel", "sample_kernel"):
+                if key not in ("lobe_sum_kernel", "lobe_sum_bwd_kernel",
+                               "sample_kernel"):
                     per_launch[r["name"]] = {
                         "launches": r["count"], "device_ms": r["device_ms"],
                         "ms_per_launch": r["device_ms"] / r["count"]}
@@ -3071,8 +3487,14 @@ def main():
                                    CBOX_SPP_PASS, call=1), q_sass,
                       bounce=True)
     pinteg = PLTIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR)
-    grating_box = check_grating_box(grating_box_inputs(
-        boxes["grating"], pinteg, CBOX_SPP_PASS), specials)
+    box_inputs = grating_box_inputs(boxes["grating"], pinteg, CBOX_SPP_PASS)
+    grating_box = check_grating_box(box_inputs, specials)
+    # B4b on the main path's lane count (four cases) and on the grating
+    # box's own NEE inputs
+    bwd_main, bwd_box = check_lobe_sum_bwd(n, rng, "cuda", specials,
+                                           box_inputs)
+    del box_inputs
+    rows.append(bwd_main)
     pick = {k: csets[k] for k in ("coherent", "incoherent")}
     brute = check_brute("cbox", cscene, pick, q_sass)
     check_brute("mesh5k", tscene, tsets, q_sass, PLAIN_LANES)
@@ -3107,6 +3529,8 @@ def main():
     for r in cbox_q + grating_box:
         emit({"phase": "kernels", **r, **measured_bound(r, roofs),
               "launches_per_pass": CBOX_PLT_LAUNCHES[r["name"]]})
+    for r in (bwd_main, bwd_box):
+        emit({"phase": "kernels", **r, **measured_bound(r, roofs)})
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
     del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask, ctabs, cmask
@@ -3202,6 +3626,12 @@ def main():
           sum(st_res["pass_s"]) / POL_PASSES, POL_SPP_PASS,
           "chip_smoke_profile_cbox_stokes.json")
 
+    # the gradient paths: B1-B4 and B4b through PLT on the grating scene
+    # (B4b's launches in the kernels line are these), the path tracer and
+    # PRB on the Cornell box (B1, B2)
+    grad_launches = grad_grating(gscene, ginteg)
+    grad_cbox(cscene)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "ms_by", "plain_ms", "bound_ms", "bound_by",
             "measured_bound_ms", "measured_bound_by", "library_ms")
@@ -3214,10 +3644,12 @@ def main():
                else sweep_launches if r["name"] in SWEEP_KERNELS
                else macc_launches if r["name"] in MACC_KERNELS
                else mfu_launches if r["name"] in MFU_KERNELS
+               else grad_launches if r["name"] == "grating_lobe_sum_bwd"
                else g_res["launches"])
         r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
         row = {k: r[k] for k in keys}
         row.update({k: r[k] for k in ("test_fmas", "bound_cuda_cores_ms",
+                                      "max_err_of_largest",
                                       "bound_full_test_ms",
                                       "bound_filter_ms",
                                       "candidates_per_ray", "step_sass",

@@ -127,3 +127,60 @@ def bessel_jn_fast(x, n_max: int, M: int = 64):
     exact0 = torch.zeros(n_max + 1, dtype=torch.float32, device=x.device)
     exact0[0] = 1.0
     return torch.where((x_abs < 1e-6)[..., None], exact0, res)
+
+
+# tables of at most this many rows take their gradient as a one-hot
+# product, larger ones by index_add_: on the H100 the product is the
+# faster up to 64 rows of 480,000 uniform lanes and index_add_ from 128
+# (tools/take_rows_ab.py's sweep)
+ONE_HOT_MAX_ROWS = 64
+
+
+def rows_sum_one_hot(idx, g, n_rows):
+    """The [n_rows, C] sums of g [N, C]'s lanes by row idx [N], as one
+    product one_hot(idx)^T @ g, the one-hot built in g's dtype."""
+    oh = torch.zeros((idx.shape[0], n_rows), dtype=g.dtype, device=g.device)
+    return oh.scatter_(1, idx[:, None], 1.0).t() @ g
+
+
+def rows_sum_index_add(idx, g, n_rows):
+    """The same sums by index_add_ (one atomic add a lane and column on
+    the card)."""
+    return torch.zeros((n_rows, g.shape[1]), dtype=g.dtype,
+                       device=g.device).index_add_(0, idx, g)
+
+
+class _TakeRows(torch.autograd.Function):
+    """table[idx] whose table gradient sums each row's lanes by
+    `rows_sum_one_hot` up to ONE_HOT_MAX_ROWS rows, else by
+    `rows_sum_index_add`. Autograd's own backward of an index (a sort,
+    then the lanes of one row added one after another) takes over 95% of
+    a gradient's device time on the card when a few rows (the materials,
+    the emitters) are read by every lane; on a few rows index_add_'s
+    atomics contend, and the product is the faster."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat_idx = idx.reshape(-1)
+        flat = g.reshape(flat_idx.shape[0], -1)
+        rows_sum = (rows_sum_one_hot if ctx.n_rows <= ONE_HOT_MAX_ROWS
+                    else rows_sum_index_add)
+        gt = rows_sum(flat_idx, flat, ctx.n_rows)
+        return gt.reshape((ctx.n_rows,) + g.shape[idx.dim():]), None
+
+
+def take_rows(table, idx):
+    """table[idx] for an int64 idx: where autograd records a gradient of
+    the table, by `_TakeRows` (same values, a faster backward); else plain
+    indexing (forward mode included)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _TakeRows.apply(table, idx)
+    return table[idx]

@@ -39,7 +39,7 @@ from ..core.rng import DIM_WAVELENGTH, Sampler, bounce_dim
 from ..librender import bsdfs
 from ..librender import mueller as mu
 from ..librender.bsdf import BSDFFlags
-from ..librender.records import DirectionSample, Ray
+from ..librender.records import DirectionSample, Ray, detached
 from ..plt import wbsdf as wb
 from ..plt.beam import PLTBeam
 from ..scene import emitters as em_mod
@@ -106,7 +106,12 @@ class PLTIntegrator:
             alpha = torch.ones((n, C), device=dev)
             L = torch.zeros((n, C), device=dev)
         for b in range(self.max_depth):
-            si = scene.ray_intersect(Ray.create(ray_o, ray_d))
+            # detached sampling, as the JAX package's fused scan: the
+            # interaction, the sample, its lobe and its weight carry no
+            # gradient (nor, through the weight, does the roulette); the
+            # parameters differentiate through the emitter values, the
+            # wave eval and the replay weight
+            si = detached(scene.ray_intersect(Ray.create(ray_o, ray_d)))
             hit = si.valid & active
             is_emitter = hit & (si.emitter_idx >= 0)
             midx = torch.clamp_min(si.mat_idx, 0)
@@ -117,6 +122,7 @@ class PLTIntegrator:
             lobe_u2 = sampler.next_2d(bounce_dim(b, 3))
             sd, weight, ok = wb.wbsdf_sample(mats, midx, si, u1, u2, lobe_u2,
                                              wl, pol)
+            sd, weight = detached(sd), weight.detach()
             bs = sd.bs
 
             active_next = hit & (b + 1 < self.max_depth) & ok & (bs.pdf > 0)

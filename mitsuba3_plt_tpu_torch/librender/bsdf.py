@@ -10,6 +10,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..core.math import take_rows
+
 
 class BSDFFlags:
     Empty = 0
@@ -88,7 +90,7 @@ class MaterialTable:
     def gather(self, midx) -> Dict[str, torch.Tensor]:
         """Per-lane parameters for material indices midx [N]; a field that
         only one type reads is gathered only where that type is present."""
-        return {name: getattr(self, name)[midx] for name in FIELDS
+        return {name: take_rows(getattr(self, name), midx) for name in FIELDS
                 if _FIELD_READER.get(name, 0) in (0, *self.present_types)}
 
 

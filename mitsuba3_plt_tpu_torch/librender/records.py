@@ -9,6 +9,17 @@ import torch
 from ..core import frame as fr
 
 
+def detached(record):
+    """A record (a dataclass of tensors and records) with every tensor
+    detached: the sampled path of a differentiable render carries no
+    gradient (detached sampling)."""
+    return dataclasses.replace(record, **{
+        f.name: (v.detach() if isinstance(v, torch.Tensor)
+                 else detached(v) if dataclasses.is_dataclass(v) else v)
+        for f in dataclasses.fields(record) if f.init
+        for v in (getattr(record, f.name),)})
+
+
 @dataclasses.dataclass(frozen=True)
 class Ray:
     o: torch.Tensor     # [N, 3]

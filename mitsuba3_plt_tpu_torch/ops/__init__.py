@@ -1,5 +1,5 @@
-"""The kernels of the main paths, of the intersection tools and of the
-FMA roof probe. Each wrapper runs its CUDA kernel on CUDA tensors (counting
+"""The kernels of the main paths (the lobe sum's backward among them), of
+the intersection tools and of the FMA roof probe. Each wrapper runs its CUDA kernel on CUDA tensors (counting
 the launch) and its plain PyTorch version on CPU tensors."""
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ def launch_counts() -> dict:
         "intersect_q_macc": intersect.INTERSECT_Q_MACC_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
+        "grating_lobe_sum_bwd": grating.LOBE_SUM_BWD_LAUNCHES,
         "fma_roof": mfu.FMA_ROOF_LAUNCHES,
     }
 
@@ -46,4 +47,5 @@ def reset_launch_counts() -> None:
     intersect.INTERSECT_Q_MACC_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0
+    grating.LOBE_SUM_BWD_LAUNCHES = 0
     mfu.FMA_ROOF_LAUNCHES = 0

@@ -5,6 +5,9 @@
 //     grating_lobe_sum (Pallas body _kernel): per-wavelength sum of the
 //     diffraction lobes: J_0..J_half of the groove phase, grating-equation
 //     lobe centres, the acceptance cone and the angular-coherence Gaussian.
+//   plt_grating_lobe_sum_bwd  replaces the backward of the custom_vjp
+//     around grating_lobe_sum (::_make_lobe_sum_vjp): the vector-Jacobian
+//     product of the lobe sum, on the same Bessel table.
 //   plt_grating_sample    replaces ::grating_sample (Pallas body
 //     _sample_kernel): visible-normal sample (GGX or Beckmann), microfacet
 //     frame, Bessel sweep at the hero wavelength, lobe-CDF pick, grating
@@ -344,6 +347,312 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// ---------------------------------------------------------------------------
+// lobe sum backward (B4b)
+// ---------------------------------------------------------------------------
+
+// bessel_lookup's values and their derivatives in x = |a|: on the table
+// the Hermite cubic's own, 32 (c1 + t (2 c2 + 3 t c3)); beyond 48 the
+// Hankel form's own, with cw' = -sw, sw' = cw, p' = (mu - 1)(mu - 9)
+// i8x^2 / x, q' = -(mu - 1) i8x / x and sq' = -sq / (2 x); 0 at x < 1e-6,
+// where the values are the constants 1 and 0.
+template <int HALF>
+__device__ __forceinline__ void bessel_lookup_grad(
+    float a, bool need, const float4* __restrict__ table,
+    float (&res)[HALF + 1], float (&dres)[HALF + 1]) {
+  const float x = fabsf(a);
+  const bool use_asym = x > kAsympSwitch;
+#pragma unroll
+  for (int nu = 0; nu <= HALF; ++nu) res[nu] = dres[nu] = 0.f;
+  if (__any_sync(kFull, need && !use_asym)) {
+    const float s = mul(fminf(x, kAsympSwitch), kTableInvStep);
+    const float fi = fminf(floorf(s), (float)(kTableN - 1));
+    const float t = sub(s, fi);
+    const float4* row = table + (int)fi;
+#pragma unroll
+    for (int nu = 0; nu <= HALF; ++nu) {
+      const float4 c = __ldg(row + nu * kTableN);
+      res[nu] = fmaf(t, fmaf(t, fmaf(t, c.w, c.z), c.y), c.x);
+      dres[nu] = kTableInvStep * fmaf(t, fmaf(3.0f * t, c.w, 2.0f * c.z), c.y);
+    }
+  }
+  if (__any_sync(kFull, need && use_asym)) {
+    const float i8x = 1.0f / mul(8.0f, x);
+    const float sq = sqrtf(2.0f / mul(kPi, x));
+    const float inv_x = 1.0f / x;
+    float s0, c0;
+    sincosf(sub(x, kQuarterPi), &s0, &c0);
+#pragma unroll
+    for (int nu = 0; nu <= HALF; ++nu) {
+      const float mu = 4.0f * nu * nu;
+      const float p = fmaf(mul(-(mu - 1.0f) * (mu - 9.0f) * 0.5f, i8x), i8x,
+                           1.0f);
+      const float q = mul(mu - 1.0f, i8x);
+      const float cw = nu % 4 == 0 ? c0 : nu % 4 == 1 ? s0
+                     : nu % 4 == 2 ? -c0 : -s0;
+      const float sw = nu % 4 == 0 ? s0 : nu % 4 == 1 ? -c0
+                     : nu % 4 == 2 ? -s0 : c0;
+      const float asym = mul(sq, fmaf(cw, p, -mul(sw, q)));
+      const float dp = (mu - 1.0f) * (mu - 9.0f) * i8x * i8x * inv_x;
+      const float dq = -(mu - 1.0f) * i8x * inv_x;
+      const float dasym =
+          sq * (cw * (dp - q) - sw * (p + dq)) - 0.5f * inv_x * asym;
+      res[nu] = use_asym ? asym : res[nu];
+      dres[nu] = use_asym ? dasym : dres[nu];
+    }
+  }
+  const bool at_zero = x < 1e-6f;
+#pragma unroll
+  for (int nu = 0; nu <= HALF; ++nu) {
+    res[nu] = at_zero ? (nu == 0 ? 1.f : 0.f) : res[nu];
+    dres[nu] = at_zero ? 0.f : dres[nu];
+  }
+}
+
+// The vector-Jacobian product of lobe_sum_kernel with the cotangent g [N,
+// C], one thread a lane. It replaces the backward of the JAX package's
+// custom_vjp around grating_lobe_sum (ops/grating_pallas.py::
+// _make_lobe_sum_vjp, which linearizes _lobe_sum_xla in XLA). Each
+// channel recomputes the forward's quantities, then each lobe recomputes
+// its chain and takes its adjoints at once: the output is a sum over the
+// lobes, so no lobe needs another's. The masks (lobe_ok, in_cone, live)
+// carry no derivative; a lobe they drop adds nothing. Conventions, those
+// of autograd of the plain version: a clamp passes its whole gradient at
+// a tie, |x| has derivative 0 at 0, safe_sqrt's is 0 where its argument
+// is <= 0, and unit_angle's is -1 / (d sqrt(1 - d^2 / 4)), d = sqrt(2 -
+// 2|cd|) (the arccos derivative), 0 where d or cd is 0. The Bessel values
+// and derivatives are the table's (bessel_lookup_grad). a_cone has no
+// gradient (only the cone mask reads it).
+//
+// What bounds it: issue slots, as the forward; it repeats the forward's
+// chain and about as many operations again for the adjoints, with one
+// more division and square root a lobe. It reads the forward's inputs
+// and g and writes 16 floats a lane (C = 3). A simple kernel: no lobe's
+// work is shared or skipped beyond the forward's own votes.
+template <int HALF, bool SEP, int C>
+__global__ void __launch_bounds__(kBlock) lobe_sum_bwd_kernel(
+    const float* __restrict__ wi, const float* __restrict__ wo,
+    const float* __restrict__ wl_nm, const float* __restrict__ gdir,
+    const float* __restrict__ ip, const float* __restrict__ q,
+    const int* __restrict__ lobes, const int* __restrict__ gtype,
+    const float* __restrict__ mult, const float* __restrict__ coh,
+    const float* __restrict__ acone, const float4* __restrict__ table,
+    const float* __restrict__ gout, int n, float* __restrict__ g_wi,
+    float* __restrict__ g_wo, float* __restrict__ g_wl,
+    float* __restrict__ g_gdir, float* __restrict__ g_ip,
+    float* __restrict__ g_q, float* __restrict__ g_mult,
+    float* __restrict__ g_coh) {
+  // as the forward: no early return before the warp votes
+  const int i0 = blockIdx.x * kBlock + threadIdx.x;
+  const int i = i0 < n ? i0 : n - 1;
+  const float wi_x = wi[3 * i], wi_y = wi[3 * i + 1], wi_z = wi[3 * i + 2];
+  const float wo_x = wo[3 * i], wo_y = wo[3 * i + 1], wo_z = wo[3 * i + 2];
+  const float cg = gdir[2 * i], sg = gdir[2 * i + 1];
+  const float ip_x = ip[2 * i], ip_y = ip[2 * i + 1];
+  const float qv = q[i], mu_ = mult[i], co_ = coh[i], ac_ = acone[i];
+  const float lob = (float)lobes[i], gt = (float)gtype[i];
+
+  const float px = sqrtf(fmaf(wi_x, wi_x, mul(wi_z, wi_z)));
+  const float py = sqrtf(fmaf(wi_y, wi_y, mul(wi_z, wi_z)));
+  const float sin_ix = px > kEpsilon ? wi_x / fmaxf(px, 1e-20f) : 0.f;
+  const float sin_iy = py > kEpsilon ? wi_y / fmaxf(py, 1e-20f) : 0.f;
+  const float cos_t = fabsf(wi_z);
+  const float half_lobes = floorf(mul(lob, 0.5f));
+  const bool is_1d = ip_y < kEpsilon;
+  const bool is_sin = gt < 0.5f;
+  const bool is_rect = fabsf(sub(gt, 1.0f)) < 0.5f;
+  const float ny = fmaf(2.0f, half_lobes, 1.0f);
+  const float four_pi_q = mul(4.0f * kPi, qv);
+  const float kCoh = (float)(1.0 / (2.0 * kPiD * 1e3));
+
+  // adjoints of the lane's inputs and of its channel-independent terms
+  float g_wox = 0.f, g_woy = 0.f, g_woz = 0.f, g_cg = 0.f, g_sg = 0.f;
+  float g_ipx = 0.f, g_ipy = 0.f, g_qv = 0.f, g_mu = 0.f, g_co = 0.f;
+  float g_six = 0.f, g_siy = 0.f, g_cos = 0.f;
+
+#pragma unroll 1
+  for (int c = 0; c < C; ++c) {
+    const float g = gout[C * i + c];
+    const float wl_um = mul(wl_nm[C * i + c], 1e-3f);
+    const float kwn = (2.0f * kPi) / fmaxf(wl_um, 1e-6f);
+    const float den_a = mul(wl_um, cos_t);
+    const float a = four_pi_q / fmaxf(den_a, 1e-12f);
+    float J[HALF + 1], dJ[HALF + 1];
+    bessel_lookup_grad<HALF>(a, is_sin, table, J, dJ);
+    float sin_half_a = 0.f, cos_half_a = 0.f;
+    if (__any_sync(kFull, is_rect)) sincosf(mul(a, 0.5f), &sin_half_a,
+                                            &cos_half_a);
+    float base[HALF + 1], g_base[HALF + 1];
+    base[0] = 1.f;
+#pragma unroll
+    for (int j = 0; j <= HALF; ++j) {
+      g_base[j] = 0.f;
+      if (j > 0)
+        base[j] = is_sin ? mul(J[j], J[j])
+                         : (is_rect ? mul(sin_half_a, rect_sinc(j))
+                                    : linear_order(j));
+    }
+    const float s = mul(mul(co_, kwn), kCoh);
+    const float expo = mul(mul(s, s), -0.5f);
+    // d out / d acc (the separable sum is acc ny + corr)
+    const float dacc = SEP ? g * ny : g;
+    float g_expo = 0.f, g_wlu = 0.f;
+
+#pragma unroll
+    for (int lx = -HALF; lx <= HALF; ++lx) {
+#pragma unroll
+      for (int ly = (SEP ? 0 : -HALF); ly <= (SEP ? 0 : HALF); ++ly) {
+        const int ax = lx < 0 ? -lx : lx;
+        const int ay = ly < 0 ? -ly : ly;
+        const bool live = half_lobes >= (float)(ax > ay ? ax : ay);
+        const float ix = base[ax];
+        const float iy = is_1d ? ix : base[ay];
+        const float lobe_int = mul(mul(mu_, ix), iy);
+        const float flx = (float)lx, fly = (float)ly;
+        const float lob_rx =
+            SEP ? mul(cg, flx) : sub(mul(cg, flx), mul(sg, fly));
+        const float lob_ry =
+            SEP ? mul(sg, flx) : add(mul(sg, flx), mul(cg, fly));
+        const float aa = sub(mul(mul(wl_um, lob_rx), ip_x), sin_ix);
+        const float bb = sub(mul(mul(wl_um, lob_ry), ip_y), sin_iy);
+        const float aa2 = mul(aa, aa), bb2 = mul(bb, bb);
+        const float den = fmaf(mul(aa2, bb), bb, -1.0f);
+        const bool den_ok = fabsf(den) > 1e-12f;
+        const float den_c = den_ok ? den : 1e-12f;
+        const float mm = sub(aa2, 1.0f) / den_c;
+        const float qq = fmaf(-bb2, mm, 1.0f);
+        const bool ok = fabsf(aa) <= 1.0f && fabsf(bb) <= 1.0f;
+        const float rz = fmaf(-bb2, mm, fmaf(-aa2, qq, 1.0f));
+        const float sq_q = safe_sqrt(qq), sq_m = safe_sqrt(mm);
+        const float sq_r = safe_sqrt(rz);
+        const float cd = fmaf(sq_r, wo_z,
+                              fmaf(mul(bb, sq_m), wo_y,
+                                   mul(mul(aa, sq_q), wo_x)));
+        const float ang = unit_angle(cd);
+        const bool sel = ok && fabsf(ang) < ac_ && live;
+        if (!sel) continue;
+        const float ang_coh = expf(mul(mul(ang, ang), expo));
+
+        // adjoints of lobe_int and of ang_coh
+        float d_li, d_coh;
+        if (lx == 0 && ly == 0) {
+          d_li = dacc;
+          d_coh = 0.f;
+          if (SEP) {
+            d_li += g * (ang_coh - 1.0f) * (ny - 1.0f);
+            d_coh = g * lobe_int * (ny - 1.0f);
+          }
+        } else {
+          d_li = dacc * ang_coh;
+          d_coh = dacc * lobe_int;
+        }
+        g_mu += d_li * ix * iy;
+        const float g_ix = d_li * mu_ * iy, g_iy = d_li * mu_ * ix;
+        g_base[ax] += is_1d ? g_ix + g_iy : g_ix;
+        g_base[ay] += is_1d ? 0.f : g_iy;
+
+        // ang_coh = exp(ang^2 expo)
+        const float e = d_coh * ang_coh;
+        g_expo += e * ang * ang;
+        const float g_ang = 2.0f * e * ang * expo;
+        const float d = safe_sqrt(fmaf(-2.0f, fabsf(cd), 2.0f));
+        const float hd = 0.5f * d;
+        const float g_cd = (d > 0.f && cd != 0.f)
+                               ? -g_ang / (d * sqrtf(1.0f - hd * hd))
+                               : 0.f;
+
+        // cd = aa sqrt(qq) wo_x + bb sqrt(mm) wo_y + sqrt(rz) wo_z
+        g_wox += g_cd * aa * sq_q;
+        g_woy += g_cd * bb * sq_m;
+        g_woz += g_cd * sq_r;
+        float g_aa = g_cd * sq_q * wo_x;
+        float g_bb = g_cd * sq_m * wo_y;
+        float g_qq = qq > 0.f ? 0.5f * g_cd * aa * wo_x / sq_q : 0.f;
+        float g_mm = mm > 0.f ? 0.5f * g_cd * bb * wo_y / sq_m : 0.f;
+        const float g_rz = rz > 0.f ? 0.5f * g_cd * wo_z / sq_r : 0.f;
+        // rz = 1 - aa^2 qq - bb^2 mm
+        g_aa -= 2.0f * aa * qq * g_rz;
+        g_qq -= aa2 * g_rz;
+        g_bb -= 2.0f * bb * mm * g_rz;
+        g_mm -= bb2 * g_rz;
+        // qq = 1 - bb^2 mm
+        g_bb -= 2.0f * bb * mm * g_qq;
+        g_mm -= bb2 * g_qq;
+        // mm = (aa^2 - 1) / den, den = aa^2 bb^2 - 1 (the 1e-12 floor has
+        // none)
+        g_aa += 2.0f * aa * g_mm / den_c;
+        if (den_ok) {
+          const float g_den = -mm * g_mm / den_c;
+          g_aa += 2.0f * aa * bb2 * g_den;
+          g_bb += 2.0f * bb * aa2 * g_den;
+        }
+        // aa = wl lob_rx ip_x - sin_ix, bb = wl lob_ry ip_y - sin_iy
+        g_wlu += g_aa * lob_rx * ip_x + g_bb * lob_ry * ip_y;
+        g_ipx += g_aa * wl_um * lob_rx;
+        g_ipy += g_bb * wl_um * lob_ry;
+        g_six -= g_aa;
+        g_siy -= g_bb;
+        const float g_rx = g_aa * wl_um * ip_x, g_ry = g_bb * wl_um * ip_y;
+        // lob_rx = cg lx - sg ly, lob_ry = sg lx + cg ly
+        g_cg += g_rx * flx + g_ry * fly;
+        g_sg += g_ry * flx - g_rx * fly;
+      }
+    }
+
+    // base -> J (sinusoidal), sin(a / 2) (rectangular) -> a
+    float g_x = 0.f, g_sh = 0.f;
+#pragma unroll
+    for (int j = 1; j <= HALF; ++j) {
+      g_x += is_sin ? 2.0f * g_base[j] * J[j] * dJ[j] : 0.f;
+      g_sh += is_rect ? g_base[j] * rect_sinc(j) : 0.f;
+    }
+    const float g_a = (a > 0.f ? g_x : a < 0.f ? -g_x : 0.f) +
+                      0.5f * g_sh * cos_half_a;
+    // expo = -s^2 / 2, s = coh kwn / (2 pi 1e3), kwn = 2 pi / wl
+    const float g_s = -s * g_expo;
+    g_co += g_s * kwn * kCoh;
+    if (wl_um > 1e-6f) g_wlu -= g_s * co_ * kCoh * kwn / wl_um;
+    // a = 4 pi q / (wl cos_t)
+    if (den_a > 1e-12f) {
+      g_qv += g_a * (4.0f * kPi) / den_a;
+      const float g_den_a = -g_a * a / den_a;
+      g_wlu += g_den_a * cos_t;
+      g_cos += g_den_a * wl_um;
+    }
+    if (i0 < n) g_wl[C * i + c] = g_wlu * 1e-3f;
+  }
+
+  // sin_ix = wi_x / px, px = sqrt(wi_x^2 + wi_z^2) (0 below Epsilon); the
+  // same for y; cos_t = |wi_z|
+  float g_wix = 0.f, g_wiy = 0.f;
+  float g_wiz = wi_z > 0.f ? g_cos : wi_z < 0.f ? -g_cos : 0.f;
+  if (px > kEpsilon) {
+    const float g_px = -g_six * sin_ix / px;
+    g_wix += g_six / px + g_px * wi_x / px;
+    g_wiz += g_px * wi_z / px;
+  }
+  if (py > kEpsilon) {
+    const float g_py = -g_siy * sin_iy / py;
+    g_wiy += g_siy / py + g_py * wi_y / py;
+    g_wiz += g_py * wi_z / py;
+  }
+  if (i0 < n) {
+    g_wi[3 * i] = g_wix;
+    g_wi[3 * i + 1] = g_wiy;
+    g_wi[3 * i + 2] = g_wiz;
+    g_wo[3 * i] = g_wox;
+    g_wo[3 * i + 1] = g_woy;
+    g_wo[3 * i + 2] = g_woz;
+    g_gdir[2 * i] = g_cg;
+    g_gdir[2 * i + 1] = g_sg;
+    g_ip[2 * i] = g_ipx;
+    g_ip[2 * i + 1] = g_ipy;
+    g_q[i] = g_qv;
+    g_mult[i] = g_mu;
+    g_coh[i] = g_co;
+  }
+}
+
 // Smith G1, NDF 0 = GGX, 1 = Beckmann (rational fit)
 template <int NDF>
 __device__ __forceinline__ float smith_g1(float vx, float vy, float vz,
@@ -615,6 +924,21 @@ void launch_lobe_sum(cudaStream_t st, const float* wi, const float* wo,
       wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, n, out);
 }
 
+template <int HALF, bool SEP>
+void launch_lobe_sum_bwd(cudaStream_t st, const float* wi, const float* wo,
+                         const float* wl, const float* gdir, const float* ip,
+                         const float* q, const int* lobes, const int* gtype,
+                         const float* mult, const float* coh,
+                         const float* acone, const float4* table,
+                         const float* g, int n, float* g_wi, float* g_wo,
+                         float* g_wl, float* g_gdir, float* g_ip, float* g_q,
+                         float* g_mult, float* g_coh) {
+  const int grid = (n + kBlock - 1) / kBlock;
+  lobe_sum_bwd_kernel<HALF, SEP, kChannels><<<grid, kBlock, 0, st>>>(
+      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, g, n,
+      g_wi, g_wo, g_wl, g_gdir, g_ip, g_q, g_mult, g_coh);
+}
+
 template <int HALF>
 void launch_sample(int ndf, int grid, cudaStream_t st, const float* wi,
                    const float* u2, const float* lu2, const float* wl,
@@ -656,6 +980,46 @@ extern "C" int plt_grating_lobe_sum(
     else                                                                   \
       launch_lobe_sum<H, false>(st, wi, wo, wl_nm, gdir, ip, q, lobes,     \
                                 gtype, mult, coh, acone, tab, n, out);     \
+    break;
+    switch (half) {
+      PLT_HALF(0)
+      PLT_HALF(1)
+      PLT_HALF(2)
+      PLT_HALF(3)
+      PLT_HALF(4)
+    }
+#undef PLT_HALF
+  }
+  return (int)cudaGetLastError();
+}
+
+// B4b. `g` is the cotangent [n, 3]; the gradients are written in the
+// layouts of their inputs (a_cone has none). Returns as
+// plt_grating_lobe_sum.
+extern "C" int plt_grating_lobe_sum_bwd(
+    const float* wi, const float* wo, const float* wl_nm, const float* gdir,
+    const float* ip, const float* q, const int* lobes, const int* gtype,
+    const float* mult, const float* coh, const float* acone,
+    const float* table, const float* g, int n, int half, int separable,
+    int n_channels, float* g_wi, float* g_wo, float* g_wl, float* g_gdir,
+    float* g_ip, float* g_q, float* g_mult, float* g_coh, void* stream) {
+  if (half < 0 || half > 4 || n_channels != kChannels)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const float4* tab = reinterpret_cast<const float4*>(table);
+#define PLT_HALF(H)                                                          \
+  case H:                                                                    \
+    if (separable)                                                           \
+      launch_lobe_sum_bwd<H, true>(st, wi, wo, wl_nm, gdir, ip, q, lobes,    \
+                                   gtype, mult, coh, acone, tab, g, n, g_wi, \
+                                   g_wo, g_wl, g_gdir, g_ip, g_q, g_mult,    \
+                                   g_coh);                                   \
+    else                                                                     \
+      launch_lobe_sum_bwd<H, false>(st, wi, wo, wl_nm, gdir, ip, q, lobes,   \
+                                    gtype, mult, coh, acone, tab, g, n,      \
+                                    g_wi, g_wo, g_wl, g_gdir, g_ip, g_q,     \
+                                    g_mult, g_coh);                          \
     break;
     switch (half) {
       PLT_HALF(0)

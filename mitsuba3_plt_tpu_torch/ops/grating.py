@@ -7,7 +7,9 @@ multiplier * I(|lx|) * I(|ly|), gated by the grating-equation lobe centre
 and the acceptance cone 2 sqrt(alpha_u alpha_v), weighted by the
 angular-coherence Gaussian exp(-ang^2 inv_det / 2) (1 for the (0, 0) lobe).
 With `separable` (every grating 1D and axis-aligned) the ly axis collapses
-to its multiplicity.
+to its multiplicity. It is a `torch.autograd.Function`: its backward,
+`grating_lobe_sum_bwd`, is the B4b kernel on the card and autograd of the
+plain version on the CPU.
 
 `grating_sample` is the roughgrating sample chain: visible-normal sample,
 microfacet frame, per-order intensities at the hero wavelength, lobe-CDF
@@ -30,6 +32,7 @@ from ._check import check_tensors
 
 GRATING_SAMPLE_LAUNCHES = 0
 LOBE_SUM_LAUNCHES = 0
+LOBE_SUM_BWD_LAUNCHES = 0
 
 MAX_HALF = 4            # MAX_LOBES = 9 -> at most 4 orders per side
 BESSEL_M = 64
@@ -47,7 +50,51 @@ _bessel_tables = {}
 # ---------------------------------------------------------------------------
 
 def bessel_sweep(a, half: int):
-    """[J_0(|a|), .., J_half(|a|)] (tensors shaped like a)."""
+    """[J_0(|a|), .., J_half(|a|)] (tensors shaped like a).
+
+    Under autograd the values are those of the sweep, and so is their
+    derivative in |a|, by the recurrence identity J_nu' = (J_{nu-1} -
+    J_{nu+1}) / 2 (J_0' = -J_1) on the same sweep's orders 0..half + 1;
+    the Hankel branch differentiates its own expression, the exact 1 and 0
+    at 0 have none. The recurrence itself has no usable derivative in
+    float32: autograd through its 64 steps turns non-finite from |a| ~
+    36.5, and into a lane's other profiles through the selects."""
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _bessel_sweep_grad(a, half)
+    return _bessel_sweep(a, half)
+
+
+def _hankel(x_abs, nu: int):
+    """The two-term Hankel asymptotics of J_nu at x_abs > 0, as the sweep
+    forms them."""
+    x_safe = torch.clamp_min(x_abs, 1e-6)
+    i8x = 1.0 / (8.0 * x_safe)
+    sq = torch.sqrt(2.0 / (m.Pi * x_safe))
+    mu = 4.0 * nu * nu
+    p = 1.0 - (mu - 1.0) * (mu - 9.0) * 0.5 * i8x * i8x
+    q = (mu - 1.0) * i8x
+    omega = x_abs - (0.5 * nu + 0.25) * m.Pi
+    return sq * (torch.cos(omega) * p - torch.sin(omega) * q)
+
+
+def _bessel_sweep_grad(a, half: int):
+    with torch.no_grad():
+        J = _bessel_sweep(a, half + 1)
+    x_abs = torch.abs(a)
+    dx = x_abs - x_abs.detach()
+    use_asym = x_abs.detach() > ASYMP_SWITCH
+    at_zero = x_abs.detach() < 1e-6
+    res = []
+    for nu in range(half + 1):
+        d = -J[1] if nu == 0 else 0.5 * (J[nu - 1] - J[nu + 1])
+        asym = _hankel(x_abs, nu)
+        # zero-valued terms that carry the derivative: J[nu] keeps its bits
+        term = torch.where(use_asym, asym - asym.detach(), dx * d)
+        res.append(J[nu] + torch.where(at_zero, 0.0, term))
+    return res
+
+
+def _bessel_sweep(a, half: int):
     x_abs = torch.abs(a)
     x_safe = torch.clamp_min(x_abs, 1e-6)
     inv_x = 1.0 / x_safe
@@ -73,17 +120,10 @@ def bessel_sweep(a, half: int):
     inv_norm = torch.where(norm >= 0, 1.0, -1.0) / torch.clamp_min(
         torch.abs(norm), 1e-30)
     use_asym = x_abs > ASYMP_SWITCH
-    i8x = 1.0 / (8.0 * x_safe)
-    sq = torch.sqrt(2.0 / (m.Pi * x_safe))
     at_zero = x_abs < 1e-6
     res = []
     for nu in range(half + 1):
-        mu = 4.0 * nu * nu
-        p = 1.0 - (mu - 1.0) * (mu - 9.0) * 0.5 * i8x * i8x
-        q = (mu - 1.0) * i8x
-        omega = x_abs - (0.5 * nu + 0.25) * m.Pi
-        asym = sq * (torch.cos(omega) * p - torch.sin(omega) * q)
-        r = torch.where(use_asym, asym, outs[nu] * inv_norm)
+        r = torch.where(use_asym, _hankel(x_abs, nu), outs[nu] * inv_norm)
         res.append(torch.where(at_zero, 1.0 if nu == 0 else 0.0, r))
     return res
 
@@ -246,6 +286,131 @@ def grating_lobe_sum_plain(wi, wo, wl_nm, grating_dir, inv_period, q, lobes,
     return acc
 
 
+# the lobe sum's inputs in order; lobes and gtype (int32) take no gradient,
+# a_cone reaches the output only through the cone's mask
+LOBE_SUM_INPUTS = ("wi", "wo", "wl_nm", "grating_dir", "inv_period", "q",
+                   "lobes", "gtype", "multiplier", "coherence", "a_cone")
+_NO_GRAD_INPUTS = ("lobes", "gtype", "a_cone")
+
+
+def _check_lobe_sum(args, half, n_channels):
+    f32, i32 = torch.float32, torch.int32
+    wi, wo, wl_nm, gd, ip, q, lobes, gtype, mult, coh, a_cone = args
+    dev, n = check_tensors("grating_lobe_sum", {
+        "wi": (wi, f32, (3,)), "wo": (wo, f32, (3,)),
+        "wl_nm": (wl_nm, f32, (n_channels,)),
+        "grating_dir": (gd, f32, (2,)),
+        "inv_period": (ip, f32, (2,)), "q": (q, f32, ()),
+        "lobes": (lobes, i32, ()), "gtype": (gtype, i32, ()),
+        "multiplier": (mult, f32, ()),
+        "coherence": (coh, f32, ()), "a_cone": (a_cone, f32, ()),
+    })
+    if not 0 <= half <= MAX_HALF:
+        raise ValueError(f"grating_lobe_sum: half {half} outside 0..{MAX_HALF}")
+    if dev.type == "cuda" and n_channels != 3:
+        raise ValueError("grating_lobe_sum: the kernel takes 3 channels (RGB)")
+    return dev, n
+
+
+def _lobe_sum_kernel(args, half, separable, n_channels):
+    """B4: the forward kernel on CUDA tensors."""
+    global LOBE_SUM_LAUNCHES
+    from .build import check, load_library
+
+    dev, n = args[0].device, args[0].shape[0]
+    lib = load_library()
+    table = bessel_table(dev)
+    out = torch.empty((n, n_channels), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_grating_lobe_sum(
+        *(t.data_ptr() for t in args), table.data_ptr(), n, int(half),
+        int(bool(separable)), int(n_channels), out.data_ptr(), stream),
+        "grating_lobe_sum")
+    LOBE_SUM_LAUNCHES += 1
+    return out
+
+
+def grating_lobe_sum_bwd_plain(args, g, half: int, separable: bool):
+    """Plain version of `grating_lobe_sum_bwd`: autograd of
+    `grating_lobe_sum_plain` at the inputs `args` (in LOBE_SUM_INPUTS
+    order) with the cotangent g [N, C]. Returns the gradients of the
+    inputs (zeros where an input does not reach the output, as q at half
+    0), None for lobes, gtype and a_cone."""
+    xs = [t.detach().requires_grad_(name not in _NO_GRAD_INPUTS)
+          for name, t in zip(LOBE_SUM_INPUTS, args)]
+    with torch.enable_grad():
+        out = grating_lobe_sum_plain(*xs, half, separable)
+        want = [x for name, x in zip(LOBE_SUM_INPUTS, xs)
+                if name not in _NO_GRAD_INPUTS]
+        grads = iter(torch.autograd.grad(out, want, g,
+                                         materialize_grads=True))
+    return tuple(None if name in _NO_GRAD_INPUTS else next(grads)
+                 for name in LOBE_SUM_INPUTS)
+
+
+def grating_lobe_sum_bwd(args, g, half: int, separable: bool):
+    """B4b: the vector-Jacobian product of `grating_lobe_sum` at the inputs
+    `args` (in LOBE_SUM_INPUTS order) with the cotangent g [N, C]: the
+    gradients of wi, wo, wl_nm, grating_dir, inv_period, q, multiplier
+    and coherence, None for lobes, gtype and a_cone. CPU tensors take
+    `grating_lobe_sum_bwd_plain`; CUDA tensors launch the kernel, which
+    differentiates B4's own forward (J and J' from `bessel_table`'s
+    Hermite cubic), so it agrees with the plain version, which
+    differentiates the float32 sweep, within that interpolation and
+    rounding."""
+    global LOBE_SUM_BWD_LAUNCHES
+    n_channels = args[2].shape[-1]
+    dev, n = _check_lobe_sum(args, half, n_channels)
+    check_tensors("grating_lobe_sum_bwd", {
+        "wl_nm": (args[2], torch.float32, (n_channels,)),
+        "g": (g, torch.float32, (n_channels,))})
+    if dev.type == "cpu":
+        return grating_lobe_sum_bwd_plain(args, g, half, separable)
+    from .build import check, load_library
+
+    lib = load_library()
+    table = bessel_table(dev)
+    grads = {name: torch.empty_like(t) for name, t in zip(LOBE_SUM_INPUTS,
+                                                          args)
+             if name not in _NO_GRAD_INPUTS}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.plt_grating_lobe_sum_bwd(
+        *(t.data_ptr() for t in args), table.data_ptr(), g.data_ptr(), n,
+        int(half), int(bool(separable)), int(n_channels),
+        *(t.data_ptr() for t in grads.values()), stream),
+        "grating_lobe_sum_bwd")
+    LOBE_SUM_BWD_LAUNCHES += 1
+    return tuple(grads.get(name) for name in LOBE_SUM_INPUTS)
+
+
+class _LobeSum(torch.autograd.Function):
+    """B4 forward, B4b backward (`grating_lobe_sum_bwd`). Forward mode
+    raises: the lobe sum has a hand-written VJP and no JVP, as the JAX
+    package's custom_vjp has none on its TPU path."""
+
+    @staticmethod
+    def forward(ctx, half, separable, n_channels, *args):
+        ctx.half, ctx.separable = half, separable
+        ctx.save_for_backward(*args)
+        if args[0].device.type == "cpu":
+            return grating_lobe_sum_plain(*args, half, separable)
+        return _lobe_sum_kernel(args, half, separable, n_channels)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = grating_lobe_sum_bwd(ctx.saved_tensors, g.contiguous(),
+                                     ctx.half, ctx.separable)
+        return (None, None, None, *grads)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(
+            "grating_lobe_sum has no forward-mode derivative (a VJP only, "
+            "as the JAX package's custom_vjp); differentiate the PLT "
+            "render in reverse mode")
+
+
 def grating_lobe_sum(wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
                      multiplier, coherence, a_cone, half: int,
                      separable: bool, n_channels: int):
@@ -256,41 +421,15 @@ def grating_lobe_sum(wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
     (gtype already masked to its profile bits). CPU tensors run the plain
     version; CUDA tensors launch the kernel, which reads J_0..J_half from
     `bessel_table` (so it agrees with the plain version within rounding of
-    the table and of the special functions, not to the bit)."""
-    global LOBE_SUM_LAUNCHES
-    f32, i32 = torch.float32, torch.int32
-    dev, n = check_tensors("grating_lobe_sum", {
-        "wi": (wi, f32, (3,)), "wo": (wo, f32, (3,)),
-        "wl_nm": (wl_nm, f32, (n_channels,)),
-        "grating_dir": (grating_dir, f32, (2,)),
-        "inv_period": (inv_period, f32, (2,)), "q": (q, f32, ()),
-        "lobes": (lobes, i32, ()), "gtype": (gtype, i32, ()),
-        "multiplier": (multiplier, f32, ()),
-        "coherence": (coherence, f32, ()), "a_cone": (a_cone, f32, ()),
-    })
-    if not 0 <= half <= MAX_HALF:
-        raise ValueError(f"grating_lobe_sum: half {half} outside 0..{MAX_HALF}")
-    if dev.type == "cpu":
-        return grating_lobe_sum_plain(
-            wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
-            multiplier, coherence, a_cone, half, separable)
-    if n_channels != 3:
-        raise ValueError("grating_lobe_sum: the kernel takes 3 channels (RGB)")
-    from .build import check, load_library
+    the table and of the special functions, not to the bit).
 
-    lib = load_library()
-    table = bessel_table(dev)
-    out = torch.empty((n, n_channels), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check(lib.plt_grating_lobe_sum(
-        wi.data_ptr(), wo.data_ptr(), wl_nm.data_ptr(),
-        grating_dir.data_ptr(), inv_period.data_ptr(), q.data_ptr(),
-        lobes.data_ptr(), gtype.data_ptr(), multiplier.data_ptr(),
-        coherence.data_ptr(), a_cone.data_ptr(), table.data_ptr(), n,
-        int(half), int(bool(separable)), int(n_channels), out.data_ptr(),
-        stream), "grating_lobe_sum")
-    LOBE_SUM_LAUNCHES += 1
-    return out
+    Differentiable (a `torch.autograd.Function`): its backward is
+    `grating_lobe_sum_bwd`, the B4b kernel on CUDA tensors and autograd of
+    the plain version on CPU tensors. Forward mode raises."""
+    args = (wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
+            multiplier, coherence, a_cone)
+    _check_lobe_sum(args, half, n_channels)
+    return _LobeSum.apply(int(half), bool(separable), int(n_channels), *args)
 
 
 # ---------------------------------------------------------------------------

@@ -76,10 +76,16 @@ class RoughGratingW:
         n, dev = si.wi.shape[0], si.wi.device
         active = fr.cos_theta(si.wi) > 0
         g = _make_grating(p, si.uv)
+        # the sample chain carries no gradient (detached sampling, as the
+        # JAX package's kernel path): its inputs are detached explicitly,
+        # since the kernel reads their storage and autograd would not see
+        # the cut; the parameters differentiate through the eval
         out = grating_ops.grating_sample(
-            si.wi, u2, lobe_u2, sampling_wl[..., 0] * 1e-3, p["alpha"],
-            g.grating_dir, g.inv_period, g.q, g.lobes,
-            g.gtype & gr.TYPE_MASK, g.multiplier, half=half, ndf=ndf,
+            *(x.detach() for x in (
+                si.wi, u2, lobe_u2, sampling_wl[..., 0] * 1e-3, p["alpha"],
+                g.grating_dir, g.inv_period, g.q, g.lobes,
+                g.gtype & gr.TYPE_MASK, g.multiplier)),
+            half=half, ndf=ndf,
         )
         ok = active & out["ok"]
         Fv = bsdfs.RoughConductor.fresnel_value(

@@ -22,6 +22,7 @@ walk.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -273,6 +274,12 @@ class PacketBVH:
 
     nodes: torch.Tensor
     tri: torch.Tensor
+
+    @functools.cached_property
+    def wide(self) -> "WideBVH":
+        """The WideBVH of these tables, built on first use and kept: every
+        scene that holds this PacketBVH walks the same one."""
+        return pack_wide_bvh(self)
 
 
 def pack_packet_bvh_arrays(bvh: BVH, tri_p0, tri_p1, tri_p2) -> dict:

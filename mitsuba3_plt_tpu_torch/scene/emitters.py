@@ -15,6 +15,7 @@ import torch
 from ..core import frame as fr
 from ..core import math as m
 from ..core import warp
+from ..core.math import take_rows
 from ..librender.records import DirectionSample
 
 # type tags: the JAX package's values
@@ -50,7 +51,7 @@ def _sample_area(em: EmitterTable, geo, ref_p, e_idx, sample2):
     is the slot of the area CDF that sample2[0] falls in, and sample2[0],
     rescaled within that slot, and sample2[1] pick the point on it."""
     n = ref_p.shape[0]
-    cdf = em.tri_cdf[e_idx]  # [N, T]
+    cdf = take_rows(em.tri_cdf, e_idx)  # [N, T]
     u = sample2[..., 0]
     slot = torch.clamp((cdf < u[..., None]).sum(-1), 0, cdf.shape[1] - 1)
     tri = torch.clamp_min(em.tri_idx[e_idx, slot], 0)
@@ -62,7 +63,7 @@ def _sample_area(em: EmitterTable, geo, ref_p, e_idx, sample2):
     bary = warp.square_to_uniform_triangle(
         torch.stack([u_re, sample2[..., 1]], dim=-1))
 
-    rows = geo.tri_isect[tri]
+    rows = take_rows(geo.tri_isect, tri)
     p0 = rows[..., 0:3]
     p1 = p0 + rows[..., 3:6]
     p2 = p0 + rows[..., 6:9]
@@ -75,7 +76,7 @@ def _sample_area(em: EmitterTable, geo, ref_p, e_idx, sample2):
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-20))
     d = to_l / dist[..., None]
     cos_l = -fr.dot(d, ng)
-    area = torch.clamp_min(em.area[e_idx], 1e-12)
+    area = torch.clamp_min(take_rows(em.area, e_idx), 1e-12)
     pdf = torch.where(cos_l > 1e-6,
                       dist2 / (torch.clamp_min(cos_l, 1e-9) * area), 0.0)
     return DirectionSample(
@@ -108,7 +109,7 @@ def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
             continue
         t_dist = dist.expand(n)
         if t == EMITTER_POINT:
-            to_l = em.position[e_idx] - ref_p
+            to_l = take_rows(em.position, e_idx) - ref_p
             t_dist = torch.sqrt(torch.clamp_min(fr.squared_norm(to_l), 1e-20))
             d = to_l / t_dist[..., None]
             pdf, delta = 1.0, True
@@ -117,7 +118,7 @@ def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
             pdf, delta = m.InvFourPi, False
         elif t == EMITTER_DIRECTIONAL:
             # the direction property points away from the emitter
-            d = -em.direction[e_idx]
+            d = -take_rows(em.direction, e_idx)
             pdf, delta = 1.0, True
         else:
             raise NotImplementedError(f"emitter type {t} is not ported")
@@ -141,8 +142,8 @@ def pdf_emitter_direction(em: EmitterTable, ds: DirectionSample):
     pdf = torch.zeros(ds.d.shape[0], device=ds.d.device)
     if EMITTER_AREA in em.present_types:
         cos_l = -fr.dot(ds.d, ds.n)
-        area = torch.clamp_min(em.area[torch.clamp_min(ds.emitter_idx, 0)],
-                               1e-12)
+        area = torch.clamp_min(
+            take_rows(em.area, torch.clamp_min(ds.emitter_idx, 0)), 1e-12)
         p = torch.where(cos_l > 0, ds.dist * ds.dist / (
             torch.clamp_min(cos_l, 1e-9) * area), 0.0)
         pdf = torch.where(etype == EMITTER_AREA, p, pdf)
@@ -156,7 +157,7 @@ def emitter_value(em: EmitterTable, e_idx, d, dist, active):
     dist (0 where inactive or e_idx < 0): an area light's radiance as it
     is, a point light's intensity falling off as 1 / dist^2."""
     e_c = torch.clamp_min(e_idx, 0)
-    val = em.radiance[e_c]
+    val = take_rows(em.radiance, e_c)
     if EMITTER_POINT in em.present_types:
         point = em.etype[e_c] == EMITTER_POINT
         val = torch.where(

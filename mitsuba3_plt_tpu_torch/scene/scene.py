@@ -14,11 +14,12 @@ from typing import Optional
 import torch
 
 from ..core import frame as fr
+from ..core.math import take_rows
 from ..librender.bsdf import MaterialTable
 from ..librender.records import Ray, SurfaceInteraction
 from ..librender.sensor import Sensor
 from ..ops import intersect as isect
-from .bvh import ClusterTable2, PacketBVH, WideBVH, pack_wide_bvh
+from .bvh import ClusterTable2, PacketBVH, WideBVH
 from .emitters import EmitterTable, env_emitter_index
 
 BRUTE_FORCE_MAX_FACES = 4096
@@ -53,7 +54,7 @@ class Scene:
     # index of the environment (constant) emitter, -1 if none, read on
     # the host; set from the emitters when the scene is built
     env_emitter: int = dataclasses.field(init=False, compare=False)
-    # the table of the packet route's walks, built from pbvh
+    # the table of the packet route's walks, built once for each pbvh
     wbvh: Optional[WideBVH] = dataclasses.field(init=False, repr=False,
                                                 compare=False)
 
@@ -61,7 +62,7 @@ class Scene:
         object.__setattr__(self, "env_emitter",
                            env_emitter_index(self.emitters))
         object.__setattr__(self, "wbvh", None if self.pbvh is None
-                           else pack_wide_bvh(self.pbvh))
+                           else self.pbvh.wide)
 
     @property
     def device(self) -> torch.device:
@@ -115,25 +116,28 @@ class Scene:
         return perm, inv
 
     def ray_intersect(self, ray: Ray) -> SurfaceInteraction:
-        """Closest hit -> SurfaceInteraction (wi in the shading frame)."""
+        """Closest hit -> SurfaceInteraction (wi in the shading frame).
+        Every route takes the detached ray, as the JAX package's kernels
+        do: t, u and v carry no gradient (the kernels read the ray's
+        storage, out of autograd's sight); p, wi and the frames stay
+        attached to the ray and the scene's tables."""
         geo = self.geo
         route = self.intersect_route()
+        o, d, maxt = ray.o.detach(), ray.d.detach(), ray.maxt.detach()
         if route == "clu2":
-            t, prim, u, v = isect.intersect_clu2(self.ctab2, ray.o, ray.d,
-                                                 ray.maxt)
+            t, prim, u, v = isect.intersect_clu2(self.ctab2, o, d, maxt)
         elif route == "packet":
-            perm, inv = self._packet_perm(ray.o, ray.d)
+            perm, inv = self._packet_perm(o, d)
             t, prim, u, v = (x[inv] for x in isect.intersect_bvh(
-                self.wbvh, ray.o[perm], ray.d[perm], ray.maxt[perm]))
+                self.wbvh, o[perm], d[perm], maxt[perm]))
         else:
             t, prim, u, v = isect.intersect_q(
-                geo.tri_q, geo.tri_anchor, ray.o, ray.d, ray.maxt,
-                n_tris=geo.n_faces)
+                geo.tri_q, geo.tri_anchor, o, d, maxt, n_tris=geo.n_faces)
         valid = prim >= 0
         prim_c = torch.clamp_min(prim, 0).to(torch.int64)
         # keep p finite on miss lanes
         p = ray.o + ray.d * torch.where(valid, t, 1.0)[..., None]
-        attr = geo.tri_attr[prim_c]
+        attr = take_rows(geo.tri_attr, prim_c)
         ng = attr[..., 0:3]
         w = (1.0 - u - v)[..., None]
         u_, v_ = u[..., None], v[..., None]
@@ -154,14 +158,15 @@ class Scene:
         )
 
     def ray_test(self, ray: Ray) -> torch.Tensor:
-        """Shadow-ray occlusion (True = occluded)."""
+        """Shadow-ray occlusion (True = occluded), of the detached ray."""
         geo = self.geo
         route = self.intersect_route()
+        o, d, maxt = ray.o.detach(), ray.d.detach(), ray.maxt.detach()
         if route == "clu2":
-            return isect.occluded_clu2(self.ctab2, ray.o, ray.d, ray.maxt)
+            return isect.occluded_clu2(self.ctab2, o, d, maxt)
         if route == "packet":
-            perm, inv = self._packet_perm(ray.o, ray.d)
-            return isect.occluded_bvh(self.wbvh, ray.o[perm], ray.d[perm],
-                                      ray.maxt[perm])[inv]
-        return isect.occluded_q(geo.tri_q, geo.tri_anchor, ray.o, ray.d,
-                                ray.maxt, n_tris=geo.n_faces)
+            perm, inv = self._packet_perm(o, d)
+            return isect.occluded_bvh(self.wbvh, o[perm], d[perm],
+                                      maxt[perm])[inv]
+        return isect.occluded_q(geo.tri_q, geo.tri_anchor, o, d, maxt,
+                                n_tris=geo.n_faces)

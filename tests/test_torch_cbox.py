@@ -31,6 +31,7 @@ from mitsuba3_plt_tpu_torch.scene import presets as tpresets
 from mitsuba3_plt_tpu_torch.scene import shape as tshape
 from mitsuba3_plt_tpu_torch.scene.bridge import scene_from_arrays
 from test_torch_scene import _tensors, jax_scene_arrays
+from test_torch_golden_specular import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cbox_path.npz")
 

@@ -152,7 +152,95 @@ def test_render_launches_each_kernel_once_per_bounce(card):
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
-                                   "grating_sample": 8, "grating_lobe_sum": 8}
+                                   "grating_sample": 8, "grating_lobe_sum": 8,
+                                   "grating_lobe_sum_bwd": 0}
+
+
+def test_lobe_sum_bwd_kernel_matches_plain(card):
+    """B4b against autograd of the plain version on chip_smoke.py's four
+    lobe-sum cases and a separable half-2 case, at chip_smoke.py's
+    tolerance (`hold_lobe_sum_bwd`), one launch a call; through the
+    autograd.Function, the backward of a CUDA call launches B4b and
+    never the plain version."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    smoke = _smoke()
+    rng = np.random.default_rng(5)
+    for half, sep, gtype, ip_y in ((3, True, 0, 0.0), (3, False, 0, 1.5),
+                                   (4, True, 1, 0.0), (2, True, 2, 0.0),
+                                   (2, True, 0, 0.0)):
+        ins = smoke.lobe_sum_inputs(rng, 20000, gtype, ip_y, card)
+        args = [ins[k] for k in gops.LOBE_SUM_INPUTS]
+        cot = torch.as_tensor(rng.normal(size=(20000, 3)).astype(np.float32),
+                              device=card)
+        ops.reset_launch_counts()
+        got = gops.grating_lobe_sum_bwd(args, cot, half, sep)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["grating_lobe_sum_bwd"] == 1
+        want = gops.grating_lobe_sum_bwd_plain(args, cot, half, sep)
+        smoke.hold_lobe_sum_bwd(str((half, sep, gtype)), got, want)
+        xs = [t.clone().requires_grad_(t.dtype == torch.float32)
+              for t in args]
+        ops.reset_launch_counts()
+        y = gops.grating_lobe_sum(*xs, half=half, separable=sep,
+                                  n_channels=3)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["grating_lobe_sum"] == 1
+        assert ops.launch_counts()["grating_lobe_sum_bwd"] == 1
+        for name, x, g in zip(gops.LOBE_SUM_INPUTS, xs, got):
+            if g is not None:
+                assert torch.equal(x.grad, g), name
+        assert xs[10].grad is None  # a_cone
+
+
+def test_grad_phases_at_small_size(card):
+    """chip_smoke.py's gradient phases on small scenes: the grating's four
+    parameters through PLT (finite, non-zero, B1-B4 twice a bounce and
+    pass, B4b once, the finite-difference signs) and the Cornell box's
+    PRB primal and gradient against the path tracer's, and Adam's falling
+    loss."""
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, grating_scene
+
+    smoke = _smoke()
+    launches = smoke.grad_grating(grating_scene(160, 120, device=card),
+                                  PLTIntegrator(max_depth=7, rr_depth=50))
+    assert launches["grating_lobe_sum_bwd"] > 0
+    smoke.grad_cbox(cornell_box(64, 64, device=card))
+
+
+def test_gradients_match_cpu(card):
+    """The same gradients on the card and on the CPU: PLT's four grating
+    parameters (B4b on the card, the plain version's autograd on the CPU)
+    and the path tracer's and PRB's base_color and radiance, within 1e-3
+    of each key's largest entry (the kernels against the plain versions,
+    float32 sums in another order)."""
+    from mitsuba3_plt_tpu_torch import ad
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.prb import PRBIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, grating_scene
+
+    smoke = _smoke()
+    cases = [(grating_scene, dict(coherence=5e3), PLTIntegrator(3, 8),
+              smoke.GRAD_KEYS),
+             (cornell_box, {}, PathIntegrator(3, 8),
+              ("materials.base_color", "emitters.radiance")),
+             (cornell_box, {}, PRBIntegrator(3, 8),
+              ("materials.base_color", "emitters.radiance"))]
+    for make, kw, integ, keys in cases:
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            scene = make(32, 32, device=dev, **kw)
+            _, g = ad.render_loss_grad(scene, integ.sample, torch.mean,
+                                       list(keys), seed=0, spp=4)
+            out[dev.type] = {k: v.cpu() for k, v in g.items()}
+        for k in keys:
+            a, b = out["cuda"][k], out["cpu"][k]
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max() <= 1e-3 * b.abs().max(), k
 
 
 def _mesh_rays(scene, rng, card):
@@ -243,7 +331,8 @@ def test_path_render_launches_clu2_once_per_bounce(card):
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
-                                   "grating_sample": 0, "grating_lobe_sum": 0}
+                                   "grating_sample": 0, "grating_lobe_sum": 0,
+                                   "grating_lobe_sum_bwd": 0}
 
 
 def test_bvh_kernels_match_plain(card):

@@ -125,9 +125,14 @@ def test_launch_counters_stay_zero_on_the_cpu():
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.scene.presets import grating_scene
 
+    from mitsuba3_plt_tpu_torch import ad
+
     ops.reset_launch_counts()
-    render(grating_scene(4, 4, device="cpu"), PLTIntegrator(max_depth=2),
-           spp=1)
+    scene = grating_scene(4, 4, device="cpu")
+    render(scene, PLTIntegrator(max_depth=2), spp=1)
+    # and a gradient: the lobe sum's backward is the plain version's too
+    ad.render_loss_grad(scene, PLTIntegrator(max_depth=2).sample,
+                        torch.mean, ["materials.grt_height"], spp=1)
     assert ops.launch_counts() == {"intersect_q": 0, "occluded_q": 0,
                                    "intersect_clu2": 0, "occluded_clu2": 0,
                                    "intersect_bvh": 0, "occluded_bvh": 0,
@@ -137,7 +142,8 @@ def test_launch_counters_stay_zero_on_the_cpu():
                                    "intersect_q_variant": 0,
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
-                                   "grating_sample": 0, "grating_lobe_sum": 0}
+                                   "grating_sample": 0, "grating_lobe_sum": 0,
+                                   "grating_lobe_sum_bwd": 0}
 
 
 def test_tool_entry_points_need_a_card_unless_asked_for_the_cpu():

@@ -28,6 +28,7 @@ from mitsuba3_plt_tpu_torch.scene import shape as tshape
 from mitsuba3_plt_tpu_torch.scene.bridge import scene_from_arrays
 from mitsuba3_plt_tpu_torch.scene.bvh import build_bvh, pack_clusters2
 from test_torch_scene import _tensors, jax_scene_arrays
+from test_torch_golden_specular import one_torch_thread  # noqa: F401
 
 BVH_FIELDS = ("node_lo", "node_hi", "node_first", "node_count", "node_miss",
               "prim_idx")

@@ -18,6 +18,7 @@ from mitsuba3_plt_tpu_torch.integrators.common import render, sample_rays
 from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
 from mitsuba3_plt_tpu_torch.scene import presets as tpresets
 from test_torch_mesh import jax_mesh_scene
+from test_torch_golden_specular import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "mesh20k_path.npz")
 

@@ -24,6 +24,7 @@ from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
 from mitsuba3_plt_tpu_torch.librender.records import SurfaceInteraction
 from mitsuba3_plt_tpu_torch.plt import wbsdf as twb
 from mitsuba3_plt_tpu_torch.scene import presets as tpresets
+from test_torch_golden_specular import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "grating_plt.npz")
 N = 2048
