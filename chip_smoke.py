@@ -5,8 +5,10 @@
 
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
                                          # B8a, B8b, B9, B10a, B10b, B11a,
-                                         # B11b, B11c of the package in
-                                         # ROOT
+                                         # B11b, B11c, the lobe sum's
+                                         # forward and backward and the
+                                         # gradient cells of the package
+                                         # in ROOT
 
 Seventeen paths: the PLT flagship (grating_scene, B1-B4), the fixed-depth
 path tracer on the 81,920-face mesh scene over the clu2 route (B5-B6), the
@@ -27,8 +29,8 @@ half = 2), the white furnace (B1, B2, the constant environment), and
 polarized transport: PLT on the grating scene under the RGB-polarized
 config (B1-B4) and the Stokes wrapper of the Mueller path tracer on the
 glass box (B1, B2); and gradients: render_loss_grad through PLT on the
-grating scene (B1-B4 forward, recomputed under the checkpoint, and B4b,
-the lobe sum's backward) and through the path tracer and PRB on the
+grating scene (B1-B3 and B4's recording instance forward, recomputed
+under the checkpoint, and B4b, the lobe sum's backward over its bits) and through the path tracer and PRB on the
 Cornell box (B1, B2), with Adam steps.
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
@@ -64,12 +66,21 @@ Phases, each printing one JSON line with its seconds:
                   grating box path's own first sample and NEE eval inputs
                   (half = 2, height 0.25 um, coherence 1), each at the
                   tolerances stated (`hold_sample`, `hold_lobe_sum`).
-                  B4b (the lobe sum's backward) against autograd of B4's
-                  plain version with a seeded cotangent on B4's four
-                  cases and on the grating box's inputs, per input at
-                  rtol 2e-3 plus 2e-5 of its largest gradient
-                  (`hold_lobe_sum_bwd`), its bound counted by
-                  `lobe_sum_bwd_count`. B5
+                  B4's recording instance (the selection bits its gates
+                  leave, launched where autograd records) on the same
+                  inputs: its sum equal to B4's to the bit, its bits to
+                  the plain version's (`grating_lobe_sum_sel_plain`) but
+                  for lobes within float rounding of a gate, each named
+                  (`hold_record`). B4b (the lobe sum's backward, fed
+                  those bits) against autograd of B4's plain version
+                  with a seeded cotangent on B4's four cases and on the
+                  grating box's inputs, per input at rtol 2e-3 plus 2e-5
+                  of its largest gradient (`hold_lobe_sum_bwd`), every
+                  lane outside it shown a gate flip or not
+                  (`explain_lobe_sum_bwd`, its lanes' inputs written to
+                  chiprun_out/lobe_sum_bwd_outliers.json), its bound
+                  counted by `lobe_sum_bwd_own_count` beside PR 17's
+                  count of the whole VJP (`lobe_sum_bwd_count`). B5
                   (camera, bounce, bounce-random,
                   dead) and B6 (shadow, shadow-random, dead) on the mesh82k
                   scene at 1,048,576 lanes, equal to their plain walk (root
@@ -275,7 +286,7 @@ NO_LAUNCHES = dict.fromkeys(
      "intersect_classic", "occluded_classic", "intersect_mxu",
      "intersect_clu", "occluded_clu", "intersect_q_variant",
      "occluded_q_variant", "intersect_q_macc", "fma_roof",
-     "grating_lobe_sum_bwd"), 0)
+     "grating_lobe_sum_bwd", "grating_lobe_sum_record"), 0)
 GRATING_LAUNCHES = {**NO_LAUNCHES, "intersect_q": MAIN_DEPTH,
                     "occluded_q": MAIN_DEPTH, "grating_sample": MAIN_DEPTH,
                     "grating_lobe_sum": MAIN_DEPTH}
@@ -416,14 +427,16 @@ def graph_ms(fn, calls=10, reps=7):
     return times[len(times) // 2]
 
 
-def kernel_times(fn):
+def kernel_times(fn, device=False):
     """{"ms", "wrapper_ms", "ms_by"}: `time_ms` of fn (the wrapper's time,
     10 back-to-back calls between CUDA events), and as "ms" the device time
     by `graph_ms` where that is under DEVICE_TIMED_BELOW_MS (the host's
-    launch then takes about as long as the kernel or longer), else the
-    same event time."""
+    launch then takes about as long as the kernel or longer) or where
+    `device` asks for it (a wrapper whose host work may outlast its kernel
+    above that: B4b allocates eight gradients a call), else the same event
+    time."""
     wrapper = time_ms(fn)
-    if wrapper >= DEVICE_TIMED_BELOW_MS:
+    if wrapper >= DEVICE_TIMED_BELOW_MS and not device:
         return {"ms": wrapper, "wrapper_ms": wrapper, "ms_by": "events"}
     return {"ms": graph_ms(fn), "wrapper_ms": wrapper, "ms_by": "graph"}
 
@@ -744,35 +757,27 @@ def weigh_calls(calls, specials):
     return ops, sum(k * specials[f]["ffma"] for f, k in calls.items())
 
 
+def sel_popcount(sel):
+    """Set bits of each word of `sel` (int32 words, as B4's recording
+    instance writes them), as int64 of the same shape."""
+    import torch
+
+    words = sel.long() & 0xFFFFFFFF
+    count = torch.zeros_like(words)
+    for b in range(32):
+        count += (words >> b) & 1
+    return count
+
+
 def lobe_sum_selected(ins, half, separable):
     """The (lane, channel, lobe)s that pass the lobe sum's gates (lobe_ok,
-    in_cone, live) on these inputs: the lobes whose adjoints B4b takes
-    (the plain version's gates)."""
-    from mitsuba3_plt_tpu_torch.core import math as m
+    in_cone, live) on these inputs: the set bits of the plain version's
+    selection (`grating_lobe_sum_sel_plain`)."""
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
-    col = lambda x: x[:, None]  # noqa: E731
-    wi, wo = ins["wi"], ins["wo"]
-    sin_ix, sin_iy = gops._sin_incidence(col(wi[:, 0]), col(wi[:, 1]),
-                                         col(wi[:, 2]))
-    wl_um = ins["wl_nm"] * 1e-3
-    cg, sg = col(ins["grating_dir"][:, 0]), col(ins["grating_dir"][:, 1])
-    ip_x, ip_y = col(ins["inv_period"][:, 0]), col(ins["inv_period"][:, 1])
-    half_lobes = (col(ins["lobes"].float()) * 0.5).floor()
-    total = 0
-    for lx in range(-half, half + 1):
-        for ly in [0] if separable else range(-half, half + 1):
-            aa, bb, mm, qq, ok = gops._diffract(wl_um, cg, sg, float(lx),
-                                                float(ly), ip_x, ip_y,
-                                                sin_ix, sin_iy)
-            cd = (aa * m.safe_sqrt(qq) * col(wo[:, 0])
-                  + bb * m.safe_sqrt(mm) * col(wo[:, 1])
-                  + m.safe_sqrt(1.0 - aa * aa * qq - bb * bb * mm)
-                  * col(wo[:, 2]))
-            sel = (ok & (m.unit_angle_dot(cd).abs() < col(ins["a_cone"]))
-                   & (half_lobes >= float(max(abs(lx), abs(ly)))))
-            total += int(sel.sum())
-    return total
+    sel = gops.grating_lobe_sum_sel_plain([ins[k] for k in LOBE_SUM_ARGS],
+                                          half, separable)
+    return int(sel_popcount(sel).sum())
 
 
 def lobe_sum_bwd_count(ins, half, separable, specials):
@@ -803,6 +808,140 @@ def lobe_sum_bwd_count(ins, half, separable, specials):
             "selected_lobes_per_lane": n_sel / n,
             "live_lobes_per_lane": fwd["live_lobes_per_lane"],
             "slots_per_lane": (ops - fma) / n}
+
+
+# B4b's own work over B4's bits (PR 18): a hand count of
+# csrc/grating.cu::lobe_sum_bwd_kernel as `lobe_sum_count`'s, with the
+# forward's chain (LOBE_*) for the (lane, channel)s with bits and the
+# selected lobes only, and the adjoints as LOBE_BWD_*. (operations):
+LOBE_OWN_WORD = 2          # a word of a lane's bits: its load's OR,
+                           # again in its channel's item
+LOBE_OWN_SEL_LOBE = 12     # a set bit: __ffs, its clear, k into lx, ly,
+                           # |lx|, |ly|, the centre's test; + 8 half: the
+                           # selects of ix, iy, d base[ax], d base[ay]
+LOBE_OWN_ORDER = 3         # an order of a channel: d base / d a, base
+LOBE_OWN_VOTE = 7          # a channel of a lane: its bits' test, the
+                           # warp's ballot, atomic, shuffle and list slot
+LOBE_OWN_SUM = 14          # a channel of a lane with bits: its slot's
+                           # 13 adjoints added, the test
+BWD_LANES = 128            # lanes a block (csrc/grating.cu: kBwdBlock)
+
+
+def bessel_table_bytes():
+    """Bytes of the lobe sum's Bessel table (`ops/grating.py::
+    bessel_table`)."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    return (gops.MAX_HALF + 1) * gops.BESSEL_TABLE_N * 16
+
+
+def lobe_sum_bwd_own_count(ins, sel, half, separable, specials):
+    """B4b's own work on these inputs and B4's bits `sel`: the bytes it
+    must move (every lane its bits and its 16 gradient floats, a lane
+    with bits its inputs but a_cone and its cotangent, the table once),
+    and its operations as `lobe_sum_count`'s over the lanes, (lane,
+    channel)s and lobes the bits select. "warp_slots" counts the issue
+    slots of its warps, 32 a warp instruction: the gathering and the
+    finish a thread a lane, and each block's (lane, channel) items packed
+    32 to a warp, each branch and loop trip where an item of the warp
+    takes it (the busiest item's bit count), beside "slots_per_lane", the
+    lanes' own."""
+    import torch
+
+    n, C = ins["wl_nm"].shape
+    W = sel.shape[-1]
+    h1 = half + 1
+    bits = sel_popcount(sel).sum(-1)                    # [n, C]
+    ch = bits > 0
+    lane = ch.any(-1)
+    n_lane, n_ch, n_sel = int(lane.sum()), int(ch.sum()), int(bits.sum())
+    wl_um = ins["wl_nm"] * 1e-3
+    x = (4.0 * 3.14159265358979323846 * ins["q"][:, None]
+         / torch.clamp_min(wl_um * ins["wi"][:, 2:3].abs(), 1e-12)).abs()
+    gt = ins["gtype"].float()[:, None]
+    is_sin, is_rect = gt < 0.5, (gt - 1.0).abs() < 0.5
+    table = ch & is_sin & (x <= 48.0)
+    asym = ch & is_sin & (x > 48.0)
+    rect = ch & is_rect
+    sep = int(separable)
+    # every lane (its bits, its votes), a lane with bits (its finish), a
+    # (lane, channel) item (the lane's terms, the channel's, its branches)
+    # and a selected lobe: (operations, FMAs, adjoint operations, {special
+    # function: calls}); nvcc contracts the adjoints' products and sums, so
+    # half of those are taken as FMAs (a floor, as `lobe_sum_bwd_count`'s)
+    u_every = (LOBE_OWN_WORD * C * W + LOBE_OWN_VOTE * C, 0, 0, {})
+    u_finish = (LOBE_OWN_SUM * C, 0, LOBE_BWD_LANE, {"sqrt": 2, "div": 10})
+    u_item = (LOBE_LANE[0] + sep, LOBE_LANE[1], 0, {"sqrt": 2, "div": 2})
+    u_ch = (LOBE_CHANNEL[0] + 5 * half + 2 * sep, 0,
+            LOBE_BWD_CHANNEL + LOBE_OWN_ORDER * half, {"div": 2 + 3})
+    u_table = (LOBE_TABLE[0], 3 * h1 + LOBE_BWD_TABLE[1] * h1,
+               LOBE_BWD_TABLE[0] * h1, {})
+    u_asym = (LOBE_ASYM[0] + 5 * h1, 2 * h1, LOBE_BWD_ASYM * h1,
+              {"div": 3, "sqrt": 1, "sincos": 1})
+    u_rect = (LOBE_RECT[0], 0, 0, {"sincos": 1})
+    u_lobe = (LOBE_LOBE[0] + LOBE_LANE_LOBE[separable][0]
+              + LOBE_OWN_SEL_LOBE + 8 * half, LOBE_LOBE[1], LOBE_BWD_LOBE,
+              {"div": 7, "sqrt": 6, "asin": 1, "exp": 1})
+
+    def cost(u):
+        """(operations, FMAs, issue slots) of one unit."""
+        fn_ops, fn_fma = weigh_calls(u[3], specials)
+        ops = u[0] + 2 * u[1] + u[2] + fn_ops
+        fma = u[1] + u[2] // 2 + fn_fma
+        return ops, fma, ops - fma
+
+    # (unit, how often: a lane, a lane with bits, or a (lane, channel)
+    # item, [n, C])
+    item_parts = ((u_item, ch), (u_ch, ch), (u_table, table),
+                  (u_asym, asym), (u_rect, rect), (u_lobe, bits))
+    parts = ((u_every, torch.ones_like(lane)), (u_finish, lane)) + item_parts
+    ops = fma = lane_slots = 0
+    calls = {}
+    for u, k in parts:
+        cnt = int(k.sum())
+        o, f, sl = cost(u)
+        ops, fma, lane_slots = ops + cnt * o, fma + cnt * f, \
+            lane_slots + cnt * sl
+        for fn, c in u[3].items():
+            calls[fn] = calls.get(fn, 0) + cnt * c
+
+    # the warps' slots, 32 a warp instruction: the gathering and the finish
+    # one thread a lane (the finish where a lane of the warp has bits);
+    # the items of a block's BWD_LANES lanes in channel, then lane order, 32
+    # to a warp, each branch where an item of the warp takes it and the bit
+    # loop as often as its busiest item's bits
+    pad = (-n) % BWD_LANES
+    blocks = (n + pad) // BWD_LANES
+    flat = torch.cat([ch, ch.new_zeros((pad, C))]).reshape(
+        blocks, BWD_LANES, C).transpose(1, 2).reshape(blocks, -1)
+    rank = torch.cumsum(flat.long(), 1) - 1
+    warp_id = (rank // 32 + (C * BWD_LANES // 32) * torch.arange(
+        blocks, device=ch.device)[:, None])[flat]
+
+    def warp_items(t):
+        t = torch.cat([t.long(), t.new_zeros((pad, C)).long()]).reshape(
+            blocks, BWD_LANES, C).transpose(1, 2).reshape(blocks, -1)[flat]
+        top = torch.zeros(blocks * C * BWD_LANES // 32, dtype=torch.long,
+                          device=t.device)
+        return int(top.scatter_reduce(0, warp_id, t, "amax").sum())
+
+    lane32 = torch.cat([lane, lane.new_zeros(pad)]).reshape(-1, 32)
+    warp_slots = (n * cost(u_every)[2]
+                  + 32 * int(lane32.any(-1).sum()) * cost(u_finish)[2]
+                  + 32 * sum(warp_items(k) * cost(u)[2]
+                             for u, k in item_parts))
+    # every lane: its bits, its 13 + C gradients; a lane with bits: wi, wo,
+    # grating_dir, inv_period, q, lobes, gtype, multiplier, coherence; a
+    # channel with bits: its wavelength and cotangent; the table once
+    n_bytes = (n * 4 * (C * W + 13 + C) + n_lane * 60 + n_ch * 8
+               + bessel_table_bytes())
+    return {"ops": ops, "fma": fma, "calls": calls, "bytes": n_bytes,
+            "lanes_with_bits": n_lane / n,
+            "channels_with_bits_per_lane": n_ch / n,
+            "selected_lobes_per_lane": n_sel / n,
+            "slots_per_lane": lane_slots / n,
+            "warp_slots_per_lane": warp_slots / n,
+            "warp_slots": warp_slots}
 
 
 def sample_ops(half, ndf):
@@ -1298,14 +1437,77 @@ def hold_lobe_sum(label, got, want):
     return frac
 
 
+def sel_flips(args, half, separable, got, want):
+    """The lobes whose selection bit differs between `got` (B4's recording
+    instance) and `want` (`grating_lobe_sum_sel_plain`), each with the
+    plain chain's margins at it: [{"lane", "channel", "lobe", "ang_miss":
+    | |ang| - a_cone | in rad, "lattice_miss": the least of | |aa| - 1 |
+    and | |bb| - 1 |, "rounding": whether it lies within float rounding of
+    a gate (ang_miss <= 1e-5 or lattice_miss <= 1e-6)}]."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    diff = (got ^ want) != 0
+    if not bool(diff.any()):
+        return []
+    where = diff.nonzero().tolist()
+    lanes = sorted({w[0] for w in where})
+    idx = torch.as_tensor(lanes, device=got.device)
+    sub = [t[idx] for t in args]
+    gates = list(gops.lobe_gates(*sub[:5], sub[6], sub[10], half, separable))
+    out = []
+    for lane, c, w in where:
+        x = (int(got[lane, c, w]) ^ int(want[lane, c, w])) & 0xFFFFFFFF
+        j = lanes.index(lane)
+        for b in range(32):
+            if not (x >> b) & 1:
+                continue
+            lx, ly, aa, bb, ang, _ = gates[32 * w + b]
+            miss = abs(abs(ang[j, c].item()) - sub[10][j].item())
+            lat = min(abs(abs(aa[j, c].item()) - 1.0),
+                      abs(abs(bb[j, c].item()) - 1.0))
+            out.append({"lane": lane, "channel": c, "lobe": [lx, ly],
+                        "ang_miss": miss, "lattice_miss": lat,
+                        "rounding": miss <= 1e-5 or lat <= 1e-6})
+    return out
+
+
+def hold_record(label, args, half, separable, plain_out):
+    """B4's recording instance on `args` (LOBE_SUM_ARGS order): its sum
+    must equal the plain instance's `plain_out` to the bit, and its bits
+    the plain version's (`grating_lobe_sum_sel_plain`) but for lobes within
+    float rounding of a gate (`sel_flips`), each named. Returns (its
+    bits, the flips)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    out, sel = gops.grating_lobe_sum_record(args, half, separable)
+    require(torch.equal(out, plain_out),
+            f"grating_lobe_sum_record {label}: sum differs from B4's")
+    flips = sel_flips(args, half, separable, sel,
+                      gops.grating_lobe_sum_sel_plain(args, half, separable))
+    emit({"phase": "kernels", "name": "grating_lobe_sum_record",
+          "case": label, "bits_differing": len(flips), "flips": flips[:20]})
+    require(all(f["rounding"] for f in flips),
+            f"grating_lobe_sum_record {label}: a bit differs away from "
+            f"float rounding of its gate: {flips}")
+    return sel, flips
+
+
 def lobe_sum_row(ins, kw, got, want, frac, specials):
     """The kernels line's row of B4 on inputs `ins` (the kernel's keyword
     arguments) and kw (half, separable, n_channels): timed, its bound
-    counted by `lobe_sum_count`."""
+    counted by `lobe_sum_count`; beside it the recording instance's time
+    ("record_ms", by `kernel_times` as "ms")."""
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
     count = lobe_sum_count(ins, kw["half"], kw["separable"], specials)
     times = kernel_times(lambda: gops.grating_lobe_sum(**ins, **kw))
+    args = [ins[k] for k in LOBE_SUM_ARGS]
+    record = kernel_times(lambda: gops.grating_lobe_sum_record(
+        args, kw["half"], kw["separable"]))
     plain_ms = time_ms(lambda: gops.grating_lobe_sum_plain(
         **ins, half=kw["half"], separable=kw["separable"]))
     bnd = bound(nbytes(ins, got, gops.bessel_table(got.device)),
@@ -1315,6 +1517,7 @@ def lobe_sum_row(ins, kw, got, want, frac, specials):
             "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:230 "
                         "(grating_lobe_sum)",
             "max_abs_err": (got - want).abs().max().item(), **times,
+            "record_ms": record["ms"], "record_ms_by": record["ms_by"],
             "plain_ms": plain_ms, **bnd, "library_ms": None,
             "n": got.shape[0], "agreement": frac,
             "case": [kw["half"], kw["separable"]],
@@ -1340,6 +1543,8 @@ def check_lobe_sum(n, rng, dev, specials):
         got = gops.grating_lobe_sum(**ins, **kw, n_channels=3)
         want = gops.grating_lobe_sum_plain(**ins, **kw)
         frac = hold_lobe_sum(str((half, sep, gtype)), got, want)
+        hold_record(str((half, sep, gtype)), [ins[k] for k in LOBE_SUM_ARGS],
+                    half, sep, got)
         count = lobe_sum_count(ins, half, sep, specials)
         emit({"phase": "kernels", "name": "grating_lobe_sum",
               "case": [half, sep, gtype, ip_y], "n": nn, "agreement": frac,
@@ -1459,62 +1664,145 @@ def check_grating_box(inputs, specials):
     want = gops.grating_lobe_sum_plain(**ins, half=kw["half"],
                                        separable=kw["separable"])
     frac = hold_lobe_sum("grating box", got, want)
+    hold_record("grating box", list(args), kw["half"], kw["separable"], got)
     lobe = lobe_sum_row(ins, kw, got, want, frac, specials)
     return [dict(r, rays="cbox grating path") for r in (sample, lobe)]
+
+
+def lobe_sum_bwd_outside(got, want):
+    """{input: lanes [N] bool} of the lanes whose gradient of that input
+    lies outside `hold_lobe_sum_bwd`'s tolerance (some component further
+    than rtol 2e-3 of the plain gradient plus 2e-5 of the input's
+    largest), and {input: that largest}."""
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    out, scales = {}, {}
+    for name, a, b in zip(gops.LOBE_SUM_INPUTS, got, want):
+        if b is None:
+            continue
+        scales[name] = b.abs().max().item()
+        ok = (a - b).abs() <= 2e-3 * b.abs() + 2e-5 * scales[name]
+        out[name] = ~(ok.all(-1) if ok.dim() > 1 else ok)
+    return out, scales
 
 
 def hold_lobe_sum_bwd(label, got, want):
     """B4b's gradients against autograd of the plain version: for each
     input, the share of lanes whose every component lies within rtol 2e-3
-    of the plain gradient plus 2e-5 of that input's largest (the forward's
-    rtol 2e-3 / atol 2e-5, the atol scaled by each input's largest: B4b
-    differentiates the Bessel table, the plain version the float32 sweep;
-    a host build of the kernel's source is within 5e-5 of the largest),
-    which must be at least 1 - 1e-5 (a lane may fall outside where a gate
-    flips at float rounding, as for B4), and finite. Returns (the worst
+    of the plain gradient plus 2e-5 of that input's largest (the
+    forward's rtol 2e-3 / atol 2e-5, the atol scaled by each input's
+    largest: B4b differentiates the Bessel table, the plain version the
+    float32 sweep; a host build of the kernel's source is within 5e-5 of
+    the largest), which must be at least 1 - 1e-5 (a lane may fall
+    outside where a gate flips at float rounding, as for B4:
+    `explain_lobe_sum_bwd` names each), and finite. Returns (the worst
     share, the largest error, the largest error over its input's
     largest)."""
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
+    outside, scales = lobe_sum_bwd_outside(got, want)
     worst, err_max, rel = 1.0, 0.0, 0.0
     for name, a, b in zip(gops.LOBE_SUM_INPUTS, got, want):
         if b is None:
             continue
-        scale = b.abs().max().item()
         err = (a - b).abs()
-        ok = err <= 2e-3 * b.abs() + 2e-5 * scale
         # in float64: a float32 mean of a million ones can come out below 1
-        frac = (ok.all(-1) if ok.dim() > 1 else ok).double().mean().item()
+        frac = 1.0 - outside[name].double().mean().item()
         require(bool(torch.isfinite(a).all()),
                 f"grating_lobe_sum_bwd {label} {name}: non-finite")
         require(frac >= 1 - 1e-5,
                 f"grating_lobe_sum_bwd {label} {name} agreement {frac}")
         worst = min(worst, frac)
         err_max = max(err_max, err.max().item())
-        rel = max(rel, err.max().item() / max(scale, 1e-30))
+        rel = max(rel, err.max().item() / max(scales[name], 1e-30))
     return worst, err_max, rel
 
 
-def lobe_sum_bwd_row(args, cot, kw, got, want, specials):
+def explain_lobe_sum_bwd(label, args, cot, kw, sel, got, want):
+    """Each lane B4b puts outside `hold_lobe_sum_bwd`'s tolerance: whether
+    B4's bits and the plain bits differ there (a gate flip) and by how
+    much each differing lobe's |ang| misses a_cone (`sel_flips`), the
+    least such miss over the lane's lobes, and the errors; printed, and
+    with the lane's inputs and cotangent written to
+    chiprun_out/lobe_sum_bwd_outliers.json. Returns the lanes."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    outside, scales = lobe_sum_bwd_outside(got, want)
+    lanes = torch.zeros_like(next(iter(outside.values())))
+    for v in outside.values():
+        lanes |= v
+    rows = []
+    for lane in lanes.nonzero().flatten().tolist()[:32]:
+        one = [t[lane:lane + 1] for t in args]
+        plain_sel = gops.grating_lobe_sum_sel_plain(one, kw["half"],
+                                                    kw["separable"])
+        flips = sel_flips(one, kw["half"], kw["separable"],
+                          sel[lane:lane + 1], plain_sel)
+        # the least miss of a lobe the lattice admits (|aa|, |bb| <= 1)
+        least = min(
+            ((ang.abs() - one[10][0]).abs()[(aa.abs() <= 1.0)
+                                             & (bb.abs() <= 1.0)]
+             .min().item() for _, _, aa, bb, ang, _ in gops.lobe_gates(
+                *one[:5], one[6], one[10], kw["half"], kw["separable"])
+             if bool(((aa.abs() <= 1.0) & (bb.abs() <= 1.0)).any())),
+            default=None)
+        rows.append({
+            "lane": lane, "gate_flip": bool(flips), "flips": flips,
+            "least_ang_miss": least,
+            "bits": sel[lane].tolist(), "plain_bits": plain_sel[0].tolist(),
+            "errors": {name: {
+                "of_largest": (got[i][lane] - want[i][lane]).abs().max().item()
+                / max(scales[name], 1e-30),
+                "got": got[i][lane].tolist(), "want": want[i][lane].tolist()}
+                for i, name in enumerate(gops.LOBE_SUM_INPUTS)
+                if name in outside and bool(outside[name][lane])},
+            "inputs": {k: t[0].tolist() for k, t in zip(LOBE_SUM_ARGS, one)},
+            "cot": cot[lane].tolist()})
+    emit({"phase": "kernels", "name": "grating_lobe_sum_bwd",
+          "case": label, "lanes_outside": int(lanes.sum()),
+          "outside": [{k: r[k] for k in ("lane", "gate_flip", "flips",
+                                         "least_ang_miss", "errors")}
+                      for r in rows]})
+    if rows:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        path = os.path.join(OUT_DIR, "lobe_sum_bwd_outliers.json")
+        old = []
+        if os.path.exists(path):
+            with open(path) as f:
+                old = json.load(f)
+        with open(path, "w") as f:
+            json.dump(old + [{"case": label, **kw, **r} for r in rows], f)
+    return rows
+
+
+def lobe_sum_bwd_row(args, cot, kw, sel, got, want, specials):
     """The kernels line's row of B4b on inputs `args` (LOBE_SUM_ARGS order)
-    with the cotangent `cot` and kw (half, separable): held
-    (`hold_lobe_sum_bwd`), timed, its bound counted by
-    `lobe_sum_bwd_count` (bytes: the inputs, the cotangent, the
-    gradients and the table)."""
+    with the cotangent `cot`, kw (half, separable) and B4's bits `sel`:
+    held (`hold_lobe_sum_bwd`), timed, its bound counted by
+    `lobe_sum_bwd_own_count` (the bytes it must move and its own work on
+    the selected lobes), with PR 17's count of the whole VJP (the forward
+    chain on every live lobe and the adjoints: `lobe_sum_bwd_count`) as
+    "vjp_bound_ms"."""
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
     frac, err, rel = hold_lobe_sum_bwd(str(kw), got, want)
-    count = lobe_sum_bwd_count(dict(zip(LOBE_SUM_ARGS, args)), kw["half"],
-                               kw["separable"], specials)
-    times = kernel_times(lambda: gops.grating_lobe_sum_bwd(args, cot, **kw))
+    ins = dict(zip(LOBE_SUM_ARGS, args))
+    own = lobe_sum_bwd_own_count(ins, sel, kw["half"], kw["separable"],
+                                 specials)
+    vjp = lobe_sum_bwd_count(ins, kw["half"], kw["separable"], specials)
+    times = kernel_times(lambda: gops.grating_lobe_sum_bwd(
+        args, cot, sel=sel, **kw), device=True)
     plain_ms = time_ms(lambda: gops.grating_lobe_sum_bwd_plain(
         args, cot, **kw), reps=3, calls=2, warmup=1)
     grads = [x for x in got if x is not None]
-    bnd = bound(nbytes(list(args), cot, grads,
-                       gops.bessel_table(cot.device)),
-                count["ops"], count["fma"])
+    table = gops.bessel_table(cot.device)
+    bnd = bound(own["bytes"], own["ops"], own["fma"])
+    vjp_bnd = bound(nbytes(list(args), cot, grads, table), vjp["ops"],
+                    vjp["fma"])
     return {"name": "grating_lobe_sum_bwd", "route": "cuda",
             "source": "mitsuba3_plt_tpu_torch/ops/csrc/grating.cu",
             "replaces": "mitsuba3_plt_tpu/ops/grating_pallas.py:743 "
@@ -1522,27 +1810,43 @@ def lobe_sum_bwd_row(args, cot, kw, got, want, specials):
                         "jax.vjp of _lobe_sum_xla :660)",
             "max_abs_err": err, "max_err_of_largest": rel, **times,
             "plain_ms": plain_ms, **bnd, "library_ms": None,
+            "vjp_bound_ms": vjp_bnd["bound_ms"],
+            "vjp_bound_by": vjp_bnd["bound_by"],
+            "vjp_bound_slots": vjp_bnd["bound_slots"],
             "n": cot.shape[0], "agreement": frac,
             "case": [kw["half"], kw["separable"]],
-            "count": {**count, "how": (
-                "the forward chain as lobe_sum_count, then a hand count "
-                "of lobe_sum_bwd_kernel's adjoints (chip_smoke.py "
-                "LOBE_BWD_*) over the lobes the gates select; special "
-                "functions: calls x their fast-path instructions in the "
-                "SASS of fn_probe_kernel; the adjoints' slots half their "
-                "operations (contracted)")}}
+            "count": {**own, "how": (
+                "B4b over B4's bits: every lane its bits and 16 gradient "
+                "floats, a lane with bits its inputs and cotangent, the "
+                "table once; a hand count of lobe_sum_bwd_kernel "
+                "(chip_smoke.py LOBE_OWN_*, LOBE_BWD_*, with the forward "
+                "chain's LOBE_*) on the lanes, channels and lobes the bits "
+                "select; special functions: calls x their fast-path "
+                "instructions in the SASS of fn_probe_kernel; the "
+                "adjoints' slots half their operations (contracted)"),
+                "vjp": vjp}}
 
 
 def check_lobe_sum_bwd(n, rng, dev, specials, box_inputs):
-    """B4b against autograd of the plain version on the four cases of
-    `check_lobe_sum` (the main path's case at n lanes, the others at n /
-    16) and on the grating box path's own first lobe-sum inputs (half 2,
-    separable), each with a seeded normal cotangent. Returns the row of
-    the main case and the grating box's."""
+    """B4b, fed the bits of B4's recording launch, against autograd of the
+    plain version on the four cases of `check_lobe_sum` (the main path's
+    case at n lanes, the others at n / 16) and on the grating box path's
+    own first lobe-sum inputs (half 2, separable), each with a seeded
+    normal cotangent; every lane outside the tolerance explained
+    (`explain_lobe_sum_bwd`). Returns the row of the main case and the
+    grating box's."""
     import numpy as np
     import torch
 
     from mitsuba3_plt_tpu_torch.ops import grating as gops
+
+    def one(label, args, cot, kw):
+        _, sel = gops.grating_lobe_sum_record(args, **kw)
+        got = gops.grating_lobe_sum_bwd(args, cot, sel=sel, **kw)
+        want = gops.grating_lobe_sum_bwd_plain(args, cot, **kw)
+        explain_lobe_sum_bwd(label, args, cot, kw, sel, got, want)
+        frac, err, rel = hold_lobe_sum_bwd(label, got, want)
+        return sel, got, want, (frac, err, rel)
 
     cases = [(3, True, 0, 0.0, n), (3, False, 0, 1.5, n // 16),
              (4, True, 1, 0.0, n // 16), (2, True, 2, 0.0, n // 16)]
@@ -1553,15 +1857,13 @@ def check_lobe_sum_bwd(n, rng, dev, specials, box_inputs):
         cot = torch.as_tensor(rng.normal(size=(nn, 3)).astype(np.float32),
                               device=dev)
         kw = dict(half=half, separable=sep)
-        got = gops.grating_lobe_sum_bwd(args, cot, **kw)
-        want = gops.grating_lobe_sum_bwd_plain(args, cot, **kw)
-        frac, err, rel = hold_lobe_sum_bwd(str((half, sep, gtype)), got,
-                                           want)
+        sel, got, want, (frac, err, rel) = one(str((half, sep, gtype)),
+                                               args, cot, kw)
         emit({"phase": "kernels", "name": "grating_lobe_sum_bwd",
               "case": [half, sep, gtype, ip_y], "n": nn, "agreement": frac,
               "max_abs_err": err, "max_err_of_largest": rel})
         if not rows:
-            rows.append(lobe_sum_bwd_row(args, cot, kw, got, want,
+            rows.append(lobe_sum_bwd_row(args, cot, kw, sel, got, want,
                                          specials))
         del got, want
     args, kw = box_inputs["grating_lobe_sum"]
@@ -1569,9 +1871,9 @@ def check_lobe_sum_bwd(n, rng, dev, specials, box_inputs):
     cot = torch.as_tensor(rng.normal(size=(args[0].shape[0], 3)).astype(
         np.float32), device=dev)
     kw = dict(half=kw["half"], separable=kw["separable"])
-    got = gops.grating_lobe_sum_bwd(args, cot, **kw)
-    want = gops.grating_lobe_sum_bwd_plain(args, cot, **kw)
-    rows.append(dict(lobe_sum_bwd_row(args, cot, kw, got, want, specials),
+    sel, got, want, _ = one("grating box", args, cot, kw)
+    rows.append(dict(lobe_sum_bwd_row(args, cot, kw, sel, got, want,
+                                      specials),
                      rays="cbox grating path"))
     return rows
 
@@ -1642,7 +1944,7 @@ def grad_grating(scene, integ):
                 f"grad-grating: {k} gradient not finite and non-zero")
     fwd = 2 * per_eval * GRAD_EVALS
     want = {**NO_LAUNCHES, "intersect_q": fwd, "occluded_q": fwd,
-            "grating_sample": fwd, "grating_lobe_sum": fwd,
+            "grating_sample": fwd, "grating_lobe_sum_record": fwd,
             "grating_lobe_sum_bwd": per_eval * GRAD_EVALS}
     require(launches == want,
             f"grad-grating: launches {launches}, expected {want}")
@@ -3129,9 +3431,14 @@ def turns(root):
     sorted; B5 and B6 on the six sets of `turns_clu2`; B8a, B8b, B9, B10a,
     B10b and B11 on the tools' sets of `turns_tools`. B1, B2, B5, B6, B7,
     B8, B9, B10 and B11 are timed by `kernel_times` (device time where the
-    wrapper takes longer than the kernel). The kernels build in ROOT. Run it over
-    two checkouts in turns (parent, change, change, parent) within one
-    chip call to compare them on one card."""
+    wrapper takes longer than the kernel). The lobe sum's forward and
+    backward through the public API (`turns_lobe_pair`) on B4's main case
+    and on the grating box path's first lobe-sum inputs, with B4's two
+    instances and B4b alone where ROOT has the recording instance; the
+    gradient cells' ms a gradient and peak memory (`turns_grad`). The
+    kernels build in ROOT. Run it over two checkouts in turns (parent,
+    change, change, parent) within one chip call to compare them on one
+    card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3144,10 +3451,11 @@ def turns(root):
     import mitsuba3_plt_tpu_torch as pkg
     from mitsuba3_plt_tpu_torch.core.rng import Sampler
     from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.ops import build
     from mitsuba3_plt_tpu_torch.ops import grating as gops
     from mitsuba3_plt_tpu_torch.ops import intersect as isect
-    from mitsuba3_plt_tpu_torch.scene.presets import mesh_scene
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, mesh_scene
 
     require(os.path.dirname(os.path.abspath(pkg.__file__))
             == os.path.join(root, "mitsuba3_plt_tpu_torch"),
@@ -3161,7 +3469,22 @@ def turns(root):
                           "cuda")
     lobe_ms = time_ms(lambda: gops.grating_lobe_sum(
         **ins, half=3, separable=True, n_channels=3))
-    del ins
+    cot = torch.as_tensor(rng.normal(size=(ins["q"].shape[0], 3)).astype(
+        np.float32), device="cuda")
+    pair = {"main": turns_lobe_pair(gops, [ins[k] for k in LOBE_SUM_ARGS],
+                                    cot, 3, True)}
+    del ins, cot
+    box_args, box_kw = grating_box_inputs(
+        cornell_box(CBOX_W, CBOX_H, box_material="grating", device="cuda"),
+        PLTIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
+        CBOX_SPP_PASS)["grating_lobe_sum"]
+    cot = torch.as_tensor(rng.normal(size=(box_args[0].shape[0], 3)).astype(
+        np.float32), device="cuda")
+    pair["grating box"] = turns_lobe_pair(gops, list(box_args), cot,
+                                          box_kw["half"],
+                                          box_kw["separable"])
+    del box_args, cot
+    grad_ms = turns_grad()
     scene = mesh_scene(MESH_W, MESH_H, MESH_SUBDIV, accel="packet",
                        device="cuda")
     table, any_table = closest_table(scene), anyhit_table(scene, isect)
@@ -3205,6 +3528,7 @@ def turns(root):
     q_ms = turns_q(isect)
     emit({"turns": root, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": nvidia_smi_line(), "lobe_sum_ms": lobe_ms,
+          "lobe_pair": pair, "grad": grad_ms,
           "intersect_bvh_ms": bvh_ms, "occluded_bvh_ms": occ_ms,
           "closest_table": type(table).__name__,
           "anyhit_table": type(any_table).__name__, "clu2_ms": clu2_ms,
@@ -3216,6 +3540,87 @@ def turns(root):
                                          "anyhit", "clu", "classic",
                                          "q_kernel", "sweep", "mxu"))},
           "spills": spills, "seconds": time.perf_counter() - t0})
+
+
+def turns_lobe_pair(gops, args, cot, half, separable):
+    """The lobe sum's forward and backward through the public API both
+    checkouts share: `grating_lobe_sum` on inputs that require grad, then
+    the gradients of its differentiable inputs with the cotangent `cot`,
+    by `time_ms` ("pair_ms": the host's time where it is the slower) and
+    on the device ("pair_device_ms": a CUDA graph of the pair,
+    `graph_ms`); B4 and B4b alone (`kernel_times`, B4b on the device),
+    B4b on the bits of B4's recording instance where the checkout has it
+    (`grating_lobe_sum_record`, timed too)."""
+    import torch
+
+    no_grad = ("lobes", "gtype", "a_cone")
+    xs = [t.detach().clone().requires_grad_(name not in no_grad)
+          for name, t in zip(LOBE_SUM_ARGS, args)]
+    want = [x for name, x in zip(LOBE_SUM_ARGS, xs) if name not in no_grad]
+
+    def pair():
+        y = gops.grating_lobe_sum(*xs, half=half, separable=separable,
+                                  n_channels=3)
+        return torch.autograd.grad(y, want, cot)
+    out = {"n": cot.shape[0], "half": half, "separable": separable,
+           "pair_ms": time_ms(pair), "pair_device_ms": graph_ms(pair),
+           "lobe_sum": kernel_times(lambda: gops.grating_lobe_sum(
+               *args, half=half, separable=separable, n_channels=3))}
+    if hasattr(gops, "grating_lobe_sum_record"):
+        _, sel = gops.grating_lobe_sum_record(args, half, separable)
+        out["lobe_sum_record"] = kernel_times(
+            lambda: gops.grating_lobe_sum_record(args, half, separable))
+        out["lobe_sum_bwd"] = kernel_times(
+            lambda: gops.grating_lobe_sum_bwd(args, cot, half, separable,
+                                              sel), device=True)
+    else:
+        out["lobe_sum_bwd"] = kernel_times(
+            lambda: gops.grating_lobe_sum_bwd(args, cot, half, separable),
+            device=True)
+    return out
+
+
+def turns_grad(reps=3):
+    """The gradient cells through the public API both checkouts share
+    (`ad.render_loss_grad` of the mean image): grad-grating-800x600-plt's
+    four grating parameters (PLT depth 7, GRAD_SPP spp) and
+    grad-cbox-512x512's base_color through the path tracer and PRB
+    (GRAD_CBOX_SPP spp), each a warm-up and `reps` timed evaluations ending
+    in a device sync: {cell: {"ms": [...], "peak_mem_bytes"}}."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.prb import PRBIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, grating_scene
+
+    cells = (
+        ("grad-grating", grating_scene(MAIN_W, MAIN_H, device="cuda"),
+         PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR),
+         list(GRAD_KEYS), GRAD_SPP),
+        ("grad-cbox-path", cornell_box(CBOX_W, CBOX_H, device="cuda"),
+         PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
+         ["materials.base_color"], GRAD_CBOX_SPP),
+        ("grad-cbox-prb", cornell_box(CBOX_W, CBOX_H, device="cuda"),
+         PRBIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
+         ["materials.base_color"], GRAD_CBOX_SPP))
+    out = {}
+    for name, scene, integ, keys, spp in cells:
+        def evaluate():
+            ad.render_loss_grad(scene, integ.sample, torch.mean, keys,
+                                seed=0, spp=spp)
+            torch.cuda.synchronize()
+        evaluate()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            evaluate()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"ms": ms,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    return out
 
 
 def turns_q(isect):
@@ -3530,7 +3935,12 @@ def main():
         emit({"phase": "kernels", **r, **measured_bound(r, roofs),
               "launches_per_pass": CBOX_PLT_LAUNCHES[r["name"]]})
     for r in (bwd_main, bwd_box):
-        emit({"phase": "kernels", **r, **measured_bound(r, roofs)})
+        # the slots of B4b's warps, each branch and bit loop as long as its
+        # slowest lane's, against the measured roof: the floor its
+        # divergence sets
+        emit({"phase": "kernels", **r, **measured_bound(r, roofs),
+              "warp_measured_bound_ms":
+                  r["count"]["warp_slots"] / roofs["slots"] * 1e3})
     # the tools' rays and tables (~0.5 GB) must not count in the main
     # paths' peak memory
     del mask_scenes, sweep_scenes, macc_scenes, ttabs, tmask, ctabs, cmask
@@ -3647,9 +4057,14 @@ def main():
                else grad_launches if r["name"] == "grating_lobe_sum_bwd"
                else g_res["launches"])
         r = dict(r, launches=own[r["name"]], **measured_bound(r, roofs))
+        if r["name"] == "grating_lobe_sum":
+            # B4's recording instance runs on the gradient path only
+            r["record_launches"] = grad_launches["grating_lobe_sum_record"]
         row = {k: r[k] for k in keys}
         row.update({k: r[k] for k in ("test_fmas", "bound_cuda_cores_ms",
-                                      "max_err_of_largest",
+                                      "max_err_of_largest", "record_ms",
+                                      "record_launches",
+                                      "vjp_bound_ms", "vjp_bound_by",
                                       "bound_full_test_ms",
                                       "bound_filter_ms",
                                       "candidates_per_ray", "step_sass",

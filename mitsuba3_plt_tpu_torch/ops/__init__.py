@@ -25,6 +25,7 @@ def launch_counts() -> dict:
         "intersect_q_macc": intersect.INTERSECT_Q_MACC_LAUNCHES,
         "grating_sample": grating.GRATING_SAMPLE_LAUNCHES,
         "grating_lobe_sum": grating.LOBE_SUM_LAUNCHES,
+        "grating_lobe_sum_record": grating.LOBE_SUM_RECORD_LAUNCHES,
         "grating_lobe_sum_bwd": grating.LOBE_SUM_BWD_LAUNCHES,
         "fma_roof": mfu.FMA_ROOF_LAUNCHES,
     }
@@ -47,5 +48,6 @@ def reset_launch_counts() -> None:
     intersect.INTERSECT_Q_MACC_LAUNCHES = 0
     grating.GRATING_SAMPLE_LAUNCHES = 0
     grating.LOBE_SUM_LAUNCHES = 0
+    grating.LOBE_SUM_RECORD_LAUNCHES = 0
     grating.LOBE_SUM_BWD_LAUNCHES = 0
     mfu.FMA_ROOF_LAUNCHES = 0

@@ -48,7 +48,7 @@ SIGNATURES = {
     "plt_occluded_q_variant": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "plt_intersect_q_macc": [_P, _I] + [_P] * 4 + [_I] + [_P] * 4 + [_I,
                                                                       _P],
-    "plt_grating_lobe_sum": [_P] * 12 + [_I, _I, _I, _I, _P, _P],
+    "plt_grating_lobe_sum": [_P] * 12 + [_I, _I, _I, _I, _P, _P, _P],
     "plt_grating_lobe_sum_bwd": [_P] * 13 + [_I, _I, _I, _I] + [_P] * 9,
     "plt_grating_sample": [_P] * 11 + [_I, _I, _I] + [_P] * 7 + [_P],
     "plt_fma_roof": [_P, _P, _P, _I, _P],

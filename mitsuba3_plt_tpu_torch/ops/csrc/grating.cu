@@ -5,19 +5,22 @@
 //     grating_lobe_sum (Pallas body _kernel): per-wavelength sum of the
 //     diffraction lobes: J_0..J_half of the groove phase, grating-equation
 //     lobe centres, the acceptance cone and the angular-coherence Gaussian.
+//     Its recording instance (where autograd records) also stores, as
+//     bits, which lobes its gates selected.
 //   plt_grating_lobe_sum_bwd  replaces the backward of the custom_vjp
 //     around grating_lobe_sum (::_make_lobe_sum_vjp): the vector-Jacobian
-//     product of the lobe sum, on the same Bessel table.
+//     product of the lobe sum, on the same Bessel table, over those bits.
 //   plt_grating_sample    replaces ::grating_sample (Pallas body
 //     _sample_kernel): visible-normal sample (GGX or Beckmann), microfacet
 //     frame, Bessel sweep at the hero wavelength, lobe-CDF pick, grating
 //     equation, pdf and Smith G1 times the lobe intensity.
 //
-// What bounds them on the H100: issue slots, not memory. A lane reads 88
-// bytes and writes 12 (lobe sum, C = 3) or reads 76 and writes 66
-// (sample), and does thousands of instructions. The sample kernel keeps
-// the first port's design: the whole chain in the registers of one thread,
-// the Miller sweep (64 steps, Hankel asymptotics beyond 48) unrolled.
+// What bounds them on the H100 (B4b aside: below): issue slots, not
+// memory. A lane reads 88 bytes and writes 12 (lobe sum, C = 3) or reads
+// 76 and writes 66 (sample), and does thousands of instructions. The
+// sample kernel keeps the first port's design: the whole chain in the
+// registers of one thread, the Miller sweep (64 steps, Hankel asymptotics
+// beyond 48) unrolled.
 //
 // The lobe sum spent most of its slots on work its lanes threw away: 192
 // dependent Miller steps a lane, 8 Hankel cosf/sinf a channel computed and
@@ -241,7 +244,21 @@ __device__ __forceinline__ float unit_angle(float dot_uv) {
   return dot_uv < 0.f ? sub(kPi, theta) : theta;
 }
 
-template <int HALF, bool SEP, int C>
+// The lobes of a set, in the order both kernels number them: k = (lx +
+// HALF) (2 HALF + 1) + ly + HALF (k = lx + HALF for a separable set, whose
+// ly is 0), and the 32-bit words of a (lane, channel)'s selection bits.
+template <int HALF, bool SEP>
+struct LobeSet {
+  static constexpr int kSide = 2 * HALF + 1;
+  static constexpr int kLobes = SEP ? kSide : kSide * kSide;
+  static constexpr int kWords = (kLobes + 31) / 32;
+};
+
+// REC (B4's recording instance, launched where autograd records) also
+// stores the gates' verdict (lobe_ok, in_cone, live) of every lobe: bit k
+// % 32 of word sel[(C i + c) kWords + k / 32]; B4b reads it. Without REC
+// the kernel is PR 7's.
+template <int HALF, bool SEP, int C, bool REC>
 __global__ void __launch_bounds__(kBlock)
     lobe_sum_kernel(const float* __restrict__ wi, const float* __restrict__ wo,
                     const float* __restrict__ wl_nm,
@@ -252,7 +269,8 @@ __global__ void __launch_bounds__(kBlock)
                     const float* __restrict__ coh,
                     const float* __restrict__ acone,
                     const float4* __restrict__ table, int n,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, unsigned* __restrict__ sel_out) {
+  using Set = LobeSet<HALF, SEP>;
   // no early return: the warp votes below need all 32 threads, so a thread
   // past the end repeats the last lane and stores nothing
   const int i0 = blockIdx.x * kBlock + threadIdx.x;
@@ -299,6 +317,11 @@ __global__ void __launch_bounds__(kBlock)
     const float expo = mul(mul(s, s), -0.5f);
 
     float acc = 0.f, corr = 0.f;
+    unsigned bits[Set::kWords];
+    if constexpr (REC) {
+#pragma unroll
+      for (int w = 0; w < Set::kWords; ++w) bits[w] = 0u;
+    }
 #pragma unroll
     for (int lx = -HALF; lx <= HALF; ++lx) {
 #pragma unroll
@@ -330,6 +353,11 @@ __global__ void __launch_bounds__(kBlock)
                       mul(mul(aa, safe_sqrt(qq)), wo_x)));
         const float ang = unit_angle(cd_dot_wo);
         const bool sel = ok && fabsf(ang) < ac_ && live;
+        if constexpr (REC) {
+          const int k = (lx + HALF) * (SEP ? 1 : Set::kSide) + ly + HALF -
+                        (SEP ? HALF : 0);
+          bits[k / 32] |= sel ? 1u << (k % 32) : 0u;
+        }
         const float ang_coh = expf(mul(mul(ang, ang), expo));
         if (lx == 0 && ly == 0) {
           acc = add(acc, sel ? lobe_int : 0.f);
@@ -343,7 +371,14 @@ __global__ void __launch_bounds__(kBlock)
       }
     }
     if (SEP) acc = add(mul(acc, ny), corr);
-    if (i0 < n) out[C * i + c] = acc;
+    if (i0 < n) {
+      out[C * i + c] = acc;
+      if constexpr (REC) {
+#pragma unroll
+        for (int w = 0; w < Set::kWords; ++w)
+          sel_out[(C * i + c) * Set::kWords + w] = bits[w];
+      }
+    }
   }
 }
 
@@ -355,16 +390,17 @@ __global__ void __launch_bounds__(kBlock)
 // the Hermite cubic's own, 32 (c1 + t (2 c2 + 3 t c3)); beyond 48 the
 // Hankel form's own, with cw' = -sw, sw' = cw, p' = (mu - 1)(mu - 9)
 // i8x^2 / x, q' = -(mu - 1) i8x / x and sq' = -sq / (2 x); 0 at x < 1e-6,
-// where the values are the constants 1 and 0.
+// where the values are the constants 1 and 0. A branch runs where this
+// lane needs it (no warp vote: B4b's lanes leave early).
 template <int HALF>
 __device__ __forceinline__ void bessel_lookup_grad(
-    float a, bool need, const float4* __restrict__ table,
-    float (&res)[HALF + 1], float (&dres)[HALF + 1]) {
+    float a, const float4* __restrict__ table, float (&res)[HALF + 1],
+    float (&dres)[HALF + 1]) {
   const float x = fabsf(a);
   const bool use_asym = x > kAsympSwitch;
 #pragma unroll
   for (int nu = 0; nu <= HALF; ++nu) res[nu] = dres[nu] = 0.f;
-  if (__any_sync(kFull, need && !use_asym)) {
+  if (!use_asym) {
     const float s = mul(fminf(x, kAsympSwitch), kTableInvStep);
     const float fi = fminf(floorf(s), (float)(kTableN - 1));
     const float t = sub(s, fi);
@@ -375,8 +411,7 @@ __device__ __forceinline__ void bessel_lookup_grad(
       res[nu] = fmaf(t, fmaf(t, fmaf(t, c.w, c.z), c.y), c.x);
       dres[nu] = kTableInvStep * fmaf(t, fmaf(3.0f * t, c.w, 2.0f * c.z), c.y);
     }
-  }
-  if (__any_sync(kFull, need && use_asym)) {
+  } else {
     const float i8x = 1.0f / mul(8.0f, x);
     const float sq = sqrtf(2.0f / mul(kPi, x));
     const float inv_x = 1.0f / x;
@@ -392,13 +427,10 @@ __device__ __forceinline__ void bessel_lookup_grad(
                      : nu % 4 == 2 ? -c0 : -s0;
       const float sw = nu % 4 == 0 ? s0 : nu % 4 == 1 ? -c0
                      : nu % 4 == 2 ? -s0 : c0;
-      const float asym = mul(sq, fmaf(cw, p, -mul(sw, q)));
+      res[nu] = mul(sq, fmaf(cw, p, -mul(sw, q)));
       const float dp = (mu - 1.0f) * (mu - 9.0f) * i8x * i8x * inv_x;
       const float dq = -(mu - 1.0f) * i8x * inv_x;
-      const float dasym =
-          sq * (cw * (dp - q) - sw * (p + dq)) - 0.5f * inv_x * asym;
-      res[nu] = use_asym ? asym : res[nu];
-      dres[nu] = use_asym ? dasym : dres[nu];
+      dres[nu] = sq * (cw * (dp - q) - sw * (p + dq)) - 0.5f * inv_x * res[nu];
     }
   }
   const bool at_zero = x < 1e-6f;
@@ -409,248 +441,374 @@ __device__ __forceinline__ void bessel_lookup_grad(
   }
 }
 
-// The vector-Jacobian product of lobe_sum_kernel with the cotangent g [N,
-// C], one thread a lane. It replaces the backward of the JAX package's
-// custom_vjp around grating_lobe_sum (ops/grating_pallas.py::
-// _make_lobe_sum_vjp, which linearizes _lobe_sum_xla in XLA). Each
-// channel recomputes the forward's quantities, then each lobe recomputes
-// its chain and takes its adjoints at once: the output is a sum over the
-// lobes, so no lobe needs another's. The masks (lobe_ok, in_cone, live)
-// carry no derivative; a lobe they drop adds nothing. Conventions, those
-// of autograd of the plain version: a clamp passes its whole gradient at
-// a tie, |x| has derivative 0 at 0, safe_sqrt's is 0 where its argument
-// is <= 0, and unit_angle's is -1 / (d sqrt(1 - d^2 / 4)), d = sqrt(2 -
-// 2|cd|) (the arccos derivative), 0 where d or cd is 0. The Bessel values
-// and derivatives are the table's (bessel_lookup_grad). a_cone has no
-// gradient (only the cone mask reads it).
+// B4b, the vector-Jacobian product of lobe_sum_kernel with the cotangent
+// g [N, C], over the selection bits of B4's recording instance (sel). It
+// replaces the backward of the JAX package's custom_vjp around
+// grating_lobe_sum (ops/grating_pallas.py::_make_lobe_sum_vjp, which
+// linearizes _lobe_sum_xla in XLA). The output is a sum over the lobes the
+// gates (lobe_ok, in_cone, live) select, so only those lobes carry a
+// derivative and no lobe needs another's; a lane with no bit set has every
+// gradient 0.
 //
-// What bounds it: issue slots, as the forward; it repeats the forward's
-// chain and about as many operations again for the adjoints, with one
-// more division and square root a lobe. It reads the forward's inputs
-// and g and writes 16 floats a lane (C = 3). A simple kernel: no lobe's
-// work is shared or skipped beyond the forward's own votes.
+// What bounds it: bytes, where its design lets it. Every lane reads its
+// bits (4 B a channel on a separable set) and writes 16 floats (C = 3);
+// only the (lane, channel)s with bits (a tenth of lanes or fewer on the
+// paths) read inputs and do arithmetic, a few hundred operations a
+// selected lobe in one long dependent chain. Such a chain is latency, so
+// what counts is how many run at once: a block of kBwdBlock lanes gathers
+// its (lane, channel)s with bits (a warp ballot each, one atomic a warp)
+// and its threads take them one each, a channel's chain a thread, in as
+// few warps as there are items; each item leaves its 13 lane-level
+// adjoints in its own shared-memory slot, and each lane then sums its
+// channels' slots in channel order (so the result does not depend on the
+// order the items ran in) and finishes its gradients.
+
+constexpr int kBwdBlock = 128;
+// the lane-level adjoints a (lane, channel) adds: wo, grating_dir,
+// inv_period, q, multiplier, coherence, sin_ix, sin_iy, cos_t
+enum LaneAdj {
+  kWox, kWoy, kWoz, kCg, kSg, kIpx, kIpy, kQv, kMu, kCo, kSix, kSiy, kCos,
+  kLaneAdj
+};
+
+// Whether channel c of lane i has a selection bit.
 template <int HALF, bool SEP, int C>
-__global__ void __launch_bounds__(kBlock) lobe_sum_bwd_kernel(
+__device__ __forceinline__ bool lobe_bwd_has_bits(
+    const unsigned* __restrict__ sel, int i, int c) {
+  constexpr int kW = LobeSet<HALF, SEP>::kWords;
+  unsigned any = 0u;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) any |= sel[(C * i + c) * kW + w];
+  return any != 0u;
+}
+
+// Channel c of lane i, which has bits: its g_wl, and its lane-level
+// adjoints (LaneAdj) in adj[k * stride]. It takes the Bessel values and
+// derivatives (bessel_lookup_grad) and the base intensities once, then
+// each set bit (__ffs) recomputes that lobe's chain and takes its
+// adjoints. The chain is the plain version's, each
+// operation rounded on its own in its order (not B4's fused one: the bits
+// already hold B4's gates), so the derivative's own branches (safe_sqrt's
+// zeros, d = 0 where wo is the lobe's direction, the 1e-12 floor) fall
+// where the plain version's do. The adjoint body is written once: base[ax]
+// and its derivative are selects over the HALF + 1 orders, since a runtime
+// index into a register array would go to local memory. Conventions,
+// those of autograd of the plain version: a clamp passes its whole
+// gradient at a tie, |x| has derivative 0 at 0, safe_sqrt's is 0 where its
+// argument is <= 0, and unit_angle's is -1 / (d sqrt(1 - d^2 / 4)), d =
+// sqrt(2 - 2|cd|) (the arccos derivative), 0 where d or cd is 0. The
+// Bessel values and derivatives are the table's. a_cone has no gradient
+// (only the cone's gate reads it, and the bits hold that).
+template <int HALF, bool SEP, int C>
+__device__ __forceinline__ void lobe_bwd_channel(
+    int i, int c, const float* __restrict__ wi, const float* __restrict__ wo,
+    const float* __restrict__ wl_nm, const float* __restrict__ gdir,
+    const float* __restrict__ ip, const float* __restrict__ q,
+    const int* __restrict__ lobes, const int* __restrict__ gtype,
+    const float* __restrict__ mult, const float* __restrict__ coh,
+    const float4* __restrict__ table, const unsigned* __restrict__ sel,
+    const float* __restrict__ gout, float* __restrict__ g_wl,
+    float* __restrict__ adj, int stride) {
+  using Set = LobeSet<HALF, SEP>;
+  const float wo_x = wo[3 * i], wo_y = wo[3 * i + 1], wo_z = wo[3 * i + 2];
+  const float cg = gdir[2 * i], sg = gdir[2 * i + 1];
+  const float ip_x = ip[2 * i], ip_y = ip[2 * i + 1];
+  const float mu_ = mult[i], co_ = coh[i];
+  const float gt = (float)gtype[i];
+  float sin_ix, sin_iy, cos_t;
+  {
+    const float wi_x = wi[3 * i], wi_y = wi[3 * i + 1], wi_z = wi[3 * i + 2];
+    const float px = sqrtf(add(mul(wi_x, wi_x), mul(wi_z, wi_z)));
+    const float py = sqrtf(add(mul(wi_y, wi_y), mul(wi_z, wi_z)));
+    sin_ix = px > kEpsilon ? wi_x / fmaxf(px, 1e-20f) : 0.f;
+    sin_iy = py > kEpsilon ? wi_y / fmaxf(py, 1e-20f) : 0.f;
+    cos_t = fabsf(wi_z);
+  }
+  const float half_lobes = floorf(mul((float)lobes[i], 0.5f));
+  const bool is_1d = ip_y < kEpsilon;
+  const bool is_sin = gt < 0.5f;
+  const bool is_rect = fabsf(sub(gt, 1.0f)) < 0.5f;
+  const float ny = add(mul(2.0f, half_lobes), 1.0f);
+  const float four_pi_q = mul(4.0f * kPi, q[i]);
+  const float kCoh = (float)(1.0 / (2.0 * kPiD * 1e3));
+
+  // this channel's adjoints of the lane's inputs and of its
+  // channel-independent terms
+  float g_wox = 0.f, g_woy = 0.f, g_woz = 0.f, g_cg = 0.f, g_sg = 0.f;
+  float g_ipx = 0.f, g_ipy = 0.f, g_qv = 0.f, g_mu = 0.f, g_co = 0.f;
+  float g_six = 0.f, g_siy = 0.f, g_cos = 0.f;
+
+  const unsigned* ch_sel = sel + (C * i + c) * Set::kWords;
+  const float g = gout[C * i + c];
+  const float wl_um = mul(wl_nm[C * i + c], 1e-3f);
+  const float kwn = (2.0f * kPi) / fmaxf(wl_um, 1e-6f);
+  const float den_a = mul(wl_um, cos_t);
+  const float a = four_pi_q / fmaxf(den_a, 1e-12f);
+  // base[j] and its derivative in a: sinusoidal J_j^2 (2 J_j J_j' sgn a),
+  // rectangular sin(a / 2) sinc (cos(a / 2) sinc / 2), linear constant
+  float base[HALF + 1], dbase[HALF + 1];
+  if (is_sin) {
+    bessel_lookup_grad<HALF>(a, table, base, dbase);
+    const float sgn = a > 0.f ? 2.0f : a < 0.f ? -2.0f : 0.f;
+#pragma unroll
+    for (int j = 1; j <= HALF; ++j) {
+      dbase[j] = sgn * base[j] * dbase[j];
+      base[j] = mul(base[j], base[j]);
+    }
+  } else {
+    float sin_half_a = 0.f, cos_half_a = 0.f;
+    if (is_rect) sincosf(mul(a, 0.5f), &sin_half_a, &cos_half_a);
+#pragma unroll
+    for (int j = 1; j <= HALF; ++j) {
+      base[j] = is_rect ? mul(sin_half_a, rect_sinc(j)) : linear_order(j);
+      dbase[j] = is_rect ? 0.5f * cos_half_a * rect_sinc(j) : 0.f;
+    }
+  }
+  base[0] = 1.f;
+  const float s = mul(mul(co_, kwn), kCoh);
+  const float expo = mul(mul(s, s), -0.5f);
+  // d out / d acc (the separable sum is acc ny + corr)
+  const float dacc = SEP ? g * ny : g;
+  float g_expo = 0.f, g_wlu = 0.f, g_a = 0.f;
+
+#pragma unroll 1
+  for (int w = 0; w < Set::kWords; ++w) {
+    unsigned bits = ch_sel[w];
+    while (bits) {
+      const int k = 32 * w + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int kx = SEP ? k : k / Set::kSide;
+      const int lx = kx - HALF, ly = SEP ? 0 : k - kx * Set::kSide - HALF;
+      const int ax = lx < 0 ? -lx : lx, ay = ly < 0 ? -ly : ly;
+      float ix = base[0], iyb = base[0];
+#pragma unroll
+      for (int j = 1; j <= HALF; ++j) {
+        ix = ax == j ? base[j] : ix;
+        iyb = ay == j ? base[j] : iyb;
+      }
+      const float iy = is_1d ? ix : iyb;
+      const float lobe_int = mul(mul(mu_, ix), iy);
+      // the plain version's chain of this lobe
+      const float flx = (float)lx, fly = (float)ly;
+      const float lob_rx =
+          SEP ? mul(cg, flx) : sub(mul(cg, flx), mul(sg, fly));
+      const float lob_ry =
+          SEP ? mul(sg, flx) : add(mul(sg, flx), mul(cg, fly));
+      const float aa = sub(mul(mul(wl_um, lob_rx), ip_x), sin_ix);
+      const float bb = sub(mul(mul(wl_um, lob_ry), ip_y), sin_iy);
+      const float aa2 = mul(aa, aa), bb2 = mul(bb, bb);
+      const float den = sub(mul(mul(aa2, bb), bb), 1.0f);
+      const bool den_ok = fabsf(den) > 1e-12f;
+      const float den_c = den_ok ? den : 1e-12f;
+      const float mm = sub(aa2, 1.0f) / den_c;
+      const float qq = sub(1.0f, mul(bb2, mm));
+      const float rz = sub(sub(1.0f, mul(aa2, qq)), mul(bb2, mm));
+      const float sq_q = safe_sqrt(qq), sq_m = safe_sqrt(mm);
+      const float sq_r = safe_sqrt(rz);
+      const float cd = add(add(mul(mul(aa, sq_q), wo_x),
+                               mul(mul(bb, sq_m), wo_y)),
+                           mul(sq_r, wo_z));
+      const float ang = unit_angle(cd);
+      const float ang_coh = expf(mul(mul(ang, ang), expo));
+
+      // adjoints of lobe_int and of ang_coh; the centre lobe's Gaussian
+      // enters the separable sum only through its correction
+      const bool centre = lx == 0 && ly == 0;
+      const float d_li =
+          centre ? (SEP ? dacc + g * (ang_coh - 1.0f) * (ny - 1.0f) : dacc)
+                 : dacc * ang_coh;
+      const float d_coh =
+          centre ? (SEP ? g * lobe_int * (ny - 1.0f) : 0.f) : dacc * lobe_int;
+      g_mu += d_li * ix * iy;
+      const float g_ix = d_li * mu_ * iy, g_iy = d_li * mu_ * ix;
+      const float g_bx = is_1d ? g_ix + g_iy : g_ix;
+      const float g_by = is_1d ? 0.f : g_iy;
+      float d_ax = 0.f, d_ay = 0.f;
+#pragma unroll
+      for (int j = 1; j <= HALF; ++j) {
+        d_ax = ax == j ? dbase[j] : d_ax;
+        d_ay = ay == j ? dbase[j] : d_ay;
+      }
+      g_a += g_bx * d_ax + g_by * d_ay;
+
+      // ang_coh = exp(ang^2 expo)
+      const float e = d_coh * ang_coh;
+      g_expo += e * ang * ang;
+      const float g_ang = 2.0f * e * ang * expo;
+      const float d = safe_sqrt(fmaf(-2.0f, fabsf(cd), 2.0f));
+      const float hd = 0.5f * d;
+      const float g_cd = (d > 0.f && cd != 0.f)
+                             ? -g_ang / (d * sqrtf(1.0f - hd * hd))
+                             : 0.f;
+
+      // cd = aa sqrt(qq) wo_x + bb sqrt(mm) wo_y + sqrt(rz) wo_z
+      g_wox += g_cd * aa * sq_q;
+      g_woy += g_cd * bb * sq_m;
+      g_woz += g_cd * sq_r;
+      float g_aa = g_cd * sq_q * wo_x;
+      float g_bb = g_cd * sq_m * wo_y;
+      float g_qq = qq > 0.f ? 0.5f * g_cd * aa * wo_x / sq_q : 0.f;
+      float g_mm = mm > 0.f ? 0.5f * g_cd * bb * wo_y / sq_m : 0.f;
+      const float g_rz = rz > 0.f ? 0.5f * g_cd * wo_z / sq_r : 0.f;
+      // rz = 1 - aa^2 qq - bb^2 mm
+      g_aa -= 2.0f * aa * qq * g_rz;
+      g_qq -= aa2 * g_rz;
+      g_bb -= 2.0f * bb * mm * g_rz;
+      g_mm -= bb2 * g_rz;
+      // qq = 1 - bb^2 mm
+      g_bb -= 2.0f * bb * mm * g_qq;
+      g_mm -= bb2 * g_qq;
+      // mm = (aa^2 - 1) / den, den = aa^2 bb^2 - 1 (the 1e-12 floor has
+      // none)
+      g_aa += 2.0f * aa * g_mm / den_c;
+      if (den_ok) {
+        const float g_den = -mm * g_mm / den_c;
+        g_aa += 2.0f * aa * bb2 * g_den;
+        g_bb += 2.0f * bb * aa2 * g_den;
+      }
+      // aa = wl lob_rx ip_x - sin_ix, bb = wl lob_ry ip_y - sin_iy
+      g_wlu += g_aa * lob_rx * ip_x + g_bb * lob_ry * ip_y;
+      g_ipx += g_aa * wl_um * lob_rx;
+      g_ipy += g_bb * wl_um * lob_ry;
+      g_six -= g_aa;
+      g_siy -= g_bb;
+      const float g_rx = g_aa * wl_um * ip_x, g_ry = g_bb * wl_um * ip_y;
+      // lob_rx = cg lx - sg ly, lob_ry = sg lx + cg ly
+      g_cg += g_rx * flx + g_ry * fly;
+      g_sg += g_ry * flx - g_rx * fly;
+    }
+  }
+
+  // expo = -s^2 / 2, s = coh kwn / (2 pi 1e3), kwn = 2 pi / wl
+  const float g_s = -s * g_expo;
+  g_co += g_s * kwn * kCoh;
+  if (wl_um > 1e-6f) g_wlu -= g_s * co_ * kCoh * kwn / wl_um;
+  // a = 4 pi q / (wl cos_t)
+  if (den_a > 1e-12f) {
+    g_qv += g_a * (4.0f * kPi) / den_a;
+    const float g_den_a = -g_a * a / den_a;
+    g_wlu += g_den_a * cos_t;
+    g_cos += g_den_a * wl_um;
+  }
+  g_wl[C * i + c] = g_wlu * 1e-3f;
+  const float out[kLaneAdj] = {g_wox, g_woy, g_woz, g_cg, g_sg, g_ipx, g_ipy,
+                               g_qv, g_mu, g_co, g_six, g_siy, g_cos};
+#pragma unroll
+  for (int k = 0; k < kLaneAdj; ++k) adj[k * stride] = out[k];
+}
+
+// Lane i's gradients from the lane-level adjoints its channels with bits
+// (bit c of chans) left in adj[(c * kLaneAdj + k) * stride], summed in
+// channel order; zeros where it has none.
+template <int C>
+__device__ __forceinline__ void lobe_bwd_finish(
+    int i, unsigned chans, const float* __restrict__ wi,
+    const float* __restrict__ adj, int stride, float* __restrict__ g_wi,
+    float* __restrict__ g_wo, float* __restrict__ g_wl,
+    float* __restrict__ g_gdir, float* __restrict__ g_ip,
+    float* __restrict__ g_q, float* __restrict__ g_mult,
+    float* __restrict__ g_coh) {
+  float a[kLaneAdj];
+#pragma unroll
+  for (int k = 0; k < kLaneAdj; ++k) a[k] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if ((chans >> c) & 1u) {
+#pragma unroll
+      for (int k = 0; k < kLaneAdj; ++k)
+        a[k] += adj[(c * kLaneAdj + k) * stride];
+    } else {
+      g_wl[C * i + c] = 0.f;
+    }
+  }
+  // sin_ix = wi_x / px, px = sqrt(wi_x^2 + wi_z^2) (0 below Epsilon); the
+  // same for y; cos_t = |wi_z|
+  float g_wix = 0.f, g_wiy = 0.f, g_wiz = 0.f;
+  if (chans) {
+    const float wi_x = wi[3 * i], wi_y = wi[3 * i + 1], wi_z = wi[3 * i + 2];
+    const float px = sqrtf(add(mul(wi_x, wi_x), mul(wi_z, wi_z)));
+    const float py = sqrtf(add(mul(wi_y, wi_y), mul(wi_z, wi_z)));
+    const float g_six = a[kSix], g_siy = a[kSiy];
+    g_wiz = wi_z > 0.f ? a[kCos] : wi_z < 0.f ? -a[kCos] : 0.f;
+    if (px > kEpsilon) {
+      const float sin_ix = wi_x / fmaxf(px, 1e-20f);
+      const float g_px = -g_six * sin_ix / px;
+      g_wix += g_six / px + g_px * wi_x / px;
+      g_wiz += g_px * wi_z / px;
+    }
+    if (py > kEpsilon) {
+      const float sin_iy = wi_y / fmaxf(py, 1e-20f);
+      const float g_py = -g_siy * sin_iy / py;
+      g_wiy += g_siy / py + g_py * wi_y / py;
+      g_wiz += g_py * wi_z / py;
+    }
+  }
+  g_wi[3 * i] = g_wix;
+  g_wi[3 * i + 1] = g_wiy;
+  g_wi[3 * i + 2] = g_wiz;
+  g_wo[3 * i] = a[kWox];
+  g_wo[3 * i + 1] = a[kWoy];
+  g_wo[3 * i + 2] = a[kWoz];
+  g_gdir[2 * i] = a[kCg];
+  g_gdir[2 * i + 1] = a[kSg];
+  g_ip[2 * i] = a[kIpx];
+  g_ip[2 * i + 1] = a[kIpy];
+  g_q[i] = a[kQv];
+  g_mult[i] = a[kMu];
+  g_coh[i] = a[kCo];
+}
+
+// B4b's kernel: a block takes kBwdBlock lanes, a thread each. Each thread
+// reads its lane's bits and, with its warp (every lane of it votes; none
+// has left), appends the lane's channels with bits to the block's list
+// (todo: lane * C + channel). Then the listed items, one a thread
+// (lobe_bwd_channel, no vote), each into its own slot of adj; then each
+// thread finishes its lane (lobe_bwd_finish).
+template <int HALF, bool SEP, int C>
+__global__ void __launch_bounds__(kBwdBlock) lobe_sum_bwd_kernel(
     const float* __restrict__ wi, const float* __restrict__ wo,
     const float* __restrict__ wl_nm, const float* __restrict__ gdir,
     const float* __restrict__ ip, const float* __restrict__ q,
     const int* __restrict__ lobes, const int* __restrict__ gtype,
     const float* __restrict__ mult, const float* __restrict__ coh,
-    const float* __restrict__ acone, const float4* __restrict__ table,
+    const float4* __restrict__ table, const unsigned* __restrict__ sel,
     const float* __restrict__ gout, int n, float* __restrict__ g_wi,
     float* __restrict__ g_wo, float* __restrict__ g_wl,
     float* __restrict__ g_gdir, float* __restrict__ g_ip,
     float* __restrict__ g_q, float* __restrict__ g_mult,
     float* __restrict__ g_coh) {
-  // as the forward: no early return before the warp votes
-  const int i0 = blockIdx.x * kBlock + threadIdx.x;
-  const int i = i0 < n ? i0 : n - 1;
-  const float wi_x = wi[3 * i], wi_y = wi[3 * i + 1], wi_z = wi[3 * i + 2];
-  const float wo_x = wo[3 * i], wo_y = wo[3 * i + 1], wo_z = wo[3 * i + 2];
-  const float cg = gdir[2 * i], sg = gdir[2 * i + 1];
-  const float ip_x = ip[2 * i], ip_y = ip[2 * i + 1];
-  const float qv = q[i], mu_ = mult[i], co_ = coh[i], ac_ = acone[i];
-  const float lob = (float)lobes[i], gt = (float)gtype[i];
-
-  const float px = sqrtf(fmaf(wi_x, wi_x, mul(wi_z, wi_z)));
-  const float py = sqrtf(fmaf(wi_y, wi_y, mul(wi_z, wi_z)));
-  const float sin_ix = px > kEpsilon ? wi_x / fmaxf(px, 1e-20f) : 0.f;
-  const float sin_iy = py > kEpsilon ? wi_y / fmaxf(py, 1e-20f) : 0.f;
-  const float cos_t = fabsf(wi_z);
-  const float half_lobes = floorf(mul(lob, 0.5f));
-  const bool is_1d = ip_y < kEpsilon;
-  const bool is_sin = gt < 0.5f;
-  const bool is_rect = fabsf(sub(gt, 1.0f)) < 0.5f;
-  const float ny = fmaf(2.0f, half_lobes, 1.0f);
-  const float four_pi_q = mul(4.0f * kPi, qv);
-  const float kCoh = (float)(1.0 / (2.0 * kPiD * 1e3));
-
-  // adjoints of the lane's inputs and of its channel-independent terms
-  float g_wox = 0.f, g_woy = 0.f, g_woz = 0.f, g_cg = 0.f, g_sg = 0.f;
-  float g_ipx = 0.f, g_ipy = 0.f, g_qv = 0.f, g_mu = 0.f, g_co = 0.f;
-  float g_six = 0.f, g_siy = 0.f, g_cos = 0.f;
-
-#pragma unroll 1
+  __shared__ float adj[C * kLaneAdj * kBwdBlock];
+  __shared__ int todo[C * kBwdBlock];
+  __shared__ int count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const int first = blockIdx.x * kBwdBlock, l = threadIdx.x, i = first + l;
+  const unsigned below = (1u << (l % 32)) - 1u;
+  unsigned chans = 0u;
+#pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float g = gout[C * i + c];
-    const float wl_um = mul(wl_nm[C * i + c], 1e-3f);
-    const float kwn = (2.0f * kPi) / fmaxf(wl_um, 1e-6f);
-    const float den_a = mul(wl_um, cos_t);
-    const float a = four_pi_q / fmaxf(den_a, 1e-12f);
-    float J[HALF + 1], dJ[HALF + 1];
-    bessel_lookup_grad<HALF>(a, is_sin, table, J, dJ);
-    float sin_half_a = 0.f, cos_half_a = 0.f;
-    if (__any_sync(kFull, is_rect)) sincosf(mul(a, 0.5f), &sin_half_a,
-                                            &cos_half_a);
-    float base[HALF + 1], g_base[HALF + 1];
-    base[0] = 1.f;
-#pragma unroll
-    for (int j = 0; j <= HALF; ++j) {
-      g_base[j] = 0.f;
-      if (j > 0)
-        base[j] = is_sin ? mul(J[j], J[j])
-                         : (is_rect ? mul(sin_half_a, rect_sinc(j))
-                                    : linear_order(j));
-    }
-    const float s = mul(mul(co_, kwn), kCoh);
-    const float expo = mul(mul(s, s), -0.5f);
-    // d out / d acc (the separable sum is acc ny + corr)
-    const float dacc = SEP ? g * ny : g;
-    float g_expo = 0.f, g_wlu = 0.f;
-
-#pragma unroll
-    for (int lx = -HALF; lx <= HALF; ++lx) {
-#pragma unroll
-      for (int ly = (SEP ? 0 : -HALF); ly <= (SEP ? 0 : HALF); ++ly) {
-        const int ax = lx < 0 ? -lx : lx;
-        const int ay = ly < 0 ? -ly : ly;
-        const bool live = half_lobes >= (float)(ax > ay ? ax : ay);
-        const float ix = base[ax];
-        const float iy = is_1d ? ix : base[ay];
-        const float lobe_int = mul(mul(mu_, ix), iy);
-        const float flx = (float)lx, fly = (float)ly;
-        const float lob_rx =
-            SEP ? mul(cg, flx) : sub(mul(cg, flx), mul(sg, fly));
-        const float lob_ry =
-            SEP ? mul(sg, flx) : add(mul(sg, flx), mul(cg, fly));
-        const float aa = sub(mul(mul(wl_um, lob_rx), ip_x), sin_ix);
-        const float bb = sub(mul(mul(wl_um, lob_ry), ip_y), sin_iy);
-        const float aa2 = mul(aa, aa), bb2 = mul(bb, bb);
-        const float den = fmaf(mul(aa2, bb), bb, -1.0f);
-        const bool den_ok = fabsf(den) > 1e-12f;
-        const float den_c = den_ok ? den : 1e-12f;
-        const float mm = sub(aa2, 1.0f) / den_c;
-        const float qq = fmaf(-bb2, mm, 1.0f);
-        const bool ok = fabsf(aa) <= 1.0f && fabsf(bb) <= 1.0f;
-        const float rz = fmaf(-bb2, mm, fmaf(-aa2, qq, 1.0f));
-        const float sq_q = safe_sqrt(qq), sq_m = safe_sqrt(mm);
-        const float sq_r = safe_sqrt(rz);
-        const float cd = fmaf(sq_r, wo_z,
-                              fmaf(mul(bb, sq_m), wo_y,
-                                   mul(mul(aa, sq_q), wo_x)));
-        const float ang = unit_angle(cd);
-        const bool sel = ok && fabsf(ang) < ac_ && live;
-        if (!sel) continue;
-        const float ang_coh = expf(mul(mul(ang, ang), expo));
-
-        // adjoints of lobe_int and of ang_coh
-        float d_li, d_coh;
-        if (lx == 0 && ly == 0) {
-          d_li = dacc;
-          d_coh = 0.f;
-          if (SEP) {
-            d_li += g * (ang_coh - 1.0f) * (ny - 1.0f);
-            d_coh = g * lobe_int * (ny - 1.0f);
-          }
-        } else {
-          d_li = dacc * ang_coh;
-          d_coh = dacc * lobe_int;
-        }
-        g_mu += d_li * ix * iy;
-        const float g_ix = d_li * mu_ * iy, g_iy = d_li * mu_ * ix;
-        g_base[ax] += is_1d ? g_ix + g_iy : g_ix;
-        g_base[ay] += is_1d ? 0.f : g_iy;
-
-        // ang_coh = exp(ang^2 expo)
-        const float e = d_coh * ang_coh;
-        g_expo += e * ang * ang;
-        const float g_ang = 2.0f * e * ang * expo;
-        const float d = safe_sqrt(fmaf(-2.0f, fabsf(cd), 2.0f));
-        const float hd = 0.5f * d;
-        const float g_cd = (d > 0.f && cd != 0.f)
-                               ? -g_ang / (d * sqrtf(1.0f - hd * hd))
-                               : 0.f;
-
-        // cd = aa sqrt(qq) wo_x + bb sqrt(mm) wo_y + sqrt(rz) wo_z
-        g_wox += g_cd * aa * sq_q;
-        g_woy += g_cd * bb * sq_m;
-        g_woz += g_cd * sq_r;
-        float g_aa = g_cd * sq_q * wo_x;
-        float g_bb = g_cd * sq_m * wo_y;
-        float g_qq = qq > 0.f ? 0.5f * g_cd * aa * wo_x / sq_q : 0.f;
-        float g_mm = mm > 0.f ? 0.5f * g_cd * bb * wo_y / sq_m : 0.f;
-        const float g_rz = rz > 0.f ? 0.5f * g_cd * wo_z / sq_r : 0.f;
-        // rz = 1 - aa^2 qq - bb^2 mm
-        g_aa -= 2.0f * aa * qq * g_rz;
-        g_qq -= aa2 * g_rz;
-        g_bb -= 2.0f * bb * mm * g_rz;
-        g_mm -= bb2 * g_rz;
-        // qq = 1 - bb^2 mm
-        g_bb -= 2.0f * bb * mm * g_qq;
-        g_mm -= bb2 * g_qq;
-        // mm = (aa^2 - 1) / den, den = aa^2 bb^2 - 1 (the 1e-12 floor has
-        // none)
-        g_aa += 2.0f * aa * g_mm / den_c;
-        if (den_ok) {
-          const float g_den = -mm * g_mm / den_c;
-          g_aa += 2.0f * aa * bb2 * g_den;
-          g_bb += 2.0f * bb * aa2 * g_den;
-        }
-        // aa = wl lob_rx ip_x - sin_ix, bb = wl lob_ry ip_y - sin_iy
-        g_wlu += g_aa * lob_rx * ip_x + g_bb * lob_ry * ip_y;
-        g_ipx += g_aa * wl_um * lob_rx;
-        g_ipy += g_bb * wl_um * lob_ry;
-        g_six -= g_aa;
-        g_siy -= g_bb;
-        const float g_rx = g_aa * wl_um * ip_x, g_ry = g_bb * wl_um * ip_y;
-        // lob_rx = cg lx - sg ly, lob_ry = sg lx + cg ly
-        g_cg += g_rx * flx + g_ry * fly;
-        g_sg += g_ry * flx - g_rx * fly;
-      }
-    }
-
-    // base -> J (sinusoidal), sin(a / 2) (rectangular) -> a
-    float g_x = 0.f, g_sh = 0.f;
-#pragma unroll
-    for (int j = 1; j <= HALF; ++j) {
-      g_x += is_sin ? 2.0f * g_base[j] * J[j] * dJ[j] : 0.f;
-      g_sh += is_rect ? g_base[j] * rect_sinc(j) : 0.f;
-    }
-    const float g_a = (a > 0.f ? g_x : a < 0.f ? -g_x : 0.f) +
-                      0.5f * g_sh * cos_half_a;
-    // expo = -s^2 / 2, s = coh kwn / (2 pi 1e3), kwn = 2 pi / wl
-    const float g_s = -s * g_expo;
-    g_co += g_s * kwn * kCoh;
-    if (wl_um > 1e-6f) g_wlu -= g_s * co_ * kCoh * kwn / wl_um;
-    // a = 4 pi q / (wl cos_t)
-    if (den_a > 1e-12f) {
-      g_qv += g_a * (4.0f * kPi) / den_a;
-      const float g_den_a = -g_a * a / den_a;
-      g_wlu += g_den_a * cos_t;
-      g_cos += g_den_a * wl_um;
-    }
-    if (i0 < n) g_wl[C * i + c] = g_wlu * 1e-3f;
+    const bool has = i < n && lobe_bwd_has_bits<HALF, SEP, C>(sel, i, c);
+    chans |= has ? 1u << c : 0u;
+    const unsigned mask = __ballot_sync(kFull, has);
+    int at = 0;
+    if (l % 32 == 0 && mask) at = atomicAdd(&count, __popc(mask));
+    at = __shfl_sync(kFull, at, 0);
+    if (has) todo[at + __popc(mask & below)] = l * C + c;
   }
-
-  // sin_ix = wi_x / px, px = sqrt(wi_x^2 + wi_z^2) (0 below Epsilon); the
-  // same for y; cos_t = |wi_z|
-  float g_wix = 0.f, g_wiy = 0.f;
-  float g_wiz = wi_z > 0.f ? g_cos : wi_z < 0.f ? -g_cos : 0.f;
-  if (px > kEpsilon) {
-    const float g_px = -g_six * sin_ix / px;
-    g_wix += g_six / px + g_px * wi_x / px;
-    g_wiz += g_px * wi_z / px;
+  __syncthreads();
+  const int m = count;
+  for (int j = l; j < m; j += kBwdBlock) {
+    const int il = todo[j] / C, c = todo[j] - il * C;
+    lobe_bwd_channel<HALF, SEP, C>(first + il, c, wi, wo, wl_nm, gdir, ip,
+                                   q, lobes, gtype, mult, coh, table, sel,
+                                   gout, g_wl,
+                                   adj + c * kLaneAdj * kBwdBlock + il,
+                                   kBwdBlock);
   }
-  if (py > kEpsilon) {
-    const float g_py = -g_siy * sin_iy / py;
-    g_wiy += g_siy / py + g_py * wi_y / py;
-    g_wiz += g_py * wi_z / py;
-  }
-  if (i0 < n) {
-    g_wi[3 * i] = g_wix;
-    g_wi[3 * i + 1] = g_wiy;
-    g_wi[3 * i + 2] = g_wiz;
-    g_wo[3 * i] = g_wox;
-    g_wo[3 * i + 1] = g_woy;
-    g_wo[3 * i + 2] = g_woz;
-    g_gdir[2 * i] = g_cg;
-    g_gdir[2 * i + 1] = g_sg;
-    g_ip[2 * i] = g_ipx;
-    g_ip[2 * i + 1] = g_ipy;
-    g_q[i] = g_qv;
-    g_mult[i] = g_mu;
-    g_coh[i] = g_co;
-  }
+  __syncthreads();
+  if (i < n)
+    lobe_bwd_finish<C>(i, chans, wi, adj + l, kBwdBlock, g_wi, g_wo, g_wl,
+                       g_gdir, g_ip, g_q, g_mult, g_coh);
 }
 
 // Smith G1, NDF 0 = GGX, 1 = Beckmann (rational fit)
@@ -918,10 +1076,16 @@ void launch_lobe_sum(cudaStream_t st, const float* wi, const float* wo,
                      const float* wl, const float* gdir, const float* ip,
                      const float* q, const int* lobes, const int* gtype,
                      const float* mult, const float* coh, const float* acone,
-                     const float4* table, int n, float* out) {
+                     const float4* table, int n, float* out, unsigned* sel) {
   const int grid = (n + kBlock - 1) / kBlock;
-  lobe_sum_kernel<HALF, SEP, kChannels><<<grid, kBlock, 0, st>>>(
-      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, n, out);
+  if (sel)
+    lobe_sum_kernel<HALF, SEP, kChannels, true><<<grid, kBlock, 0, st>>>(
+        wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, n,
+        out, sel);
+  else
+    lobe_sum_kernel<HALF, SEP, kChannels, false><<<grid, kBlock, 0, st>>>(
+        wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, n,
+        out, nullptr);
 }
 
 template <int HALF, bool SEP>
@@ -929,13 +1093,13 @@ void launch_lobe_sum_bwd(cudaStream_t st, const float* wi, const float* wo,
                          const float* wl, const float* gdir, const float* ip,
                          const float* q, const int* lobes, const int* gtype,
                          const float* mult, const float* coh,
-                         const float* acone, const float4* table,
+                         const float4* table, const unsigned* sel,
                          const float* g, int n, float* g_wi, float* g_wo,
                          float* g_wl, float* g_gdir, float* g_ip, float* g_q,
                          float* g_mult, float* g_coh) {
-  const int grid = (n + kBlock - 1) / kBlock;
-  lobe_sum_bwd_kernel<HALF, SEP, kChannels><<<grid, kBlock, 0, st>>>(
-      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, acone, table, g, n,
+  const int grid = (n + kBwdBlock - 1) / kBwdBlock;
+  lobe_sum_bwd_kernel<HALF, SEP, kChannels><<<grid, kBwdBlock, 0, st>>>(
+      wi, wo, wl, gdir, ip, q, lobes, gtype, mult, coh, table, sel, g, n,
       g_wi, g_wo, g_wl, g_gdir, g_ip, g_q, g_mult, g_coh);
 }
 
@@ -960,13 +1124,15 @@ void launch_sample(int ndf, int grid, cudaStream_t st, const float* wi,
 
 // Returns cudaGetLastError(); cudaErrorInvalidValue (1) for an unsupported
 // static configuration (half outside 0..4, channels other than 3). `table`
-// is ops/grating.py::bessel_table: [5, 1536] float4 coefficients.
+// is ops/grating.py::bessel_table: [5, 1536] float4 coefficients. With
+// `sel` not null the recording instance also writes the selection bits
+// ([n, 3, LobeSet::kWords] words) that B4b reads.
 extern "C" int plt_grating_lobe_sum(
     const float* wi, const float* wo, const float* wl_nm, const float* gdir,
     const float* ip, const float* q, const int* lobes, const int* gtype,
     const float* mult, const float* coh, const float* acone,
     const float* table, int n, int half, int separable, int n_channels,
-    float* out, void* stream) {
+    float* out, unsigned* sel, void* stream) {
   if (half < 0 || half > 4 || n_channels != kChannels)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -976,10 +1142,11 @@ extern "C" int plt_grating_lobe_sum(
   case H:                                                                  \
     if (separable)                                                         \
       launch_lobe_sum<H, true>(st, wi, wo, wl_nm, gdir, ip, q, lobes,      \
-                               gtype, mult, coh, acone, tab, n, out);      \
+                               gtype, mult, coh, acone, tab, n, out, sel); \
     else                                                                   \
       launch_lobe_sum<H, false>(st, wi, wo, wl_nm, gdir, ip, q, lobes,     \
-                                gtype, mult, coh, acone, tab, n, out);     \
+                                gtype, mult, coh, acone, tab, n, out,      \
+                                sel);                                      \
     break;
     switch (half) {
       PLT_HALF(0)
@@ -993,14 +1160,15 @@ extern "C" int plt_grating_lobe_sum(
   return (int)cudaGetLastError();
 }
 
-// B4b. `g` is the cotangent [n, 3]; the gradients are written in the
-// layouts of their inputs (a_cone has none). Returns as
+// B4b. `sel` holds the selection bits of B4's recording launch on the same
+// inputs, `g` the cotangent [n, 3]; the gradients are written in the
+// layouts of their inputs (a_cone has none and is not read). Returns as
 // plt_grating_lobe_sum.
 extern "C" int plt_grating_lobe_sum_bwd(
     const float* wi, const float* wo, const float* wl_nm, const float* gdir,
     const float* ip, const float* q, const int* lobes, const int* gtype,
-    const float* mult, const float* coh, const float* acone,
-    const float* table, const float* g, int n, int half, int separable,
+    const float* mult, const float* coh, const float* table,
+    const unsigned* sel, const float* g, int n, int half, int separable,
     int n_channels, float* g_wi, float* g_wo, float* g_wl, float* g_gdir,
     float* g_ip, float* g_q, float* g_mult, float* g_coh, void* stream) {
   if (half < 0 || half > 4 || n_channels != kChannels)
@@ -1012,14 +1180,14 @@ extern "C" int plt_grating_lobe_sum_bwd(
   case H:                                                                    \
     if (separable)                                                           \
       launch_lobe_sum_bwd<H, true>(st, wi, wo, wl_nm, gdir, ip, q, lobes,    \
-                                   gtype, mult, coh, acone, tab, g, n, g_wi, \
+                                   gtype, mult, coh, tab, sel, g, n, g_wi,   \
                                    g_wo, g_wl, g_gdir, g_ip, g_q, g_mult,    \
                                    g_coh);                                   \
     else                                                                     \
       launch_lobe_sum_bwd<H, false>(st, wi, wo, wl_nm, gdir, ip, q, lobes,   \
-                                    gtype, mult, coh, acone, tab, g, n,      \
-                                    g_wi, g_wo, g_wl, g_gdir, g_ip, g_q,     \
-                                    g_mult, g_coh);                          \
+                                    gtype, mult, coh, tab, sel, g, n, g_wi,  \
+                                    g_wo, g_wl, g_gdir, g_ip, g_q, g_mult,   \
+                                    g_coh);                                  \
     break;
     switch (half) {
       PLT_HALF(0)

@@ -9,7 +9,10 @@ angular-coherence Gaussian exp(-ang^2 inv_det / 2) (1 for the (0, 0) lobe).
 With `separable` (every grating 1D and axis-aligned) the ly axis collapses
 to its multiplicity. It is a `torch.autograd.Function`: its backward,
 `grating_lobe_sum_bwd`, is the B4b kernel on the card and autograd of the
-plain version on the CPU.
+plain version on the CPU. Where autograd records, the forward launches
+B4's recording instance (`grating_lobe_sum_record`), which also keeps the
+gates' verdict on every lobe as bits; B4b takes adjoints of those lobes
+only (`grating_lobe_sum_sel_plain` packs the plain version's).
 
 `grating_sample` is the roughgrating sample chain: visible-normal sample,
 microfacet frame, per-order intensities at the hero wavelength, lobe-CDF
@@ -32,6 +35,7 @@ from ._check import check_tensors
 
 GRATING_SAMPLE_LAUNCHES = 0
 LOBE_SUM_LAUNCHES = 0
+LOBE_SUM_RECORD_LAUNCHES = 0
 LOBE_SUM_BWD_LAUNCHES = 0
 
 MAX_HALF = 4            # MAX_LOBES = 9 -> at most 4 orders per side
@@ -225,22 +229,71 @@ def _sin_incidence(wx, wy, wz):
 # lobe sum
 # ---------------------------------------------------------------------------
 
+def lobe_set(half: int, separable: bool):
+    """The lobes (lx, ly) of a set in the order the kernels number them
+    (lx outer, ly inner; ly = 0 when separable) and the 32-bit words of
+    a (lane, channel)'s selection bits: lobe k is bit k % 32 of word
+    k // 32."""
+    ly_range = [0] if separable else range(-half, half + 1)
+    lobes = [(lx, ly) for lx in range(-half, half + 1) for ly in ly_range]
+    return lobes, (len(lobes) + 31) // 32
+
+
+def _col(x):
+    return x[:, None]  # lane params against [N, C]
+
+
+def _lane_columns(wi, wo, grating_dir, inv_period, lobes):
+    """The lane parameters of the lobe sum's chain as [N, 1] columns:
+    (wi_x, wi_y, wi_z, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y, half_lobes)."""
+    wi_x, wi_y, wi_z = (_col(x) for x in wi.unbind(-1))
+    wo_x, wo_y, wo_z = (_col(x) for x in wo.unbind(-1))
+    cg, sg = (_col(x) for x in grating_dir.unbind(-1))
+    ip_x, ip_y = (_col(x) for x in inv_period.unbind(-1))
+    half_lobes = torch.floor(_col(lobes.to(torch.float32)) * 0.5)
+    return (wi_x, wi_y, wi_z, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y,
+            half_lobes)
+
+
+def _gates(wl_um, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y, sin_ix, sin_iy,
+           half_lobes, ac_, half, separable):
+    for lx, ly in lobe_set(half, separable)[0]:
+        live = half_lobes >= float(max(abs(lx), abs(ly)))
+        aa, bb, mm, qq, ok = _diffract(wl_um, cg, sg, float(lx), float(ly),
+                                       ip_x, ip_y, sin_ix, sin_iy)
+        cd_dot_wo = (aa * m.safe_sqrt(qq) * wo_x
+                     + bb * m.safe_sqrt(mm) * wo_y
+                     + m.safe_sqrt(1.0 - aa * aa * qq - bb * bb * mm) * wo_z)
+        ang = m.unit_angle_dot(cd_dot_wo)
+        in_cone = torch.abs(ang) < ac_
+        yield lx, ly, aa, bb, ang, ok & in_cone & live
+
+
+def lobe_gates(wi, wo, wl_nm, grating_dir, inv_period, lobes, a_cone,
+               half: int, separable: bool):
+    """The lobe sum's chain up to its gates, lobe by lobe in `lobe_set`
+    order: yields (lx, ly, aa, bb, ang, sel), each [N, C], sel = lobe_ok &
+    in_cone & live (the plain version's gates)."""
+    (wi_x, wi_y, wi_z, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y,
+     half_lobes) = _lane_columns(wi, wo, grating_dir, inv_period, lobes)
+    sin_ix, sin_iy = _sin_incidence(wi_x, wi_y, wi_z)
+    yield from _gates(wl_nm * 1e-3, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y,
+                      sin_ix, sin_iy, half_lobes, _col(a_cone), half,
+                      separable)
+
+
 def grating_lobe_sum_plain(wi, wo, wl_nm, grating_dir, inv_period, q, lobes,
                            gtype, multiplier, coherence, a_cone, half: int,
                            separable: bool):
     """Plain version of `grating_lobe_sum`: [N, C] in float32."""
-    col = lambda x: x[:, None]  # noqa: E731 - lane params against [N, C]
-    wi_x, wi_y, wi_z = (col(x) for x in wi.unbind(-1))
-    wo_x, wo_y, wo_z = (col(x) for x in wo.unbind(-1))
-    cg, sg = (col(x) for x in grating_dir.unbind(-1))
-    ip_x, ip_y = (col(x) for x in inv_period.unbind(-1))
-    qv, mu_, co_, ac_ = col(q), col(multiplier), col(coherence), col(a_cone)
-    lob = col(lobes.to(torch.float32))
-    gt = col(gtype.to(torch.float32))
+    (wi_x, wi_y, wi_z, wo_x, wo_y, wo_z, cg, sg, ip_x, ip_y,
+     half_lobes) = _lane_columns(wi, wo, grating_dir, inv_period, lobes)
+    qv, mu_, co_, ac_ = _col(q), _col(multiplier), _col(coherence), \
+        _col(a_cone)
+    gt = _col(gtype.to(torch.float32))
 
     sin_ix, sin_iy = _sin_incidence(wi_x, wi_y, wi_z)
     cos_t = torch.abs(wi_z)
-    half_lobes = torch.floor(lob * 0.5)
     is_1d = ip_y < m.Epsilon
     is_sin = gt < 0.5
     is_rect = torch.abs(gt - 1.0) < 0.5
@@ -253,37 +306,43 @@ def grating_lobe_sum_plain(wi, wo, wl_nm, grating_dir, inv_period, q, lobes,
     s = co_ * kwn * (1.0 / (2.0 * m.Pi * 1e3))
     inv_det = s * s
 
-    ly_range = [0] if separable else range(-half, half + 1)
     acc = torch.zeros_like(a)
     corr = torch.zeros_like(a)
-    for lx in range(-half, half + 1):
-        for ly in ly_range:
-            ax, ay = abs(lx), abs(ly)
-            live = half_lobes >= float(max(ax, ay))
-            ix = base[ax]
-            iy = torch.where(is_1d, ix, base[ay])
-            lobe_int = mu_ * ix * iy
-            aa, bb, mm, qq, ok = _diffract(wl_um, cg, sg, float(lx),
-                                           float(ly), ip_x, ip_y, sin_ix,
-                                           sin_iy)
-            cd_dot_wo = (aa * m.safe_sqrt(qq) * wo_x
-                         + bb * m.safe_sqrt(mm) * wo_y
-                         + m.safe_sqrt(1.0 - aa * aa * qq - bb * bb * mm)
-                         * wo_z)
-            ang = m.unit_angle_dot(cd_dot_wo)
-            in_cone = torch.abs(ang) < ac_
-            ang_coh = torch.exp(-0.5 * ang * ang * inv_det)
-            sel = ok & in_cone & live
-            if lx == 0 and ly == 0:
-                acc = acc + torch.where(sel, lobe_int, 0.0)
-                if separable:
-                    corr = torch.where(
-                        sel, lobe_int * (ang_coh - 1.0) * (ny - 1.0), 0.0)
-            else:
-                acc = acc + torch.where(sel, lobe_int * ang_coh, 0.0)
+    for lx, ly, _, _, ang, sel in _gates(wl_um, wo_x, wo_y, wo_z, cg, sg,
+                                         ip_x, ip_y, sin_ix, sin_iy,
+                                         half_lobes, ac_, half, separable):
+        ix = base[abs(lx)]
+        iy = torch.where(is_1d, ix, base[abs(ly)])
+        lobe_int = mu_ * ix * iy
+        ang_coh = torch.exp(-0.5 * ang * ang * inv_det)
+        if lx == 0 and ly == 0:
+            acc = acc + torch.where(sel, lobe_int, 0.0)
+            if separable:
+                corr = torch.where(
+                    sel, lobe_int * (ang_coh - 1.0) * (ny - 1.0), 0.0)
+        else:
+            acc = acc + torch.where(sel, lobe_int * ang_coh, 0.0)
     if separable:
         acc = acc * ny + corr
     return acc
+
+
+def grating_lobe_sum_sel_plain(args, half: int, separable: bool):
+    """The selection bits of B4's recording instance, from the plain
+    version's gates (`lobe_gates`): int32 [N, C, words], lobe k of
+    `lobe_set` at bit k % 32 of word k // 32 (the word's 32 bits as the
+    int32 of the same bits). `args` in LOBE_SUM_INPUTS order."""
+    wi, wo, wl_nm, gd, ip, _, lobes, _, _, _, a_cone = args
+    _, words = lobe_set(half, separable)
+    with torch.no_grad():
+        bits = torch.zeros((*wl_nm.shape, words), dtype=torch.int64,
+                           device=wl_nm.device)
+        for k, (*_, sel) in enumerate(lobe_gates(wi, wo, wl_nm, gd, ip,
+                                                 lobes, a_cone, half,
+                                                 separable)):
+            bits[..., k // 32] |= sel.long() << (k % 32)
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32)
 
 
 # the lobe sum's inputs in order; lobes and gtype (int32) take no gradient,
@@ -312,22 +371,43 @@ def _check_lobe_sum(args, half, n_channels):
     return dev, n
 
 
-def _lobe_sum_kernel(args, half, separable, n_channels):
-    """B4: the forward kernel on CUDA tensors."""
-    global LOBE_SUM_LAUNCHES
+def _lobe_sum_kernel(args, half, separable, n_channels, record=False):
+    """B4 on CUDA tensors: (out [N, C], None), or with `record` its
+    recording instance: (out, the selection bits int32 [N, C, words])."""
+    global LOBE_SUM_LAUNCHES, LOBE_SUM_RECORD_LAUNCHES
     from .build import check, load_library
 
     dev, n = args[0].device, args[0].shape[0]
     lib = load_library()
     table = bessel_table(dev)
     out = torch.empty((n, n_channels), dtype=torch.float32, device=dev)
+    sel = (torch.empty((n, n_channels, lobe_set(half, separable)[1]),
+                       dtype=torch.int32, device=dev) if record else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_grating_lobe_sum(
         *(t.data_ptr() for t in args), table.data_ptr(), n, int(half),
-        int(bool(separable)), int(n_channels), out.data_ptr(), stream),
+        int(bool(separable)), int(n_channels), out.data_ptr(),
+        None if sel is None else sel.data_ptr(), stream),
         "grating_lobe_sum")
-    LOBE_SUM_LAUNCHES += 1
-    return out
+    if record:
+        LOBE_SUM_RECORD_LAUNCHES += 1
+    else:
+        LOBE_SUM_LAUNCHES += 1
+    return out, sel
+
+
+def grating_lobe_sum_record(args, half: int, separable: bool):
+    """B4's recording instance on the inputs `args` (LOBE_SUM_INPUTS
+    order): (the lobe sum [N, C], its selection bits int32 [N, C, words],
+    `grating_lobe_sum_sel_plain`'s layout), the bits `grating_lobe_sum_bwd`
+    takes. Its sum equals the plain instance's to the bit. CPU tensors
+    take the plain versions."""
+    n_channels = args[2].shape[-1]
+    dev, _ = _check_lobe_sum(args, half, n_channels)
+    if dev.type == "cpu":
+        return (grating_lobe_sum_plain(*args, half, separable),
+                grating_lobe_sum_sel_plain(args, half, separable))
+    return _lobe_sum_kernel(args, half, separable, n_channels, record=True)
 
 
 def grating_lobe_sum_bwd_plain(args, g, half: int, separable: bool):
@@ -348,15 +428,18 @@ def grating_lobe_sum_bwd_plain(args, g, half: int, separable: bool):
                  for name in LOBE_SUM_INPUTS)
 
 
-def grating_lobe_sum_bwd(args, g, half: int, separable: bool):
+def grating_lobe_sum_bwd(args, g, half: int, separable: bool, sel=None):
     """B4b: the vector-Jacobian product of `grating_lobe_sum` at the inputs
     `args` (in LOBE_SUM_INPUTS order) with the cotangent g [N, C]: the
     gradients of wi, wo, wl_nm, grating_dir, inv_period, q, multiplier
     and coherence, None for lobes, gtype and a_cone. CPU tensors take
-    `grating_lobe_sum_bwd_plain`; CUDA tensors launch the kernel, which
+    `grating_lobe_sum_bwd_plain` (`sel` unread); CUDA tensors launch the
+    kernel on `sel`, the selection bits of B4's recording launch on the
+    same inputs (`grating_lobe_sum_record`), and raise without them. It
     differentiates B4's own forward (J and J' from `bessel_table`'s
-    Hermite cubic), so it agrees with the plain version, which
-    differentiates the float32 sweep, within that interpolation and
+    Hermite cubic) on the lobes B4 selected, so it agrees with the plain
+    version, which differentiates the float32 sweep, within that
+    interpolation and rounding, and where a gate flips at float
     rounding."""
     global LOBE_SUM_BWD_LAUNCHES
     n_channels = args[2].shape[-1]
@@ -366,6 +449,12 @@ def grating_lobe_sum_bwd(args, g, half: int, separable: bool):
         "g": (g, torch.float32, (n_channels,))})
     if dev.type == "cpu":
         return grating_lobe_sum_bwd_plain(args, g, half, separable)
+    if sel is None:
+        raise ValueError(
+            "grating_lobe_sum_bwd: a CUDA call takes `sel`, the selection "
+            "bits of B4's recording launch (grating_lobe_sum_record)")
+    check_tensors("grating_lobe_sum_bwd", {"sel": (
+        sel, torch.int32, (n_channels, lobe_set(half, separable)[1]))}, n)
     from .build import check, load_library
 
     lib = load_library()
@@ -375,33 +464,47 @@ def grating_lobe_sum_bwd(args, g, half: int, separable: bool):
              if name not in _NO_GRAD_INPUTS}
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.plt_grating_lobe_sum_bwd(
-        *(t.data_ptr() for t in args), table.data_ptr(), g.data_ptr(), n,
-        int(half), int(bool(separable)), int(n_channels),
-        *(t.data_ptr() for t in grads.values()), stream),
+        *(t.data_ptr() for t in args[:10]), table.data_ptr(),
+        sel.data_ptr(), g.data_ptr(), n, int(half), int(bool(separable)),
+        int(n_channels), *(t.data_ptr() for t in grads.values()), stream),
         "grating_lobe_sum_bwd")
     LOBE_SUM_BWD_LAUNCHES += 1
     return tuple(grads.get(name) for name in LOBE_SUM_INPUTS)
 
 
+def autograd_records(args) -> bool:
+    """Whether autograd records a lobe-sum call on `args`: grad mode is on
+    and an input requires grad (then the forward records its selection
+    bits for B4b)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+
+
 class _LobeSum(torch.autograd.Function):
-    """B4 forward, B4b backward (`grating_lobe_sum_bwd`). Forward mode
+    """B4 forward, B4b backward (`grating_lobe_sum_bwd`). With `record`
+    (`autograd_records`) the forward on CUDA tensors launches B4's
+    recording instance and keeps its bits for the backward; a
+    checkpoint's recomputation records them again, the same. Forward mode
     raises: the lobe sum has a hand-written VJP and no JVP, as the JAX
     package's custom_vjp has none on its TPU path."""
 
     @staticmethod
-    def forward(ctx, half, separable, n_channels, *args):
+    def forward(ctx, half, separable, n_channels, record, *args):
         ctx.half, ctx.separable = half, separable
-        ctx.save_for_backward(*args)
         if args[0].device.type == "cpu":
+            ctx.save_for_backward(*args, None)
             return grating_lobe_sum_plain(*args, half, separable)
-        return _lobe_sum_kernel(args, half, separable, n_channels)
+        out, sel = _lobe_sum_kernel(args, half, separable, n_channels,
+                                    record)
+        ctx.save_for_backward(*args, sel)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = grating_lobe_sum_bwd(ctx.saved_tensors, g.contiguous(),
-                                     ctx.half, ctx.separable)
-        return (None, None, None, *grads)
+        *args, sel = ctx.saved_tensors
+        grads = grating_lobe_sum_bwd(args, g.contiguous(), ctx.half,
+                                     ctx.separable, sel)
+        return (None, None, None, None, *grads)
 
     @staticmethod
     def jvp(ctx, *tangents):
@@ -425,11 +528,15 @@ def grating_lobe_sum(wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
 
     Differentiable (a `torch.autograd.Function`): its backward is
     `grating_lobe_sum_bwd`, the B4b kernel on CUDA tensors and autograd of
-    the plain version on CPU tensors. Forward mode raises."""
+    the plain version on CPU tensors. Where autograd records, a CUDA call
+    launches B4's recording instance (`launch_counts()`'s
+    "grating_lobe_sum_record"), else the plain one ("grating_lobe_sum").
+    Forward mode raises."""
     args = (wi, wo, wl_nm, grating_dir, inv_period, q, lobes, gtype,
             multiplier, coherence, a_cone)
     _check_lobe_sum(args, half, n_channels)
-    return _LobeSum.apply(int(half), bool(separable), int(n_channels), *args)
+    return _LobeSum.apply(int(half), bool(separable), int(n_channels),
+                          autograd_records(args), *args)
 
 
 # ---------------------------------------------------------------------------

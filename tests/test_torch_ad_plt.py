@@ -6,6 +6,7 @@ chain, the grating-parameter gradients of PLT on grating_scene(16, 16,
 coherence=5e3), and forward mode refused through the lobe sum."""
 import ctypes
 import functools
+import importlib.util
 import os
 import subprocess
 
@@ -252,6 +253,7 @@ def test_function_is_plain_autograd_on_cpu():
 
 _SHIM = r"""
 #include <math.h>
+#include <stdlib.h>
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -265,31 +267,58 @@ static inline float __fsub_rn(float a, float b) { return a - b; }
 template <class T> static inline T __ldg(const T* p) { return *p; }
 // each emulated thread votes alone: a lane computes the branches it needs
 static inline bool __any_sync(unsigned, bool p) { return p; }
+static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// B4b's gathering (a block's ballots and shared list) runs on the card
+// only: the harness below calls its per-item functions
+#define __shared__ static
+static inline void __syncthreads() { abort(); }
+static inline unsigned __ballot_sync(unsigned, bool) { abort(); }
+static inline int __shfl_sync(unsigned, int, int) { abort(); }
+static inline int __popc(unsigned) { abort(); }
+static inline int atomicAdd(int*, int) { abort(); }
 """
 
 _HARNESS = r"""
-template <int H, bool S>
-static void fwd(const float* const* in, const int* lob, const int* gt,
-                const float* tab, int n, float* out) {
+template <int H, bool S, bool R>
+static void fwd_run(const float* const* in, const int* lob, const int* gt,
+                    const float* tab, int n, float* out, unsigned* sel) {
   for (int b = 0; b * kBlock < n; ++b)
     for (int t = 0; t < kBlock; ++t) {
       blockIdx.x = b; threadIdx.x = t;
-      lobe_sum_kernel<H, S, 3>(in[0], in[1], in[2], in[3], in[4], in[5],
-                               lob, gt, in[6], in[7], in[8],
-                               (const float4*)tab, n, out);
+      lobe_sum_kernel<H, S, 3, R>(in[0], in[1], in[2], in[3], in[4], in[5],
+                                  lob, gt, in[6], in[7], in[8],
+                                  (const float4*)tab, n, out, sel);
     }
 }
+// B4's recording instance where sel is given, else its plain instance
+template <int H, bool S>
+static void fwd(const float* const* in, const int* lob, const int* gt,
+                const float* tab, int n, float* out, unsigned* sel) {
+  if (sel)
+    fwd_run<H, S, true>(in, lob, gt, tab, n, out, sel);
+  else
+    fwd_run<H, S, false>(in, lob, gt, tab, n, out, nullptr);
+}
+// B4b lane by lane: lobe_sum_bwd_kernel's items (lobe_bwd_channel) of the
+// lane's channels with bits, each into its own slot, then lobe_bwd_finish
 template <int H, bool S>
 static void bwd(const float* const* in, const int* lob, const int* gt,
-                const float* tab, const float* g, int n, float* const* o) {
-  for (int b = 0; b * kBlock < n; ++b)
-    for (int t = 0; t < kBlock; ++t) {
-      blockIdx.x = b; threadIdx.x = t;
-      lobe_sum_bwd_kernel<H, S, 3>(in[0], in[1], in[2], in[3], in[4], in[5],
-                                   lob, gt, in[6], in[7], in[8],
-                                   (const float4*)tab, g, n, o[0], o[1],
-                                   o[2], o[3], o[4], o[5], o[6], o[7]);
+                const float* tab, const unsigned* sel, const float* g, int n,
+                float* const* o) {
+  for (int i = 0; i < n; ++i) {
+    float adj[3 * kLaneAdj];
+    unsigned chans = 0u;
+    for (int c = 0; c < 3; ++c) {
+      if (!lobe_bwd_has_bits<H, S, 3>(sel, i, c)) continue;
+      chans |= 1u << c;
+      lobe_bwd_channel<H, S, 3>(i, c, in[0], in[1], in[2], in[3], in[4],
+                                in[5], lob, gt, in[6], in[7],
+                                (const float4*)tab, sel, g, o[2],
+                                adj + c * kLaneAdj, 1);
     }
+    lobe_bwd_finish<3>(i, chans, in[0], adj, 1, o[0], o[1], o[2], o[3], o[4],
+                       o[5], o[6], o[7]);
+  }
 }
 #define CASES(FN, ...)                                                   \
   switch (half * 2 + sep) {                                              \
@@ -306,24 +335,26 @@ static void bwd(const float* const* in, const int* lob, const int* gt,
   }
 extern "C" void host_lobe_sum(const float* const* in, const int* lob,
                               const int* gt, const float* tab, int n,
-                              int half, int sep, float* out) {
-  CASES(fwd, in, lob, gt, tab, n, out)
+                              int half, int sep, float* out, unsigned* sel) {
+  CASES(fwd, in, lob, gt, tab, n, out, sel)
 }
 extern "C" void host_lobe_sum_bwd(const float* const* in, const int* lob,
                                   const int* gt, const float* tab,
-                                  const float* g, int n, int half, int sep,
-                                  float* const* o) {
-  CASES(bwd, in, lob, gt, tab, g, n, o)
+                                  const unsigned* sel, const float* g, int n,
+                                  int half, int sep, float* const* o) {
+  CASES(bwd, in, lob, gt, tab, sel, g, n, o)
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """grating.cu's lobe-sum section (its helpers, lobe_sum_kernel and
-    lobe_sum_bwd_kernel) built for the host with g++ (FMA contraction
-    off, as nvcc's __fmul_rn / __fadd_rn keep the card's), each thread of
-    each block run in turn."""
+    """grating.cu's lobe-sum section (its helpers, lobe_sum_kernel in both
+    instances, lobe_sum_bwd_kernel's per-item functions) built for the host
+    with g++ (FMA contraction off, as nvcc's __fmul_rn / __fadd_rn keep the
+    card's): B4 each thread of each block in turn, B4b lane by lane (its
+    block-level gathering of the (lane, channel)s with bits runs on the
+    card only)."""
     src = open(os.path.join(os.path.dirname(g.__file__), "csrc",
                             "grating.cu")).read()
     body = src[src.index("namespace {"):src.index("// Smith G1")]
@@ -336,46 +367,246 @@ def host_kernels(tmp_path_factory):
     return ctypes.CDLL(str(so))
 
 
+@functools.cache
+def _smoke():
+    """chip_smoke.py as a module: its `sel_flips` names the lobes whose
+    selection bit differs, as on the card."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
-@pytest.mark.parametrize("case", ["h2-sep-sin", "h3-2d-sin", "h4-sep-rect",
-                                  "h2-2d-lin", "h3-sep-sin-hankel"])
+def _vp(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+HOST_CASES = ["h2-sep-sin", "h3-2d-sin", "h4-sep-rect", "h2-2d-lin",
+              "h3-sep-sin-hankel"]
+GRAD_NAMES = [k for k in NAMES if k not in ("lobes", "gtype", "a_cone")]
+
+
+def _host_fwd(lib, args, half, sep, record):
+    """Host B4 on `args`: (out [N, 3], the selection bits int32 [N, 3,
+    words] of the recording instance, or None)."""
+    f_in = [args[i] for i in (0, 1, 2, 3, 4, 5, 8, 9, 10)]
+    n = args[0].shape[0]
+    out = torch.empty((n, 3))
+    sel = (torch.full((n, 3, g.lobe_set(half, sep)[1]), -1,
+                      dtype=torch.int32) if record else None)
+    lib.host_lobe_sum(_ptrs(f_in), _vp(args[6]), _vp(args[7]),
+                      _vp(g.bessel_table("cpu")), n, half, int(sep),
+                      _vp(out), _vp(sel))
+    return out, sel
+
+
+def _host_bwd(lib, args, cot, sel, half, sep):
+    """Host B4b on `args` with the cotangent and B4's bits: {name:
+    gradient} of GRAD_NAMES."""
+    f_in = [args[i] for i in (0, 1, 2, 3, 4, 5, 8, 9, 10)]
+    grads = [torch.full_like(args[NAMES.index(k)], float("nan"))
+             for k in GRAD_NAMES]
+    lib.host_lobe_sum_bwd(_ptrs(f_in), _vp(args[6]), _vp(args[7]),
+                          _vp(g.bessel_table("cpu")), _vp(sel), _vp(cot),
+                          args[0].shape[0], half, int(sep), _ptrs(grads))
+    return dict(zip(GRAD_NAMES, grads))
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
 def test_kernel_source_on_the_host_matches_plain(host_kernels, case):
     """B4 and B4b as written (their source built for the host) against the
     plain version and its autograd: outputs at rtol 2e-3 / atol 2e-5,
     gradients at rtol 2e-3 with atol 2e-5 of each input's largest (the
     card's tolerances; the table against the sweep, measured within 5e-5
-    of the largest), on every lane."""
+    of the largest), on every lane. B4b reads the bits of host B4's
+    recording instance."""
     half, sep, ins, cot = _case(case, n=2048)
     args = _torch_args(ins)
-    f_in = [args[i] for i in (0, 1, 2, 3, 4, 5, 8, 9, 10)]
-    lob, gtype = args[6], args[7]
-    tab = g.bessel_table("cpu")
-    n = args[0].shape[0]
-    out = torch.empty((n, 3))
-    host_kernels.host_lobe_sum(
-        _ptrs(f_in), ctypes.c_void_p(lob.data_ptr()),
-        ctypes.c_void_p(gtype.data_ptr()), ctypes.c_void_p(tab.data_ptr()),
-        n, half, int(sep), ctypes.c_void_p(out.data_ptr()))
+    out, _ = _host_fwd(host_kernels, args, half, sep, record=False)
     want = g.grating_lobe_sum_plain(*args, half, sep)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=2e-3,
                                atol=2e-5)
+    _, sel = _host_fwd(host_kernels, args, half, sep, record=True)
     cot_t = torch.as_tensor(cot)
-    names = [k for k in NAMES if k not in ("lobes", "gtype", "a_cone")]
-    grads = [torch.empty_like(args[NAMES.index(k)]) for k in names]
-    host_kernels.host_lobe_sum_bwd(
-        _ptrs(f_in), ctypes.c_void_p(lob.data_ptr()),
-        ctypes.c_void_p(gtype.data_ptr()), ctypes.c_void_p(tab.data_ptr()),
-        ctypes.c_void_p(cot_t.data_ptr()), n, half, int(sep), _ptrs(grads))
+    grads = _host_bwd(host_kernels, args, cot_t, sel, half, sep)
     ref = dict(zip(NAMES, g.grating_lobe_sum_bwd_plain(args, cot_t, half,
                                                        sep)))
-    for k, got in zip(names, grads):
+    for k, got in grads.items():
         w = ref[k].numpy()
         np.testing.assert_allclose(got.numpy(), w, rtol=2e-3,
                                    atol=2e-5 * max(np.abs(w).max(), 1e-30),
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_host_recording_instance_keeps_the_sum_and_the_plain_gates(
+        host_kernels, case):
+    """Host B4's recording instance: its sum equals the plain instance's to
+    the bit, and its bits equal grating_lobe_sum_sel_plain's but for lobes
+    that lie within float rounding of a gate (|ang| within 1e-5 rad of
+    a_cone, |aa| or |bb| within 1e-6 of 1), each named; every lane and
+    channel gets its words (none left at the fill)."""
+    half, sep, ins, _ = _case(case, n=2048)
+    args = _torch_args(ins)
+    plain, _ = _host_fwd(host_kernels, args, half, sep, record=False)
+    out, sel = _host_fwd(host_kernels, args, half, sep, record=True)
+    assert torch.equal(out, plain)
+    want = g.grating_lobe_sum_sel_plain(args, half, sep)
+    assert sel.shape == want.shape == (2048, 3, g.lobe_set(half, sep)[1])
+    flips = _smoke().sel_flips(args, half, sep, sel, want)
+    assert all(f["rounding"] for f in flips), flips
+    n_lobes = len(g.lobe_set(half, sep)[0])
+    if n_lobes % 32:
+        # the bits past the set's last lobe stay 0
+        assert not (sel[..., -1] >> (n_lobes % 32)).any()
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_host_bwd_gives_lanes_without_bits_exact_zeros(host_kernels, case):
+    """A lane with no selection bit gets exact zeros from host B4b, as from
+    the plain version's autograd (its output is the constant 0 there); the
+    cases hold such lanes and lanes with bits."""
+    half, sep, ins, cot = _case(case, n=2048)
+    args = _torch_args(ins)
+    _, sel = _host_fwd(host_kernels, args, half, sep, record=True)
+    none = ~(sel != 0).flatten(1).any(-1)
+    assert 0 < int(none.sum()) < none.numel()
+    cot_t = torch.as_tensor(cot)
+    grads = _host_bwd(host_kernels, args, cot_t, sel, half, sep)
+    ref = dict(zip(NAMES, g.grating_lobe_sum_bwd_plain(args, cot_t, half,
+                                                       sep)))
+    for k, got in grads.items():
+        assert torch.isfinite(got).all(), k
+        assert not got[none].any(), k
+        assert not ref[k][none].any(), k
+
+
+# lane 602572 of the grating box path's first lobe-sum call
+# (cornell_box(512, 512, box_material="grating"), PLT depth 7, 8 spp a
+# pass; half 2, separable) with chip_smoke.py's seeded cotangent: in
+# channel 2 the selected lobe (-1, 0) points along wo to cd = 1 - 2.6e-8.
+# Formed with B4's fused products, cd rounds to 1 in float32, so d = 0 and
+# the cone's Gaussian has no derivative there; formed as the plain version
+# forms it, cd = 1 - 6e-8 and it has its limit, -2 e expo.
+BOX_LANE = dict(
+    wi=[-0.9536094665527344, -0.14432963728904724, 0.26419299840927124],
+    wo=[0.26505157351493835, 0.4619472026824951, 0.8463761210441589],
+    wl_nm=[487.176513671875, 594.8543090820312, 664.7474975585938],
+    grating_dir=[1.0, 0.0], inv_period=[1.0, 1.0], q=0.10000000149011612,
+    lobes=3, gtype=0, multiplier=1.0, coherence=1.0,
+    a_cone=0.20000000298023224)
+BOX_LANE_COT = [0.6127704977989197, 1.7992738485336304, -2.2733969688415527]
+
+
+def _near_lobe_lanes(rng, n):
+    """Lanes whose wo is, to float32, the direction of one of their lobes
+    (the plain chain's in float64), so that cd lies within a few ulps of 1
+    and d at or just above 0: separable half 2, 1D gratings, the three
+    profiles, coherence up to 1e3."""
+    ins = lobe_inputs(rng, n, 0, 0.0)
+    ins["gtype"] = rng.choice([0, 1, 2], n).astype(np.int32)
+    ins["lobes"] = np.full(n, 5, np.int32)
+    ins["coherence"] = rng.uniform(1.0, 1e3, n).astype(np.float32)
+    ins["inv_period"][:, 0] = rng.uniform(0.2, 0.8, n)
+    wi = ins["wi"].astype(np.float64)
+    sin_ix = wi[:, 0] / np.hypot(wi[:, 0], wi[:, 2])
+    sin_iy = wi[:, 1] / np.hypot(wi[:, 1], wi[:, 2])
+    lx = rng.choice([-1.0, 0.0, 1.0], n)
+    gd = ins["grating_dir"].astype(np.float64)
+    aa = ins["wl_nm"][:, 0] * 1e-3 * gd[:, 0] * lx * ins["inv_period"][:, 0]
+    aa = aa - sin_ix
+    bb = ins["wl_nm"][:, 0] * 1e-3 * gd[:, 1] * lx * 0.0 - sin_iy
+    mm = (aa * aa - 1.0) / (aa * aa * bb * bb - 1.0)
+    qq = 1.0 - bb * bb * mm
+    wo = np.stack([aa * np.sqrt(np.maximum(qq, 0)),
+                   bb * np.sqrt(np.maximum(mm, 0)),
+                   np.sqrt(np.maximum(1.0 - aa * aa * qq - bb * bb * mm,
+                                      0))], -1)
+    ins["wo"] = (wo / np.linalg.norm(wo, axis=-1, keepdims=True)).astype(
+        np.float32)
+    return ins
+
+
+@pytest.fixture
+def rounded_sqrt(monkeypatch):
+    """torch.sqrt correctly rounded (taken in float64), as sqrtf is on the
+    card and in the host build: torch's CPU float32 sqrt is an ulp off on
+    some floats, which moves a cd within an ulp of 1 to 1 or off it."""
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt",
+                        lambda x: sqrt(x.double()).to(x.dtype))
+
+
+def test_host_bwd_along_a_lobe_direction_matches_plain(host_kernels,
+                                                       rounded_sqrt):
+    """Host B4b where wo is a selected lobe's own direction (cd within a few
+    ulps of 1: the arccos derivative's d at or just above 0, where the
+    plain version's derivative jumps from its limit to 0) against autograd
+    of the plain version with correctly rounded square roots, at the
+    card's tolerance (rtol 2e-3, atol 2e-5 of each input's largest) on
+    every lane: the grating box's lane 602572 (before B4b formed the plain
+    chain's rounding, its wo gradient lay outside the tolerance there) and
+    4,096 constructed lanes. Every lane's bits equal the plain version's."""
+    rng = np.random.default_rng(18)
+    ins = _near_lobe_lanes(rng, 4096)
+    for k, v in BOX_LANE.items():
+        ins[k] = np.concatenate([ins[k], np.asarray([v], ins[k].dtype)])
+    cot = np.concatenate([rng.normal(size=(4096, 3)),
+                          [BOX_LANE_COT]]).astype(np.float32)
+    half, sep = 2, True
+    args = _torch_args(ins)
+    _, sel = _host_fwd(host_kernels, args, half, sep, record=True)
+    assert torch.equal(sel, g.grating_lobe_sum_sel_plain(args, half, sep))
+    assert bool((sel[-1] != 0).any())
+    cot_t = torch.as_tensor(cot)
+    grads = _host_bwd(host_kernels, args, cot_t, sel, half, sep)
+    ref = dict(zip(NAMES, g.grating_lobe_sum_bwd_plain(args, cot_t, half,
+                                                       sep)))
+    for k, got in grads.items():
+        w = ref[k].numpy()
+        np.testing.assert_allclose(got.numpy(), w, rtol=2e-3,
+                                   atol=2e-5 * max(np.abs(w).max(), 1e-30),
+                                   err_msg=k)
+        w1 = w[-1:]
+        np.testing.assert_allclose(got.numpy()[-1:], w1, rtol=2e-3,
+                                   atol=2e-5 * max(np.abs(w1).max(), 1e-30),
+                                   err_msg=k)
+
+
+def test_autograd_records_only_where_the_backward_runs():
+    """`autograd_records` (the recording launch's condition): off under
+    no_grad and for inputs that need no gradient, on where an input
+    requires grad, in both runs of a non-reentrant checkpoint (its
+    forward and its recomputation in the backward, which then record the
+    same bits). On the CPU the lobe sum launches no kernel either way."""
+    half, sep, ins, cot = _case("h2-sep-sin", n=64)
+    args = _torch_args(ins)
+    assert not g.autograd_records(args)
+    xs = [t.clone().requires_grad_(t.dtype == torch.float32) for t in args]
+    assert g.autograd_records(xs)
+    with torch.no_grad():
+        assert not g.autograd_records(xs)
+    seen = []
+
+    def run(*a):
+        seen.append(g.autograd_records(a))
+        return g.grating_lobe_sum(*a, half=half, separable=sep,
+                                  n_channels=3)
+
+    ops.reset_launch_counts()
+    y = torch.utils.checkpoint.checkpoint(run, *xs, use_reentrant=False)
+    y.backward(torch.as_tensor(cot))
+    assert seen == [True, True]
+    assert not any(ops.launch_counts().values())
+    out, sel = g.grating_lobe_sum_record(args, half, sep)
+    assert torch.equal(out, g.grating_lobe_sum_plain(*args, half, sep))
+    assert torch.equal(sel, g.grating_lobe_sum_sel_plain(args, half, sep))
 
 
 # ---------------------------------------------------------------------------

@@ -153,15 +153,19 @@ def test_render_launches_each_kernel_once_per_bounce(card):
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 8, "grating_lobe_sum": 8,
-                                   "grating_lobe_sum_bwd": 0}
+                                   "grating_lobe_sum_bwd": 0,
+                                   "grating_lobe_sum_record": 0}
 
 
 def test_lobe_sum_bwd_kernel_matches_plain(card):
-    """B4b against autograd of the plain version on chip_smoke.py's four
-    lobe-sum cases and a separable half-2 case, at chip_smoke.py's
-    tolerance (`hold_lobe_sum_bwd`), one launch a call; through the
-    autograd.Function, the backward of a CUDA call launches B4b and
-    never the plain version."""
+    """B4b, fed the bits of B4's recording launch, against autograd of the
+    plain version on chip_smoke.py's four lobe-sum cases and a separable
+    half-2 case, at chip_smoke.py's tolerance (`hold_lobe_sum_bwd`), one
+    launch a call; the recording instance's sum equals the plain
+    instance's to the bit and its bits the plain version's but for
+    rounding flips (`hold_record`); a CUDA call without bits raises.
+    Through the autograd.Function the forward launches the recording
+    instance and the backward B4b, never the plain version."""
     from mitsuba3_plt_tpu_torch import ops
     from mitsuba3_plt_tpu_torch.ops import grating as gops
 
@@ -174,11 +178,21 @@ def test_lobe_sum_bwd_kernel_matches_plain(card):
         args = [ins[k] for k in gops.LOBE_SUM_INPUTS]
         cot = torch.as_tensor(rng.normal(size=(20000, 3)).astype(np.float32),
                               device=card)
+        plain_out = gops.grating_lobe_sum(*args, half=half, separable=sep,
+                                          n_channels=3)
         ops.reset_launch_counts()
-        got = gops.grating_lobe_sum_bwd(args, cot, half, sep)
+        sel, _ = smoke.hold_record(str((half, sep, gtype)), args, half, sep,
+                                   plain_out)
+        with pytest.raises(ValueError, match="sel"):
+            gops.grating_lobe_sum_bwd(args, cot, half, sep)
+        got = gops.grating_lobe_sum_bwd(args, cot, half, sep, sel)
         torch.cuda.synchronize()
+        assert ops.launch_counts()["grating_lobe_sum_record"] == 1
         assert ops.launch_counts()["grating_lobe_sum_bwd"] == 1
         want = gops.grating_lobe_sum_bwd_plain(args, cot, half, sep)
+        smoke.explain_lobe_sum_bwd(str((half, sep, gtype)), args, cot,
+                                   dict(half=half, separable=sep), sel, got,
+                                   want)
         smoke.hold_lobe_sum_bwd(str((half, sep, gtype)), got, want)
         xs = [t.clone().requires_grad_(t.dtype == torch.float32)
               for t in args]
@@ -187,8 +201,10 @@ def test_lobe_sum_bwd_kernel_matches_plain(card):
                                   n_channels=3)
         y.backward(cot)
         torch.cuda.synchronize()
-        assert ops.launch_counts()["grating_lobe_sum"] == 1
+        assert ops.launch_counts()["grating_lobe_sum"] == 0
+        assert ops.launch_counts()["grating_lobe_sum_record"] == 1
         assert ops.launch_counts()["grating_lobe_sum_bwd"] == 1
+        assert torch.equal(y.detach(), plain_out)
         for name, x, g in zip(gops.LOBE_SUM_INPUTS, xs, got):
             if g is not None:
                 assert torch.equal(x.grad, g), name
@@ -332,7 +348,8 @@ def test_path_render_launches_clu2_once_per_bounce(card):
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0,
-                                   "grating_lobe_sum_bwd": 0}
+                                   "grating_lobe_sum_bwd": 0,
+                                   "grating_lobe_sum_record": 0}
 
 
 def test_bvh_kernels_match_plain(card):

@@ -143,7 +143,8 @@ def test_launch_counters_stay_zero_on_the_cpu():
                                    "occluded_q_variant": 0,
                                    "intersect_q_macc": 0, "fma_roof": 0,
                                    "grating_sample": 0, "grating_lobe_sum": 0,
-                                   "grating_lobe_sum_bwd": 0}
+                                   "grating_lobe_sum_bwd": 0,
+                                   "grating_lobe_sum_record": 0}
 
 
 def test_tool_entry_points_need_a_card_unless_asked_for_the_cpu():
