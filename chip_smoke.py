@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~4-5 min with the build
+    python3 chip_smoke.py            # one card, ~7-9 min with the build
+
+    python3 chip_smoke.py --film         # the film phase alone
 
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
                                          # B8a, B8b, B9, B10a, B10b, B11a,
@@ -161,6 +163,9 @@ Phases, each printing one JSON line with its seconds:
                   cornell_box(32, 32, box_material=...), path (PLT for the
                   grating) depth 4 / rr 9, 4 seeds x 16 spp, z-tests
                   against the JAX package's renders in tests/golden_torch/;
+  golden-cbox-gaussian, golden-analytic  the same for cornell_box(32, 32)
+                  through the Gaussian filter and for analytic_scene(32,
+                  32) through the multijitter sampler;
   furnace         furnace_scene(64, 64, albedo=0.6), path depth 6 / rr 20,
                   96 spp: the sphere's centre within 3% of the albedo, the
                   corner within 0.02 of the environment's 1.0;
@@ -199,6 +204,20 @@ Phases, each printing one JSON line with its seconds:
                   pass (2,097,152 lanes), as `main`: B1 and B2 launch 7
                   times per pass, no other kernel;
   split-cbox      to chiprun_out/chip_smoke_profile_cbox.json;
+  main-cbox-gaussian  the same through the Gaussian filter (render(rfilter=
+                  FILTER_GAUSSIAN)), as `main-cbox`, with its ms/spp and peak
+                  memory beside main-cbox's (main-cbox-gaussian-vs-box);
+  split-cbox-gaussian  to chiprun_out/chip_smoke_profile_cbox_gaussian.json;
+  film            the Cornell box path's first pass: the ordered filtered
+                  splat against the scatter `put` (gaussian, mitchell,
+                  lanczos; 3 and 15 channels), both timed;
+  split-cbox-gaussian-splat  the gaussian splat alone by kernel;
+  cameras         every sampler type on every sensor type, 64x64x16: the
+                  card's rays and uv against the CPU's (atol 1e-5);
+  main-analytic   presets.analytic_scene(512, 512) (assemble_scene: a floor,
+                  an analytic sphere light, disk and cylinder; thinlens,
+                  multijitter), path depth 7 / rr 50, 8 spp a pass: B1 and
+                  B2 7 times a pass; split-analytic its profile;
   main-cbox-dielectric, main-cbox-conductor  cornell_box(512, 512,
                   box_material=...), as `main-cbox`: B1 and B2 7 times a
                   pass, no other kernel;
@@ -274,6 +293,8 @@ CHUNKED_SUBDIV = 5         # 20,480 faces: above B8b's resident table
 PLAIN_LANES = 131072       # lanes the icosphere's plain B8/B9 run on
 CHUNKED_COUNT_LANES = 16384  # lanes B8b's tests are counted on, 20,480 faces
 TIMED_PASSES = 3
+# the cameras phase: every sampler on every sensor at 64 x 64 x 16 spp
+CAM_W, CAM_H, CAM_SPP = 64, 64, 16
 # wrapper times below this are timed again on the device (`kernel_times`)
 DEVICE_TIMED_BELOW_MS = 0.15
 
@@ -3416,6 +3437,257 @@ def profile_run(name, run, pass_s, out_file):
             device_ops_launched=n_kernels, top_ops=rows[:12])
 
 
+# ---------------------------------------------------------------------------
+# the camera and the film (samplers, sensors, reconstruction filters) and
+# the analytic primitives
+# ---------------------------------------------------------------------------
+
+def camera_sensors(width, height, device):
+    """{name: a Sensor of each of the seven types} on `device`, the poses
+    of tests/test_torch_sensors.py."""
+    import numpy as np
+
+    from mitsuba3_plt_tpu_torch.core import transform as tf
+    from mitsuba3_plt_tpu_torch.librender.sensor import Sensor
+
+    tw = tf.look_at([0.3, 0.5, 3.0], [0.0, 0.1, 0.0], [0.0, 1.0, 0.0])
+    subs = np.stack([tf.look_at([x, 0.2, 3.0], [x, 0.0, 0.0], [0, 1, 0])
+                     for x in (-0.5, 0.0, 0.7, 1.0)])
+    kw = dict(device=device)
+    return {
+        "perspective": Sensor.perspective(tw, 42.0, width, height,
+                                          ppo=(0.01, -0.02), **kw),
+        "orthographic": Sensor.orthographic(tw, width, height, 1.3, **kw),
+        "thinlens": Sensor.thinlens(tw, 35.0, width, height, 0.08, 2.5,
+                                    **kw),
+        "batch": Sensor.batch_orthographic(subs, width // 4, height, 0.6,
+                                           **kw),
+        "radiancemeter": Sensor.radiancemeter(tw, **kw),
+        "irradiancemeter": Sensor.irradiancemeter(tw, 0.4, 0.7, **kw),
+        "distant": Sensor.distant([0.2, -1.0, 0.3], width, height,
+                                  target=(0.1, 0.0, 0.0), radius=1.7, **kw),
+    }
+
+
+def cameras():
+    """Every sampler type on every sensor type at CAM_W x CAM_H x CAM_SPP:
+    the card's camera rays (o, d) and film positions uv against the port's
+    own CPU rays, at atol 1e-5 (the ulps of sinf / cosf / sqrtf); each
+    pair's largest difference and whether it reaches the bit."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from mitsuba3_plt_tpu_torch.core.rng import SAMPLER_TYPES
+    from mitsuba3_plt_tpu_torch.integrators.common import camera_rays_at
+
+    ph = Phase("cameras")
+    pairs, worst = [], 0.0
+    gpu_sensors = camera_sensors(CAM_W, CAM_H, "cuda")
+    for sname, cpu_sensor in camera_sensors(CAM_W, CAM_H, "cpu").items():
+        W, H = cpu_sensor.resolution
+        lanes = torch.arange(W * H * CAM_SPP, dtype=torch.int64)
+        for stype in SAMPLER_TYPES:
+            got = camera_rays_at(SimpleNamespace(sensor=gpu_sensors[sname]),
+                                 7, lanes.cuda(), W, H, CAM_SPP,
+                                 sampler_type=stype)
+            want = camera_rays_at(SimpleNamespace(sensor=cpu_sensor), 7,
+                                  lanes, W, H, CAM_SPP, sampler_type=stype)
+            trio = ((got[0].o, want[0].o), (got[0].d, want[0].d),
+                    (got[1], want[1]))
+            diffs = [(a.cpu() - b).abs().max().item() for a, b in trio]
+            worst = max(worst, *diffs)
+            pairs.append({"sensor": sname, "sampler": stype,
+                          "lanes": int(lanes.numel()),
+                          "bit_equal": all(torch.equal(a.cpu(), b)
+                                           for a, b in trio),
+                          "max_abs_o": diffs[0], "max_abs_d": diffs[1],
+                          "max_abs_uv": diffs[2]})
+    ph.emit(width=CAM_W, height=CAM_H, spp=CAM_SPP, pairs=pairs,
+            bit_equal=sum(p["bit_equal"] for p in pairs),
+            n_pairs=len(pairs), max_abs_err=worst)
+    require(worst <= 1e-5, f"cameras: card rays {worst} from the CPU's")
+
+
+def first_pass(scene, integ, spp_pass):
+    """(uv, values, valid) of a render's first pass (seed 0)."""
+    from mitsuba3_plt_tpu_torch.core.rng import Sampler
+    from mitsuba3_plt_tpu_torch.integrators.common import sample_rays
+
+    W, H = scene.sensor.resolution
+    sampler = Sampler.create(0, W * H * spp_pass, device=scene.device
+                             ).fork(0)
+    ray, uv = sample_rays(scene, sampler, W, H, spp_pass)
+    values, valid = integ.sample(scene, sampler, ray)
+    return uv, values, valid
+
+
+SPLAT_LAYOUTS = ("channel_major", "per_tap")
+
+
+def splat_other_layout(block, pos_uv, values, active, spp, layout):
+    """`ImageBlock.put_ordered_filtered`'s sum in one of the two other
+    layouts `film` times beside it: "channel_major", the lanes as [C+1,
+    spp, H, W] with the filter's weights evaluated once an axis (the JAX
+    package's layout up to 8 channels), or "per_tap", the port's own
+    layout with each tap's weights evaluated where it is taken (the JAX
+    package's above 8). Returns a copy of `block` with the sum added."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba3_plt_tpu_torch.librender.film import (FILTER_RADIUS,
+                                                       _payload,
+                                                       _shift_slices,
+                                                       filter_eval)
+
+    w, h, f = block.width, block.height, block.rfilter
+    payload, _ = _payload(values, active)
+    lane = torch.arange(values.shape[0], device=values.device) // spp
+    jx = pos_uv[..., 0] * w - 0.5 - (lane % w).to(torch.float32)
+    jy = pos_uv[..., 1] * h - 0.5 - (lane // w).to(torch.float32)
+    taps = range(-FILTER_RADIUS[f], FILTER_RADIUS[f] + 1)
+    c1 = payload.shape[-1]
+
+    def channel_major():
+        pay_t = payload.reshape(h, w, spp, c1).permute(3, 2, 0, 1
+                                                       ).contiguous()
+        jx_t = jx.reshape(h, w, spp).permute(2, 0, 1)   # [spp, h, w]
+        jy_t = jy.reshape(h, w, spp).permute(2, 0, 1)
+        wxs = [filter_eval(f, dx - jx_t) for dx in taps]
+        wys = [filter_eval(f, dy - jy_t) for dy in taps]
+        acc = torch.zeros((c1, h, w), device=values.device)
+        for iy, dy in enumerate(taps):
+            ysrc, ydst = _shift_slices(dy, h)
+            for ix, dx in enumerate(taps):
+                tap = (pay_t * (wxs[ix] * wys[iy])[None]).sum(dim=1)
+                xsrc, xdst = _shift_slices(dx, w)
+                acc[:, ydst, xdst] += tap[:, ysrc, xsrc]
+        return acc.permute(1, 2, 0).reshape(h * w, c1)
+
+    def per_tap():
+        acc = torch.zeros((h, w, c1), device=values.device)
+        for dy in taps:
+            wy = filter_eval(f, dy - jy)
+            ysrc, ydst = _shift_slices(dy, h)
+            for dx in taps:
+                wgt = filter_eval(f, dx - jx) * wy
+                tap = (payload * wgt[..., None]).reshape(h * w, spp, c1).sum(
+                    dim=1).reshape(h, w, c1)
+                xsrc, xdst = _shift_slices(dx, w)
+                acc[ydst, xdst] += tap[ysrc, xsrc]
+        return acc.reshape(h * w, c1)
+
+    fn = {"channel_major": channel_major, "per_tap": per_tap}[layout]
+    return dataclasses.replace(block, data=block.data + fn())
+
+
+def film(scene, integ, spp_pass):
+    """On the Cornell box path's first pass (2,097,152 lanes at 512 x
+    512), the ordered filtered splat (`put_ordered_filtered`) held to the
+    scatter `put` (`index_add_`, whose order the card does not fix) at
+    rtol 1e-4 / atol 1e-6 on every buffer entry but those whose sum
+    cancels (the negative lobes of mitchell and lanczos), which are held
+    to the bound of two float32 sums of n terms, 2 n 2^-24 times the sum
+    of their magnitudes (`put_ordered_filtered(..., abs_weights=True)` of
+    |value|; n = spp a pass times the (2r+1)^2 taps), and counted, for
+    the gaussian, mitchell and lanczos filters on the 3-channel film and
+    the gaussian on a 16-channel one (15 channels: the values, their
+    square roots and the values times 2, 3 and 4; and the weight); each
+    splat timed with CUDA events (`time_ms`); and the gaussian's at 4, 8
+    and 16 channels with the weight beside the two other layouts
+    (`splat_other_layout`), each held to it at rtol 1e-5 / atol 1e-6, by
+    events and by device time (`graph_ms`).
+    Returns the 3-channel inputs and the gaussian's ordered ms."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.librender.film import (FILTER_NAMES,
+                                                       FILTER_RADIUS,
+                                                       ImageBlock)
+
+    ph = Phase("film")
+    W, H = scene.sensor.resolution
+    uv, values, valid = first_pass(scene, integ, spp_pass)
+    wide = torch.cat([values, values.sqrt(), values * 2, values * 3,
+                      values * 4], -1)
+    rows = []
+    for name, vals in (("gaussian", values), ("mitchell", values),
+                       ("lanczos", values), ("gaussian", wide)):
+        fid = FILTER_NAMES[name]
+
+        def block():
+            return ImageBlock.create(W, H, vals.shape[-1], "cuda", fid)
+
+        def ordered():
+            return block().put_ordered_filtered(uv, vals, valid, spp_pass)
+
+        def scatter():
+            return block().put(uv, vals, valid)
+
+        a, b = ordered().data, scatter().data
+        scale = block().put_ordered_filtered(uv, vals.abs(), valid, spp_pass,
+                                             abs_weights=True).data
+        diff = (a - b).abs()
+        close = torch.isclose(a, b, rtol=1e-4, atol=1e-6)
+        n_terms = spp_pass * (2 * FILTER_RADIUS[fid] + 1) ** 2
+        within = close | (diff <= 2 * n_terms * 2.0 ** -24 * scale)
+        row = {"filter": name, "channels": vals.shape[-1],
+               "lanes": int(vals.shape[0]), "entries": a.numel(),
+               "close_share": close.float().mean().item(),
+               "outside_rtol_entries": int((~close).sum()),
+               "max_abs_diff": diff.max().item(),
+               "max_diff_over_abs_sum": (
+                   diff / scale.clamp_min(1e-30)).max().item(),
+               "ordered_ms": time_ms(ordered, reps=5, calls=5),
+               "scatter_ms": time_ms(scatter, reps=5, calls=5)}
+        require(bool(within.all()), f"film: {name} x {vals.shape[-1]}: "
+                "the ordered splat differs from the scatter")
+        rows.append(row)
+    layouts = []
+    gauss = FILTER_NAMES["gaussian"]
+    for c in (3, 7, 15):
+        vals = wide[:, :c]
+
+        def ours():
+            return ImageBlock.create(W, H, c, "cuda", gauss
+                                     ).put_ordered_filtered(uv, vals, valid,
+                                                            spp_pass)
+
+        a = ours().data
+        row = {"channels_with_weight": c + 1,
+               "ms": time_ms(ours, reps=5, calls=5),
+               "device_ms": graph_ms(ours, calls=3, reps=5)}
+        for other in SPLAT_LAYOUTS:
+            def fn():
+                return splat_other_layout(ImageBlock.create(
+                    W, H, c, "cuda", gauss), uv, vals, valid, spp_pass,
+                    other)
+
+            b = fn().data
+            require(bool(torch.isclose(b, a, rtol=1e-5, atol=1e-6).all()),
+                    f"film: the {other} layout differs at {c + 1} channels")
+            row[f"{other}_ms"] = time_ms(fn, reps=5, calls=5)
+            row[f"{other}_device_ms"] = graph_ms(fn, calls=3, reps=5)
+            row[f"{other}_max_abs_diff"] = (b - a).abs().max().item()
+        layouts.append(row)
+    ph.emit(width=W, height=H, spp_per_pass=spp_pass, splats=rows,
+            layouts=layouts)
+    return (uv, values, valid), rows[0]["ordered_ms"]
+
+
+def split_splat(name, inputs, spp_pass, width, height, splat_ms, out_file):
+    """Device time of one gaussian ordered splat of a pass's inputs by
+    kernel (torch.profiler), against its event time splat_ms."""
+    from mitsuba3_plt_tpu_torch.librender.film import (FILTER_GAUSSIAN,
+                                                       ImageBlock)
+
+    uv, values, valid = inputs
+    profile_run(name, lambda: ImageBlock.create(
+        width, height, values.shape[-1], "cuda", FILTER_GAUSSIAN
+    ).put_ordered_filtered(uv, values, valid, spp_pass), splat_ms / 1e3,
+        out_file)
+
+
 def turns(root):
     """`python3 chip_smoke.py --turns ROOT`: B1, B2, B4, B7a, B7b, B5, B6
     and the tool kernels B8a, B8b, B9, B10a, B10b, B11a, B11b, B11c of the
@@ -3771,6 +4043,22 @@ def turns_tools(isect):
     return {"classic_ms": classic_ms, "clu_ms": clu_ms, "sweep_ms": sweep_ms}
 
 
+def film_only():
+    """`python3 chip_smoke.py --film`: the card line and the `film`
+    phase alone (the ordered splat against the scatter and the two
+    layouts, on the Cornell box path's first pass)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+
+    Phase("card").emit(nvidia_smi=nvidia_smi_line(),
+                       device=torch.cuda.get_device_name(0))
+    film(cornell_box(CBOX_W, CBOX_H, device="cuda"),
+         PathIntegrator(max_depth=CBOX_DEPTH, rr_depth=CBOX_RR),
+         CBOX_SPP_PASS)
+
+
 def main():
     import torch
 
@@ -3781,6 +4069,9 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, HERE)
+    if sys.argv[1:] == ["--film"]:
+        film_only()
+        return
     import numpy as np
 
     from mitsuba3_plt_tpu_torch.config import RGB_POLARIZED
@@ -3788,8 +4079,10 @@ def main():
     from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu_torch.integrators.stokes import (
         PolarizedPathIntegrator, StokesIntegrator)
+    from mitsuba3_plt_tpu_torch.librender.film import FILTER_GAUSSIAN
     from mitsuba3_plt_tpu_torch.ops import build, mfu
-    from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
+    from mitsuba3_plt_tpu_torch.scene.presets import (analytic_scene,
+                                                      cornell_box,
                                                       furnace_scene,
                                                       grating_scene,
                                                       mesh_scene)
@@ -3963,6 +4256,15 @@ def main():
         golden_ztest(name, cornell_box(32, 32, box_material=box,
                                        device="cuda"),
                      integ, golden, 16, ("tests", "golden_torch"))
+    golden_ztest("golden-cbox-gaussian", cornell_box(32, 32, device="cuda"),
+                 PathIntegrator(max_depth=4, rr_depth=9),
+                 "cbox_gaussian_path.npz", 16, ("tests", "golden_torch"),
+                 rfilter=FILTER_GAUSSIAN)
+    golden_ztest("golden-analytic",
+                 analytic_scene(32, 32, device="cuda")[0],
+                 PathIntegrator(max_depth=4, rr_depth=9),
+                 "analytic_path.npz", 16, ("tests", "golden_torch"),
+                 sampler_type="multijitter")
     furnace(furnace_scene(FURNACE_W, FURNACE_H, albedo=FURNACE_ALBEDO,
                           device="cuda"),
             PathIntegrator(max_depth=6, rr_depth=20), FURNACE_SPP,
@@ -4006,6 +4308,44 @@ def main():
                          CBOX_LAUNCHES)
     split("split-cbox", cscene, cinteg, sum(c_res["pass_s"]) / TIMED_PASSES,
           CBOX_SPP_PASS, "chip_smoke_profile_cbox.json")
+    # the camera and the film: the Cornell box through the Gaussian filter
+    # (the film JAX's mi.render gives a preset) beside main-cbox, the
+    # analytic scene through the thinlens camera and multijitter sampler
+    cg_res, _ = main_path("main-cbox-gaussian", cscene, cinteg,
+                          CBOX_SPP_PASS, CBOX_LAUNCHES,
+                          rfilter=FILTER_GAUSSIAN)
+    Phase("main-cbox-gaussian-vs-box").emit(
+        ms_per_spp_gaussian=cg_res["ms_per_spp"],
+        ms_per_spp_box=c_res["ms_per_spp"],
+        ms_per_spp_difference=cg_res["ms_per_spp"] - c_res["ms_per_spp"],
+        peak_mem_bytes_gaussian=cg_res["peak_mem_bytes"],
+        peak_mem_bytes_box=c_res["peak_mem_bytes"])
+    split("split-cbox-gaussian", cscene, cinteg,
+          sum(cg_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
+          "chip_smoke_profile_cbox_gaussian.json", rfilter=FILTER_GAUSSIAN)
+    splat_inputs, splat_ms = film(cscene, cinteg, CBOX_SPP_PASS)
+    split_splat("split-cbox-gaussian-splat", splat_inputs, CBOX_SPP_PASS,
+                CBOX_W, CBOX_H, splat_ms,
+                "chip_smoke_profile_cbox_gaussian_splat.json")
+    del splat_inputs
+    cameras()
+    ph = Phase("analytic-scene")
+    ascene, ameta = analytic_scene(CBOX_W, CBOX_H, device="cuda")
+    g = ascene.geo
+    ph.emit(faces=g.n_faces, spheres=g.n_spheres, disks=g.n_disks,
+            cylinders=g.n_cylinders, route=ascene.intersect_route(),
+            sensor_type=ascene.sensor.stype_static,
+            emitter_types=list(ascene.emitters.present_types), meta=ameta)
+    require((g.n_faces, g.n_spheres, g.n_disks, g.n_cylinders)
+            == (2, 1, 1, 1) and ascene.intersect_route() == "brute",
+            "the analytic scene: one floor, one sphere, disk and cylinder")
+    a_res, a_img = main_path("main-analytic", ascene, cinteg, CBOX_SPP_PASS,
+                             CBOX_LAUNCHES, sampler_type="multijitter")
+    require(a_img.max().item() > 4.0, "main-analytic: the sphere light "
+            "is not seen")
+    split("split-analytic", ascene, cinteg,
+          sum(a_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
+          "chip_smoke_profile_analytic.json", sampler_type="multijitter")
     for name, box, method, per_pass in CBOX_BOXES:
         integ = cinteg if method == "path" else pinteg
         b_res, _ = main_path(name, boxes[box], integ, CBOX_SPP_PASS,

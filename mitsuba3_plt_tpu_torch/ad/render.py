@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import RGB, RenderConfig
 from ..core.rng import Sampler
 from ..integrators.common import sample_rays
-from ..librender.film import ImageBlock
+from ..librender.film import FILTER_BOX, ImageBlock
 from .params import traverse
 
 
@@ -37,31 +37,40 @@ def default_spp_per_pass(width, height, spp):
     return max(1, min(spp, (1 << 19) // (width * height) or 1))
 
 
-def _render_pass(scene, integrator_sample, seed, pass_idx, spp_pass, cfg):
+def _render_pass(scene, integrator_sample, seed, pass_idx, spp_pass, cfg,
+                 rfilter):
     """The film buffer [H*W, C+1] of pass `pass_idx`: its sampler is
-    Sampler.create(seed, n).fork(pass_idx), the JAX package's."""
+    Sampler.create(seed, n).fork(pass_idx), the JAX package's. A non-box
+    filter splats through `put_ordered_filtered`, where the JAX package
+    scatters: the same sums, differentiable either way."""
     width, height = scene.sensor.resolution
     n = width * height * spp_pass
     sampler = Sampler.create(seed, n, device=scene.device).fork(pass_idx)
-    ray, _ = sample_rays(scene, sampler, width, height, spp_pass)
+    ray, uv = sample_rays(scene, sampler, width, height, spp_pass)
     values, valid = integrator_sample(scene, sampler, ray, cfg)
-    block = ImageBlock.create(width, height, values.shape[-1], scene.device)
-    return block.put_ordered(values, valid, spp_pass).data
+    block = ImageBlock.create(width, height, values.shape[-1], scene.device,
+                              rfilter)
+    if block.rfilter == FILTER_BOX:
+        return block.put_ordered(values, valid, spp_pass).data
+    return block.put_ordered_filtered(uv, values, valid, spp_pass).data
 
 
 def render_differentiable(scene, integrator_sample, seed: int = 0,
                           spp: int = 4, cfg: RenderConfig = RGB,
-                          spp_per_pass: int | None = None):
+                          spp_per_pass: int | None = None,
+                          rfilter=FILTER_BOX):
     """The image [H, W, C] as a differentiable function of the scene's
     tensors: `integrator_sample` is an integrator's `sample` (path, PLT or
-    PRB). Each pass is checkpointed where autograd records."""
+    PRB), `rfilter` the film's reconstruction filter (id or name). Each
+    pass is checkpointed where autograd records."""
     width, height = scene.sensor.resolution
     if spp_per_pass is None:
         spp_per_pass = default_spp_per_pass(width, height, spp)
     n_pass = (spp + spp_per_pass - 1) // spp_per_pass
     data = None
     for p in range(n_pass):
-        args = (scene, integrator_sample, seed, p, spp_per_pass, cfg)
+        args = (scene, integrator_sample, seed, p, spp_per_pass, cfg,
+                rfilter)
         if torch.is_grad_enabled():
             d = checkpoint(_render_pass, *args, use_reentrant=False,
                            preserve_rng_state=False)

@@ -32,6 +32,10 @@ def safe_asin(x):
     return torch.asin(torch.clamp(x, -1.0, 1.0))
 
 
+def safe_acos(x):
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
 def mulsign(x, s):
     """x * sign(s) with sign(0) == +1."""
     return torch.where(s >= 0, x, -x)

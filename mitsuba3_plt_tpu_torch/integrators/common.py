@@ -2,7 +2,8 @@
 
 One pass renders width x height x spp_per_pass samples. Sample id s
 belongs to pixel slot s // spp_per_pass, so the box-filter film splat is a
-reshape and a sum. A slot is the scanline pixel of the same index or, in
+reshape and a sum, and another filter's a sum per tap shifted by the tap
+(`librender/film.py`). A slot is the scanline pixel of the same index or, in
 Morton order (power-of-two square images), the pixel whose interleaved
 (x, y) bits spell the slot index: consecutive lanes then cover square
 image blocks instead of scanline strips."""
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig, RGB
+from ..core import rng
 from ..core.rng import DIM_CAMERA, Sampler
-from ..librender.film import ImageBlock
+from ..librender.film import FILTER_BOX, ImageBlock, filter_id
 from ..librender.records import Ray
 
 
@@ -48,13 +50,38 @@ def morton_pixel_perm(width, height):
     return morton_pixel_of(np.arange(width * height, dtype=np.int64), width)
 
 
+def _pixel_jitter(sampler: Sampler, pix, spp_pass, sampler_type):
+    """The film jitter [N, 2] of each lane's sample within its pixel: the
+    independent sampler's camera dimensions, or, with more than one sample
+    a pixel, point s % spp_pass of a pattern keyed on (seed, pixel) of the
+    stratified / multijitter (CMJ), ldsampler, halton or orthogonal
+    sampler."""
+    if sampler_type not in rng.SAMPLER_TYPES:
+        raise ValueError(f"unknown sampler_type {sampler_type!r}; one of "
+                         f"{rng.SAMPLER_TYPES}")
+    if sampler_type == rng.SAMPLER_INDEPENDENT or spp_pass <= 1:
+        return sampler.next_2d(DIM_CAMERA)
+    s_idx = sampler.lane % spp_pass
+    pattern = rng.hash_combine(sampler.seed, pix)
+    if sampler_type in (rng.SAMPLER_STRATIFIED, rng.SAMPLER_MULTIJITTER):
+        return rng.cmj_sample_2d(s_idx, spp_pass, pattern)
+    if sampler_type == rng.SAMPLER_LD:
+        return rng.ld_2d(s_idx, pattern)
+    if sampler_type == rng.SAMPLER_HALTON:
+        return rng.halton_2d(s_idx, pattern)
+    return rng.orthogonal_2d(s_idx, spp_pass, pattern)
+
+
 def camera_rays_at(scene, seed, sample_lane, width, height, spp_pass,
-                   pixel_order: str = "scanline"):
-    """Camera rays for explicit sample ids (independent sampler): sample id
-    s renders pixel slot s // spp_pass, whatever lane holds it, so the
-    regenerative wavefront can restart a lane on a new sample and get the
-    value the fixed-depth pass gets. `pixel_order` ("scanline" or "morton")
-    maps slots to pixels; the sample stream is keyed on the sample id alone.
+                   pixel_order: str = "scanline",
+                   sampler_type: str = "independent"):
+    """Camera rays for explicit sample ids: sample id s renders pixel slot
+    s // spp_pass, whatever lane holds it, so the regenerative wavefront
+    can restart a lane on a new sample and get the value the fixed-depth
+    pass gets. `pixel_order` ("scanline" or "morton") maps slots to
+    pixels; the sample stream is keyed on the sample id alone.
+    `sampler_type` picks the film jitter (`_pixel_jitter`); the aperture
+    sample is dimension DIM_CAMERA + 2, drawn where the sensor reads it.
     Returns (ray, uv)."""
     if pixel_order not in ("scanline", "morton"):
         raise ValueError(f"unknown pixel_order {pixel_order!r}")
@@ -65,18 +92,22 @@ def camera_rays_at(scene, seed, sample_lane, width, height, spp_pass,
         pix = morton_pixel_of(pix, width)
     px = (pix % width).to(torch.float32)
     py = (pix // width).to(torch.float32)
-    jitter = sampler.next_2d(DIM_CAMERA)
+    jitter = _pixel_jitter(sampler, pix, spp_pass, sampler_type)
     uv = torch.stack([(px + jitter[..., 0]) / width,
                       (py + jitter[..., 1]) / height], dim=-1)
-    o, d = scene.sensor.sample_ray(uv)
+    sensor = scene.sensor
+    aperture = (sampler.next_2d(DIM_CAMERA + 2) if sensor.reads_aperture
+                else None)
+    o, d = sensor.sample_ray(uv, aperture)
     return Ray.create(o, d), uv
 
 
 def sample_rays(scene, sampler: Sampler, width, height, spp_pass,
-                pixel_order: str = "scanline"):
+                pixel_order: str = "scanline",
+                sampler_type: str = "independent"):
     """The camera wavefront for the sampler's lanes: (ray, uv)."""
     return camera_rays_at(scene, sampler.seed, sampler.lane, width, height,
-                          spp_pass, pixel_order)
+                          spp_pass, pixel_order, sampler_type)
 
 
 def mis_weight(pdf_a, pdf_b):
@@ -101,7 +132,8 @@ def default_spp_per_pass(width, height, spp):
 def render(scene, integrator, seed: int = 0, spp: int = 16,
            cfg: RenderConfig = RGB, spp_per_pass: int | None = None,
            stats: dict | None = None, regen: bool = False,
-           pixel_order: str = "scanline", n_out_channels: int | None = None):
+           pixel_order: str = "scanline", n_out_channels: int | None = None,
+           rfilter=FILTER_BOX, sampler_type: str = "independent"):
     """Render `spp` samples per pixel in passes; returns [H, W, C] on the
     scene's device, C = n_out_channels, by default the integrator's own
     (15 or 16 for `StokesIntegrator`) or else the config's 3. `stats`,
@@ -115,7 +147,17 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
     are those of the fixed-depth pass; a polarized config ignores it.
     `pixel_order="morton"` renders the slots in Morton order and
     unscrambles the film at the end (the layout the JAX package's mesh
-    bench feeds `sample_regen`)."""
+    bench feeds `sample_regen`).
+
+    `rfilter` (a `librender.film` filter id or name) reconstructs through
+    the box (`put_ordered`) or, any other, through `put_ordered_filtered`
+    on each sample's film position; a non-box filter in Morton order
+    raises ValueError, since its taps shift in scanline pixel space.
+    `sampler_type` picks the camera's film jitter (`camera_rays_at`)."""
+    rfilter = filter_id(rfilter)
+    if rfilter != FILTER_BOX and pixel_order == "morton":
+        raise ValueError("pixel_order='morton' takes only the box filter: "
+                         "a filter's taps shift in scanline pixel space")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     width, height = scene.sensor.resolution
@@ -128,7 +170,8 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
     regen_lanes = -(-n // 8)
     n_out_channels = n_out_channels or getattr(integrator, "n_out_channels",
                                                cfg.n_channels)
-    block = ImageBlock.create(width, height, n_out_channels, scene.device)
+    block = ImageBlock.create(width, height, n_out_channels, scene.device,
+                              rfilter)
     base = Sampler.create(seed, n, device=scene.device)
     pass_s, regen_iterations = [], []
     for p in range(n_pass):
@@ -138,14 +181,22 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
             info = {}
             values = integrator.sample_regen(
                 scene, sampler.seed, width, height, spp_per_pass, cfg,
-                regen_lanes, pixel_order=pixel_order, stats=info)
+                regen_lanes, pixel_order=pixel_order,
+                sampler_type=sampler_type, stats=info)
             valid = torch.ones((n,), dtype=torch.bool, device=scene.device)
             regen_iterations.append(info["iterations"])
+            # the slots' film positions, from the camera wavefront
+            uv = (None if rfilter == FILTER_BOX else sample_rays(
+                scene, sampler, width, height, spp_per_pass, pixel_order,
+                sampler_type)[1])
         else:
-            ray, _ = sample_rays(scene, sampler, width, height, spp_per_pass,
-                                 pixel_order)
+            ray, uv = sample_rays(scene, sampler, width, height,
+                                  spp_per_pass, pixel_order, sampler_type)
             values, valid = integrator.sample(scene, sampler, ray, cfg)
-        block.put_ordered(values, valid, spp_per_pass)
+        if rfilter == FILTER_BOX:
+            block.put_ordered(values, valid, spp_per_pass)
+        else:
+            block.put_ordered_filtered(uv, values, valid, spp_per_pass)
         if stats is not None:
             if scene.device.type == "cuda":
                 torch.cuda.synchronize(scene.device)

@@ -55,7 +55,7 @@ class PathIntegrator:
                 max_depth=self.max_depth, rr_depth=self.rr_depth
             ).sample_stokes(scene, sampler, ray, cfg)
             return S[:, 0], torch.ones((n,), dtype=torch.bool, device=dev)
-        carry = self._fresh_carry(ray, cfg.n_channels)
+        carry = self._fresh_carry(scene, ray, cfg.n_channels)
         far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
         for b in range(self.max_depth):
             carry = self._bounce_step(scene, sampler, cfg, carry, b)
@@ -69,10 +69,11 @@ class PathIntegrator:
             raise NotImplementedError("hide_emitters is not ported")
 
     @staticmethod
-    def _fresh_carry(ray: Ray, C: int) -> dict:
-        """The bounce carry of paths that start on `ray`."""
+    def _fresh_carry(scene, ray: Ray, C: int) -> dict:
+        """The bounce carry of paths that start on `ray`; prev_p, the
+        previous vertex, only where a sphere light's pdf reads it."""
         n, dev = ray.o.shape[0], ray.o.device
-        return dict(
+        carry = dict(
             o=ray.o, d=ray.d, L=torch.zeros((n, C), device=dev),
             beta=torch.ones((n, C), device=dev),
             eta=torch.ones((n,), device=dev),
@@ -81,10 +82,14 @@ class PathIntegrator:
             # depth 0 counts as delta: no MIS against the camera
             prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
         )
+        if em_mod.EMITTER_SPHERE in scene.emitters.present_types:
+            carry["prev_p"] = ray.o
+        return carry
 
     def sample_regen(self, scene, seed: int, width, height, spp_pass,
                      cfg: RenderConfig, n_lanes: int,
                      pixel_order: str = "scanline",
+                     sampler_type: str = "independent",
                      stats: dict | None = None):
         """Regenerative wavefront over the width x height x spp_pass samples
         of one pass on `n_lanes` lanes.
@@ -96,7 +101,8 @@ class PathIntegrator:
         hash of (seed, sample id, dim) that `sample` draws, so each
         sample's value is that of the fixed-depth pass. The loop runs while
         any lane is live, which costs one host synchronisation per
-        iteration; `stats["iterations"]` receives their count. Returns
+        iteration; `stats["iterations"]` receives their count.
+        `sampler_type` picks the camera's film jitter, as in `render`. Returns
         values [width * height * spp_pass, C] in sample-id order."""
         self._check_ported(scene)
         if cfg.polarized:
@@ -111,11 +117,11 @@ class PathIntegrator:
 
         def fresh(sid):
             return camera_rays_at(scene, seed, sid, width, height, spp_pass,
-                                  pixel_order)[0]
+                                  pixel_order, sampler_type)[0]
 
         sid = torch.arange(N, dtype=torch.int64, device=dev)
         depth = torch.zeros((N,), dtype=torch.int64, device=dev)
-        carry = self._fresh_carry(fresh(sid), C)
+        carry = self._fresh_carry(scene, fresh(sid), C)
         # out[q * N + lane] is the sample that lane renders q-th
         out = torch.zeros((Q * N, C), device=dev)
         far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
@@ -134,7 +140,7 @@ class PathIntegrator:
             ray_f = fresh(sid)
             alive = carry["active"] | more
             m3, dead3 = more[..., None], ~alive[..., None]
-            carry = dict(
+            nxt = dict(
                 o=torch.where(dead3, 1e8,
                               torch.where(m3, ray_f.o, carry["o"])),
                 d=torch.where(dead3, far_d,
@@ -146,6 +152,9 @@ class PathIntegrator:
                 prev_pdf=torch.where(more, 1.0, carry["prev_pdf"]),
                 prev_delta=more | carry["prev_delta"],
             )
+            if "prev_p" in carry:
+                nxt["prev_p"] = torch.where(m3, ray_f.o, carry["prev_p"])
+            carry = nxt
         if stats is not None:
             stats["iterations"] = iterations
         return out[:total]
@@ -179,7 +188,9 @@ class PathIntegrator:
                 delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
             )
             em_pdf = torch.where(carry["prev_delta"], 0.0,
-                                 em_mod.pdf_emitter_direction(em, ds_hit))
+                                 em_mod.pdf_emitter_direction(
+                                     em, scene.geo, carry.get("prev_p"),
+                                     ds_hit))
             mis_bsdf = mis_weight(carry["prev_pdf"], em_pdf)
             e_val = em_mod.emitter_value(em, si.emitter_idx, ds_hit.d,
                                          ds_hit.dist, hit_emitter)
@@ -252,7 +263,7 @@ class PathIntegrator:
 
         is_delta = (bs.sampled_type & BSDFFlags.Delta) != 0
         live = active_next
-        return dict(
+        out = dict(
             o=new_o, d=wo_world, L=L,
             beta=torch.where(live[..., None], beta_next, beta),
             eta=torch.where(live, eta_next, carry["eta"]),
@@ -260,3 +271,7 @@ class PathIntegrator:
             prev_pdf=torch.where(live, bs.pdf, carry["prev_pdf"]),
             prev_delta=torch.where(live, is_delta, carry["prev_delta"]),
         )
+        if "prev_p" in carry:
+            out["prev_p"] = torch.where(live[..., None], si.p,
+                                        carry["prev_p"])
+        return out

@@ -187,8 +187,8 @@ class PLTIntegrator:
             pdf=torch.zeros_like(si.t),
             delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
         )
-        em_pdf = torch.where(prev_delta, 0.0,
-                             em_mod.pdf_emitter_direction(em, ds))
+        em_pdf = torch.where(prev_delta, 0.0, em_mod.pdf_emitter_direction(
+            em, scene.geo, prev_p, ds))
         mis_bsdf = mis_weight(last_nd_pdf, em_pdf)
         e_val = em_mod.emitter_value(em, si.emitter_idx, ds.d, ds.dist,
                                      active)

@@ -67,6 +67,9 @@ class PRBIntegrator:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
         prev_pdf = torch.ones((n,), device=dev)
         prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+        # the previous vertex, read by a sphere light's pdf alone
+        track_p = em_mod.EMITTER_SPHERE in em.present_types
+        prev_p = ray.o if track_p else None
         sis, recs = [], []
         for b in range(self.max_depth):
             si = scene.ray_intersect(Ray.create(ray_o, ray_d))
@@ -85,7 +88,8 @@ class PRBIntegrator:
                     delta=torch.zeros_like(si.valid),
                     emitter_idx=si.emitter_idx)
                 em_pdf = torch.where(prev_delta, 0.0,
-                                     em_mod.pdf_emitter_direction(em, ds_hit))
+                                     em_mod.pdf_emitter_direction(
+                                         em, scene.geo, prev_p, ds_hit))
                 rec["eh_mis"] = mis_weight(prev_pdf, em_pdf)
                 if scene.env_emitter >= 0:
                     rec["esc_mask"] = active & ~si.valid
@@ -150,9 +154,12 @@ class PRBIntegrator:
             ray_d = torch.where(dead[..., None], far_d, wo_world)
             prev_pdf = torch.where(active_next, bs.pdf, prev_pdf)
             prev_delta = torch.where(active_next, is_delta, prev_delta)
+            if track_p:
+                prev_p = torch.where(active_next[..., None], si.p, prev_p)
             active = active_next
         si_st = {f.name: torch.stack([getattr(s, f.name) for s in sis])
-                 for f in dataclasses.fields(SurfaceInteraction)}
+                 for f in dataclasses.fields(SurfaceInteraction)
+                 if getattr(sis[0], f.name) is not None}
         rec_st = {k: torch.stack([r[k] for r in recs]) for k in _RECORD}
         return si_st, rec_st
 

@@ -80,6 +80,8 @@ class PolarizedPathIntegrator:
             # depth 0 counts as delta: no MIS against the camera
             prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
         )
+        if em_mod.EMITTER_SPHERE in scene.emitters.present_types:
+            carry["prev_p"] = ray.o  # the previous vertex: its pdf reads it
         far_d = torch.tensor([0.0, 0.0, 1.0], device=dev)
         for b in range(self.max_depth):
             carry = self._bounce_step(scene, sampler, C, carry, b)
@@ -110,7 +112,9 @@ class PolarizedPathIntegrator:
                 delta=torch.zeros_like(si.valid), emitter_idx=si.emitter_idx,
             )
             em_pdf = torch.where(carry["prev_delta"], 0.0,
-                                 em_mod.pdf_emitter_direction(em, ds_hit))
+                                 em_mod.pdf_emitter_direction(
+                                     em, scene.geo, carry.get("prev_p"),
+                                     ds_hit))
             mis_bsdf = mis_weight(carry["prev_pdf"], em_pdf)
             e_val = em_mod.emitter_value(em, si.emitter_idx, ds_hit.d,
                                          ds_hit.dist, hit_emitter)
@@ -179,13 +183,17 @@ class PolarizedPathIntegrator:
 
         is_delta = (bs.sampled_type & BSDFFlags.Delta) != 0
         live = active_next
-        return dict(
+        out = dict(
             o=new_o, d=wo_world, L=L, T=mu.where(live, T_next, T),
             eta=torch.where(live, eta_next, carry["eta"]),
             active=live,
             prev_pdf=torch.where(live, bs.pdf, carry["prev_pdf"]),
             prev_delta=torch.where(live, is_delta, carry["prev_delta"]),
         )
+        if "prev_p" in carry:
+            out["prev_p"] = torch.where(live[..., None], si.p,
+                                        carry["prev_p"])
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

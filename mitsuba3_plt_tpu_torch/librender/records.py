@@ -3,6 +3,7 @@ tensors, one entry per wavefront lane)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -50,6 +51,9 @@ class SurfaceInteraction:
     prim_idx: torch.Tensor     # [N] int32
     mat_idx: torch.Tensor      # [N] int64
     emitter_idx: torch.Tensor  # [N] int64, -1 if none
+    # [N] int64 source shape id, -1 if none: set by `Scene.ray_intersect`
+    # where the scene has analytic primitives, None elsewhere
+    shape_idx: Optional[torch.Tensor] = None
 
     def to_local(self, v):
         return torch.stack(

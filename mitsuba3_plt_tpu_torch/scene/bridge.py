@@ -6,10 +6,11 @@ The JAX package's scenes reach the port through this function (tests
 flatten a JAX Scene with `jax.tree_util.tree_flatten_with_path`), and so
 does the port's own preset, which builds the same dict with numpy alone.
 Leaves the port does not read (spectral curves, principled and nested
-material parameters, the skip-link BVH, spot-light cones) are ignored;
+material parameters, the skip-link BVH, spot-light beams) are ignored;
 a scene that needs anything the port does not have is refused. A scene
 above 4096 faces needs its `ctab2.*` treelet tables or its `pbvh.*` packet
-tables.
+tables. Analytic spheres, disks and cylinders (`geo.sph_*`, `geo.dsk_*`,
+`geo.cyl_*`) come with their own rows; all seven sensor types are ported.
 """
 from __future__ import annotations
 
@@ -20,19 +21,21 @@ from ..core.device import resolve_device
 from ..librender.bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                               BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING, FIELDS,
                               MaterialTable)
-from ..librender.sensor import Sensor
+from ..librender import sensor as sn
 from . import emitters as em
 from .bvh import ClusterTable2, PacketBVH
 from .scene import BRUTE_FORCE_MAX_FACES, Geometry, Scene
 
 SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR,
                    BSDF_DIELECTRIC, BSDF_ROUGH_GRATING)
-SENSOR_PERSPECTIVE = 0
+ANALYTIC_FIELDS = ("sph_center", "sph_radius", "sph_attr", "dsk_center",
+                   "dsk_n", "dsk_s", "dsk_radius", "dsk_attr", "cyl_p0",
+                   "cyl_axis", "cyl_len", "cyl_radius", "cyl_attr")
 
 # geometry, material and scene features of the JAX package that this slice
 # does not port: any leaf under these paths refuses the scene
 _REFUSED_PREFIXES = (
-    "geo.sph_", "geo.dsk_", "geo.cyl_", "geo.tri_mxu", "medium.", "ctab.",
+    "geo.tri_mxu", "medium.", "ctab.",
     "sdfs", "materials.tex_", "materials.meas",
     "materials.mpol", "materials.vtex_", "emitters.env_", "emitters.proj_",
     "sensor.srf",
@@ -59,8 +62,9 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
     em_present = tuple(int(t) for t in static["emitters.present_types"])
     if not set(em_present) <= set(em.SUPPORTED):
         raise NotImplementedError(f"emitter types {em_present} are not ported")
-    if int(static["sensor.stype_static"]) != SENSOR_PERSPECTIVE:
-        raise NotImplementedError("only the perspective sensor is ported")
+    if int(static["sensor.stype_static"]) not in sn.SENSOR_TYPES:
+        raise NotImplementedError(
+            f"sensor type {static['sensor.stype_static']} is not ported")
 
     def t(key, dtype=torch.float32):
         return torch.as_tensor(np.array(arrays[key]), device=dev).to(dtype)
@@ -80,8 +84,17 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
             f"{attr.shape[0]} faces without ctab2 or pbvh tables: the port "
             "has no other route for big meshes")
 
+    for family in ("sph_", "dsk_", "cyl_"):
+        have = [n for n in ANALYTIC_FIELDS
+                if n.startswith(family) and "geo." + n in arrays]
+        want = [n for n in ANALYTIC_FIELDS if n.startswith(family)]
+        if have and have != want:
+            raise ValueError(f"analytic rows {sorted(set(want) - set(have))}"
+                             " missing")
     geo = Geometry(tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
-                   tri_isect=t("geo.tri_isect"), tri_attr=t("geo.tri_attr"))
+                   tri_isect=t("geo.tri_isect"), tri_attr=t("geo.tri_attr"),
+                   **{name: t("geo." + name) for name in ANALYTIC_FIELDS
+                      if "geo." + name in arrays})
     mats = MaterialTable(
         **{name: t("materials." + name, dtype)
            for name, dtype in FIELDS.items()},
@@ -93,14 +106,17 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
         etype=t("emitters.etype", torch.int64),
         radiance=t("emitters.radiance"), position=t("emitters.position"),
         direction=t("emitters.direction"),
+        cutoff_cos=t("emitters.cutoff_cos"),
         tri_idx=t("emitters.tri_idx", torch.int64),
         tri_cdf=t("emitters.tri_cdf"), area=t("emitters.area"),
         scene_radius=t("emitters.scene_radius"), present_types=em_present,
     )
-    sensor = Sensor(
-        to_world=t("sensor.to_world"), tan_half_x=t("sensor.tan_half_x"),
-        aspect=t("sensor.aspect"), ppo=t("sensor.ppo"),
+    sensor = sn.Sensor(
+        **{name: t("sensor." + name) for name in sn.FIELDS
+           if name != "stype"},
+        stype=t("sensor.stype", torch.int64),
         resolution=tuple(int(x) for x in static["sensor.resolution"]),
+        stype_static=int(static["sensor.stype_static"]),
     )
     return Scene(geo=geo, materials=mats, emitters=emitters, sensor=sensor,
                  ctab2=ctab2, pbvh=pbvh)

@@ -1,10 +1,12 @@
-"""Emitter table and NEE direction sampling for area lights, point lights
-and distant emitters (directional and constant): an emitter is picked
-uniformly, then a direction on it; densities are in solid angle, and the
-delta emitters (point, directional) carry pdf 1. An area light samples one
-of its triangles by the area CDF of its `tri_cdf` row, then a point on it
-uniformly (`Geometry.tri_isect` rows). Escaped rays see the constant
-emitter (`env_value`, `escape_pdf`)."""
+"""Emitter table and NEE direction sampling for area lights, analytic
+sphere lights, point lights and distant emitters (directional and
+constant): an emitter is picked uniformly, then a direction on it;
+densities are in solid angle, and the delta emitters (point, directional)
+carry pdf 1. An area light samples one of its triangles by the area CDF of
+its `tri_cdf` row, then a point on it uniformly (`Geometry.tri_isect`
+rows). A sphere light samples the cone of directions it subtends from the
+reference point, or, from inside, a point uniform on its area. Escaped
+rays see the constant emitter (`env_value`, `escape_pdf`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,8 +25,9 @@ EMITTER_AREA = 0
 EMITTER_POINT = 1
 EMITTER_CONSTANT = 2
 EMITTER_DIRECTIONAL = 3
+EMITTER_SPHERE = 7  # the radius rides in the cutoff_cos slot
 SUPPORTED = (EMITTER_AREA, EMITTER_POINT, EMITTER_CONSTANT,
-             EMITTER_DIRECTIONAL)
+             EMITTER_DIRECTIONAL, EMITTER_SPHERE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +36,12 @@ class EmitterTable:
     radiance: torch.Tensor      # [E, 3] radiance, or intensity (point)
     position: torch.Tensor      # [E, 3] (point)
     direction: torch.Tensor     # [E, 3] propagation direction (directional)
+    # [E]: a spot light's cutoff cosine in the JAX package; a sphere
+    # light's radius
+    cutoff_cos: torch.Tensor
     # area lights: their triangles (-1 pads a row), the normalised area CDF
-    # over them (1 in the padding) and their total area (0 for the others)
+    # over them (1 in the padding) and their total area (a sphere light's
+    # 4 pi r^2, 0 for the others)
     tri_idx: torch.Tensor       # [E, T] int64
     tri_cdf: torch.Tensor       # [E, T]
     area: torch.Tensor          # [E]
@@ -85,6 +92,55 @@ def _sample_area(em: EmitterTable, geo, ref_p, e_idx, sample2):
         emitter_idx=e_idx)
 
 
+def _sphere_cone(em: EmitterTable, ref_p, e_idx):
+    """(centre, radius, distance to the centre, the cone's cos_max) of
+    sphere light e_idx seen from ref_p."""
+    c = take_rows(em.position, e_idx)
+    r = take_rows(em.cutoff_cos, e_idx)
+    dc = fr.norm(c - ref_p)
+    sin2 = torch.clamp((r / torch.clamp_min(dc, 1e-9)) ** 2, 0.0, 1.0)
+    return c, r, dc, torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+
+
+def _sample_sphere(em: EmitterTable, ref_p, e_idx, sample2):
+    """A direction in the cone a sphere light subtends from ref_p, uniform
+    in solid angle, and the near hit along it; from inside the sphere (at
+    most r * 1.0001 from its centre), a point uniform on its area with the
+    density converted to solid angle."""
+    n = ref_p.shape[0]
+    c, r, dc, cos_max = _sphere_cone(em, ref_p, e_idx)
+    dhat = (c - ref_p) / torch.clamp_min(dc, 1e-9)[..., None]
+    outside = dc > r * 1.0001
+    cos_t = 1.0 - sample2[..., 0] * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = 2.0 * m.Pi * sample2[..., 1]
+    s_ax, t_ax = fr.coordinate_system(dhat)
+    d = (s_ax * (sin_t * torch.cos(phi))[..., None]
+         + t_ax * (sin_t * torch.sin(phi))[..., None]
+         + dhat * cos_t[..., None])
+    under = r * r - dc * dc * (1.0 - cos_t * cos_t)
+    dist = dc * cos_t - torch.sqrt(torch.clamp_min(under, 0.0))
+    p_hit = ref_p + d * dist[..., None]
+    n_hit = fr.normalize(p_hit - c)
+    pdf_cone = 1.0 / torch.clamp_min(2.0 * m.Pi * (1.0 - cos_max), 1e-9)
+
+    p_area = c + warp.square_to_uniform_sphere(sample2) * r[..., None]
+    d_in = p_area - ref_p
+    dist_in = fr.norm(d_in)
+    d_in = d_in / torch.clamp_min(dist_in, 1e-9)[..., None]
+    n_in = fr.normalize(p_area - c)
+    pdf_in = dist_in * dist_in / torch.clamp_min(
+        torch.abs(fr.dot(d_in, n_in)) * 4.0 * m.Pi * r * r, 1e-9)
+    o3 = outside[..., None]
+    return DirectionSample(
+        p=torch.where(o3, p_hit, p_area), n=torch.where(o3, n_hit, n_in),
+        uv=torch.zeros((n, 2), device=ref_p.device),
+        d=torch.where(o3, d, d_in), dist=torch.where(outside, dist, dist_in),
+        pdf=torch.where(outside, pdf_cone, pdf_in),
+        delta=torch.zeros((n,), dtype=torch.bool, device=ref_p.device),
+        emitter_idx=e_idx)
+
+
 def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
                              sample2, active):
     """Direction toward one uniformly chosen emitter from ref_p [N, 3]; geo
@@ -94,8 +150,9 @@ def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
     etype = em.etype[e_idx]
     z3 = torch.zeros((n, 3), device=dev)
     z1 = torch.zeros((n,), device=dev)
-    # p, n and uv are an area light's alone: the other types carry these
-    # very tensors, which `where` passes through without a select
+    # p, n and uv are an area or sphere light's alone: the other types
+    # carry these very tensors, which `where` passes through without a
+    # select
     ds = DirectionSample(
         p=z3, n=z3, uv=z3[:, :2], d=z3, dist=z1,
         pdf=z1, delta=torch.zeros((n,), dtype=torch.bool, device=dev),
@@ -105,6 +162,10 @@ def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
     for t in em.present_types:
         if t == EMITTER_AREA:
             ds = _sample_area(em, geo, ref_p, e_idx, sample2).where(
+                etype == t, ds)
+            continue
+        if t == EMITTER_SPHERE:
+            ds = _sample_sphere(em, ref_p, e_idx, sample2).where(
                 etype == t, ds)
             continue
         t_dist = dist.expand(n)
@@ -135,20 +196,34 @@ def sample_emitter_direction(em: EmitterTable, geo, ref_p, sample1,
         ds, pdf=torch.where(active, ds.pdf / em.count, 0.0))
 
 
-def pdf_emitter_direction(em: EmitterTable, ds: DirectionSample):
-    """Solid-angle density of sampling ds (0 for delta emitters): an area
-    light's reads ds.d, ds.dist and the light's normal ds.n."""
-    etype = em.etype[torch.clamp_min(ds.emitter_idx, 0)]
+def pdf_emitter_direction(em: EmitterTable, geo, ref_p,
+                          ds: DirectionSample):
+    """Solid-angle density [N] of sample_emitter_direction producing ds
+    from ref_p [N, 3] (0 for delta emitters): an area light's reads ds.d,
+    ds.dist and the light's normal ds.n; a sphere light's the cone it
+    subtends from ref_p, or, from inside it, its area density. Only the
+    sphere light's branch reads ref_p, which may be None in a table
+    without one. geo is the scene's Geometry, as in
+    `sample_emitter_direction` (no branch reads it)."""
+    e_c = torch.clamp_min(ds.emitter_idx, 0)
+    etype = em.etype[e_c]
     pdf = torch.zeros(ds.d.shape[0], device=ds.d.device)
     if EMITTER_AREA in em.present_types:
         cos_l = -fr.dot(ds.d, ds.n)
-        area = torch.clamp_min(
-            take_rows(em.area, torch.clamp_min(ds.emitter_idx, 0)), 1e-12)
+        area = torch.clamp_min(take_rows(em.area, e_c), 1e-12)
         p = torch.where(cos_l > 0, ds.dist * ds.dist / (
             torch.clamp_min(cos_l, 1e-9) * area), 0.0)
         pdf = torch.where(etype == EMITTER_AREA, p, pdf)
     if EMITTER_CONSTANT in em.present_types:
         pdf = torch.where(etype == EMITTER_CONSTANT, m.InvFourPi, pdf)
+    if EMITTER_SPHERE in em.present_types:
+        _, r, dc, cos_max = _sphere_cone(em, ref_p, e_c)
+        p = torch.where(
+            dc > r,
+            1.0 / torch.clamp_min(2.0 * m.Pi * (1.0 - cos_max), 1e-9),
+            ds.dist * ds.dist / torch.clamp_min(
+                torch.abs(fr.dot(ds.d, ds.n)) * 4.0 * m.Pi * r * r, 1e-9))
+        pdf = torch.where(etype == EMITTER_SPHERE, p, pdf)
     return pdf / em.count
 
 

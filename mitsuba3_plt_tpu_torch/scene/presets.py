@@ -5,6 +5,9 @@ a directional emitter and a faint constant environment: the PLT flagship.
 `mesh_scene` is a diffuse icosphere lit by a point light: the big-mesh
 path-tracer scene of the JAX package's bench (`bench.py::bench_mesh_heavy`,
 81,920 faces at subdiv 6) and of its mesh20k golden image (subdiv 5).
+`analytic_scene` is the floor and emissive analytic sphere of the JAX
+package's `tests/test_sphere.py::sphere_scene` with an analytic disk and
+cylinder beside the sphere, built by `loader.assemble_scene`.
 `cornell_box` is the canonical Cornell box (36 faces, an area light under
 the ceiling): the second scene of the JAX bench (`bench.py::bench_cbox`)
 and of its cbox_path golden image, its two boxes diffuse, conductor,
@@ -23,6 +26,7 @@ from ..core import transform as tf
 from ..librender.bsdf import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                               BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_GRATING,
                               BSDFFlags, finalize_grating_meta)
+from ..librender.sensor import FIELDS, Sensor
 from ..ops.intersect import pack_tri_q
 from . import emitters as em
 from .bridge import scene_from_arrays
@@ -43,10 +47,16 @@ _FLAGS = {
 }
 
 
-def _geometry(meshes, mat_ids, emitter_ids):
+def _geometry(meshes, mat_ids, emitter_ids, spheres=None, disks=None,
+              cylinders=None):
     """Arrays of the q table, the (p0, e1, e2) rows and the packed per-face
-    attributes. A mesh is (vertices, faces, normals, uvs); normals None
-    shades it flat (face normals), uvs None gives zero uvs."""
+    attributes, and the radius of the scene's bounding box. A mesh is
+    (vertices, faces, normals, uvs); normals None shades it flat (face
+    normals), uvs None gives zero uvs. spheres / disks / cylinders are the
+    JAX package's analytic-primitive dicts (`build_geometry`: "center",
+    "radius"; "center", "n", "s", "radius"; "p0", "axis", "length",
+    "radius"; each with "mat", "emitter" and "shape", default 0, -1,
+    -1)."""
     P, N, U, FN, ATT = [[], [], []], [[], [], []], [[], [], []], [], []
     for k, (v, f, n, uv) in enumerate(meshes):
         p = [v[f[:, c]] for c in range(3)]
@@ -70,15 +80,65 @@ def _geometry(meshes, mat_ids, emitter_ids):
     attr = np.concatenate(
         [cat(FN), *(cat(x) for x in N), *(cat(x) for x in U), cat(ATT),
          np.zeros((len(p0), 3), np.float32)], axis=-1)
+    geo = {"geo.tri_q": tri_q, "geo.tri_anchor": anchor,
+           "geo.tri_isect": isect, "geo.tri_attr": attr}
+    geo.update(_analytic_rows(spheres, disks, cylinders))
     lo = np.minimum.reduce([p0.min(0), p1.min(0), p2.min(0)])
     hi = np.maximum.reduce([p0.max(0), p1.max(0), p2.max(0)])
+    # the JAX package's `scene_bounds`, analytic primitives included
+    if spheres or disks:
+        for c, r in (("geo.sph_center", "geo.sph_radius"),
+                     ("geo.dsk_center", "geo.dsk_radius")):
+            if c in geo:
+                lo = np.minimum(lo, (geo[c] - geo[r][:, None]).min(0))
+                hi = np.maximum(hi, (geo[c] + geo[r][:, None]).max(0))
+    if cylinders:
+        a = geo["geo.cyl_p0"]
+        b = a + geo["geo.cyl_axis"] * geo["geo.cyl_len"][:, None]
+        r = geo["geo.cyl_radius"][:, None]
+        lo = np.minimum(lo, np.minimum(a, b).min(0) - r.max())
+        hi = np.maximum(hi, np.maximum(a, b).max(0) + r.max())
     radius = float(np.linalg.norm(hi - lo) / 2)
-    return {"geo.tri_q": tri_q, "geo.tri_anchor": anchor,
-            "geo.tri_isect": isect, "geo.tri_attr": attr}, radius
+    return geo, radius
+
+
+def _analytic_rows(spheres, disks, cylinders):
+    """The `geo.sph_*`, `geo.dsk_*` and `geo.cyl_*` arrays of the analytic
+    primitive dicts, float32 as the JAX package's `build_geometry`."""
+    def vecs(items, key):
+        return np.stack([np.asarray(x[key], np.float32) for x in items])
+
+    def scalars(items, key):
+        return np.asarray([x[key] for x in items], np.float32)
+
+    def attrs(items):
+        return np.asarray([[x.get("mat", 0), x.get("emitter", -1),
+                            x.get("shape", -1)] for x in items], np.float32)
+
+    out = {}
+    if spheres:
+        out.update({"geo.sph_center": vecs(spheres, "center"),
+                    "geo.sph_radius": scalars(spheres, "radius"),
+                    "geo.sph_attr": attrs(spheres)})
+    if disks:
+        out.update({"geo.dsk_center": vecs(disks, "center"),
+                    "geo.dsk_n": vecs(disks, "n"),
+                    "geo.dsk_s": vecs(disks, "s"),
+                    "geo.dsk_radius": scalars(disks, "radius"),
+                    "geo.dsk_attr": attrs(disks)})
+    if cylinders:
+        out.update({"geo.cyl_p0": vecs(cylinders, "p0"),
+                    "geo.cyl_axis": vecs(cylinders, "axis"),
+                    "geo.cyl_len": scalars(cylinders, "length"),
+                    "geo.cyl_radius": scalars(cylinders, "radius"),
+                    "geo.cyl_attr": attrs(cylinders)})
+    return out
 
 
 def _materials(bsdfs):
-    """Material rows on the JAX package's defaults: (arrays, static)."""
+    """Material rows on the JAX package's defaults: (arrays, static). A
+    BSDF is (type, params) or (type, params, twosided); a twosided one
+    also holds the BackSide flag."""
     M = len(bsdfs)
     tab = {
         "mtype": np.array([b[0] for b in bsdfs], np.int32),
@@ -97,9 +157,12 @@ def _materials(bsdfs):
         "grt_multiplier": np.ones(M, np.float32),
         "grt_coherence": np.ones(M, np.float32),
     }
-    for i, (btype, params) in enumerate(bsdfs):
+    for i, (btype, params, *twosided) in enumerate(bsdfs):
         if btype not in _FLAGS:
             raise NotImplementedError(f"BSDF type {btype} is not ported")
+        if twosided and twosided[0]:
+            tab["twosided"][i] = True
+            tab["flags"][i] |= BSDFFlags.BackSide
         for key, val in params.items():
             if key not in tab:
                 raise NotImplementedError(f"material parameter {key!r}")
@@ -120,15 +183,23 @@ def _emitters(emitters, scene_radius, geo):
     built as `scene/loader.py::build_emitter_table` builds them from the
     faces whose emitter column (of `geo`'s `tri_attr`) names the light:
     `tri_idx` padded with -1, `tri_cdf` the area CDF normalised to 1 (1 in
-    the padding), `area` the total."""
+    the padding), `area` the total. A "sphere_area" light (an analytic
+    sphere's) keeps its centre in `position`, its radius in `cutoff_cos`
+    and 4 pi r^2 in `area`. No emitter at all gives one black constant
+    one, as in the JAX loader."""
+    if not emitters:
+        emitters = [{"type": "constant", "radiance": (0.0, 0.0, 0.0)}]
     E = len(emitters)
     etype = np.zeros(E, np.int32)
     radiance = np.ones((E, 3), np.float32)
     position = np.zeros((E, 3), np.float32)
     direction = np.tile(np.array([[0, 0, 1]], np.float32), (E, 1))
+    cutoff = np.full(E, np.cos(np.deg2rad(20.0)), np.float32)
+    area = np.zeros(E, np.float32)
     kinds = {"area": em.EMITTER_AREA, "point": em.EMITTER_POINT,
              "constant": em.EMITTER_CONSTANT,
-             "directional": em.EMITTER_DIRECTIONAL}
+             "directional": em.EMITTER_DIRECTIONAL,
+             "sphere_area": em.EMITTER_SPHERE}
     for i, e in enumerate(emitters):
         kind = kinds.get(e["type"])
         if kind is None:
@@ -140,6 +211,10 @@ def _emitters(emitters, scene_radius, geo):
         if "direction" in e:
             d = np.asarray(e["direction"], np.float64)
             direction[i] = d / np.linalg.norm(d)
+        if kind == em.EMITTER_SPHERE:
+            position[i] = np.asarray(e["center"], np.float32)
+            cutoff[i] = float(e["radius"])
+            area[i] = 4.0 * np.pi * float(e["radius"]) ** 2
 
     face_emitter = geo["geo.tri_attr"][:, 19]
     rows = geo["geo.tri_isect"]
@@ -148,7 +223,6 @@ def _emitters(emitters, scene_radius, geo):
     max_tris = max([1] + [len(x) for x in tri_lists.values()])
     tri_idx = np.full((E, max_tris), -1, np.int32)
     tri_cdf = np.ones((E, max_tris), np.float32)
-    area = np.zeros(E, np.float32)
     for i, tris in tri_lists.items():
         if len(tris):
             a = 0.5 * np.linalg.norm(
@@ -159,23 +233,29 @@ def _emitters(emitters, scene_radius, geo):
     arrays = {
         "emitters.etype": etype, "emitters.radiance": radiance,
         "emitters.position": position, "emitters.direction": direction,
+        "emitters.cutoff_cos": cutoff,
         "emitters.tri_idx": tri_idx, "emitters.tri_cdf": tri_cdf,
         "emitters.area": area,
         "emitters.scene_radius": np.asarray(scene_radius, np.float32),
     }
-    return arrays, {"emitters.present_types": tuple(sorted(set(etype)))}
+    return arrays, {"emitters.present_types": tuple(
+        sorted(int(x) for x in set(etype)))}
+
+
+def sensor_arrays(sensor: Sensor):
+    """The (arrays, static) pair of a port Sensor, on the host."""
+    arrays = {"sensor." + name: getattr(sensor, name).cpu().numpy()
+              for name in FIELDS}
+    arrays["sensor.stype"] = arrays["sensor.stype"].astype(np.int32)
+    return arrays, {"sensor.resolution": tuple(sensor.resolution),
+                    "sensor.stype_static": sensor.stype_static}
 
 
 def _sensor(to_world, fov_x_deg, width, height):
-    arrays = {
-        "sensor.to_world": np.asarray(to_world, np.float32),
-        "sensor.tan_half_x": np.asarray(np.tan(np.deg2rad(fov_x_deg) / 2),
-                                        np.float32),
-        "sensor.aspect": np.asarray(width / height, np.float32),
-        "sensor.ppo": np.zeros(2, np.float32),
-    }
-    return arrays, {"sensor.resolution": (width, height),
-                    "sensor.stype_static": 0}
+    """A perspective camera's (arrays, static), as `Sensor.perspective`
+    builds its fields."""
+    return sensor_arrays(Sensor.perspective(to_world, fov_x_deg, width,
+                                            height, device="cpu"))
 
 
 def grating_scene_arrays(width: int = 256, height: int = 256, *,
@@ -420,3 +500,63 @@ def furnace_scene(width: int = 64, height: int = 64, albedo: float = 0.75,
     arrays, static = furnace_scene_arrays(width, height, albedo, radiance,
                                           material)
     return scene_from_arrays(arrays, static, device=device)
+
+
+def analytic_scene_parts(width: int = 512, height: int = 512):
+    """The inputs of `analytic_scene`, numpy and dicts only, for either
+    package's `assemble_scene`: the floor's to_world (Mitsuba's rectangle,
+    4 x 4 at y = 0), the BSDFs as (type, params) (the default diffuse 0.5
+    of the floor and the sphere, the disk's diffuse, the cylinder's rough
+    conductor), the sphere light (centre (0, 1, 0), radius 0.4, radiance
+    8), the analytic sphere, disk (radius 0.4, facing the camera in the
+    plane z = 0 of the sphere's centre, touching the floor at x = -0.95)
+    and open cylinder (radius 0.3, height 0.8, standing on the floor at
+    x = 0.95), and the thinlens camera (40 degrees at (0, 1, 4), aperture
+    radius 0.05, focused at 4). From a point of the disk the sphere light's
+    centre lies within rounding of the point's own z, so the light's cone
+    frame (`coordinate_system` of a direction whose z is within rounding
+    of 0) may take either of its two branches."""
+    floor = (tf.translate([0, 0, 0]) @ tf.rotate([1, 0, 0], -90)
+             @ tf.scale([4, 4, 1])).astype(np.float32)
+    bsdfs = [(BSDF_DIFFUSE, {"base_color": (0.5, 0.5, 0.5)}),
+             (BSDF_DIFFUSE, {"base_color": (0.2, 0.4, 0.8)}),
+             (BSDF_ROUGH_CONDUCTOR, {**_GOLD_ETA, "alpha": (0.2, 0.2)})]
+    centre, radius = np.array([0.0, 1.0, 0.0], np.float32), 0.4
+    emitters = [{"type": "sphere_area", "center": centre, "radius": radius,
+                 "radiance": (8.0, 8.0, 8.0)}]
+    spheres = [{"center": centre, "radius": radius, "mat": 0, "emitter": 0,
+                "shape": 10000}]
+    disks = [{"center": (-0.95, 0.4, 0.0), "n": (0.0, 0.0, 1.0),
+              "s": (1.0, 0.0, 0.0), "radius": 0.4, "mat": 1,
+              "shape": 20000}]
+    cylinders = [{"p0": (0.95, 0.0, 0.0), "axis": (0.0, 1.0, 0.0),
+                  "length": 0.8, "radius": 0.3, "mat": 2, "shape": 30000}]
+    camera = {"to_world": tf.look_at([0, 1.0, 4.0], [0, 1.0, 0], [0, 1, 0]),
+              "fov": 40.0, "width": width, "height": height,
+              "aperture_radius": 0.05, "focus_distance": 4.0}
+    return dict(floor=floor, bsdfs=bsdfs, emitters=emitters,
+                spheres=spheres, disks=disks, cylinders=cylinders,
+                camera=camera)
+
+
+def analytic_scene(width: int = 512, height: int = 512, *, device="cuda"):
+    """(Scene on `device`, meta) of `analytic_scene_parts` through the
+    port's `loader.assemble_scene`: one floor mesh of two triangles, one
+    analytic sphere light, disk and cylinder, the thinlens camera. meta's
+    filter is the box, its sampler "multijitter", its integrator path
+    depth 7 / rr 50."""
+    from . import loader
+    from .shape import HostMesh
+
+    parts = analytic_scene_parts(width, height)
+    cam = parts["camera"]
+    sensor = Sensor.thinlens(cam["to_world"], cam["fov"], width, height,
+                             cam["aperture_radius"], cam["focus_distance"],
+                             device="cpu")
+    bsdfs = [loader.LoadedBSDF(t, **p) for t, p in parts["bsdfs"]]
+    return loader.assemble_scene(
+        [HostMesh(*make_rectangle(parts["floor"]))], [0], [-1], bsdfs,
+        parts["emitters"], sensor,
+        {"type": "path", "max_depth": 7, "rr_depth": 50}, 8, rfilter="box",
+        spheres=parts["spheres"], disks=parts["disks"],
+        cylinders=parts["cylinders"], sampler="multijitter", device=device)

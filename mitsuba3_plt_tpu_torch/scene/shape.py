@@ -1,7 +1,8 @@
 """Host-side triangle meshes (numpy only): the mesh record, the unit
-icosphere of the mesh scenes, and Mitsuba's unit rectangle and cube. Same
-vertices, faces and normals as the JAX package's `scene/shape.py`
-(`HostMesh`, `make_sphere`, `make_rectangle`, `make_cube`)."""
+icosphere of the mesh scenes, Mitsuba's unit rectangle and cube, and the
+tessellated unit disk and open cylinder. Same vertices, faces, normals and
+uvs as the JAX package's `scene/shape.py` (`HostMesh`, `make_sphere`,
+`make_rectangle`, `make_cube`, `make_disk`, `make_cylinder`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +16,20 @@ class HostMesh:
     vertices: np.ndarray                  # [V, 3] f32
     faces: np.ndarray                     # [F, 3] i32
     normals: Optional[np.ndarray] = None  # [V, 3] f32 vertex normals
+    uvs: Optional[np.ndarray] = None      # [V, 2] f32
+    face_normals: bool = False            # shade flat (face normals)
+
+    def transformed(self, to_world) -> "HostMesh":
+        """The mesh under to_world [4, 4] float32 (normals by the inverse
+        transpose, renormalised)."""
+        v, n = _transformed(self.vertices, self.normals, to_world)
+        return dataclasses.replace(self, vertices=v, normals=n)
+
+    def soup(self):
+        """(vertices, faces, normals or None for flat shading, uvs or None
+        for zero uvs): the mesh as `presets._geometry` takes it."""
+        return (self.vertices, self.faces,
+                None if self.face_normals else self.normals, self.uvs)
 
 
 def _transformed(v, n, to_world):
@@ -100,3 +115,37 @@ def make_sphere(subdiv: int = 4) -> HostMesh:
 
     v = v.astype(np.float32)
     return HostMesh(vertices=v, faces=f.astype(np.int32), normals=v.copy())
+
+
+def make_disk(segments: int = 64) -> HostMesh:
+    """The unit disk at z = 0 (normal +z): a centre vertex and a fan of
+    `segments` triangles."""
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    v = np.concatenate([[[0.0, 0.0, 0.0]], rim]).astype(np.float32)
+    f = np.array([[0, 1 + i, 1 + ((i + 1) % segments)]
+                  for i in range(segments)], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (len(v), 1))
+    return HostMesh(vertices=v, faces=f, normals=n)
+
+
+def make_cylinder(n_seg: int = 64) -> HostMesh:
+    """The open cylinder of radius 1 along +z from z = 0 to 1: two rings of
+    n_seg vertices, radial normals, uv (angle / 2 pi, z)."""
+    ang = np.arange(n_seg) / n_seg * 2.0 * np.pi
+    ring = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    v0 = np.concatenate([ring, np.zeros((n_seg, 1))], axis=-1)
+    v1 = np.concatenate([ring, np.ones((n_seg, 1))], axis=-1)
+    verts = np.concatenate([v0, v1], axis=0).astype(np.float32)
+    faces = []
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        faces.append([i, j, n_seg + i])
+        faces.append([j, n_seg + j, n_seg + i])
+    nrm = np.concatenate([ring, np.zeros((n_seg, 1))], axis=-1)
+    normals = np.concatenate([nrm, nrm], axis=0).astype(np.float32)
+    uv = np.stack([np.concatenate([ang, ang]) / (2.0 * np.pi),
+                   np.concatenate([np.zeros(n_seg), np.ones(n_seg)])],
+                  axis=-1).astype(np.float32)
+    return HostMesh(vertices=verts, faces=np.asarray(faces, np.int32),
+                    normals=normals, uvs=uv)

@@ -127,7 +127,8 @@ def test_area_sampling_and_pdf_match_jax(scenes):
         jscene.emitters, jscene.geo, jnp.asarray(ref), JDS(
             p=jds.p, n=jds.n, uv=jds.uv, d=jds.d, dist=jds.dist,
             pdf=jds.pdf, delta=jds.delta, emitter_idx=jds.emitter_idx)))
-    got = tem.pdf_emitter_direction(port.emitters, tds).numpy()
+    got = tem.pdf_emitter_direction(port.emitters, port.geo,
+                                    torch.as_tensor(ref), tds).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
     lit = active & (got > 0)
     np.testing.assert_allclose(got[lit], tds.pdf.numpy()[lit], rtol=1e-5)

@@ -227,6 +227,29 @@ def test_grad_phases_at_small_size(card):
     smoke.grad_cbox(cornell_box(64, 64, device=card))
 
 
+def test_camera_and_film_phases_at_small_size(card):
+    """chip_smoke.py's camera and film phases on a small Cornell box: the
+    ordered filtered splat against the scatter (three filters, 3 and 15
+    channels), every sampler on every sensor against the CPU's rays, and
+    the analytic scene's path (B1, B2 once a bounce)."""
+    from mitsuba3_plt_tpu_torch import ops
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import (analytic_scene,
+                                                      cornell_box)
+
+    smoke = _smoke()
+    integ = PathIntegrator(max_depth=3, rr_depth=9)
+    smoke.film(cornell_box(64, 64, device=card), integ, 4)
+    smoke.cameras()
+    scene, meta = analytic_scene(64, 64, device=card)
+    ops.reset_launch_counts()
+    img = render(scene, integ, spp=4, sampler_type=meta["sampler"])
+    launches = ops.launch_counts()
+    assert torch.isfinite(img).all() and img.max() > 4.0
+    assert launches["intersect_q"] == launches["occluded_q"] == 3
+
+
 def test_gradients_match_cpu(card):
     """The same gradients on the card and on the CPU: PLT's four grating
     parameters (B4b on the card, the plain version's autograd on the CPU)

@@ -1,13 +1,15 @@
-"""Golden z-tests of the Cornell box's specular and grating boxes for the
-port, in the scheme of tests/test_golden.py: references rendered by the JAX
-package on the CPU (mean and variance over 4 seeds of 16 spp each, in
-tests/golden_torch/), and the port's own render held to each by a
-per-pixel z-test at the Sidak-corrected 1% level. chip_smoke.py runs the
-same z-tests on the card, where there is no JAX.
+"""Golden z-tests of the Cornell box's specular and grating boxes, of the
+Cornell box through the Gaussian filter and of the analytic scene (sphere
+light, disk, cylinder) through the thinlens camera and the multijitter
+sampler, for the port, in the scheme of tests/test_golden.py: references
+rendered by the JAX package on the CPU (mean and variance over 4 seeds of
+16 spp each, in tests/golden_torch/), and the port's own render held to
+each by a per-pixel z-test at the Sidak-corrected 1% level. chip_smoke.py
+runs the same z-tests on the card, where there is no JAX.
 
 Regenerate the references after an intended change of the JAX package
-with:
-    JAX_PLATFORMS=cpu python tests/test_torch_golden_specular.py
+with (all of them, or the names given):
+    JAX_PLATFORMS=cpu python tests/test_torch_golden_specular.py [NAME ...]
 """
 import os
 
@@ -24,6 +26,12 @@ CONFIGS = {
     "cbox_roughconductor_path": ("roughconductor", "path", 4, 9),
     "cbox_dielectric_path": ("dielectric", "path", 4, 9),
     "cbox_grating_plt": ("grating", "plt", 4, 9),
+}
+# the camera and film references: name: (scene, render keywords), 32 x 32,
+# the path tracer at depth 4 / rr 9
+CAMERA_CONFIGS = {
+    "cbox_gaussian_path": ("cbox", {"rfilter": "gaussian"}),
+    "analytic_path": ("analytic", {"sampler_type": "multijitter"}),
 }
 
 
@@ -75,6 +83,54 @@ def test_port_render_matches_jax_reference_ztest(name):
     assert imgs.mean() > 0
 
 
+def port_camera_scene(name, device):
+    """The port's scene of CAMERA_CONFIGS[name] at 32 x 32."""
+    from mitsuba3_plt_tpu_torch.scene import presets
+
+    if CAMERA_CONFIGS[name][0] == "cbox":
+        return presets.cornell_box(32, 32, device=device)
+    return presets.analytic_scene(32, 32, device=device)[0]
+
+
+@pytest.mark.parametrize("name", list(CAMERA_CONFIGS))
+def test_camera_and_film_render_matches_jax_reference_ztest(name):
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+
+    scene = port_camera_scene(name, "cpu")
+    imgs = np.stack([render(scene, PathIntegrator(4, 9), seed=s, spp=SPP,
+                            **CAMERA_CONFIGS[name][1]).numpy()
+                     for s in range(SEEDS)])
+    assert imgs.shape == (SEEDS, 32, 32, 3) and np.isfinite(imgs).all()
+    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
+    n_fail, z_max, thresh = ztest_failures(imgs, ref)
+    assert n_fail == 0, (name, n_fail, z_max, thresh)
+    assert imgs.mean() > 0
+
+
+def _jax_camera_reference(name):
+    """(mean, var) of the JAX package's SEEDS renders of CAMERA_CONFIGS
+    [name]."""
+    from mitsuba3_plt_tpu.config import RGB
+    from mitsuba3_plt_tpu.integrators.common import render
+    from mitsuba3_plt_tpu.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu.librender.film import FILTER_NAMES
+    from mitsuba3_plt_tpu.scene.presets import cornell_box
+    from test_torch_analytic import jax_analytic_scene
+
+    kind, kw = CAMERA_CONFIGS[name]
+    kw = dict(kw)
+    if "rfilter" in kw:
+        kw["rfilter"] = FILTER_NAMES[kw["rfilter"]]
+    scene = (cornell_box(32, 32)[0] if kind == "cbox"
+             else jax_analytic_scene(32, 32)[0])
+    integ = PathIntegrator(max_depth=4, rr_depth=9)
+    imgs = np.stack([np.asarray(render(scene, integ.sample, seed=s, spp=SPP,
+                                       cfg=RGB, n_out_channels=3, **kw))
+                     for s in range(SEEDS)])
+    return imgs.mean(0), imgs.var(0, ddof=1)
+
+
 def _jax_reference(name):
     """(mean, var) of the JAX package's SEEDS renders of config `name`."""
     from mitsuba3_plt_tpu.config import RGB
@@ -103,8 +159,10 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    for name in CONFIGS:
-        mean, var = _jax_reference(name)
+    names = sys.argv[1:] or [*CONFIGS, *CAMERA_CONFIGS]
+    for name in names:
+        mean, var = (_jax_camera_reference(name) if name in CAMERA_CONFIGS
+                     else _jax_reference(name))
         np.savez_compressed(os.path.join(GOLDEN_DIR, f"{name}.npz"),
                             mean=mean, var=var)
         print(f"wrote {name}: mean {mean.mean():.4f}")

@@ -91,7 +91,14 @@ def test_bridge_refuses_unported_scenes():
         scene_from_arrays(*jax_scene_arrays(
             dataclasses.replace(jscene, materials=jm)), device="cpu")
     arrays, static = tpresets.grating_scene_arrays(4, 4)
-    with pytest.raises(NotImplementedError):
+    # the MXU table, a sensor's spectral response, per-face tangents and
+    # colours (40 attribute columns); analytic rows come whole
+    for key, val in (("geo.tri_mxu", np.zeros((64, 16))),
+                     ("sensor.srf", np.ones((1, 4))),
+                     ("geo.tri_attr", np.zeros((4, 40), np.float32))):
+        with pytest.raises(NotImplementedError):
+            scene_from_arrays({**arrays, key: val}, static, device="cpu")
+    with pytest.raises(ValueError, match="analytic rows"):
         scene_from_arrays({**arrays, "geo.sph_center": np.zeros((1, 3))},
                           static, device="cpu")
     with pytest.raises(NotImplementedError):
