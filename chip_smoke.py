@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one card, ~7-9 min with the build
+    python3 chip_smoke.py            # one card, ~8-10 min with the build
 
     python3 chip_smoke.py --film         # the film phase alone
 
@@ -208,6 +208,29 @@ Phases, each printing one JSON line with its seconds:
                   FILTER_GAUSSIAN)), as `main-cbox`, with its ms/spp and peak
                   memory beside main-cbox's (main-cbox-gaussian-vs-box);
   split-cbox-gaussian  to chiprun_out/chip_smoke_profile_cbox_gaussian.json;
+  load-dict-mesh82k  the JAX bench's mesh82k dict (make_sphere(6), a
+                  point light, diffuse 0.7, 512x512) through the package's
+                  load_dict: every array it hands the bridge, `ctab2.*`
+                  included, equal to presets.mesh_scene_arrays(512, 512,
+                  6)'s to the bit, the load's seconds beside the preset's;
+  main-mesh82k-dict  that scene as main-mesh82k (B5/B6 4 a pass), with
+                  split-mesh82k-dict and its ms/spp beside main-mesh82k's;
+  main-cbox-xml   the Cornell box written as XML (scene/xml_scenes.py:
+                  rectangles and cubes under <transform>s, the gaussian
+                  filter, path depth 7 / rr 50, 8 spp a pass) through
+                  load_file and the package's render((scene, meta)): B1/B2
+                  7 a pass, with split-cbox-xml, beside main-cbox-gaussian;
+  golden-cbox-xml the same XML at 32x32 through PathIntegrator(4, 9) and
+                  the box filter, z-tested against tests/golden/cbox_path
+                  .npz;
+  main-grating-xml  the grating scene as XML (PLT depth 7 / rr 50,
+                  800x600, 4 spp a pass, the box filter): B1-B4 7 a pass,
+                  the keys whose arrays differ from grating_scene_arrays'
+                  printed, with split-grating-xml, beside main;
+  cli             `python -m mitsuba3_plt_tpu_torch.cli` on the XML box at
+                  128x128, 16 spp, as a subprocess: its .pfm equal to an
+                  in-process render to the bit, its .png and
+                  time_per_sample (files under chiprun_out/loaders/);
   film            the Cornell box path's first pass: the ordered filtered
                   splat against the scatter `put` (gaussian, mitchell,
                   lanczos; 3 and 15 channels), both timed;
@@ -356,6 +379,9 @@ GRAD_FD = (("materials.grt_height", (1,), 1e-4),
            ("materials.grt_inv_period", (1, 0), 1e-3))
 GRAD_CBOX_SPP, ADAM_STEPS = 4, 5
 REGEN = {"regen": True, "pixel_order": "morton"}
+# the loaders' cells: the CLI's render of the Cornell box XML
+CLI_W, CLI_SPP = 128, 16
+LOADER_DIR = os.path.join(OUT_DIR, "loaders")
 # kernels whose launches in the kernels line come from a tool's run
 TOOL_KERNELS = ("intersect_classic", "occluded_classic", "intersect_mxu")
 MASK_KERNELS = ("intersect_clu", "occluded_clu")
@@ -3291,30 +3317,44 @@ def furnace(scene, integ, spp, albedo):
             "furnace: the brute kernels did not run")
 
 
+def renderer(scene, integ, meta=None):
+    """render(**kw) of the scene: `integrators.common.render` with `integ`,
+    or, given a loaded scene's meta, the package's render((scene, meta)),
+    which takes the meta's integrator, filter and sampler."""
+    import mitsuba3_plt_tpu_torch as mi
+    from mitsuba3_plt_tpu_torch.integrators.common import render
+
+    if meta is not None:
+        return lambda **kw: mi.render((scene, meta), **kw)
+    return lambda **kw: render(scene, integ, **kw)
+
+
 def main_path(name, scene, integ, spp_pass, per_pass, passes=TIMED_PASSES,
-              **render_kw):
+              meta=None, **render_kw):
     """One warm-up pass, then `passes` timed passes; per_pass gives the
     launches each kernel must make in a pass (ITER: one per iteration of
     the regenerative loop, which must run at least max_depth times a pass).
+    With a loaded scene's meta the passes go through the package's
+    render((scene, meta)) (`renderer`), whose integrator `integ` must be.
     Returns (the printed fields, the image)."""
     import torch
 
     from mitsuba3_plt_tpu_torch import ops
-    from mitsuba3_plt_tpu_torch.integrators.common import render
 
     ph = Phase(name)
+    render = renderer(scene, integ, meta)
     W, H = scene.sensor.resolution
     warm = {}
-    render(scene, integ, seed=0, spp=spp_pass, spp_per_pass=spp_pass,
-           stats=warm, **render_kw)
+    render(seed=0, spp=spp_pass, spp_per_pass=spp_pass, stats=warm,
+           **render_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     spp = spp_pass * passes
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    img = render(scene, integ, seed=1, spp=spp, spp_per_pass=spp_pass,
-                 stats=stats, **render_kw)
+    img = render(seed=1, spp=spp, spp_per_pass=spp_pass, stats=stats,
+                 **render_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -3370,13 +3410,14 @@ def same_image(name, img, scene, integ, spp_pass):
     require(mean_gap < 0.01, f"{name}: mean differs from the scanline render")
 
 
-def split(name, scene, integ, pass_s, spp_pass, out_file, **render_kw):
-    """Device time of one main-path pass by kernel name (torch.profiler)."""
-    from mitsuba3_plt_tpu_torch.integrators.common import render
-
-    profile_run(name, lambda: render(scene, integ, seed=2, spp=spp_pass,
-                                     spp_per_pass=spp_pass, **render_kw),
-                pass_s, out_file)
+def split(name, scene, integ, pass_s, spp_pass, out_file, meta=None,
+          **render_kw):
+    """Device time of one main-path pass by kernel name (torch.profiler);
+    `meta` as in `main_path`. Returns the printed fields."""
+    render = renderer(scene, integ, meta)
+    return profile_run(name, lambda: render(seed=2, spp=spp_pass,
+                                            spp_per_pass=spp_pass,
+                                            **render_kw), pass_s, out_file)
 
 
 def profile_run(name, run, pass_s, out_file):
@@ -3428,13 +3469,218 @@ def profile_run(name, run, pass_s, out_file):
     with open(os.path.join(OUT_DIR, out_file), "w") as f:
         json.dump({"pass_wall_ms": pass_s * 1e3, "device_ms": total,
                    "ops": rows}, f, indent=1)
-    ph.emit(pass_wall_ms=pass_s * 1e3, device_busy_ms=total,
-            device_idle_share=(1.0 - total / (pass_s * 1e3)
-                               if total > 0 else None),
-            our_kernels_ms=ours, per_launch=per_launch,
-            our_kernels_share_of_busy=(sum(ours.values()) / total
-                                       if total > 0 else None),
-            device_ops_launched=n_kernels, top_ops=rows[:12])
+    res = dict(pass_wall_ms=pass_s * 1e3, device_busy_ms=total,
+               device_idle_share=(1.0 - total / (pass_s * 1e3)
+                                  if total > 0 else None),
+               our_kernels_ms=ours, per_launch=per_launch,
+               our_kernels_share_of_busy=(sum(ours.values()) / total
+                                          if total > 0 else None),
+               device_ops_launched=n_kernels, top_ops=rows[:12])
+    ph.emit(**res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# scene loading: the dict and XML loaders, the package's render and the CLI
+# ---------------------------------------------------------------------------
+
+def mesh82k_dict(width, height, subdiv):
+    """The JAX package's mesh82k bench dict (bench.py::bench_mesh_heavy):
+    the icosphere of `subdiv` as an in-memory mesh, diffuse 0.7, a point
+    light of intensity 40 at (2, 2, 3), a 45-degree camera at (0, 0, 4)."""
+    from mitsuba3_plt_tpu_torch.core import transform as tf
+    from mitsuba3_plt_tpu_torch.scene.shape import make_sphere
+
+    return {
+        "type": "scene",
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": tf.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": width,
+                            "height": height}},
+        "light": {"type": "point", "position": [2, 2, 3],
+                  "intensity": [40, 40, 40]},
+        "ball": {"type": "mesh", "mesh": make_sphere(subdiv),
+                 "bsdf": {"type": "diffuse", "reflectance": 0.7}},
+    }
+
+
+def captured_load(load, *args, **kw):
+    """(scene, meta, the arrays and static fields the loader handed the
+    bridge, the load's seconds) of load(*args, **kw)."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.scene import loader
+
+    got = {}
+    bridge = loader.scene_from_arrays
+
+    def capture(arrays, static, device="cuda"):
+        got.update(arrays=arrays, static=static)
+        return bridge(arrays, static, device=device)
+
+    loader.scene_from_arrays = capture
+    try:
+        t0 = time.perf_counter()
+        scene, meta = load(*args, **kw)
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.scene_from_arrays = bridge
+    return scene, meta, got["arrays"], got["static"], seconds
+
+
+def differing_keys(arrays, static, want):
+    """The keys of (arrays, static) that differ from the preset's `want`
+    pair, in value, dtype or shape, or that one side lacks."""
+    import numpy as np
+
+    (warrays, wstatic), out = want, []
+    for key in sorted(set(arrays) | set(warrays)):
+        a, b = arrays.get(key), warrays.get(key)
+        if a is None or b is None or np.asarray(a).dtype != np.asarray(
+                b).dtype or not np.array_equal(a, b):
+            out.append(key)
+    return out + [k for k in sorted(wstatic) if static[k] != wstatic[k]]
+
+
+def write_scene(name, text):
+    os.makedirs(LOADER_DIR, exist_ok=True)
+    path = os.path.join(LOADER_DIR, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def beside(name, res, split_res, cell):
+    """The loaded scene's main path `res` and its split beside its
+    preset's, run earlier in the same call: `cell` is (the preset's
+    main-path fields, its split's fields). main_path has already required
+    each path's launches."""
+    preset_res, preset_split = cell
+    Phase(name + "-vs-preset").emit(
+        ms_per_spp=res["ms_per_spp"],
+        ms_per_spp_preset=preset_res["ms_per_spp"],
+        launches_equal=res["launches"] == preset_res["launches"],
+        device_busy_ms=split_res["device_busy_ms"],
+        device_busy_ms_preset=preset_split["device_busy_ms"],
+        device_ops_launched=split_res["device_ops_launched"],
+        device_ops_launched_preset=preset_split["device_ops_launched"])
+
+
+def loaders(cells, device="cuda"):
+    """The loaders' phases on `device`: the mesh82k dict through load_dict
+    (its arrays against the preset's, its path beside main-mesh82k), the
+    Cornell box and the grating scene as XML through load_file and the
+    package's render (beside main-cbox-gaussian and main), the XML box's
+    golden, and the CLI's render of it against an in-process one. `cells`
+    maps "mesh82k", "cbox" and "grating" to the presets' main-path and
+    split fields (`beside`).
+    """
+    import numpy as np
+    import torch
+
+    import mitsuba3_plt_tpu_torch as mi
+    from mitsuba3_plt_tpu_torch.integrators import make_integrator
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene import presets, xml_scenes
+    from mitsuba3_plt_tpu_torch.utils.io import read_pfm
+
+    ph = Phase("load-dict-mesh82k")
+    dscene, dmeta, arrays, static, load_s = captured_load(
+        mi.load_dict, mesh82k_dict(MESH_W, MESH_H, MESH_SUBDIV),
+        device=device)
+    t0 = time.perf_counter()
+    want = presets.mesh_scene_arrays(MESH_W, MESH_H, MESH_SUBDIV)
+    preset_s = time.perf_counter() - t0
+    diff = differing_keys(arrays, static, want)
+    ph.emit(load_s=load_s, preset_arrays_s=preset_s,
+            faces=dscene.geo.n_faces, route=dscene.intersect_route(),
+            arrays=len(arrays), ctab2_arrays=sorted(
+                k for k in arrays if k.startswith("ctab2.")),
+            differing=diff, meta=dmeta)
+    require(not diff and dscene.intersect_route() == "clu2",
+            f"load-dict-mesh82k: arrays differ from the preset's: {diff}")
+    del want, arrays
+    dinteg = PathIntegrator(max_depth=MESH_DEPTH, rr_depth=MESH_RR)
+    d_res, _ = main_path("main-mesh82k-dict", dscene, dinteg, MESH_SPP_PASS,
+                         MESH_LAUNCHES)
+    d_split = split("split-mesh82k-dict", dscene, dinteg,
+                    sum(d_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
+                    "chip_smoke_profile_mesh82k_dict.json")
+    beside("main-mesh82k-dict", d_res, d_split, cells["mesh82k"])
+    del dscene
+
+    ph = Phase("cbox-xml-scene")
+    cbox_xml = write_scene("cbox.xml", xml_scenes.cornell_box_xml(
+        CBOX_W, CBOX_H, CBOX_SPP_PASS, CBOX_DEPTH, CBOX_RR))
+    xscene, xmeta, arrays, static, load_s = captured_load(
+        mi.load_file, cbox_xml, device=device)
+    diff = differing_keys(arrays, static,
+                          presets.cornell_box_arrays(CBOX_W, CBOX_H))
+    ph.emit(load_s=load_s, faces=xscene.geo.n_faces,
+            route=xscene.intersect_route(), meta=xmeta,
+            tri_idx=xscene.emitters.tri_idx.tolist(),
+            differing_from_preset=diff)
+    require(xscene.intersect_route() == "brute"
+            and xscene.emitters.tri_idx.tolist() == [[34, 35]],
+            "the XML Cornell box: 36 faces, the brute route, the light's "
+            "two triangles")
+    xinteg = make_integrator(xmeta["integrator"])
+    x_res, _ = main_path("main-cbox-xml", xscene, xinteg, CBOX_SPP_PASS,
+                         CBOX_LAUNCHES, meta=xmeta)
+    x_split = split("split-cbox-xml", xscene, xinteg,
+                    sum(x_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
+                    "chip_smoke_profile_cbox_xml.json", meta=xmeta)
+    beside("main-cbox-xml", x_res, x_split, cells["cbox"])
+    del xscene
+    golden_ztest("golden-cbox-xml",
+                 mi.load_file(cbox_xml, device=device, resx=32, resy=32)[0],
+                 PathIntegrator(max_depth=4, rr_depth=9), "cbox_path.npz", 16)
+
+    ph = Phase("grating-xml-scene")
+    grating_xml = write_scene("grating.xml", xml_scenes.grating_scene_xml(
+        MAIN_W, MAIN_H, MAIN_SPP_PASS, MAIN_DEPTH, MAIN_RR))
+    gx, gmeta, arrays, static, load_s = captured_load(
+        mi.load_file, grating_xml, device=device)
+    diff = differing_keys(arrays, static,
+                          presets.grating_scene_arrays(MAIN_W, MAIN_H))
+    ph.emit(load_s=load_s, faces=gx.geo.n_faces, route=gx.intersect_route(),
+            meta=gmeta, differing_from_preset=diff)
+    ginteg = make_integrator(gmeta["integrator"])
+    gx_res, _ = main_path("main-grating-xml", gx, ginteg, MAIN_SPP_PASS,
+                          GRATING_LAUNCHES, meta=gmeta)
+    gx_split = split("split-grating-xml", gx, ginteg,
+                     sum(gx_res["pass_s"]) / TIMED_PASSES, MAIN_SPP_PASS,
+                     "chip_smoke_profile_grating_xml.json", meta=gmeta)
+    beside("main-grating-xml", gx_res, gx_split, cells["grating"])
+    del gx
+
+    ph = Phase("cli")
+    out = os.path.join(LOADER_DIR, "cli", "cbox")
+    cmd = [sys.executable, "-m", "mitsuba3_plt_tpu_torch.cli", cbox_xml,
+           "-o", out, "--spp", str(CLI_SPP), "--resx", str(CLI_W),
+           "--resy", str(CLI_W), "--device", device, "--quiet"]
+    t0 = time.perf_counter()
+    subprocess.run(cmd, cwd=HERE, check=True, timeout=600,
+                   stdout=subprocess.DEVNULL)
+    cli_s = time.perf_counter() - t0
+    with open(out + "_params.json") as f:
+        params = json.load(f)
+    img = mi.render(mi.load_file(cbox_xml, device=device, resx=CLI_W,
+                                 resy=CLI_W), spp=CLI_SPP, seed=0)
+    img = img[..., :3].cpu().numpy()
+    pfm = read_pfm(out + ".pfm")
+    equal = bool(np.array_equal(pfm, img))
+    ph.emit(subprocess_s=cli_s, equal_to_in_process=equal,
+            max_abs_diff=float(np.abs(pfm - img).max()),
+            png=os.path.exists(out + ".png"),
+            time_per_sample=params["time_per_sample"],
+            time_per_sample_steady=params["time_per_sample_steady"],
+            load_time_s=params["load_time_s"],
+            render_time_s=params["render_time_s"])
+    require(equal, "cli: the .pfm differs from the in-process render")
+    require(os.path.exists(out + ".png"), "cli: no .png")
 
 
 # ---------------------------------------------------------------------------
@@ -4284,15 +4530,16 @@ def main():
     ginteg = PLTIntegrator(max_depth=MAIN_DEPTH, rr_depth=MAIN_RR)
     g_res, _ = main_path("main", gscene, ginteg, MAIN_SPP_PASS,
                          GRATING_LAUNCHES)
-    split("split", gscene, ginteg, sum(g_res["pass_s"]) / TIMED_PASSES,
-          MAIN_SPP_PASS, "chip_smoke_profile.json")
+    g_split = split("split", gscene, ginteg,
+                    sum(g_res["pass_s"]) / TIMED_PASSES, MAIN_SPP_PASS,
+                    "chip_smoke_profile.json")
 
     minteg = PathIntegrator(max_depth=MESH_DEPTH, rr_depth=MESH_RR)
     m_res, _ = main_path("main-mesh82k", mscene, minteg, MESH_SPP_PASS,
                          MESH_LAUNCHES)
-    split("split-mesh82k", mscene, minteg,
-          sum(m_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
-          "chip_smoke_profile_mesh82k.json")
+    m_split = split("split-mesh82k", mscene, minteg,
+                    sum(m_res["pass_s"]) / TIMED_PASSES, MESH_SPP_PASS,
+                    "chip_smoke_profile_mesh82k.json")
 
     p_res, p_img = main_path("main-mesh82k-packet", pscene, minteg,
                              MESH_SPP_PASS, PACKET_LAUNCHES, **REGEN)
@@ -4320,9 +4567,12 @@ def main():
         ms_per_spp_difference=cg_res["ms_per_spp"] - c_res["ms_per_spp"],
         peak_mem_bytes_gaussian=cg_res["peak_mem_bytes"],
         peak_mem_bytes_box=c_res["peak_mem_bytes"])
-    split("split-cbox-gaussian", cscene, cinteg,
-          sum(cg_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
-          "chip_smoke_profile_cbox_gaussian.json", rfilter=FILTER_GAUSSIAN)
+    cg_split = split("split-cbox-gaussian", cscene, cinteg,
+                     sum(cg_res["pass_s"]) / TIMED_PASSES, CBOX_SPP_PASS,
+                     "chip_smoke_profile_cbox_gaussian.json",
+                     rfilter=FILTER_GAUSSIAN)
+    loaders({"mesh82k": (m_res, m_split), "cbox": (cg_res, cg_split),
+             "grating": (g_res, g_split)})
     splat_inputs, splat_ms = film(cscene, cinteg, CBOX_SPP_PASS)
     split_splat("split-cbox-gaussian-splat", splat_inputs, CBOX_SPP_PASS,
                 CBOX_W, CBOX_H, splat_ms,

@@ -2,10 +2,16 @@
 polarized. Under a polarized config radiance is a Stokes vector and a BSDF
 value a Mueller matrix (`librender/mueller.py` gives the layout). The JAX
 package's spectral and mono variants are not ported: asking for them by
-name raises."""
+name raises.
+
+The module is callable: `config()` (the package's `mitsuba3_plt_tpu_torch
+.config()`, as in the JAX package) is the config of the variant that
+`set_variant` chose, "rgb" by default."""
 from __future__ import annotations
 
 import dataclasses
+import sys
+import types
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,3 +43,27 @@ def variant(name: str) -> RenderConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(f"variant {name!r} is not ported")
     raise KeyError(f"unknown variant {name!r}")
+
+
+_current = "rgb"
+
+
+def set_variant(name: str):
+    """Render under variant `name` by default ("rgb" or "rgb_polarized");
+    a variant of the JAX package that is not ported raises."""
+    global _current
+    variant(name)
+    _current = name
+
+
+def current_variant() -> str:
+    return _current
+
+
+class _CallableModule(types.ModuleType):
+    def __call__(self) -> RenderConfig:
+        """The config of the current variant."""
+        return VARIANTS[_current]
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -133,7 +133,8 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
            cfg: RenderConfig = RGB, spp_per_pass: int | None = None,
            stats: dict | None = None, regen: bool = False,
            pixel_order: str = "scanline", n_out_channels: int | None = None,
-           rfilter=FILTER_BOX, sampler_type: str = "independent"):
+           rfilter=FILTER_BOX, sampler_type: str = "independent",
+           timeout: float | None = None, progress=None):
     """Render `spp` samples per pixel in passes; returns [H, W, C] on the
     scene's device, C = n_out_channels, by default the integrator's own
     (15 or 16 for `StokesIntegrator`) or else the config's 3. `stats`,
@@ -153,7 +154,15 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
     the box (`put_ordered`) or, any other, through `put_ordered_filtered`
     on each sample's film position; a non-box filter in Morton order
     raises ValueError, since its taps shift in scanline pixel space.
-    `sampler_type` picks the camera's film jitter (`camera_rays_at`)."""
+    `sampler_type` picks the camera's film jitter (`camera_rays_at`).
+
+    `timeout` (seconds) stops between passes once the passes so far took
+    longer, and develops the passes done; `progress(done, total,
+    elapsed_s)` is called after each pass. With either, or with `stats`,
+    each pass ends in a device synchronisation. `stats` then also
+    receives passes_done, spp_done, total_s, compile_s (the first pass's
+    seconds, the kernels' build and first launches included) and
+    steady_s_per_pass (the mean of the later passes; None after one)."""
     rfilter = filter_id(rfilter)
     if rfilter != FILTER_BOX and pixel_order == "morton":
         raise ValueError("pixel_order='morton' takes only the box filter: "
@@ -174,6 +183,8 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
                               rfilter)
     base = Sampler.create(seed, n, device=scene.device)
     pass_s, regen_iterations = [], []
+    timed = stats is not None or timeout is not None or progress is not None
+    t_start = time.perf_counter()
     for p in range(n_pass):
         t0 = time.perf_counter()
         sampler = base.fork(p)
@@ -197,14 +208,25 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
             block.put_ordered(values, valid, spp_per_pass)
         else:
             block.put_ordered_filtered(uv, values, valid, spp_per_pass)
-        if stats is not None:
+        if timed:
             if scene.device.type == "cuda":
                 torch.cuda.synchronize(scene.device)
             pass_s.append(time.perf_counter() - t0)
+            elapsed = time.perf_counter() - t_start
+            if progress is not None:
+                progress(p + 1, n_pass, elapsed)
+            if timeout is not None and elapsed > timeout:
+                break
     if stats is not None:
+        done = len(pass_s)
         stats.update(pass_s=pass_s, n_pass=n_pass, spp_per_pass=spp_per_pass,
                      lanes_per_pass=regen_lanes if use_regen else n,
-                     regen_iterations=regen_iterations)
+                     regen_iterations=regen_iterations, passes_done=done,
+                     spp_done=done * spp_per_pass,
+                     total_s=time.perf_counter() - t_start,
+                     compile_s=pass_s[0],
+                     steady_s_per_pass=(sum(pass_s[1:]) / (done - 1)
+                                        if done > 1 else None))
     if pixel_order == "morton":
         # slot order -> scanline order: pixel mp[j] was rendered in slot j
         inv = np.empty(width * height, np.int64)

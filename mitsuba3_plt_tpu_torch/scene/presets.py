@@ -179,9 +179,11 @@ def _materials(bsdfs):
 
 
 def _emitters(emitters, scene_radius, geo):
-    """Emitter rows on the JAX loader's defaults, with the area tables
-    built as `scene/loader.py::build_emitter_table` builds them from the
-    faces whose emitter column (of `geo`'s `tri_attr`) names the light:
+    """Emitter rows on the JAX loader's defaults (a to_world gives the
+    position and the direction of +z, a direction replaces the latter),
+    with the area tables built as `scene/loader.py::build_emitter_table`
+    builds them from the faces whose emitter column (of `geo`'s
+    `tri_attr`) names the light:
     `tri_idx` padded with -1, `tri_cdf` the area CDF normalised to 1 (1 in
     the padding), `area` the total. A "sphere_area" light (an analytic
     sphere's) keeps its centre in `position`, its radius in `cutoff_cos`
@@ -208,6 +210,10 @@ def _emitters(emitters, scene_radius, geo):
         radiance[i] = e["radiance"]  # a point light's intensity
         if "position" in e:
             position[i] = e["position"]
+        if "to_world" in e:
+            M = np.asarray(e["to_world"])
+            position[i] = M[:3, 3]
+            direction[i] = M[:3, :3] @ np.array([0, 0, 1.0])
         if "direction" in e:
             d = np.asarray(e["direction"], np.float64)
             direction[i] = d / np.linalg.norm(d)

@@ -31,6 +31,12 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 20
+    # the scene loaders, the package's render, the CLI and the image files
+    for name in ("scene/loader.py", "scene/dict_loader.py",
+                 "scene/xml_scenes.py", "scene/shape.py",
+                 "integrators/__init__.py", "__init__.py", "cli.py",
+                 "utils/io.py", "utils/exr.py"):
+        assert os.path.join(PORT, name) in files, name
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -99,6 +105,41 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
     assert grating_scene(8, 8, device="cpu").device == torch.device("cpu")
+
+
+def test_loaders_and_the_cli_need_a_card_unless_asked_for_the_cpu(
+        tmp_path):
+    """load_file, load_dict, the scene assembly above 4,096 faces (the
+    clu2 tables) and the CLI by default raise without a card; the package's
+    render follows its scene's device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import numpy as np
+
+    import mitsuba3_plt_tpu_torch as tmi
+    from mitsuba3_plt_tpu_torch import cli
+    from mitsuba3_plt_tpu_torch.scene import loader, shape, xml_scenes
+
+    path = tmp_path / "box.xml"
+    path.write_text(xml_scenes.cornell_box_xml(8, 8, spp=1, max_depth=2))
+    sphere = {"type": "scene", "ball": {"type": "mesh",
+                                        "mesh": shape.make_sphere(5)}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmi.load_file(str(path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmi.load_dict(sphere)
+    big = shape.make_sphere(5)
+    args = ([big], [0], [-1], [], [], None, {}, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loader.assemble_scene(*args)
+    scene, _ = loader.assemble_scene(*args, device="cpu")
+    assert scene.intersect_route() == "clu2"
+    assert scene.ctab2.rows.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([str(path), "-o", str(tmp_path / "out"), "--quiet"])
+    img = tmi.render(tmi.load_file(str(path), device="cpu"), spp=1)
+    assert img.device == torch.device("cpu")
+    assert np.isfinite(img.numpy()).all()
 
 
 def test_intersect_wrappers_check_arguments():
