@@ -5,6 +5,9 @@
 
     python3 chip_smoke.py --film         # the film phase alone
 
+    python3 chip_smoke.py --gradients    # the boundary, polarized,
+                                         # Stokes and TF32 gradient phases
+
     python3 chip_smoke.py --turns ROOT   # B1, B2, B4, B7a, B7b, B5, B6,
                                          # B8a, B8b, B9, B10a, B10b, B11a,
                                          # B11b, B11c, the lobe sum's
@@ -33,7 +36,11 @@ config (B1-B4) and the Stokes wrapper of the Mueller path tracer on the
 glass box (B1, B2); and gradients: render_loss_grad through PLT on the
 grating scene (B1-B3 and B4's recording instance forward, recomputed
 under the checkpoint, and B4b, the lobe sum's backward over its bits) and through the path tracer and PRB on the
-Cornell box (B1, B2), with Adam steps.
+Cornell box (B1, B2), with Adam steps; the silhouette boundary terms of
+the vertex rows on tests/test_projective.py's four scenes (B1, B2 through
+the probe renders and visibility tests), polarized PLT's gradient on the
+grating scene (B1-B3, B4's recording instance, B4b) and the Stokes path's
+on the Cornell boxes (B1, B2).
 Phases, each printing one JSON line with its seconds:
   card            name and power limit (nvidia-smi) and torch's device name;
   build           the CUDA kernels from ops/csrc (one nvcc per source, all
@@ -277,7 +284,33 @@ Phases, each printing one JSON line with its seconds:
                   Adam steps of PRB toward a target with the white wall's
                   albedo halved (ms a step, peak memory, a falling loss);
   split-grad-cbox-prb  one PRB gradient evaluation by kernel, to
-                  chiprun_out/chip_smoke_profile_grad_cbox_prb.json.
+                  chiprun_out/chip_smoke_profile_grad_cbox_prb.json;
+  grad-boundary-rectangle, -cube, -shadow, -penumbra  tests/test_projective
+                  .py's scenes (presets.boundary_scene_dict) at 512x512
+                  through load_dict, the loss sum(ramp_x * image):
+                  render_loss_grad on the vertex rows at 16 spp with and
+                  without the boundary terms (2^20 edge samples a term,
+                  2,097,152 probe lanes), each timed with its launches (B1
+                  and B2 only), the interior term zero, the moving
+                  object's x-translation gradient within JAX's tolerance
+                  (0.12, 0.12, 0.2, 0.25) of a central difference of the
+                  card's own render at 64 spp and JAX's step; each with a
+                  split-grad-boundary-* profile (busy ms, idle share);
+  grad-grating-800x600-plt-polarized  grad-grating under RGB_POLARIZED
+                  (film S0): B1-B3 and B4's recording instance twice a
+                  bounce and pass, B4b once, the height's gradient within
+                  5e-2 of the card's central difference; with
+                  split-grad-grating-polarized;
+  grad-cbox-stokes  the Stokes path (depth 7 / rr 50) at 512x512, 4 spp:
+                  the diffuse box's S0 base_color gradient against the
+                  scalar path's (within 1e-5 of the largest; to the bit
+                  or not, printed), the conductor box's eta_re / eta_im
+                  against central differences (2e-3), the glass box's
+                  eta_re against the CPU's on the 128x128 box (1e-2 of the
+                  largest), its central differences printed beside it;
+  tf32-grad-cbox  grad-cbox's path gradient with the caller's TF32 flags
+                  off, on, off: equal (or within the run-to-run gap), the
+                  flags as set.
 Then the kernel list (each kernel's launches from its own path: B8a, B8b
 and B9 from one tool run on one ray set, B10 and B11 from one run of
 their tools, B4b from grad-grating's timed evaluations; each bound
@@ -379,6 +412,30 @@ GRAD_FD = (("materials.grt_height", (1,), 1e-4),
            ("materials.grt_inv_period", (1, 0), 1e-3))
 GRAD_CBOX_SPP, ADAM_STEPS = 4, 5
 REGEN = {"regen": True, "pixel_order": "morton"}
+# the boundary-gradient cells (grad-boundary-*): tests/test_projective.py's
+# scenes at 512 x 512, 16 spp, 2^20 edge samples a term (2,097,152 probe
+# lanes, the Cornell box cell's wavefront); (scene, JAX's finite-difference
+# step, tolerance: JAX's test's or tighter) against a central difference
+# of the port's render at 64 spp
+BOUNDARY_W = 512
+BOUNDARY_SPP, BOUNDARY_FD_SPP, BOUNDARY_SAMPLES = 16, 64, 1 << 20
+BOUNDARY_CELLS = (("rectangle", 0.05, 0.12), ("cube", 0.05, 0.12),
+                  ("shadow", 0.04, 0.2), ("penumbra", 0.05, 0.25))
+# polarized PLT's height gradient against the card's central difference
+# (step 1e-4, a 1e-5 change of the image): the card's gradient and its
+# difference part by 1.0% at 800x600 and 1.6% at 160x120, in the scalar
+# grad-grating as in the polarized one, where the CPU's plain versions
+# agree to 7e-6 at 160x120: B3/B4's forward on the card (its table, its
+# special functions) under so small a step, not the gradient
+POL_HEIGHT_TOL = 5e-2
+# the glass box's index gradient, the card's against the CPU's at 128 x
+# 128: each glass path refracts at every hit, so a hit whose t rounds
+# apart between B1 and its plain version moves the whole path (the other
+# card-against-CPU gradients hold 1e-3: `test_gradients_match_cpu`)
+GLASS_CPU_TOL = 1e-2
+# the Stokes path's conductor index against its central difference (the
+# index moves values only; the step's curvature and float32 sums)
+STOKES_ETA_TOL = 2e-3
 # the loaders' cells: the CLI's render of the Cornell box XML
 CLI_W, CLI_SPP = 128, 16
 LOADER_DIR = os.path.join(OUT_DIR, "loaders")
@@ -2090,6 +2147,350 @@ def grad_cbox(scene):
     profile_run("split-grad-cbox-prb", lambda: ad.render_loss_grad(
         scene, prb.sample, torch.mean, [key], **kw), res["prb"]["ms"] / 1e3,
         "chip_smoke_profile_grad_cbox_prb.json")
+
+
+def grad_boundary(name, eps, tol):
+    """grad-boundary-<name>: tests/test_projective.py's scene `name` at
+    BOUNDARY_W x BOUNDARY_W through the package's load_dict, the loss
+    sum(ramp_x * image). render_loss_grad on the vertex rows at
+    BOUNDARY_SPP spp with and without the boundary terms
+    (BOUNDARY_SAMPLES edge samples a term), each timed after a warm-up
+    with its launches (B1 and B2 only). The interior term must be zero;
+    the moving object's x-translation gradient must lie within `tol` of a
+    central difference of the port's own render on the card (the
+    package's render, BOUNDARY_FD_SPP spp, seed 7, step `eps`: JAX's).
+    Then one boundary gradient by kernel (torch.profiler)."""
+    import torch
+
+    import mitsuba3_plt_tpu_torch as mi
+    from mitsuba3_plt_tpu_torch import ad, ops
+    from mitsuba3_plt_tpu_torch.integrators import make_integrator
+    from mitsuba3_plt_tpu_torch.scene.presets import (BOUNDARY_ROWS,
+                                                      boundary_scene_dict)
+
+    ph = Phase(f"grad-boundary-{name}")
+    W = H = BOUNDARY_W
+    # tests/test_projective.py's loss weights: a ramp in x
+    wmap = (torch.arange(W, dtype=torch.float32, device="cuda") / W)[
+        None, :, None].expand(H, W, 3)
+    scene, meta = mi.load_dict(boundary_scene_dict(name, W, H),
+                               device="cuda")
+    integ = make_integrator(meta["integrator"])
+    keys = ["geo.tri_p0", "geo.tri_p1", "geo.tri_p2"]
+
+    def evaluate(boundary):
+        return ad.render_loss_grad(
+            scene, integ.sample, lambda img: (img * wmap).sum(), keys,
+            seed=0, spp=BOUNDARY_SPP, geometry_boundary=boundary,
+            boundary_samples=BOUNDARY_SAMPLES)
+
+    ms, launches, grads = {}, {}, {}
+    for boundary in (False, True):
+        evaluate(boundary)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, g = evaluate(boundary)
+        torch.cuda.synchronize()
+        ms[boundary] = (time.perf_counter() - t0) * 1e3
+        launches[boundary] = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+        grads[boundary] = {k: v.cpu() for k, v in g.items()}
+    rows = BOUNDARY_ROWS[name]
+    grad_x = sum(float(grads[True][k][rows, 0].sum()) for k in keys)
+    interior_max = max(float(v.abs().max()) for v in grads[False].values())
+    f = []
+    for delta in (eps, -eps):
+        loaded = mi.load_dict(boundary_scene_dict(name, W, H, delta),
+                              device="cuda")
+        img = mi.render(loaded, spp=BOUNDARY_FD_SPP, seed=7)
+        f.append(float((img * wmap).double().sum()))
+    fd = (f[0] - f[1]) / (2 * eps)
+    split_res = profile_run(f"split-grad-boundary-{name}",
+                            lambda: evaluate(True), ms[True] / 1e3,
+                            f"chip_smoke_profile_grad_boundary_{name}.json")
+    rel = abs(grad_x - fd) / max(abs(fd), 1e-30)
+    ph.emit(width=W, height=H, max_depth=integ.max_depth, spp=BOUNDARY_SPP,
+            boundary_samples=BOUNDARY_SAMPLES, faces=scene.geo.n_faces,
+            ms_per_gradient_with_boundary=ms[True],
+            ms_per_gradient_without=ms[False],
+            boundary_ms=ms[True] - ms[False],
+            device_busy_ms=split_res["device_busy_ms"],
+            device_idle_share=split_res["device_idle_share"],
+            launches_with_boundary=launches[True],
+            launches_without=launches[False], interior_max=interior_max,
+            grad_x=grad_x, finite_difference=fd, fd_eps=eps,
+            fd_spp=BOUNDARY_FD_SPP, rel_error=rel, tolerance=tol)
+    require(interior_max == 0.0, f"grad-boundary-{name}: the interior "
+            "term on the vertex rows is not zero")
+    require(all(bool(torch.isfinite(v).all())
+                for v in grads[True].values()),
+            f"grad-boundary-{name}: gradients not finite")
+    require(abs(fd) > 0 and rel < tol, f"grad-boundary-{name}: gradient "
+            f"{grad_x} against the central difference {fd}")
+    for boundary, counts in launches.items():
+        require(set(counts) == {"intersect_q", "occluded_q"},
+                f"grad-boundary-{name}: launches {counts}")
+    require(all(launches[True].get(k, 0) > launches[False].get(k, 0)
+                for k in ("intersect_q", "occluded_q")),
+            f"grad-boundary-{name}: the boundary terms launched no B1/B2")
+
+
+def grad_grating_polarized(scene, integ):
+    """grad-grating-800x600-plt-polarized: render_loss_grad of the mean S0
+    image on the four grating parameters under RGB_POLARIZED, PLT depth 7
+    / rr 50, GRAD_SPP spp (four checkpointed passes of 480,000 lanes): a
+    warm-up and one timed evaluation (ms, peak memory), finite gradients
+    non-zero on the grating's row, B1-B3 and B4's recording instance
+    twice a bounce and pass and B4b once, and the height's gradient within
+    POL_HEIGHT_TOL of a central difference of the polarized render on the
+    card (step GRAD_FD's, 1e-4). Then one evaluation by kernel. Returns
+    the timed evaluation's launches."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad, ops
+    from mitsuba3_plt_tpu_torch.ad.render import default_spp_per_pass
+    from mitsuba3_plt_tpu_torch.config import RGB_POLARIZED
+
+    ph = Phase("grad-grating-800x600-plt-polarized")
+    W, H = scene.sensor.resolution
+    keys = list(GRAD_KEYS)
+
+    def evaluate():
+        return ad.render_loss_grad(scene, integ.sample, torch.mean, keys,
+                                   seed=0, spp=GRAD_SPP, cfg=RGB_POLARIZED)
+
+    t0 = time.perf_counter()
+    evaluate()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: v.cpu() for k, v in grads.items()}
+    key, idx, eps = GRAD_FD[0]
+    params = ad.traverse(scene)
+    f = []
+    with torch.no_grad():
+        for sgn in (1.0, -1.0):
+            p = params[key].clone()
+            p[idx] += sgn * eps
+            f.append(ad.render_differentiable(
+                params.update({key: p}), integ.sample, seed=0, spp=GRAD_SPP,
+                cfg=RGB_POLARIZED).double().mean().item())
+    fd = (f[0] - f[1]) / (2 * eps)
+    got = grads[key][idx].item()
+    split_res = profile_run("split-grad-grating-polarized", evaluate,
+                            eval_ms / 1e3,
+                            "chip_smoke_profile_grad_grating_polarized.json")
+    spp_pass = default_spp_per_pass(W, H, GRAD_SPP)
+    per_eval = integ.max_depth * (GRAD_SPP // spp_pass)
+    ph.emit(width=W, height=H, max_depth=integ.max_depth, spp=GRAD_SPP,
+            spp_per_pass=spp_pass, lanes_per_pass=W * H * spp_pass,
+            keys=keys, loss=loss.item(), warmup_ms=warm_ms,
+            ms_per_gradient=eval_ms, peak_mem_bytes=peak,
+            device_busy_ms=split_res["device_busy_ms"],
+            device_idle_share=split_res["device_idle_share"],
+            launches={k: v for k, v in launches.items() if v},
+            grads={k: v[1].tolist() for k, v in grads.items()},
+            height_grad=got, height_fd=fd, fd_eps=eps,
+            height_rel_error=abs(got - fd) / abs(fd),
+            tolerance=POL_HEIGHT_TOL)
+    for k, v in grads.items():
+        require(bool(torch.isfinite(v).all()) and bool(v[1].abs().max() > 0),
+                f"grad-grating-polarized: {k} gradient not finite and "
+                "non-zero")
+    fwd = 2 * per_eval
+    want = {**NO_LAUNCHES, "intersect_q": fwd, "occluded_q": fwd,
+            "grating_sample": fwd, "grating_lobe_sum_record": fwd,
+            "grating_lobe_sum_bwd": per_eval}
+    require(launches == want,
+            f"grad-grating-polarized: launches {launches}, expected {want}")
+    require(abs(got - fd) <= POL_HEIGHT_TOL * abs(fd),
+            f"grad-grating-polarized: height gradient {got} against the "
+            f"central difference {fd}")
+    return launches
+
+
+def grad_cbox_stokes():
+    """grad-cbox-stokes: the Stokes path (main-cbox-stokes' integrator,
+    depth 7 / rr 50) at 512 x 512, GRAD_CBOX_SPP spp. On the diffuse box
+    the S0 image's base_color gradient against the scalar path tracer's
+    (whether equal to the bit, and the largest gap: within 1e-5 of the
+    largest entry). On the conductor box each index's (eta_re, eta_im of
+    the box's row) against a central difference of the Stokes render
+    (step 1e-2, within STOKES_ETA_TOL). On the glass box the index's
+    gradient against the CPU's (the plain versions) on the 128 x 128 box,
+    within GLASS_CPU_TOL of the largest entry; its central differences at
+    full size are printed beside it, not held (its lobe pdf and hit
+    distances are detached: ROADMAP C8). Each gradient is timed."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad, ops
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.integrators.stokes import (
+        PolarizedPathIntegrator, StokesIntegrator)
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+
+    ph = Phase("grad-cbox-stokes")
+    stokes = StokesIntegrator(PolarizedPathIntegrator(CBOX_DEPTH, CBOX_RR),
+                              forward_basis=False)
+    path = PathIntegrator(CBOX_DEPTH, CBOX_RR)
+    kw = dict(seed=0, spp=GRAD_CBOX_SPP)
+    res = {}
+
+    def timed(name, scene, sample, loss, keys, **extra):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, g = ad.render_loss_grad(scene, sample, loss, keys, **kw, **extra)
+        torch.cuda.synchronize()
+        res[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": {k: v for k, v in
+                                  ops.launch_counts().items() if v}}
+        return {k: v.cpu() for k, v in g.items()}
+
+    base = ["materials.base_color"]
+    diffuse = cornell_box(CBOX_W, CBOX_H, device="cuda")
+    timed("warm-up", diffuse, stokes.sample,
+          lambda img: img[..., 3:6].mean(), base)
+    g_s = timed("diffuse-stokes-s0", diffuse, stokes.sample,
+                lambda img: img[..., 3:6].mean(), base)[base[0]]
+    g_p = timed("diffuse-path", diffuse, path.sample, torch.mean,
+                base)[base[0]]
+    del diffuse
+    s0_gap = (g_s - g_p).abs().max().item()
+    s0_scale = g_p.abs().max().item()
+
+    def central(scene, key, idx, eps, spp):
+        params = ad.traverse(scene)
+        f = []
+        with torch.no_grad():
+            for sgn in (1.0, -1.0):
+                p = params[key].clone()
+                p[idx] += sgn * eps
+                f.append(ad.render_differentiable(
+                    params.update({key: p}), stokes.sample, seed=0,
+                    spp=spp).double().mean().item())
+        return (f[0] - f[1]) / (2 * eps)
+
+    cond = cornell_box(CBOX_W, CBOX_H, box_material="conductor",
+                       device="cuda")
+    eta_keys = ["materials.eta_re", "materials.eta_im"]
+    g_c = timed("conductor-eta", cond, stokes.sample, torch.mean, eta_keys)
+    conductor = {}
+    for key in eta_keys:
+        idx = (3, 0) if key == "materials.eta_re" else (3, 1)
+        conductor[key] = {"grad": g_c[key][idx].item(),
+                          "fd": central(cond, key, idx, 1e-2,
+                                        GRAD_CBOX_SPP)}
+    del cond
+    glass = cornell_box(CBOX_W, CBOX_H, box_material="dielectric",
+                        device="cuda")
+    key, idx = "materials.eta_re", (3, 0)
+    g_g = timed("glass-eta", glass, stokes.sample, torch.mean, [key])
+    glass_fd = {eps: central(glass, key, idx, eps, 4 * GRAD_CBOX_SPP)
+                for eps in (5e-2, 1e-2)}
+    del glass
+    small = {}
+    for dev in ("cuda", "cpu"):
+        scene = cornell_box(128, 128, box_material="dielectric", device=dev)
+        _, g = ad.render_loss_grad(scene, stokes.sample, torch.mean, [key],
+                                   seed=0, spp=4)
+        small[dev] = g[key].cpu()
+    small_gap = (small["cuda"] - small["cpu"]).abs().max().item()
+    small_scale = small["cpu"].abs().max().item()
+    ph.emit(width=CBOX_W, height=CBOX_H, max_depth=CBOX_DEPTH,
+            spp=GRAD_CBOX_SPP, gradients=res,
+            s0_equal_to_the_bit=bool(torch.equal(g_s, g_p)),
+            s0_max_gap=s0_gap, s0_largest=s0_scale,
+            conductor=conductor, conductor_tolerance=STOKES_ETA_TOL,
+            glass_eta_grad=g_g[key][idx].item(),
+            glass_eta_fd={str(k): v for k, v in glass_fd.items()},
+            glass_fd_spp=4 * GRAD_CBOX_SPP,
+            glass_128_card=small["cuda"][idx].item(),
+            glass_128_cpu=small["cpu"][idx].item(),
+            glass_128_gap=small_gap, glass_128_largest=small_scale)
+    require(s0_scale > 0 and s0_gap <= 1e-5 * s0_scale,
+            f"grad-cbox-stokes: S0 gradient {g_s.tolist()} against the "
+            f"path's {g_p.tolist()}")
+    for k, r in conductor.items():
+        require(r["fd"] != 0 and abs(r["grad"] - r["fd"])
+                <= STOKES_ETA_TOL * abs(r["fd"]),
+                f"grad-cbox-stokes: conductor {k} {r}")
+    require(bool(torch.isfinite(g_g[key]).all()) and g_g[key][idx] != 0,
+            "grad-cbox-stokes: the glass index gradient not finite and "
+            "non-zero")
+    require(small_scale > 0 and small_gap <= GLASS_CPU_TOL * small_scale,
+            f"grad-cbox-stokes: the glass index gradient on the card "
+            f"{small['cuda'].tolist()} against the CPU's "
+            f"{small['cpu'].tolist()}")
+    for name, r in res.items():
+        require(set(r["launches"]) == {"intersect_q", "occluded_q"},
+                f"grad-cbox-stokes: {name} launches {r['launches']}")
+
+
+def tf32_grad_cbox(scene):
+    """tf32-grad-cbox: grad-cbox's path-tracer base_color gradient with the
+    caller's TF32 flags off, on, and off again: the gradient with TF32 on
+    equal to the one with it off (the renders take full float32 products
+    whatever the caller set) to the bit, or, if two runs with it off
+    differ (atomic sums), within four times their gap; and the flags come
+    back as the caller set them."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch import ad
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+
+    ph = Phase("tf32-grad-cbox")
+    path = PathIntegrator(CBOX_DEPTH, CBOX_RR)
+    key = ["materials.base_color"]
+    out, after = [], []
+    for on in (False, True, False):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        _, g = ad.render_loss_grad(scene, path.sample, torch.mean, key,
+                                   seed=0, spp=GRAD_CBOX_SPP)
+        out.append(g[key[0]].cpu())
+        after.append((torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32))
+    gap = (out[1] - out[0]).abs().max().item()
+    run_gap = (out[2] - out[0]).abs().max().item()
+    ph.emit(equal_to_the_bit=bool(torch.equal(out[1], out[0])),
+            max_gap=gap, run_to_run_gap=run_gap,
+            largest=out[0].abs().max().item(), flags_after=after)
+    require(after == [(False, False), (True, True), (False, False)],
+            f"tf32-grad-cbox: flags after the gradients {after}")
+    require(gap <= 4 * run_gap,
+            f"tf32-grad-cbox: gradients differ by {gap} with TF32 on, "
+            f"{run_gap} between two runs with it off")
+
+
+def gradients_only():
+    """`python3 chip_smoke.py --gradients`: the card line and the
+    gradient phases of the boundary terms, polarized PLT, the Stokes path
+    and the TF32 flags, each as in the full run."""
+    import torch
+
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import (cornell_box,
+                                                      grating_scene)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Phase("card").emit(nvidia_smi=nvidia_smi_line(),
+                       device=torch.cuda.get_device_name(0))
+    for name, eps, tol in BOUNDARY_CELLS:
+        grad_boundary(name, eps, tol)
+    grad_grating_polarized(grating_scene(MAIN_W, MAIN_H, device="cuda"),
+                           PLTIntegrator(MAIN_DEPTH, MAIN_RR))
+    grad_cbox_stokes()
+    tf32_grad_cbox(cornell_box(CBOX_W, CBOX_H, device="cuda"))
 
 
 def hemisphere_rays(scene, p, ng, live, rng):
@@ -4318,6 +4719,9 @@ def main():
     if sys.argv[1:] == ["--film"]:
         film_only()
         return
+    if sys.argv[1:] == ["--gradients"]:
+        gradients_only()
+        return
     import numpy as np
 
     from mitsuba3_plt_tpu_torch.config import RGB_POLARIZED
@@ -4631,6 +5035,15 @@ def main():
     # PRB on the Cornell box (B1, B2)
     grad_launches = grad_grating(gscene, ginteg)
     grad_cbox(cscene)
+    # geometry gradients: the boundary terms on tests/test_projective.py's
+    # scenes (B1, B2); polarized gradients: PLT on the grating scene (B1-B3,
+    # B4's recording instance, B4b) and the Stokes path on the boxes (B1,
+    # B2); and the renders' TF32 flags
+    for name, eps, tol in BOUNDARY_CELLS:
+        grad_boundary(name, eps, tol)
+    grad_grating_polarized(gscene, ginteg)
+    grad_cbox_stokes()
+    tf32_grad_cbox(cscene)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "wrapper_ms", "ms_by", "plain_ms", "bound_ms", "bound_by",

@@ -1,6 +1,6 @@
-"""Differentiable rendering: parameter traversal, optimizers and the
-gradient renders (the JAX package's `ad`, without the silhouette boundary
-terms of `ad/projective.py`)."""
+"""Differentiable rendering: parameter traversal, optimizers, the
+gradient renders and the silhouette boundary terms of the vertex rows
+(`ad/projective.py`): the JAX package's `ad`."""
 from .largesteps import LargeSteps
 from .optimizers import SGD, Adam
 from .params import SceneParameters, traverse

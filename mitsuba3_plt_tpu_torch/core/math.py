@@ -4,6 +4,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import fp32_matmul
+
 Pi = 3.14159265358979323846
 InvPi = 1.0 / Pi
 TwoPi = 2.0 * Pi
@@ -20,8 +22,11 @@ def sqr(x):
 
 
 def safe_sqrt(x):
-    """sqrt of x where x > 0, else 0 (NaN included, as in the JAX twin)."""
-    return torch.sqrt(torch.where(x > 0, x, 0.0))
+    """sqrt of x where x > 0, else 0 (NaN included, as in the JAX twin),
+    with a zero gradient there: the root is taken of 1 on those lanes, so
+    its backward makes no infinity for a where to mask."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def safe_rsqrt(x):
@@ -52,10 +57,14 @@ def sign(x):
 
 def unit_angle(u, v):
     """Angle between two unit vectors [..., 3] by the half-angle form
-    2*asin(|u -/+ v|/2), accurate near 0 and near pi."""
+    2*asin(|u -/+ v|/2), accurate near 0 and near pi. Where u -/+ v is
+    exactly zero the norm's gradient is taken as zero (`safe_sqrt`), where
+    a plain square root's is NaN (as the JAX package's `jnp.linalg.norm`
+    is): the polarized paths turn equal bases on dead lanes, whose NaN
+    would reach every parameter."""
     dot_uv = torch.sum(u * v, dim=-1)
     w = torch.where(dot_uv[..., None] < 0, u + v, u - v)
-    theta = 2.0 * safe_asin(0.5 * torch.sqrt(torch.sum(w * w, dim=-1)))
+    theta = 2.0 * safe_asin(0.5 * safe_sqrt(torch.sum(w * w, dim=-1)))
     return torch.where(dot_uv < 0, Pi - theta, theta)
 
 
@@ -142,9 +151,11 @@ ONE_HOT_MAX_ROWS = 64
 
 def rows_sum_one_hot(idx, g, n_rows):
     """The [n_rows, C] sums of g [N, C]'s lanes by row idx [N], as one
-    product one_hot(idx)^T @ g, the one-hot built in g's dtype."""
+    product one_hot(idx)^T @ g, the one-hot built in g's dtype, in full
+    float32 whatever the caller's TF32 flags (`fp32_matmul`)."""
     oh = torch.zeros((idx.shape[0], n_rows), dtype=g.dtype, device=g.device)
-    return oh.scatter_(1, idx[:, None], 1.0).t() @ g
+    with fp32_matmul():
+        return oh.scatter_(1, idx[:, None], 1.0).t() @ g
 
 
 def rows_sum_index_add(idx, g, n_rows):

@@ -36,8 +36,8 @@ def make_integrator(cfg: dict):
         raise NotImplementedError(f"integrator {t!r} is not ported: "
                                   "ROADMAP A10")
     if t in ("prb", "prb_basic", "prb_projective"):
-        # prb_projective's primal is prb's; its boundary terms are ROADMAP
-        # A7b's
+        # prb_projective's primal is prb's; its boundary terms live in the
+        # gradient layer (`ad.render_loss_grad(..., geometry_boundary=True)`)
         from .prb import PRBIntegrator
 
         return PRBIntegrator(*_depths(cfg))

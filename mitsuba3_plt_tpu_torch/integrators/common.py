@@ -16,6 +16,7 @@ import torch
 
 from ..config import RenderConfig, RGB
 from ..core import rng
+from ..core.device import fp32_matmul
 from ..core.rng import DIM_CAMERA, Sampler
 from ..librender.film import FILTER_BOX, ImageBlock, filter_id
 from ..librender.records import Ray
@@ -129,6 +130,7 @@ def default_spp_per_pass(width, height, spp):
 
 
 @torch.no_grad()
+@fp32_matmul()
 def render(scene, integrator, seed: int = 0, spp: int = 16,
            cfg: RenderConfig = RGB, spp_per_pass: int | None = None,
            stats: dict | None = None, regen: bool = False,
@@ -162,13 +164,14 @@ def render(scene, integrator, seed: int = 0, spp: int = 16,
     each pass ends in a device synchronisation. `stats` then also
     receives passes_done, spp_done, total_s, compile_s (the first pass's
     seconds, the kernels' build and first launches included) and
-    steady_s_per_pass (the mean of the later passes; None after one)."""
+    steady_s_per_pass (the mean of the later passes; None after one).
+
+    The render's matrix products take full float32 (`fp32_matmul`): the
+    caller's TF32 flags are switched off for the call and restored."""
     rfilter = filter_id(rfilter)
     if rfilter != FILTER_BOX and pixel_order == "morton":
         raise ValueError("pixel_order='morton' takes only the box filter: "
                          "a filter's taps shift in scanline pixel space")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     width, height = scene.sensor.resolution
     if spp_per_pass is None:
         spp_per_pass = default_spp_per_pass(width, height, spp)

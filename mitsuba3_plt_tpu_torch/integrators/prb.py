@@ -31,6 +31,7 @@ import torch
 from ..config import RGB, RenderConfig
 from ..core import frame as fr
 from ..core import math as m
+from ..core.device import fp32_matmul
 from ..core.rng import Sampler, bounce_dim
 from ..librender import bsdfs
 from ..librender.bsdf import BSDFFlags
@@ -163,9 +164,12 @@ class PRBIntegrator:
         rec_st = {k: torch.stack([r[k] for r in recs]) for k in _RECORD}
         return si_st, rec_st
 
+    @fp32_matmul()
     def sample(self, scene, sampler: Sampler, ray: Ray,
                cfg: RenderConfig = RGB):
-        """(L [N, C], valid [N]); autograd of L is the PRB gradient."""
+        """(L [N, C], valid [N]); autograd of L is the PRB gradient. The
+        walk and the re-evaluation take full float32 products
+        (`fp32_matmul`)."""
         n, dev = ray.o.shape[0], ray.o.device
         C, D = cfg.n_channels, self.max_depth
         si_st, rec = self._record(scene, sampler, ray, C)

@@ -214,12 +214,15 @@ class Conductor(_Delta):
 def dielectric_mueller(eta, wo, wi, reflect, lobe_pdf):
     """The dielectric's Mueller [4, 4, N, 1] of the lobe chosen (reflect
     [N]) for light arriving along -wo, divided by that lobe's probability
-    max(lobe_pdf, 1e-6), in the local implicit bases."""
+    max(lobe_pdf, 1e-6), detached (the weight is f / pdf with the
+    sampling density held fixed, as the JAX package's
+    `bsdfs.py::Dielectric.sample`), in the local implicit bases."""
     ct = fr.cos_theta(wo)[..., None]
     M = mu.where(reflect,
                  mu.specular_reflection_dielectric(ct, eta[..., None]),
                  mu.specular_transmission(ct, eta[..., None]))
-    M = mul_value(M, (1.0 / torch.clamp_min(lobe_pdf, 1e-6))[..., None])
+    M = mul_value(M, (1.0 / torch.clamp_min(lobe_pdf.detach(), 1e-6)
+                      )[..., None])
     return _spec_reflect_mueller(wo, wi, M, _z_axis(wo))
 
 

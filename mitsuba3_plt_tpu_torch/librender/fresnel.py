@@ -34,8 +34,14 @@ def fresnel_dielectric(cos_theta_i, eta):
     over outside): (F, cos_theta_t, eta_it, eta_ti). cos_theta_t is signed
     (the hemisphere opposite cos_theta_i) and 0 under total internal
     reflection, where F is 1; an index-matched boundary (eta == 1) has
-    F = 0."""
+    F = 0. Under total internal reflection the amplitudes divide by 1, not
+    by their denominators, which vanish at grazing incidence: F there is
+    1 all the same, and the gradient stays finite (the JAX package's is
+    NaN through 0 / 0). A zero index (the row of another BSDF type, whose
+    lanes the type's select drops) is taken as 1, so that no 1 / 0 makes
+    a NaN whose gradient the select cannot drop."""
     outside = cos_theta_i >= 0.0
+    eta = torch.where(eta == 0.0, 1.0, eta)
     rcp_eta = 1.0 / eta
     eta_it = torch.where(outside, eta, rcp_eta)
     eta_ti = torch.where(outside, rcp_eta, eta)
@@ -43,13 +49,13 @@ def fresnel_dielectric(cos_theta_i, eta):
     cos_theta_t_sqr = 1.0 - eta_ti * eta_ti * (1.0 - cos_theta_i * cos_theta_i)
     cos_theta_i_abs = torch.abs(cos_theta_i)
     cos_theta_t_abs = m.safe_sqrt(cos_theta_t_sqr)
-
-    a_s = (cos_theta_i_abs - eta_it * cos_theta_t_abs) / (
-        cos_theta_i_abs + eta_it * cos_theta_t_abs)
-    a_p = (eta_it * cos_theta_i_abs - cos_theta_t_abs) / (
-        eta_it * cos_theta_i_abs + cos_theta_t_abs)
-    F = 0.5 * (a_s * a_s + a_p * a_p)
     tir = cos_theta_t_sqr <= 0.0
+
+    a_s = (cos_theta_i_abs - eta_it * cos_theta_t_abs) / torch.where(
+        tir, 1.0, cos_theta_i_abs + eta_it * cos_theta_t_abs)
+    a_p = (eta_it * cos_theta_i_abs - cos_theta_t_abs) / torch.where(
+        tir, 1.0, eta_it * cos_theta_i_abs + cos_theta_t_abs)
+    F = 0.5 * (a_s * a_s + a_p * a_p)
     F = torch.where(tir, 1.0, F)
     F = torch.where(eta == 1.0, 0.0, F)
 
@@ -83,10 +89,14 @@ def c_rcp(a):
 
 
 def c_sqrt(a):
-    """Principal square root."""
-    r = torch.sqrt(a[0] * a[0] + a[1] * a[1])
-    re = torch.sqrt(torch.clamp_min(0.5 * (r + a[0]), 0.0))
-    im_mag = torch.sqrt(torch.clamp_min(0.5 * (r - a[0]), 0.0))
+    """Principal square root. Each real root is `safe_sqrt`'s, whose
+    gradient is zero where its argument is: on the real axis (|a| - a_re =
+    0, at normal incidence in the Fresnel terms) a plain root's gradient is
+    infinite and, times the zero derivative of its argument, NaN (as in
+    the JAX package)."""
+    r = m.safe_sqrt(a[0] * a[0] + a[1] * a[1])
+    re = m.safe_sqrt(0.5 * (r + a[0]))
+    im_mag = m.safe_sqrt(0.5 * (r - a[0]))
     return (re, torch.where(a[1] >= 0, im_mag, -im_mag))
 
 
@@ -122,9 +132,10 @@ def fresnel_polarized_dielectric(cos_theta_i, eta):
     """Polarized Fresnel of a real relative index eta (Verdet's sign of
     a_p): (a_s, a_p, cos_theta_t, eta_it, eta_ti), a_s and a_p complex
     pairs whose imaginary part carries the phase under total internal
-    reflection, where cos_theta_t is 0."""
+    reflection, where cos_theta_t is 0. A zero index, whose amplitudes
+    are zero, takes 1 in the other terms (as `fresnel_dielectric`)."""
     outside = cos_theta_i >= 0.0
-    rcp_eta = 1.0 / eta
+    rcp_eta = 1.0 / torch.where(eta == 0.0, 1.0, eta)
     eta_it = torch.where(outside, eta, rcp_eta)
     eta_ti = torch.where(outside, rcp_eta, eta)
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import fp32_matmul
 from ._check import check_tensors
 
 INTERSECT_Q_LAUNCHES = 0
@@ -616,9 +617,7 @@ def intersect_mxu_plain(tri_mxu, o, d, maxt, n_tris=None):
                 torch.full(mt.shape, -1, dtype=torch.int32, device=mt.device),
                 z, z.clone())
     outs = []
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with fp32_matmul():
         for s in range(0, o.shape[0], chunk):
             mt_c = mt[s: s + chunk, None]
             U = torch.matmul(mxu_features(o[s: s + chunk], d[s: s + chunk]),
@@ -640,8 +639,6 @@ def intersect_mxu_plain(tri_mxu, o, d, maxt, n_tris=None):
                 torch.where(found, best, -1).to(torch.int32),
                 torch.where(found, pick(us) * pick(inv), 0.0),
                 torch.where(found, pick(vs) * pick(inv), 0.0)))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     if not outs:
         e = torch.empty((0,), device=o.device)
         return e, e.to(torch.int32), e, e

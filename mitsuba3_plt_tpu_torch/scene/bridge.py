@@ -28,6 +28,9 @@ from .scene import BRUTE_FORCE_MAX_FACES, Geometry, Scene
 
 SUPPORTED_BSDFS = (BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR,
                    BSDF_DIELECTRIC, BSDF_ROUGH_GRATING)
+# the triangle soup's vertex rows [F, 3], which the boundary gradients
+# (`ad/projective.py`) read and differentiate
+VERTEX_FIELDS = ("tri_p0", "tri_p1", "tri_p2")
 ANALYTIC_FIELDS = ("sph_center", "sph_radius", "sph_attr", "dsk_center",
                    "dsk_n", "dsk_s", "dsk_radius", "dsk_attr", "cyl_p0",
                    "cyl_axis", "cyl_len", "cyl_radius", "cyl_attr")
@@ -91,7 +94,8 @@ def scene_from_arrays(arrays: dict, static: dict, device="cuda") -> Scene:
         if have and have != want:
             raise ValueError(f"analytic rows {sorted(set(want) - set(have))}"
                              " missing")
-    geo = Geometry(tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
+    geo = Geometry(**{name: t("geo." + name) for name in VERTEX_FIELDS},
+                   tri_q=t("geo.tri_q"), tri_anchor=t("geo.tri_anchor"),
                    tri_isect=t("geo.tri_isect"), tri_attr=t("geo.tri_attr"),
                    **{name: t("geo." + name) for name in ANALYTIC_FIELDS
                       if "geo." + name in arrays})

@@ -49,10 +49,10 @@ _FLAGS = {
 
 def _geometry(meshes, mat_ids, emitter_ids, spheres=None, disks=None,
               cylinders=None):
-    """Arrays of the q table, the (p0, e1, e2) rows and the packed per-face
-    attributes, and the radius of the scene's bounding box. A mesh is
-    (vertices, faces, normals, uvs); normals None shades it flat (face
-    normals), uvs None gives zero uvs. spheres / disks / cylinders are the
+    """Arrays of the vertex rows, the q table, the (p0, e1, e2) rows and
+    the packed per-face attributes, and the radius of the scene's bounding
+    box. A mesh is (vertices, faces, normals, uvs); normals None shades it
+    flat (face normals), uvs None gives zero uvs. spheres / disks / cylinders are the
     JAX package's analytic-primitive dicts (`build_geometry`: "center",
     "radius"; "center", "n", "s", "radius"; "p0", "axis", "length",
     "radius"; each with "mat", "emitter" and "shape", default 0, -1,
@@ -80,7 +80,8 @@ def _geometry(meshes, mat_ids, emitter_ids, spheres=None, disks=None,
     attr = np.concatenate(
         [cat(FN), *(cat(x) for x in N), *(cat(x) for x in U), cat(ATT),
          np.zeros((len(p0), 3), np.float32)], axis=-1)
-    geo = {"geo.tri_q": tri_q, "geo.tri_anchor": anchor,
+    geo = {"geo.tri_p0": p0, "geo.tri_p1": p1, "geo.tri_p2": p2,
+           "geo.tri_q": tri_q, "geo.tri_anchor": anchor,
            "geo.tri_isect": isect, "geo.tri_attr": attr}
     geo.update(_analytic_rows(spheres, disks, cylinders))
     lo = np.minimum.reduce([p0.min(0), p1.min(0), p2.min(0)])
@@ -566,3 +567,63 @@ def analytic_scene(width: int = 512, height: int = 512, *, device="cuda"):
         {"type": "path", "max_depth": 7, "rr_depth": 50}, 8, rfilter="box",
         spheres=parts["spheres"], disks=parts["disks"],
         cylinders=parts["cylinders"], sampler="multijitter", device=device)
+
+
+# The JAX package's silhouette-gradient scenes (tests/test_projective.py)
+# as dicts for `load_dict`: an emissive rectangle or cube against black
+# (path depth 1: the boundary term is the whole derivative), and a blocker
+# over a diffuse floor under a point light ("shadow") or an area light
+# ("penumbra"), path depth 2, whose camera sees only the floor. `delta`
+# moves the rectangle, the cube or the blocker along x.
+BOUNDARY_SCENES = ("rectangle", "cube", "shadow", "penumbra")
+# each scene's moving face rows (the floor's two faces come first)
+BOUNDARY_ROWS = {"rectangle": slice(None), "cube": slice(None),
+                 "shadow": slice(2, 4), "penumbra": slice(2, 4)}
+
+
+def boundary_scene_dict(name: str, width: int = 48, height: int = 48,
+                        delta: float = 0.0) -> dict:
+    """The dict of boundary scene `name` (one of BOUNDARY_SCENES)."""
+    film = {"type": "hdrfilm", "width": width, "height": height}
+    if name in ("rectangle", "cube"):
+        return {
+            "type": "scene",
+            "integrator": {"type": "path", "max_depth": 1},
+            "sensor": {"type": "perspective", "fov": 45, "film": film,
+                       "to_world": tf.look_at([0, 0, 4], [0, 0, 0],
+                                              [0, 1, 0])},
+            "obj": {"type": name,
+                    "to_world": tf.translate([delta, 0, 0]) @ np.diag(
+                        [0.5, 0.5, 0.5, 1.0]).astype(np.float32),
+                    "emitter": {"type": "area",
+                                "radiance": [5.0, 5.0, 5.0]}},
+        }
+    if name not in ("shadow", "penumbra"):
+        raise ValueError(f"unknown boundary scene {name!r}")
+    d = {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 2},
+        "sensor": {"type": "perspective", "fov": 25, "film": film,
+                   "to_world": tf.look_at([0, 2.5, 0.0], [0, 0, 0.001],
+                                          [0, 0, 1])},
+        "floor": {"type": "rectangle",
+                  "to_world": tf.rotate([1, 0, 0], -90) @ np.diag(
+                      [3.0, 3.0, 1.0, 1.0]).astype(np.float32),
+                  "bsdf": {"type": "diffuse", "reflectance": 0.8}},
+        "blocker": {"type": "rectangle",
+                    "to_world": tf.translate([-0.75 + delta, 1.5, 0.0])
+                    @ tf.rotate([1, 0, 0], -90)
+                    @ np.diag([0.25, 0.25, 1.0, 1.0]).astype(np.float32),
+                    "bsdf": {"type": "diffuse", "reflectance": 0.0}},
+    }
+    if name == "penumbra":
+        d["light"] = {
+            "type": "rectangle",
+            "to_world": tf.translate([-2.0, 3.0, 0.0])
+            @ tf.rotate([1, 0, 0], 90)
+            @ np.diag([0.3, 0.3, 1.0, 1.0]).astype(np.float32),
+            "emitter": {"type": "area", "radiance": [60.0, 60.0, 60.0]}}
+    else:
+        d["light"] = {"type": "point", "position": [-2.0, 3.0, 0.0],
+                      "intensity": [30.0, 30.0, 30.0]}
+    return d

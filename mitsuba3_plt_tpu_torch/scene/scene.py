@@ -31,10 +31,18 @@ BRUTE_FORCE_MAX_FACES = 4096
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Triangle soup: the q table for intersection, the (p0, e1, e2) rows
-    (area-light sampling, the classic and MXU brute force) and one packed
-    row of shading attributes per face."""
+    """Triangle soup: its vertex rows, the q table for intersection, the
+    (p0, e1, e2) rows (area-light sampling, the classic and MXU brute
+    force) and one packed row of shading attributes per face.
 
+    The vertex rows are what the silhouette boundary gradients
+    (`ad/projective.py`) read and differentiate. As in the JAX package,
+    the render reads the tables, not the rows: the tables are not rebuilt
+    from the rows, so a render's own gradient on them is zero."""
+
+    tri_p0: torch.Tensor      # [F, 3] corner 0 of each face
+    tri_p1: torch.Tensor      # [F, 3]
+    tri_p2: torch.Tensor      # [F, 3]
     tri_q: torch.Tensor       # [F_pad, 16] (ops.intersect.pack_tri_q)
     tri_anchor: torch.Tensor  # [3] scene-centre anchor
     # [F_pad, 9]: p0(3) e1(3) e2(3), zero rows padding F to a multiple of 64

@@ -27,11 +27,13 @@ W = H = 12
 DEPTH, RR = 3, 8      # rr_depth past max_depth: no roulette
 SPP = 8
 KEYS = ("materials.base_color", "emitters.radiance")
-# the keys both packages' traverse must give (the scene tables the port
-# holds are its own: it keeps no vertex rows)
+# the keys both packages' traverse must give (the other scene tables the
+# port holds are its own)
 SHARED_KEYS = ("materials.base_color", "materials.grt_inv_period",
                "materials.grt_height", "materials.grt_multiplier",
-               "materials.grt_coherence", "emitters.radiance")
+               "materials.grt_coherence", "emitters.radiance",
+               "geo.tri_p0", "geo.tri_p1", "geo.tri_p2")
+TRI_KEYS = ["geo.tri_p0", "geo.tri_p1", "geo.tri_p2"]
 
 
 @pytest.fixture(scope="module")
@@ -346,8 +348,23 @@ def test_take_rows_ab_ways_agree():
 
 
 def test_geometry_boundary_raises(scenes):
+    """Named for what it held before the boundary terms were ported (a
+    NotImplementedError): `geometry_boundary=True` now returns the vertex
+    rows' gradients with the boundary terms added (their interior term is
+    zero, as in the JAX package: the render reads the tables, which are
+    not rebuilt from the rows), and leaves the other keys' as they
+    were."""
     _, scene = scenes
     integ = PathIntegrator(max_depth=2, rr_depth=RR)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        ad.render_loss_grad(scene, integ.sample, torch.mean, list(KEYS),
-                            spp=1, geometry_boundary=True)
+    keys = list(KEYS) + TRI_KEYS
+    _, plain = ad.render_loss_grad(scene, integ.sample, torch.mean, keys,
+                                   spp=1)
+    _, both = ad.render_loss_grad(scene, integ.sample, torch.mean, keys,
+                                  spp=1, geometry_boundary=True,
+                                  boundary_samples=1024)
+    for k in KEYS:
+        assert torch.equal(both[k], plain[k]), k
+    for k in TRI_KEYS:
+        assert plain[k].shape == (scene.geo.n_faces, 3)
+        assert not plain[k].any() and torch.isfinite(both[k]).all(), k
+    assert any(both[k].abs().max() > 0 for k in TRI_KEYS)

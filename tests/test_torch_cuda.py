@@ -250,6 +250,27 @@ def test_camera_and_film_phases_at_small_size(card):
     assert launches["intersect_q"] == launches["occluded_q"] == 3
 
 
+def test_boundary_polarized_and_tf32_phases_at_small_size(card,
+                                                         monkeypatch):
+    """chip_smoke.py's new gradient phases at a small size: the boundary
+    terms on the rectangle at 128x128 (B1, B2; the central difference
+    within 0.12), polarized PLT's grating gradient at 160x120 (B1-B3, B4's
+    recording instance, B4b; the height within 5e-2 of its central
+    difference), the Stokes boxes at 64x64 and the TF32 flags."""
+    from mitsuba3_plt_tpu_torch.integrators.plt import PLTIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box, grating_scene
+
+    smoke = _smoke()
+    for name, value in (("BOUNDARY_W", 128), ("BOUNDARY_SAMPLES", 1 << 16),
+                        ("CBOX_W", 64), ("CBOX_H", 64)):
+        monkeypatch.setattr(smoke, name, value)
+    smoke.grad_boundary("rectangle", 0.05, 0.12)
+    smoke.grad_grating_polarized(grating_scene(160, 120, device=card),
+                                 PLTIntegrator(max_depth=7, rr_depth=50))
+    smoke.grad_cbox_stokes()
+    smoke.tf32_grad_cbox(cornell_box(64, 64, device=card))
+
+
 def test_gradients_match_cpu(card):
     """The same gradients on the card and on the CPU: PLT's four grating
     parameters (B4b on the card, the plain version's autograd on the CPU)

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("scene/loader.py", "scene/dict_loader.py",
                  "scene/xml_scenes.py", "scene/shape.py",
                  "integrators/__init__.py", "__init__.py", "cli.py",
-                 "utils/io.py", "utils/exr.py"):
+                 "utils/io.py", "utils/exr.py", "ad/projective.py",
+                 "ad/render.py", "core/device.py"):
         assert os.path.join(PORT, name) in files, name
     bad = []
     for path in files:
@@ -105,6 +106,29 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
     assert grating_scene(8, 8, device="cpu").device == torch.device("cpu")
+
+
+def test_boundary_gradients_run_on_their_scenes_device():
+    """The boundary estimators take no device: they run where the scene
+    lies (a card's by default), here on the CPU a scene was asked for."""
+    from mitsuba3_plt_tpu_torch import ad
+    from mitsuba3_plt_tpu_torch.ad import projective
+    from mitsuba3_plt_tpu_torch.integrators.path import PathIntegrator
+    from mitsuba3_plt_tpu_torch.scene.presets import cornell_box
+
+    scene = cornell_box(8, 8, device="cpu")
+    g_img = torch.ones((8, 8, 3))
+    integ = PathIntegrator(2, 8)
+    outs = [projective.primary_boundary_grad(scene, integ.sample, g_img,
+                                             n_samples=256),
+            projective.nee_boundary_grad(scene, integ.sample, g_img,
+                                         n_samples=256),
+            projective.area_nee_boundary_grad_guided(scene, g_img,
+                                                     n_samples=512)]
+    for out in outs:
+        assert sorted(out) == ["geo.tri_p0", "geo.tri_p1", "geo.tri_p2"]
+        assert all(v.device == torch.device("cpu") for v in out.values())
+    assert "geo.tri_p0" in ad.traverse(scene)
 
 
 def test_loaders_and_the_cli_need_a_card_unless_asked_for_the_cpu(
